@@ -1,0 +1,347 @@
+#!/usr/bin/env python3
+"""Chip smoke test: kubernetes_tpu_torch's main path on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout on a machine with a CUDA card and nvcc. It
+prints one JSON line per phase and fails (non-zero exit) if any phase
+fails; nothing is caught and skipped:
+
+0. device: the card's name and power limit (nvidia-smi) and the versions;
+1. build: compiles every kernel (one nvcc per source, in parallel);
+2. static_mask at the headline shape (P=4096 pods, N=16384 nodes, 128
+   selector terms, 64 taints) on seeded inputs with selectors, hard taints,
+   every condition bit, invalid rows and nodeName pins: the kernel must
+   equal its plain PyTorch version exactly; times the kernel, the plain
+   version and the two torch.matmul products alone;
+3. assign_scan at the headline shape, on the main path's first batch and
+   on a heterogeneous seeded batch: assignments, scores, feasible counts,
+   both ledgers and rr_end must equal the plain loop's exactly; then both
+   kernels against their plain versions at ragged shapes (tile edges,
+   node padding);
+4. the main path: Scheduler(device="cuda") places 30,000 pods on 15,000
+   nodes in 3 zones; every pod must be placed, no node may exceed its
+   allocatable (recomputed on the host), both kernels must have launched,
+   and the first batch must equal the plain path on the card;
+5. the kernels line, the nvidia-smi line, and last the result line.
+
+Exits non-zero, printing no result, without a CUDA device or outside a
+checkout of the repository.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+SEED = 20261016
+HEADLINE_NODES, HEADLINE_PODS = 15000, 30000
+P, N, US, UT = 4096, 16384, 128, 64
+H100_BYTES_PER_S = 3.35e12     # HBM3, H100 SXM data sheet
+H100_F32_OPS_PER_S = 67e12     # f32 outside the tensor cores
+# arithmetic and compare operations of the scan per evaluated (pod, node):
+# fit 6, LeastRequested 20, BalancedAllocation 14, score 4, tie update 2
+SCAN_OPS_PER_PAIR = 46
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def time_ms(torch, fn, reps: int, warmup: int = 1) -> float:
+    """Median CUDA-event time of one call, in ms."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def bound(nbytes: float, ops: float) -> tuple[float, str]:
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = ops / H100_F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def max_abs_err(torch, pairs) -> float:
+    return max(float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+               for a, b in pairs)
+
+
+def static_mask_inputs(torch, rng, dev, P=P, N=N, live=HEADLINE_NODES):
+    """Seeded kernel-1 inputs: P pods, N node rows of which `live` valid."""
+    n_terms, n_taints = 16, 8
+    sel_member = (rng.random((N, US)) < 0.5) & (np.arange(US) < n_terms)
+    sel_onehot = np.zeros((P, US), np.float32)
+    for p in np.flatnonzero(rng.random(P) < 0.3):
+        sel_onehot[p, rng.choice(n_terms, rng.integers(1, 3), replace=False)] = 1
+    sel_count = sel_onehot.sum(1)
+    hard = (rng.random((N, UT)) < 0.05) & (np.arange(UT) < n_taints)
+    tolerated = (rng.random((P, UT)) < 0.3) & (np.arange(UT) < n_taints)
+    conditions = np.zeros(N, np.int32)
+    for bit in range(6):
+        conditions |= np.where(rng.random(N) < 0.03, 1 << bit, 0).astype(np.int32)
+    bits = np.where(np.arange(N) < live, conditions,
+                    conditions | np.int32(-2147483648)).astype(np.int32)
+    name_lo = rng.integers(1, 2**31 - 1, N, dtype=np.int32)
+    name_hi = rng.integers(1, 2**31 - 1, N, dtype=np.int32)
+    pin = rng.random(P) < 0.02
+    target = rng.integers(0, N, P)
+    pod_lo = np.where(pin, name_lo[target], 0).astype(np.int32)
+    pod_hi = np.where(pin, name_hi[target], 0).astype(np.int32)
+    pod_lo[np.flatnonzero(pin)[:8]] = 7  # pinned to a name no node has
+
+    def t(a, dtype=None):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device=dev, dtype=dtype)
+
+    f32 = torch.float32
+    return (t(sel_onehot), t(sel_count, f32), t(1.0 - tolerated, f32),
+            t(rng.random(P) < 0.1), t(pod_lo), t(pod_hi), t(sel_member, f32),
+            t(hard, f32), t(bits), t(name_lo), t(name_hi))
+
+
+def scan_inputs(torch, rng, dev, P=P, N=N):
+    """A seeded heterogeneous kernel-2 batch: mixed capacities, a partly
+    filled ledger, statically infeasible pairs, avoid-scores, and requests
+    in runs (consecutive pods of one workload share them) of random length,
+    with BestEffort-like all-zero requests among them."""
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+
+    alloc = np.zeros((N, 6), np.float32)
+    alloc[:, 0] = rng.integers(1, 9, N)
+    alloc[:, 1] = rng.integers(1, 9, N) * 1000
+    alloc[:, 2] = rng.integers(2, 17, N) * 1024
+    alloc[rng.random(N) < 0.01, 1] = 0
+    requested = np.floor(alloc * rng.random((N, 1)) * 0.7)
+    nonzero = requested[:, 1:3] + 100
+    ms = np.where(rng.random((P, N)) < 0.2, -np.inf,
+                  np.where(rng.random((P, N)) < 0.05, 20.0, 100020.0))
+    run = np.cumsum(rng.random(P) < 0.2)
+    cpu = rng.choice([0, 100, 250, 500, 1000], run[-1] + 1)[run]
+    mem = rng.choice([0, 128, 256, 1024], run[-1] + 1)[run]
+    reqs = np.zeros((P, 6), np.float32)
+    reqs[:, 0], reqs[:, 1], reqs[:, 2] = 1, cpu, mem
+    nz_reqs = np.stack([np.where(cpu > 0, cpu, 100), np.where(mem > 0, mem, 200)], 1)
+    return (t(ms), t(reqs), t(nz_reqs), t(alloc), t(requested), t(nonzero),
+            2**32 - 3)
+
+
+def static_mask_bound(torch, args) -> tuple[float, str]:
+    """Bytes: the bool output plus every operand once. Operations: the
+    products' nonzero pairs (the one-hot operands are sparse) plus eight
+    epilogue operations per output."""
+    sel_onehot, _, untol, _, _, _, sel_member, hard, _, _, _ = args
+    nbytes = (sel_onehot.shape[0] * sel_member.shape[0]
+              + sum(a.numel() * a.element_size() for a in args))
+    pairs = sum(float(((a != 0).sum(0).double() * (b != 0).sum(0).double()).sum())
+                for a, b in ((sel_onehot, sel_member), (untol, hard)))
+    return bound(nbytes, 2 * pairs + 8 * P * N)
+
+
+def scan_bound(masked, requests, nonzero_requests, alloc, requested, nonzero):
+    """Bytes: every input once, the ledger written once, the per-pod outputs.
+    Operations: SCAN_OPS_PER_PAIR per statically feasible (pod, node)."""
+    ins = (masked, requests, nonzero_requests, alloc, requested, nonzero)
+    nbytes = (sum(a.numel() * a.element_size() for a in ins)
+              + requested.numel() * 4 + nonzero.numel() * 4 + masked.shape[0] * 12)
+    pairs = float((masked > float("-inf")).sum())
+    return bound(nbytes, SCAN_OPS_PER_PAIR * pairs)
+
+
+def compare_scan(torch, got, want) -> float:
+    names = ("assignments", "scores", "feasible_counts", "new_requested",
+             "new_nonzero", "rr_end")
+    for name in names:
+        if not torch.equal(getattr(got, name), getattr(want, name)):
+            raise AssertionError(f"assign_scan kernel != plain on {name}")
+    return max_abs_err(torch, [(getattr(got, n), getattr(want, n)) for n in names])
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
+              file=sys.stderr)
+        return 2
+    from kubernetes_tpu_torch.api.quantity import parse_quantity
+    from kubernetes_tpu_torch.native.build import KERNELS, build, build_log
+    from kubernetes_tpu_torch.ops import solver
+    from kubernetes_tpu_torch.ops.assign_scan import assign_scan, assign_scan_plain
+    from kubernetes_tpu_torch.ops.static_mask import static_mask, static_mask_plain
+    from kubernetes_tpu_torch.perf.fixtures import make_nodes, make_pods
+    from kubernetes_tpu_torch.perf.harness import default_caps, measure, warm
+    from kubernetes_tpu_torch.scheduler import Scheduler
+    from kubernetes_tpu_torch.state.convert import batch_from_numpy
+    from kubernetes_tpu_torch.state.pod_batch import encode_pods
+
+    # the plain versions' selector/taint counts are matmuls: full f32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(SEED)
+
+    # ---- 0: device ----
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    smi = smi.splitlines()[0]
+    kind = torch.cuda.get_device_name(0)
+    emit({"phase": "device", "nvidia_smi": smi, "kind": kind,
+          "count": torch.cuda.device_count(), "torch": torch.__version__,
+          "cuda": torch.version.cuda, "python": sys.version.split()[0]})
+
+    # ---- 1: build ----
+    t0 = time.perf_counter()
+    per_kernel = build()
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "per_kernel_seconds": per_kernel,
+          "ptxas": {k: [ln.strip() for ln in build_log(k).splitlines()
+                        if "registers" in ln or "spill" in ln]
+                    for k in KERNELS}})
+
+    # ---- 2: static_mask at the headline shape ----
+    args = static_mask_inputs(torch, rng, dev)
+    got = static_mask(*args)
+    want = static_mask_plain(*args)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(
+            f"static_mask kernel != plain on {int((got != want).sum())} entries")
+    mask_err = max_abs_err(torch, [(got, want)])
+    sel_onehot, _, untol, _, _, _, sel_member, hard, _, _, _ = args
+    k1 = {
+        "name": "static_mask", "route": "cuda",
+        "source": "kubernetes_tpu_torch/csrc/static_mask.cu",
+        "replaces": "kubernetes_tpu/ops/pallas_kernels.py:78",
+        "max_abs_err": mask_err,
+        "ms": time_ms(torch, lambda: static_mask(*args), reps=20),
+        "plain_ms": time_ms(torch, lambda: static_mask_plain(*args), reps=5),
+        "library_ms": time_ms(torch, lambda: (
+            torch.matmul(sel_onehot, sel_member.T),
+            torch.matmul(untol, hard.T)), reps=5),
+    }
+    k1["bound_ms"], k1["bound_by"] = static_mask_bound(torch, args)
+    emit({"phase": "static_mask", "shape": [P, N, US, UT],
+          "feasible_share": float(want.float().mean()), **k1})
+    del args, got, want
+
+    # ---- 3: assign_scan at the headline shape ----
+    caps = default_caps(HEADLINE_NODES, HEADLINE_PODS)
+    assert (caps.num_nodes, caps.batch_pods) == (N, P), caps
+    nodes = make_nodes(HEADLINE_NODES, zones=3)
+    pods = make_pods(HEADLINE_PODS)
+    warm(caps, solver.DEFAULT_POLICY, dev)
+    ref = Scheduler(caps, device=dev)
+    ref.add_nodes(nodes)
+    host_first = encode_pods(pods[:P], caps, ref.statedb.table)
+    state = ref.statedb.flush()
+    first = batch_from_numpy(host_first, dev)
+    g = solver.check_supported(solver.DEFAULT_POLICY,
+                               solver.batch_flags(state, first))
+    masked = solver.masked_static_scores(state, first, solver.DEFAULT_POLICY, g)
+    scan_args = (masked, first.requests, first.nonzero_requests,
+                 state.allocatable, state.requested, state.nonzero_requested, 0)
+    scan_err = compare_scan(torch, assign_scan(*scan_args),
+                            assign_scan_plain(*scan_args))
+
+    het = scan_inputs(torch, rng, dev)
+    het_err = compare_scan(torch, assign_scan(*het), assign_scan_plain(*het))
+    k2 = {
+        "name": "assign_scan", "route": "cuda",
+        "source": "kubernetes_tpu_torch/csrc/assign_scan.cu",
+        "replaces": "kubernetes_tpu/ops/solver.py:733",
+        "max_abs_err": max(scan_err, het_err),
+        "ms": time_ms(torch, lambda: assign_scan(*scan_args), reps=5),
+        "plain_ms": time_ms(torch, lambda: assign_scan_plain(*scan_args), reps=1),
+        "library_ms": None,
+    }
+    k2["bound_ms"], k2["bound_by"] = scan_bound(*scan_args[:6])
+    emit({"phase": "assign_scan", "shape": [P, N],
+          "heterogeneous_ms": time_ms(torch, lambda: assign_scan(*het), reps=3),
+          **k2})
+    del het, masked
+
+    # ---- 3b: ragged shapes (tile edges, node padding) on both kernels ----
+    shapes = ((1, 65, 60), (100, 1000, 990), (333, 3000, 2900), (64, 1024, 1024))
+    for p_, n_, live_ in shapes:
+        args = static_mask_inputs(torch, rng, dev, p_, n_, live_)
+        if not torch.equal(static_mask(*args), static_mask_plain(*args)):
+            raise AssertionError(f"static_mask kernel != plain at P={p_} N={n_}")
+        sargs = scan_inputs(torch, rng, dev, p_, n_)
+        compare_scan(torch, assign_scan(*sargs), assign_scan_plain(*sargs))
+    emit({"phase": "edge_shapes", "shapes": [list(x[:2]) for x in shapes],
+          "kernels_equal_plain": True})
+
+    # ---- 4: the main path ----
+    sched = Scheduler(caps, device=dev)
+    sched.add_nodes(nodes)
+    static_mask.launches = 0
+    assign_scan.launches = 0
+    result = measure(sched, pods)
+    k1["launches"] = static_mask.launches
+    k2["launches"] = assign_scan.launches
+    if result.scheduled != HEADLINE_PODS:
+        raise AssertionError(f"placed {result.scheduled}/{HEADLINE_PODS} pods")
+    if not (k1["launches"] > 0 and k2["launches"] > 0):
+        raise AssertionError(f"kernels not launched on the main path: "
+                             f"{k1['launches']}, {k2['launches']}")
+    # host recompute: per-node pods, cpu and memory against allocatable
+    by_key = {p.key: p for p in pods}
+    load: dict[str, list] = {}
+    for key, node in result.placements.items():
+        acc = load.setdefault(node, [0, 0, 0])
+        requests = by_key[key].spec.containers[0].requests
+        acc[0] += 1
+        acc[1] += parse_quantity(requests["cpu"])
+        acc[2] += parse_quantity(requests["memory"])
+    alloc_of = {n.metadata.name: n.status.allocatable for n in nodes}
+    for node, (npods, cpu, mem) in load.items():
+        a = alloc_of[node]
+        if (npods > int(a["pods"]) or cpu > parse_quantity(a["cpu"])
+                or mem > parse_quantity(a["memory"])):
+            raise AssertionError(f"node {node} over allocatable: "
+                                 f"{npods} pods, cpu {cpu}, memory {mem}")
+    # the first batch against the plain path on the card, same inputs
+    kern = solver.schedule_batch(state, first, 0)
+    plain = solver.schedule_batch_plain(state, first, 0)
+    compare_scan(torch, kern, plain)
+    names = ref.statedb.table.name_of
+    first_names = [names[r] for r in kern.assignments.tolist()]
+    if first_names != [result.placements[p.key] for p in pods[:P]]:
+        raise AssertionError("main path's first batch != the solver on its inputs")
+    emit({"phase": "main_path", "nodes": HEADLINE_NODES, "pods": HEADLINE_PODS,
+          "caps": [caps.num_nodes, caps.batch_pods], "scheduled": result.scheduled,
+          "seconds": result.seconds, "pods_per_sec": result.pods_per_sec,
+          "batches": result.batches, "ms_per_solve": result.ms_per_solve,
+          "ms_encode_per_batch": result.ms_encode_per_batch,
+          "nodes_used": len(load), "max_pods_per_node": max(v[0] for v in load.values()),
+          "launches": {"static_mask": k1["launches"], "assign_scan": k2["launches"]},
+          "first_batch_equals_plain": True})
+
+    # ---- 5: kernels line, card line, result line ----
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    emit({"kernels": [{k: entry[k] for k in keys} for entry in (k1, k2)]})
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

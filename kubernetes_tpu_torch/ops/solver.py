@@ -1,0 +1,232 @@
+"""Batched assignment solver: the scheduler's main path on one device.
+
+The reference schedules strictly one pod at a time: each pod runs every
+predicate and priority over all nodes and is assumed into the cache before
+the next. This solver reproduces that decision for decision:
+
+- **Phase A (parallel over P x N)**: every assignment-independent predicate
+  and score term for the whole batch. The fused static mask (kernel 1,
+  ops/static_mask.py) covers selectors, hard taints, node conditions,
+  validity and the nodeName pin; required node affinity, the volume zone /
+  node predicates and the hoisted gpu/storage fit are ANDed in with plain
+  tensor ops; the static score is NodePreferAvoidPods plus the constant
+  shift of the score terms the batch gates off. The result rides one
+  f32[P, N] matrix: the score where feasible, -inf elsewhere.
+- **Phase B (serial over P)**: the assignment scan (kernel 2,
+  ops/assign_scan.py) carries the (requested, nonzero) ledger, so pod K
+  sees the claims of pods 0..K-1; it picks the max-score feasible node with
+  the reference's round-robin tie-break and adds the pod's requests to it.
+
+This package carries the main path only: a batch whose content raises any
+other BatchFlags gate, or a policy outside the fused static mask or with
+argument-carrying registrations, raises NotImplementedError naming what is
+missing. It never computes an answer for a program it does not implement.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, fields
+
+import torch
+
+from kubernetes_tpu_torch.models.policy import (
+    DEFAULT_POLICY,
+    Policy,
+    active_label_presence,
+    active_label_priorities,
+    active_service_anti,
+)
+from kubernetes_tpu_torch.ops import predicates as preds
+from kubernetes_tpu_torch.ops import priorities as prios
+from kubernetes_tpu_torch.ops.assign_scan import assign_scan, assign_scan_plain
+from kubernetes_tpu_torch.ops.static_mask import node_bits, static_mask, static_mask_plain
+from kubernetes_tpu_torch.state.cluster_state import ClusterState
+from kubernetes_tpu_torch.state.layout import MAX_PRIORITY
+from kubernetes_tpu_torch.state.pod_batch import PodBatch, batch_flags
+
+
+@dataclass(frozen=True)
+class BatchFlags:
+    """Batch-content gates: which solver kernels the batch (plus accounted
+    state) can affect. Each flag set False asserts a fact about the inputs
+    under which the kernel's contribution is exactly neutral (constant
+    score shifts are re-added as scalars)."""
+
+    ipa: bool = True      # own inter-pod terms in batch, or carried terms
+    spread: bool = True   # any spread_q / spread_svc_q entry
+    svcanti: bool = True  # any svcanti_q entry
+    vol: bool = True      # any disk-conflict atom wanted
+    attach: bool = True   # any attachable-volume atom (or resolve failure)
+    tt: bool = True       # any PreferNoSchedule taint interned
+    na: bool = True       # any preferred node-affinity term in batch
+    ports: bool = True    # any host port wanted
+    gpu: bool = True      # any GPU request in batch
+    storage: bool = True  # any scratch/overlay request in batch
+    gang: bool = True     # any gang member in batch
+    preempt: bool = True  # any nonzero pod priority in batch
+    explain: bool = False
+    scale_sim: bool = False
+
+
+@dataclass(frozen=True)
+class PolicyGates:
+    """The kernel gates this solver reads for one (policy, flags) pair.
+    Weights are post-gating: a flag-neutralized score kernel contributes
+    its constant to const_score."""
+
+    use_resources: bool
+    dyn_gpu: bool      # GPU fit must track the in-batch ledger
+    dyn_storage: bool  # scratch/overlay fit must track the in-batch ledger
+    w_lr: float
+    w_ba: float
+    const_score: float
+
+
+def policy_gates(policy: Policy, flags: BatchFlags) -> PolicyGates:
+    # gated neutral terms: with no spread entry SelectorSpread scores a
+    # uniform MaxPriority, and with no PreferNoSchedule taint so does
+    # TaintToleration — constant shifts that stay in the reported score
+    # (with no preferred node-affinity term NodeAffinity scores 0)
+    const_score = 0.0
+    if not flags.spread:
+        const_score += policy.weight("SelectorSpreadPriority") * float(MAX_PRIORITY)
+        const_score += policy.weight("ServiceSpreadingPriority") * float(MAX_PRIORITY)
+    if not flags.tt:
+        const_score += policy.weight("TaintTolerationPriority") * float(MAX_PRIORITY)
+    return PolicyGates(
+        use_resources=policy.has_predicate("GeneralPredicates",
+                                           "PodFitsResources"),
+        dyn_gpu=flags.gpu,
+        dyn_storage=flags.storage,
+        w_lr=policy.weight("LeastRequestedPriority"),
+        w_ba=policy.weight("BalancedResourceAllocation"),
+        const_score=const_score,
+    )
+
+
+# predicates the fused static mask applies unconditionally
+_FUSED_PREDICATES = (("GeneralPredicates", "PodFitsHost", "HostName"),
+                     ("GeneralPredicates", "MatchNodeSelector"),
+                     ("PodToleratesNodeTaints",), ("CheckNodeCondition",),
+                     ("CheckNodeMemoryPressure",), ("CheckNodeDiskPressure",))
+_STATIC_PRIORITIES = ("EqualPriority", "ImageLocalityPriority",
+                      "MostRequestedPriority")
+
+
+def check_supported(policy: Policy, flags: BatchFlags) -> PolicyGates:
+    """The gates of a (policy, flags) pair this solver implements; raises
+    NotImplementedError naming every gate or registration it does not."""
+    raised = [f.name for f in fields(BatchFlags) if getattr(flags, f.name)]
+    if raised:
+        raise NotImplementedError(
+            f"batch raises solver gates {raised}: only the main path "
+            f"(every BatchFlags gate False) is implemented")
+    if (active_label_presence(policy) or active_label_priorities(policy)
+            or active_service_anti(policy) or policy.service_affinity_predicates):
+        raise NotImplementedError(
+            "policy carries argument registrations (PolicyRows)")
+    missing = [names[0] for names in _FUSED_PREDICATES
+               if not policy.has_predicate(*names)]
+    if missing:
+        raise NotImplementedError(
+            f"policy lacks {missing}: only policies the fused static mask "
+            f"covers are implemented")
+    extra = [n for n in _STATIC_PRIORITIES if policy.weight(n)]
+    if extra:
+        raise NotImplementedError(f"priorities {extra} are not implemented")
+    g = policy_gates(policy, flags)
+    if not g.use_resources:
+        raise NotImplementedError("policy without PodFitsResources")
+    return g
+
+
+@dataclass
+class SolverResult:
+    assignments: torch.Tensor      # i32[P] node row, -1 = unschedulable (or padding)
+    scores: torch.Tensor           # f32[P] winning node's score (0 when unassigned)
+    feasible_counts: torch.Tensor  # i32[P] nodes that passed all predicates
+    new_requested: torch.Tensor    # f32[N, R] ledger after the batch
+    new_nonzero: torch.Tensor      # f32[N, 2]
+    rr_end: torch.Tensor           # i64 scalar: round-robin counter mod 2^32
+
+
+def _static_rest(state: ClusterState, batch: PodBatch,
+                 policy: Policy) -> torch.Tensor:
+    """The static terms the fused kernel does not cover: required node
+    affinity and the volume zone / node predicates."""
+    ok = preds.node_affinity_ok(state, batch)
+    if policy.has_predicate("NoVolumeZoneConflict"):
+        ok &= preds.volume_zone(state, batch)
+    if policy.has_predicate("NoVolumeNodeConflict"):
+        ok &= preds.volume_node(state, batch)
+    return ok
+
+
+def _static_score(state: ClusterState, batch: PodBatch, policy: Policy,
+                  const_score: float) -> torch.Tensor:
+    """Assignment-independent score terms: f32[P, N]."""
+    shape = (batch.valid.shape[0], state.valid.shape[0])
+    score = torch.full(shape, float(const_score), dtype=torch.float32,
+                       device=state.valid.device)
+    w = policy.weight("NodePreferAvoidPodsPriority")
+    if w:
+        score = score + w * prios.node_prefer_avoid(state, batch)
+    return score
+
+
+def masked_static_scores(state: ClusterState, batch: PodBatch, policy: Policy,
+                         g: PolicyGates, mask_fn=static_mask) -> torch.Tensor:
+    """Phase A: f32[P, N], the static score where the pod is valid and the
+    node statically feasible, -inf elsewhere."""
+    fused = mask_fn(batch.sel_onehot, batch.sel_count,
+                    preds.untolerated(state, batch), batch.best_effort,
+                    batch.node_name_lo, batch.node_name_hi, state.sel_member,
+                    state.taint_hard_member, node_bits(state), state.name_lo,
+                    state.name_hi)
+    ok = fused & _static_rest(state, batch, policy)
+    # resource columns the batch does not request (gpu/storage) hold against
+    # the batch-start ledger for the whole batch: hoisted out of the scan
+    if not (g.dyn_gpu and g.dyn_storage):
+        ok &= preds.fits_resources_static(state, batch.requests, g.dyn_gpu,
+                                          g.dyn_storage)
+    ok &= batch.valid[:, None]
+    score = _static_score(state, batch, policy, g.const_score)
+    return torch.where(ok, score, float("-inf"))
+
+
+def _solve(state, batch, rr_start, policy, flags, mask_fn, scan_fn):
+    if flags is None:
+        flags = batch_flags(state, batch)
+    g = check_supported(policy, flags)
+    masked = masked_static_scores(state, batch, policy, g, mask_fn)
+    scan = scan_fn(masked, batch.requests, batch.nonzero_requests,
+                   state.allocatable, state.requested, state.nonzero_requested,
+                   rr_start, float(g.w_lr), float(g.w_ba))
+    return SolverResult(
+        assignments=scan.assignments, scores=scan.scores,
+        feasible_counts=scan.feasible_counts,
+        new_requested=scan.new_requested, new_nonzero=scan.new_nonzero,
+        rr_end=scan.rr_end)
+
+
+def schedule_batch(state: ClusterState, batch: PodBatch, rr_start,
+                   policy: Policy = DEFAULT_POLICY,
+                   flags: BatchFlags | None = None) -> SolverResult:
+    """Schedule a whole pending batch against the accounted state.
+
+    All tensors live on one device: CUDA tensors run the two kernels, CPU
+    tensors their plain versions. `rr_start` is the round-robin counter (an
+    int or an i64 scalar tensor, taken mod 2^32). `flags` defaults to the
+    gates read from the batch (state.pod_batch.batch_flags). Returns
+    per-pod assignments plus the post-batch ledger (assume semantics)."""
+    return _solve(state, batch, rr_start, policy, flags, static_mask,
+                  assign_scan)
+
+
+def schedule_batch_plain(state: ClusterState, batch: PodBatch, rr_start,
+                         policy: Policy = DEFAULT_POLICY,
+                         flags: BatchFlags | None = None) -> SolverResult:
+    """`schedule_batch` through the kernels' plain versions on any device:
+    the reference a card run holds the kernel path against."""
+    return _solve(state, batch, rr_start, policy, flags, static_mask_plain,
+                  assign_scan_plain)

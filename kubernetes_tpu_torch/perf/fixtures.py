@@ -1,0 +1,60 @@
+"""Synthetic cluster fixtures (the scheduler_perf strategy analog): uniform
+fake nodes and templated pods at any scale, as v1 objects of this package.
+They build the same objects as the reference package's fixtures of the same
+name, for the options this package's solver carries."""
+
+from __future__ import annotations
+
+from kubernetes_tpu_torch.api.objects import Node, Pod
+
+
+def make_nodes(n: int, cpu: str = "4", memory: str = "8Gi", pods: str = "110",
+               zones: int = 3, labels_per_node: int = 0,
+               taint_every: int = 0) -> list[Node]:
+    """Uniform ready nodes; optional zone spread, filler labels, periodic
+    NoSchedule taints."""
+    out = []
+    for i in range(n):
+        labels = {
+            "kubernetes.io/hostname": f"node-{i}",
+            "failure-domain.beta.kubernetes.io/zone": f"zone-{i % max(zones, 1)}",
+            "failure-domain.beta.kubernetes.io/region": "region-1",
+        }
+        for j in range(labels_per_node):
+            labels[f"label-{j}"] = f"value-{(i + j) % 7}"
+        taints = []
+        if taint_every and i % taint_every == 0:
+            taints = [{"key": "dedicated", "value": "special",
+                       "effect": "NoSchedule"}]
+        out.append(Node.from_dict({
+            "metadata": {"name": f"node-{i}", "labels": labels},
+            "spec": {"taints": taints},
+            "status": {
+                "allocatable": {"cpu": cpu, "memory": memory, "pods": pods},
+                "conditions": [{"type": "Ready", "status": "True"}],
+            },
+        }))
+    return out
+
+
+def make_pods(n: int, cpu: str = "100m", memory: str = "250Mi",
+              name_prefix: str = "pod", selector_every: int = 0,
+              tolerate: bool = False, namespace: str = "default") -> list[Pod]:
+    """Templated pending pods (the basic scheduler_perf pod spec: small cpu
+    and memory requests); optional periodic nodeSelector and a toleration
+    of the fixtures' NoSchedule taint."""
+    out = []
+    for i in range(n):
+        spec: dict = {"containers": [{
+            "name": "app",
+            "image": "k8s.gcr.io/pause:3.0",
+            "resources": {"requests": {"cpu": cpu, "memory": memory}},
+        }]}
+        if selector_every and i % selector_every == 0:
+            spec["nodeSelector"] = {"label-0": f"value-{i % 7}"}
+        if tolerate:
+            spec["tolerations"] = [{"key": "dedicated", "operator": "Exists"}]
+        out.append(Pod.from_dict({
+            "metadata": {"name": f"{name_prefix}-{i}", "namespace": namespace},
+            "spec": spec}))
+    return out

@@ -1,0 +1,151 @@
+"""Throughput harness: the scheduler_perf equivalent for this package.
+
+- `run_device_solve` times the solver alone: one encoded batch solved
+  `iters` times against device-resident state, chained through the
+  round-robin counter, with one synchronization at the end.
+- `run_throughput` times `Scheduler.schedule` end to end over a fixture
+  cluster (encode, upload, solve, readback, ledger commit) and reports
+  pods/s and ms per solve.
+
+Both build the CUDA kernels and warm the device before the clock starts,
+and run on `cuda` unless given another device.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+
+import torch
+
+from kubernetes_tpu_torch.models.policy import DEFAULT_POLICY, Policy
+from kubernetes_tpu_torch.ops.solver import schedule_batch
+from kubernetes_tpu_torch.perf.fixtures import make_nodes, make_pods
+from kubernetes_tpu_torch.scheduler.driver import Scheduler
+from kubernetes_tpu_torch.state.convert import batch_from_numpy
+from kubernetes_tpu_torch.state.layout import Capacities
+from kubernetes_tpu_torch.state.pod_batch import encode_pods
+from kubernetes_tpu_torch.utils.device import resolve_device
+
+
+def default_caps(n_nodes: int, n_pods: int) -> Capacities:
+    """The reference harness's shapes: nodes padded to a power of two, and
+    batches of n_pods / 6 clamped to [64, 4096]."""
+    return Capacities(num_nodes=1 << max(6, (n_nodes - 1).bit_length()),
+                      batch_pods=min(4096, max(64, n_pods // 6)))
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def warm(caps: Capacities, policy: Policy, device: torch.device) -> None:
+    """Build the kernels and run one batch at these shapes on a throwaway
+    one-node cluster, so library handles and kernel loads are set up
+    before any timed region."""
+    if device.type == "cuda":
+        from kubernetes_tpu_torch.native.build import build
+
+        build()
+    sched = Scheduler(caps, policy, device)
+    sched.add_nodes(make_nodes(1))
+    sched.schedule(make_pods(1, name_prefix="warm"))
+    _sync(device)
+
+
+@dataclass
+class DeviceSolveResult:
+    n_nodes: int
+    batch_pods: int
+    iters: int
+    ms_per_solve: float
+    pods_per_sec: float
+    device: str
+
+    def __str__(self) -> str:
+        return (f"device solve N={self.n_nodes} P={self.batch_pods} on "
+                f"{self.device}: {self.ms_per_solve:.2f} ms/solve = "
+                f"{self.pods_per_sec:.0f} pods/s")
+
+
+def run_device_solve(n_nodes: int, batch_pods: int = 4096, iters: int = 16,
+                     policy: Policy = DEFAULT_POLICY,
+                     node_kwargs: dict | None = None,
+                     pod_kwargs: dict | None = None,
+                     device=None) -> DeviceSolveResult:
+    """Time the solver alone on one encoded batch."""
+    dev = resolve_device(device)
+    caps = Capacities(num_nodes=1 << max(6, (n_nodes - 1).bit_length()),
+                      batch_pods=batch_pods)
+    warm(caps, policy, dev)
+    sched = Scheduler(caps, policy, dev)
+    sched.add_nodes(make_nodes(n_nodes, **(node_kwargs or {})))
+    host = encode_pods(make_pods(batch_pods, **(pod_kwargs or {})), caps,
+                       sched.statedb.table)
+    state = sched.statedb.flush()
+    batch = batch_from_numpy(host, dev)
+    rr = schedule_batch(state, batch, 0, policy).rr_end
+    _sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        rr = schedule_batch(state, batch, rr, policy).rr_end
+    _sync(dev)
+    dt = time.perf_counter() - t0
+    return DeviceSolveResult(
+        n_nodes=n_nodes, batch_pods=batch_pods, iters=iters,
+        ms_per_solve=1e3 * dt / iters,
+        pods_per_sec=iters * batch_pods / dt if dt > 0 else 0.0,
+        device=str(dev))
+
+
+@dataclass
+class ThroughputResult:
+    scheduled: int
+    pods: int
+    seconds: float
+    pods_per_sec: float
+    batches: int
+    ms_per_solve: float         # mean host time from dispatch to assignments
+    ms_encode_per_batch: float  # mean host time to encode + upload a batch
+    device: str
+    placements: dict = field(default_factory=dict, repr=False)
+
+    def __str__(self) -> str:
+        return (f"{self.scheduled}/{self.pods} pods in {self.seconds:.2f}s = "
+                f"{self.pods_per_sec:.0f} pods/s over {self.batches} batches "
+                f"({self.ms_per_solve:.2f} ms/solve) on {self.device}")
+
+
+def measure(sched: Scheduler, pods) -> ThroughputResult:
+    """Time one `sched.schedule(pods)` call."""
+    t0 = time.perf_counter()
+    n_batches = len(sched.solve_seconds)
+    placements = sched.schedule(pods)
+    _sync(sched.device)
+    dt = time.perf_counter() - t0
+    solves = sched.solve_seconds[n_batches:]
+    encodes = sched.encode_seconds[n_batches:]
+    return ThroughputResult(
+        scheduled=sum(v is not None for v in placements.values()),
+        pods=len(pods), seconds=dt,
+        pods_per_sec=len(pods) / dt if dt > 0 else 0.0,
+        batches=len(solves),
+        ms_per_solve=1e3 * sum(solves) / max(len(solves), 1),
+        ms_encode_per_batch=1e3 * sum(encodes) / max(len(encodes), 1),
+        device=str(sched.device), placements=placements)
+
+
+def run_throughput(n_nodes: int, n_pods: int, caps: Capacities | None = None,
+                   policy: Policy = DEFAULT_POLICY,
+                   node_kwargs: dict | None = None,
+                   pod_kwargs: dict | None = None,
+                   device=None) -> ThroughputResult:
+    """Sustained scheduling throughput of `Scheduler` on a fixture cluster
+    (the headline shape is 15,000 nodes in 3 zones and 30,000 pods)."""
+    dev = resolve_device(device)
+    caps = caps or default_caps(n_nodes, n_pods)
+    warm(caps, policy, dev)
+    sched = Scheduler(caps, policy, dev)
+    sched.add_nodes(make_nodes(n_nodes, **(node_kwargs or {})))
+    return measure(sched, make_pods(n_pods, **(pod_kwargs or {})))

@@ -1,0 +1,366 @@
+"""Pending-pod batch encoding: P pods -> padded arrays for one solver call.
+
+Padding rows have valid=False and are never assigned. Selector terms and
+node-affinity requirements intern into the cluster's universes
+(cluster_state.NodeTable), producing one-hot rows that pair with the node
+membership matrices, so encoding a pod can grow a universe: the state's
+membership columns must be refilled (StateDB.flush) before the batch is
+solved.
+
+This package's solver covers the scheduler's main path. The encoder
+rejects, with NotImplementedError, pods whose features would change the
+result outside it (pod affinity, volumes, host ports, gang membership,
+priority). Features the solver gates per batch (gpu and storage requests,
+preferred node affinity) are encoded, and the solver raises on them.
+Fields the main path never reads (container images, labels) are accepted
+and left unencoded.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, fields
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from kubernetes_tpu_torch.api.objects import Pod, parse_node_affinity
+from kubernetes_tpu_torch.state.cluster_state import (
+    ClusterState,
+    NodeTable,
+    apply_pending_refreshes,
+    encode_nodes,
+    pod_controller_ref,
+    pod_nonzero_requests,
+    pod_requests,
+)
+from kubernetes_tpu_torch.state.layout import (
+    Capacities,
+    CapacityError,
+    Effect,
+    ReqOp,
+    TolOp,
+)
+from kubernetes_tpu_torch.utils.hashing import hash32, hash_lanes
+
+# gang membership annotation (the reference package's gang scheduling)
+GROUP_NAME_ANNOTATION = "scheduling.ktpu.io/group-name"
+
+
+@dataclass
+class PodBatch:
+    """Padded batch arrays, pod axis first (same fields as the reference
+    package's PodBatch)."""
+
+    valid: torch.Tensor           # bool[P]
+    requests: torch.Tensor        # f32[P, R]
+    nonzero_requests: torch.Tensor  # f32[P, 2] (cpu, mem) scoring requests
+    port_onehot: torch.Tensor     # f32[P, UP]
+    sel_onehot: torch.Tensor      # f32[P, US] — required selector terms
+    sel_count: torch.Tensor       # f32[P] — number of required terms
+    tol_key: torch.Tensor         # i32[P, T] hash32(key), 0 = empty key (matches all)
+    tol_val_lo: torch.Tensor      # i32[P, T] hash lanes of the toleration value
+    tol_val_hi: torch.Tensor      # i32[P, T]
+    tol_op: torch.Tensor          # i32[P, T] TolOp codes, NONE = unused slot
+    tol_effect: torch.Tensor      # i32[P, T] Effect codes, NONE = all effects
+    node_name_lo: torch.Tensor    # i32[P] spec.nodeName hash lanes, 0 = unset
+    node_name_hi: torch.Tensor    # i32[P]
+    best_effort: torch.Tensor     # bool[P] BestEffort QoS
+    naff_has: torch.Tensor        # bool[P] — pod carries a required NodeSelector
+    naff_onehot: torch.Tensor     # f32[P, AT, UR]
+    naff_count: torch.Tensor      # f32[P, AT] — requirements in term t
+    naff_ok: torch.Tensor         # bool[P, AT] — term is live (non-empty, parsed)
+    pref_onehot: torch.Tensor     # f32[P, TP, UR]
+    pref_count: torch.Tensor      # f32[P, TP]
+    pref_weight: torch.Tensor     # f32[P, TP] — 0 for unused/invalid slots
+    pod_matches_q: torch.Tensor   # f32[P, UQ]
+    pod_carries_e: torch.Tensor   # f32[P, UE]
+    paff_q: torch.Tensor          # i32[P, IA] -1 unused
+    paff_tkey: torch.Tensor       # i32[P, IA]
+    panti_q: torch.Tensor         # i32[P, IA]
+    panti_tkey: torch.Tensor      # i32[P, IA]
+    ipaff_fail: torch.Tensor      # bool[P]
+    ppref_q: torch.Tensor         # i32[P, IP]
+    ppref_tkey: torch.Tensor      # i32[P, IP]
+    ppref_w: torch.Tensor         # f32[P, IP]
+    vol_want_rw: torch.Tensor     # f32[P, UV]
+    vol_want_ro: torch.Tensor     # f32[P, UV]
+    att_onehot: torch.Tensor      # f32[P, UA]
+    att_fail: torch.Tensor        # bool[P]
+    vz_onehot: torch.Tensor       # f32[P, US] zone/region selector terms from PVs
+    vz_count: torch.Tensor        # f32[P]
+    vz_fail: torch.Tensor         # bool[P]
+    vs_onehot: torch.Tensor       # f32[P, UVS] PV node-affinity selectors
+    vs_count: torch.Tensor        # f32[P]
+    vs_fail: torch.Tensor         # bool[P]
+    spread_q: torch.Tensor        # i32[P] -1 none
+    spread_svc_q: torch.Tensor    # i32[P]
+    svcanti_q: torch.Tensor       # i32[P]
+    svcanti_total: torch.Tensor   # f32[P]
+    svcaff_onehot: torch.Tensor   # f32[P, UR]
+    svcaff_count: torch.Tensor    # f32[P]
+    svcaff_fail: torch.Tensor     # bool[P]
+    img_onehot: torch.Tensor      # f32[P, UI]
+    avoid_onehot: torch.Tensor    # f32[P, UO] controllerRef signature, if interned
+    gang_id: torch.Tensor         # i32[P] 0 = none
+    gang_min: torch.Tensor        # i32[P]
+    priority: torch.Tensor        # i32[P]
+
+
+BATCH_FIELDS = tuple(f.name for f in fields(PodBatch))
+
+
+def empty_batch(caps: Capacities) -> PodBatch:
+    """Host (numpy) batch with every row padding."""
+    p = caps.batch_pods
+    f32 = np.float32
+    return PodBatch(
+        valid=np.zeros((p,), np.bool_),
+        requests=np.zeros((p, 6), f32),
+        nonzero_requests=np.zeros((p, 2), f32),
+        port_onehot=np.zeros((p, caps.port_universe), f32),
+        sel_onehot=np.zeros((p, caps.selector_universe), f32),
+        sel_count=np.zeros((p,), f32),
+        tol_key=np.zeros((p, caps.toleration_slots), np.uint32),
+        tol_val_lo=np.zeros((p, caps.toleration_slots), np.uint32),
+        tol_val_hi=np.zeros((p, caps.toleration_slots), np.uint32),
+        tol_op=np.zeros((p, caps.toleration_slots), np.int32),
+        tol_effect=np.zeros((p, caps.toleration_slots), np.int32),
+        node_name_lo=np.zeros((p,), np.uint32),
+        node_name_hi=np.zeros((p,), np.uint32),
+        best_effort=np.zeros((p,), np.bool_),
+        naff_has=np.zeros((p,), np.bool_),
+        naff_onehot=np.zeros((p, caps.affinity_terms, caps.req_universe), f32),
+        naff_count=np.zeros((p, caps.affinity_terms), f32),
+        naff_ok=np.zeros((p, caps.affinity_terms), np.bool_),
+        pref_onehot=np.zeros((p, caps.pref_terms, caps.req_universe), f32),
+        pref_count=np.zeros((p, caps.pref_terms), f32),
+        pref_weight=np.zeros((p, caps.pref_terms), f32),
+        pod_matches_q=np.zeros((p, caps.podsel_universe), f32),
+        pod_carries_e=np.zeros((p, caps.term_universe), f32),
+        paff_q=np.full((p, caps.interpod_slots), -1, np.int32),
+        paff_tkey=np.zeros((p, caps.interpod_slots), np.int32),
+        panti_q=np.full((p, caps.interpod_slots), -1, np.int32),
+        panti_tkey=np.zeros((p, caps.interpod_slots), np.int32),
+        ipaff_fail=np.zeros((p,), np.bool_),
+        ppref_q=np.full((p, caps.interpod_pref_slots), -1, np.int32),
+        ppref_tkey=np.zeros((p, caps.interpod_pref_slots), np.int32),
+        ppref_w=np.zeros((p, caps.interpod_pref_slots), f32),
+        vol_want_rw=np.zeros((p, caps.volume_universe), f32),
+        vol_want_ro=np.zeros((p, caps.volume_universe), f32),
+        att_onehot=np.zeros((p, caps.attach_universe), f32),
+        att_fail=np.zeros((p,), np.bool_),
+        vz_onehot=np.zeros((p, caps.selector_universe), f32),
+        vz_count=np.zeros((p,), f32),
+        vz_fail=np.zeros((p,), np.bool_),
+        vs_onehot=np.zeros((p, caps.volsel_universe), f32),
+        vs_count=np.zeros((p,), f32),
+        vs_fail=np.zeros((p,), np.bool_),
+        spread_q=np.full((p,), -1, np.int32),
+        spread_svc_q=np.full((p,), -1, np.int32),
+        svcanti_q=np.full((p,), -1, np.int32),
+        svcanti_total=np.zeros((p,), f32),
+        svcaff_onehot=np.zeros((p, caps.req_universe), f32),
+        svcaff_count=np.zeros((p,), f32),
+        svcaff_fail=np.zeros((p,), np.bool_),
+        img_onehot=np.zeros((p, caps.image_universe), f32),
+        avoid_onehot=np.zeros((p, caps.avoid_universe), f32),
+        gang_id=np.zeros((p,), np.int32),
+        gang_min=np.zeros((p,), np.int32),
+        priority=np.zeros((p,), np.int32),
+    )
+
+
+def unsupported_feature(pod: Pod) -> str | None:
+    """Name of the first feature of `pod` that this package's solver does
+    not carry and that would change the result, else None."""
+    aff = pod.spec.affinity or {}
+    if aff.get("podAffinity") or aff.get("podAntiAffinity"):
+        return "inter-pod affinity"
+    if pod.spec.volumes:
+        return "volumes"
+    if pod.host_ports():
+        return "host ports"
+    if GROUP_NAME_ANNOTATION in pod.metadata.annotations:
+        return "gang membership"
+    if pod.spec.priority:
+        return "pod priority"
+    return None
+
+
+def _valid_requirement(expr: dict) -> bool:
+    """labels.NewRequirement validation: known operator; In/NotIn need >=1
+    value; Exists/DoesNotExist need none; Gt/Lt need exactly one."""
+    op = expr.get("operator", "")
+    values = expr.get("values") or []
+    if op in (ReqOp.IN, ReqOp.NOT_IN):
+        return len(values) >= 1
+    if op in (ReqOp.EXISTS, ReqOp.DOES_NOT_EXIST):
+        return len(values) == 0
+    if op in (ReqOp.GT, ReqOp.LT):
+        return len(values) == 1
+    return False
+
+
+def _encode_node_affinity(batch: PodBatch, i: int, pod: Pod, caps: Capacities,
+                          table: NodeTable) -> None:
+    req_terms, preferred = parse_node_affinity(pod.spec.affinity)
+    batch.naff_onehot[i] = 0.0
+    batch.naff_count[i] = 0.0
+    batch.naff_ok[i] = False
+    batch.naff_has[i] = req_terms is not None
+    if req_terms is not None:
+        if len(req_terms) > caps.affinity_terms:
+            raise CapacityError(
+                f"pod {pod.key}: {len(req_terms)} nodeSelectorTerms > "
+                f"{caps.affinity_terms} slots")
+        # a parse error in ANY term makes the whole term list match nothing
+        poisoned = any(not _valid_requirement(e) for exprs in req_terms
+                       for e in exprs)
+        if not poisoned:
+            for t, exprs in enumerate(req_terms):
+                if not exprs:
+                    continue  # empty term matches no node
+                # duplicate expressions collapse to one one-hot column
+                rids = {table.intern_requirement(
+                    e.get("key", ""), e["operator"], tuple(e.get("values") or ()))
+                    for e in exprs}
+                for rid in rids:
+                    batch.naff_onehot[i, t, rid] = 1.0
+                batch.naff_count[i, t] = float(len(rids))
+                batch.naff_ok[i, t] = True
+
+    batch.pref_onehot[i] = 0.0
+    batch.pref_count[i] = 0.0
+    batch.pref_weight[i] = 0.0
+    if preferred:
+        if len(preferred) > caps.pref_terms:
+            raise CapacityError(
+                f"pod {pod.key}: {len(preferred)} preferred terms > "
+                f"{caps.pref_terms} slots")
+        for t, (weight, exprs) in enumerate(preferred):
+            # weight <= 0 and empty/invalid expressions never score
+            if weight <= 0 or not exprs or any(not _valid_requirement(e)
+                                               for e in exprs):
+                continue
+            rids = {table.intern_requirement(
+                e.get("key", ""), e["operator"], tuple(e.get("values") or ()))
+                for e in exprs}
+            for rid in rids:
+                batch.pref_onehot[i, t, rid] = 1.0
+            batch.pref_count[i, t] = float(len(rids))
+            batch.pref_weight[i, t] = float(weight)
+
+
+def encode_pod_into(batch: PodBatch, i: int, pod: Pod, caps: Capacities,
+                    table: NodeTable) -> None:
+    """Encode `pod` into host row `i` of `batch`."""
+    feature = unsupported_feature(pod)
+    if feature is not None:
+        raise NotImplementedError(
+            f"pod {pod.key}: {feature} is outside the solver this package "
+            f"carries")
+    batch.valid[i] = True
+    batch.requests[i] = pod_requests(pod)
+    batch.nonzero_requests[i] = pod_nonzero_requests(pod)
+
+    batch.sel_onehot[i] = 0.0
+    selector = pod.spec.node_selector
+    for k, v in selector.items():
+        batch.sel_onehot[i, table.intern_sel_term(k, v)] = 1.0
+    batch.sel_count[i] = float(len(selector))
+
+    tols = pod.spec.tolerations
+    if len(tols) > caps.toleration_slots:
+        raise CapacityError(f"pod {pod.key}: {len(tols)} tolerations > "
+                            f"{caps.toleration_slots} slots")
+    batch.tol_key[i] = 0
+    batch.tol_val_lo[i] = 0
+    batch.tol_val_hi[i] = 0
+    batch.tol_op[i] = TolOp.NONE
+    batch.tol_effect[i] = Effect.NONE
+    for t, tol in enumerate(tols):
+        batch.tol_key[i, t] = hash32(tol.key) if tol.key else 0
+        batch.tol_val_lo[i, t], batch.tol_val_hi[i, t] = hash_lanes(tol.value)
+        batch.tol_op[i, t] = TolOp.EXISTS if tol.operator == "Exists" else TolOp.EQUAL
+        batch.tol_effect[i, t] = Effect.NAMES.get(tol.effect, Effect.NONE)
+
+    if pod.spec.node_name:
+        batch.node_name_lo[i], batch.node_name_hi[i] = hash_lanes(pod.spec.node_name)
+    else:
+        batch.node_name_lo[i] = 0
+        batch.node_name_hi[i] = 0
+    batch.best_effort[i] = pod.is_best_effort()
+    _encode_node_affinity(batch, i, pod, caps, table)
+    fill_avoid_row(batch, i, pod, table)
+
+
+def fill_avoid_row(batch: PodBatch, i: int, pod: Pod, table: NodeTable) -> None:
+    """prefer-avoid row: lookup only. Signatures are interned by node
+    annotations; a signature no node names cannot be avoided."""
+    batch.avoid_onehot[i] = 0.0
+    sig = pod_controller_ref(pod)
+    if sig is not None:
+        oid = table.avoids.get(sig)
+        if oid is not None:
+            batch.avoid_onehot[i, oid] = 1.0
+
+
+def encode_pods(pods: Sequence[Pod], caps: Capacities, table: NodeTable,
+                state: ClusterState | None = None) -> PodBatch:
+    """Encode a host batch against the cluster's universes. When `state` is
+    given, membership columns for newly interned terms are refilled."""
+    if len(pods) > caps.batch_pods:
+        raise CapacityError(f"{len(pods)} pods > batch capacity {caps.batch_pods}")
+    batch = empty_batch(caps)
+    for i, pod in enumerate(pods):
+        encode_pod_into(batch, i, pod, caps, table)
+    if state is not None:
+        apply_pending_refreshes(state, table)
+    return batch
+
+
+def batch_flags(state: ClusterState, batch: PodBatch):
+    """The batch-content gates (ops.solver.BatchFlags) of a batch on a
+    device, read in one transfer. Padding rows are all-neutral, so every
+    row may be read. Carried affinity terms show in `state.term_q`, and an
+    interned PreferNoSchedule taint in `state.taint_u_effect`."""
+    from kubernetes_tpu_torch.ops.solver import BatchFlags
+    from kubernetes_tpu_torch.state.layout import Resource
+
+    req = batch.requests
+    bits = torch.stack([
+        (state.term_q >= 0).any() | (batch.paff_q >= 0).any()
+        | (batch.panti_q >= 0).any() | (batch.ppref_q >= 0).any()
+        | batch.ipaff_fail.any(),
+        (batch.spread_q >= 0).any() | (batch.spread_svc_q >= 0).any(),
+        (batch.svcanti_q >= 0).any(),
+        (batch.vol_want_rw != 0).any() | (batch.vol_want_ro != 0).any(),
+        (batch.att_onehot != 0).any() | batch.att_fail.any(),
+        (state.taint_u_effect == Effect.PREFER_NO_SCHEDULE).any(),
+        (batch.pref_weight > 0).any(),
+        (batch.port_onehot != 0).any(),
+        (req[:, Resource.GPU] != 0).any(),
+        (req[:, Resource.SCRATCH] != 0).any() | (req[:, Resource.OVERLAY] != 0).any(),
+        (batch.gang_id > 0).any(),
+        (batch.priority != 0).any(),
+    ]).tolist()
+    (ipa, spread, svcanti, vol, attach, tt, na, ports, gpu, storage, gang,
+     preempt) = bits
+    return BatchFlags(ipa=ipa, spread=spread, svcanti=svcanti, vol=vol,
+                      attach=attach, tt=tt, na=na, ports=ports, gpu=gpu,
+                      storage=storage, gang=gang, preempt=preempt)
+
+
+def encode_cluster(nodes, pods, caps: Capacities):
+    """One-shot host encoding of nodes + pending pods with a shared universe,
+    in the reference encoder's order (pods first, then nodes) so universe
+    ids agree with it. Returns (state, batch, table)."""
+    table = NodeTable(caps)
+    batch = encode_pods(pods, caps, table)
+    state, _ = encode_nodes(nodes, caps, table=table)
+    # nodes may have interned avoid signatures after the pods were encoded
+    for i, pod in enumerate(pods):
+        fill_avoid_row(batch, i, pod, table)
+    apply_pending_refreshes(state, table)
+    return state, batch, table
