@@ -14,11 +14,13 @@ fails; nothing is caught and skipped:
    every condition bit, invalid rows and nodeName pins: the kernel must
    equal its plain PyTorch version exactly; times the kernel, the plain
    version and the two torch.matmul products alone;
-3. assign_scan at the headline shape, on the main path's first batch and
-   on a heterogeneous seeded batch: assignments, scores, feasible counts,
-   both ledgers and rr_end must equal the plain loop's exactly; then both
+3. assign_scan at the headline shape, on the main path's first batch, on
+   a heterogeneous seeded batch and on an all-miss batch (every pod's
+   requests differ from the previous pod's): assignments, scores, feasible
+   counts, both ledgers and rr_end must equal the plain loop's exactly;
+   each kernel time is reported as median, min and max; then both
    kernels against their plain versions at ragged shapes (tile edges,
-   node padding);
+   node padding), which reach every build of the scan (N up to 65,536);
 4. the main path: Scheduler(device="cuda") places 30,000 pods on 15,000
    nodes in 3 zones; every pod must be placed, no node may exceed its
    allocatable (recomputed on the host), both kernels must have launched,
@@ -53,8 +55,8 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def time_ms(torch, fn, reps: int, warmup: int = 1) -> float:
-    """Median CUDA-event time of one call, in ms."""
+def time_ms(torch, fn, reps: int, warmup: int = 1) -> tuple[float, float, float]:
+    """(median, min, max) CUDA-event time of one call, in ms."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -67,7 +69,13 @@ def time_ms(torch, fn, reps: int, warmup: int = 1) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    return statistics.median(times), min(times), max(times)
+
+
+def timed(torch, fn, reps: int, key: str = "ms") -> dict:
+    """{key: median, key_min: min, key_max: max} of time_ms."""
+    med, lo, hi = time_ms(torch, fn, reps)
+    return {key: med, f"{key}_min": lo, f"{key}_max": hi}
 
 
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
@@ -113,11 +121,13 @@ def static_mask_inputs(torch, rng, dev, P=P, N=N, live=HEADLINE_NODES):
             t(hard, f32), t(bits), t(name_lo), t(name_hi))
 
 
-def scan_inputs(torch, rng, dev, P=P, N=N):
+def scan_inputs(torch, rng, dev, P=P, N=N, all_miss=False):
     """A seeded heterogeneous kernel-2 batch: mixed capacities, a partly
     filled ledger, statically infeasible pairs, avoid-scores, and requests
     in runs (consecutive pods of one workload share them) of random length,
-    with BestEffort-like all-zero requests among them."""
+    with BestEffort-like all-zero requests among them. With `all_miss`
+    every pod's (cpu, memory) differs from the previous pod's, so the
+    scan's term cache never hits."""
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
 
@@ -133,6 +143,9 @@ def scan_inputs(torch, rng, dev, P=P, N=N):
     run = np.cumsum(rng.random(P) < 0.2)
     cpu = rng.choice([0, 100, 250, 500, 1000], run[-1] + 1)[run]
     mem = rng.choice([0, 128, 256, 1024], run[-1] + 1)[run]
+    if all_miss:  # a step of 1..4 grid points from the previous pod's
+        cpu = (np.cumsum(rng.integers(1, 5, P)) % 9) * 125
+        mem = (np.cumsum(rng.integers(1, 5, P)) % 9) * 128
     reqs = np.zeros((P, 6), np.float32)
     reqs[:, 0], reqs[:, 1], reqs[:, 2] = 1, cpu, mem
     nz_reqs = np.stack([np.where(cpu > 0, cpu, 100), np.where(mem > 0, mem, 200)], 1)
@@ -171,6 +184,35 @@ def compare_scan(torch, got, want) -> float:
     return max_abs_err(torch, [(getattr(got, n), getattr(want, n)) for n in names])
 
 
+def first_batch(torch, dev):
+    """The main path's cluster and its first batch of P pods, encoded and
+    through Phase A: (caps, nodes, pods, scheduler, state, batch, the scan's
+    arguments)."""
+    from kubernetes_tpu_torch.ops import solver
+    from kubernetes_tpu_torch.perf.fixtures import make_nodes, make_pods
+    from kubernetes_tpu_torch.perf.harness import default_caps, warm
+    from kubernetes_tpu_torch.scheduler import Scheduler
+    from kubernetes_tpu_torch.state.convert import batch_from_numpy
+    from kubernetes_tpu_torch.state.pod_batch import encode_pods
+
+    caps = default_caps(HEADLINE_NODES, HEADLINE_PODS)
+    assert (caps.num_nodes, caps.batch_pods) == (N, P), caps
+    nodes = make_nodes(HEADLINE_NODES, zones=3)
+    pods = make_pods(HEADLINE_PODS)
+    warm(caps, solver.DEFAULT_POLICY, dev)
+    ref = Scheduler(caps, device=dev)
+    ref.add_nodes(nodes)
+    host_first = encode_pods(pods[:P], caps, ref.statedb.table)
+    state = ref.statedb.flush()
+    first = batch_from_numpy(host_first, dev)
+    g = solver.check_supported(solver.DEFAULT_POLICY,
+                               solver.batch_flags(state, first))
+    masked = solver.masked_static_scores(state, first, solver.DEFAULT_POLICY, g)
+    scan_args = (masked, first.requests, first.nonzero_requests,
+                 state.allocatable, state.requested, state.nonzero_requested, 0)
+    return caps, nodes, pods, ref, state, first, scan_args
+
+
 def main() -> int:
     import torch
 
@@ -181,13 +223,15 @@ def main() -> int:
     from kubernetes_tpu_torch.api.quantity import parse_quantity
     from kubernetes_tpu_torch.native.build import KERNELS, build, build_log
     from kubernetes_tpu_torch.ops import solver
-    from kubernetes_tpu_torch.ops.assign_scan import assign_scan, assign_scan_plain
+    from kubernetes_tpu_torch.ops.assign_scan import (
+        RUNS,
+        assign_scan,
+        assign_scan_plain,
+        node_run,
+    )
     from kubernetes_tpu_torch.ops.static_mask import static_mask, static_mask_plain
-    from kubernetes_tpu_torch.perf.fixtures import make_nodes, make_pods
-    from kubernetes_tpu_torch.perf.harness import default_caps, measure, warm
+    from kubernetes_tpu_torch.perf.harness import measure
     from kubernetes_tpu_torch.scheduler import Scheduler
-    from kubernetes_tpu_torch.state.convert import batch_from_numpy
-    from kubernetes_tpu_torch.state.pod_batch import encode_pods
 
     # the plain versions' selector/taint counts are matmuls: full f32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -229,11 +273,11 @@ def main() -> int:
         "source": "kubernetes_tpu_torch/csrc/static_mask.cu",
         "replaces": "kubernetes_tpu/ops/pallas_kernels.py:78",
         "max_abs_err": mask_err,
-        "ms": time_ms(torch, lambda: static_mask(*args), reps=20),
-        "plain_ms": time_ms(torch, lambda: static_mask_plain(*args), reps=5),
+        **timed(torch, lambda: static_mask(*args), reps=20),
+        "plain_ms": time_ms(torch, lambda: static_mask_plain(*args), reps=5)[0],
         "library_ms": time_ms(torch, lambda: (
             torch.matmul(sel_onehot, sel_member.T),
-            torch.matmul(untol, hard.T)), reps=5),
+            torch.matmul(untol, hard.T)), reps=5)[0],
     }
     k1["bound_ms"], k1["bound_by"] = static_mask_bound(torch, args)
     emit({"phase": "static_mask", "shape": [P, N, US, UT],
@@ -241,51 +285,45 @@ def main() -> int:
     del args, got, want
 
     # ---- 3: assign_scan at the headline shape ----
-    caps = default_caps(HEADLINE_NODES, HEADLINE_PODS)
-    assert (caps.num_nodes, caps.batch_pods) == (N, P), caps
-    nodes = make_nodes(HEADLINE_NODES, zones=3)
-    pods = make_pods(HEADLINE_PODS)
-    warm(caps, solver.DEFAULT_POLICY, dev)
-    ref = Scheduler(caps, device=dev)
-    ref.add_nodes(nodes)
-    host_first = encode_pods(pods[:P], caps, ref.statedb.table)
-    state = ref.statedb.flush()
-    first = batch_from_numpy(host_first, dev)
-    g = solver.check_supported(solver.DEFAULT_POLICY,
-                               solver.batch_flags(state, first))
-    masked = solver.masked_static_scores(state, first, solver.DEFAULT_POLICY, g)
-    scan_args = (masked, first.requests, first.nonzero_requests,
-                 state.allocatable, state.requested, state.nonzero_requested, 0)
+    caps, nodes, pods, ref, state, first, scan_args = first_batch(torch, dev)
     scan_err = compare_scan(torch, assign_scan(*scan_args),
                             assign_scan_plain(*scan_args))
 
     het = scan_inputs(torch, rng, dev)
     het_err = compare_scan(torch, assign_scan(*het), assign_scan_plain(*het))
+    miss = scan_inputs(torch, rng, dev, all_miss=True)
+    miss_err = compare_scan(torch, assign_scan(*miss), assign_scan_plain(*miss))
     k2 = {
         "name": "assign_scan", "route": "cuda",
         "source": "kubernetes_tpu_torch/csrc/assign_scan.cu",
         "replaces": "kubernetes_tpu/ops/solver.py:733",
-        "max_abs_err": max(scan_err, het_err),
-        "ms": time_ms(torch, lambda: assign_scan(*scan_args), reps=5),
-        "plain_ms": time_ms(torch, lambda: assign_scan_plain(*scan_args), reps=1),
+        "max_abs_err": max(scan_err, het_err, miss_err),
+        **timed(torch, lambda: assign_scan(*scan_args), reps=5),
+        "plain_ms": time_ms(torch, lambda: assign_scan_plain(*scan_args), reps=1)[0],
         "library_ms": None,
     }
     k2["bound_ms"], k2["bound_by"] = scan_bound(*scan_args[:6])
     emit({"phase": "assign_scan", "shape": [P, N],
-          "heterogeneous_ms": time_ms(torch, lambda: assign_scan(*het), reps=3),
+          **timed(torch, lambda: assign_scan(*het), 3, "heterogeneous_ms"),
+          **timed(torch, lambda: assign_scan(*miss), 3, "all_miss_ms"),
           **k2})
-    del het, masked
+    del het, miss, scan_args
 
-    # ---- 3b: ragged shapes (tile edges, node padding) on both kernels ----
-    shapes = ((1, 65, 60), (100, 1000, 990), (333, 3000, 2900), (64, 1024, 1024))
+    # ---- 3b: ragged shapes (tile edges, node padding) on both kernels; the
+    # scan at an N for each of its builds (1, 2, 4 and 8 nodes per thread)
+    shapes = ((1, 65, 60), (100, 1000, 990), (333, 3000, 2900), (64, 1024, 1024),
+              (16, 30000, 29000), (16, 40000, 39000), (8, 65536, 65536))
     for p_, n_, live_ in shapes:
         args = static_mask_inputs(torch, rng, dev, p_, n_, live_)
         if not torch.equal(static_mask(*args), static_mask_plain(*args)):
             raise AssertionError(f"static_mask kernel != plain at P={p_} N={n_}")
         sargs = scan_inputs(torch, rng, dev, p_, n_)
         compare_scan(torch, assign_scan(*sargs), assign_scan_plain(*sargs))
+    runs = sorted({node_run(n_) for _, n_, _ in shapes} | {node_run(N)})
+    if runs != list(RUNS):
+        raise AssertionError(f"scan builds checked {runs}, built {RUNS}")
     emit({"phase": "edge_shapes", "shapes": [list(x[:2]) for x in shapes],
-          "kernels_equal_plain": True})
+          "scan_runs": runs, "kernels_equal_plain": True})
 
     # ---- 4: the main path ----
     sched = Scheduler(caps, device=dev)

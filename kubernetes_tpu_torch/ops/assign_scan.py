@@ -3,8 +3,8 @@
 Counterpart of the reference solver's `lax.scan` over the pods
 (kubernetes_tpu/ops/solver.py `step` and `_select_host`), which has no
 Pallas source: in eager PyTorch each pod would cost about fifteen launches,
-so the whole scan is one CUDA launch (csrc/assign_scan.cu; its header
-gives the design and the bound).
+so the whole scan is one CUDA launch of one thread-block cluster
+(csrc/assign_scan.cu; its header gives the design and the bound).
 
 `assign_scan` is the wrapper: on CUDA tensors it launches the kernel (and
 counts the launch in `assign_scan.launches`), on CPU tensors it runs
@@ -84,30 +84,20 @@ def assign_scan_plain(masked_static, requests, nonzero_requests, allocatable,
     return ScanResult(assignments, scores, counts, req, nz, rr)
 
 
-_ARGTYPES = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 2
+_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 3
              + [ctypes.c_float] * 2 + [ctypes.c_void_p])
-THREADS = 1024   # the kernel's block: thread t owns nodes [t*run, (t+1)*run)
-MAX_RUN = 64     # nodes per thread (the width of the kernel's tie mask)
+CLUSTER = 16        # blocks of the kernel's thread-block cluster
+THREADS = 512       # threads of one block
+RUNS = (1, 2, 4, 8)  # nodes per thread the kernel is built for
 
 
-def _interleave(x: torch.Tensor, n_pad: int, fill: float) -> torch.Tensor:
-    """[..., n] -> [..., n_pad] with node t*run + j at column j*THREADS + t
-    (run = n_pad / THREADS), padded with `fill`: the kernel's coalesced
-    layout of the node axis. Always a fresh tensor (the kernel updates the
-    ledger columns in place)."""
-    n = x.shape[-1]
-    if n_pad != n:
-        x = torch.nn.functional.pad(x, (0, n_pad - n), value=fill)
-    lead = x.shape[:-1]
-    return (x.reshape(*lead, THREADS, n_pad // THREADS).transpose(-1, -2)
-            .clone(memory_format=torch.contiguous_format).reshape(*lead, n_pad))
-
-
-def _deinterleave(cols: torch.Tensor, n: int) -> torch.Tensor:
-    """The kernel's [F, n_pad] ledger columns back to the state's [n, F]."""
-    f, n_pad = cols.shape
-    return (cols.reshape(f, n_pad // THREADS, THREADS).transpose(1, 2)
-            .reshape(f, n_pad)[:, :n].T.contiguous())
+def node_run(n: int) -> int:
+    """Nodes per thread: the smallest run with which the cluster holds n
+    nodes; ValueError past the largest (CLUSTER * THREADS * 8 = 65,536)."""
+    for run in RUNS:
+        if CLUSTER * THREADS * run >= n:
+            return run
+    raise ValueError(f"assign_scan: {n} nodes > {CLUSTER * THREADS * RUNS[-1]}")
 
 
 def assign_scan(masked_static, requests, nonzero_requests, allocatable,
@@ -140,36 +130,29 @@ def assign_scan(masked_static, requests, nonzero_requests, allocatable,
                                  w_lr, w_ba)
     if dev.type != "cuda":
         raise ValueError(f"assign_scan: unsupported device {dev}")
+    run = node_run(n)
     from kubernetes_tpu_torch.native.build import load
 
     fn = load("assign_scan").ktpu_assign_scan
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
-    n_pad = max(THREADS, -(-n // THREADS) * THREADS)
-    if n_pad > MAX_RUN * THREADS:
-        raise ValueError(f"assign_scan: {n} nodes > {MAX_RUN * THREADS}")
-    ms = _interleave(masked_static, n_pad, float("-inf"))
-    alloc = _interleave(allocatable[:, :3].T, n_pad, 0.0)
-    req = _interleave(requested.T, n_pad, 0.0)
-    nz = _interleave(nonzero.T, n_pad, 0.0)
-    terms = torch.empty((2, n_pad), dtype=f32, device=dev)  # kernel scratch
+    req = requested.clone()   # the kernel updates the ledger in place
+    nz = nonzero.clone()
     rr = _rr_tensor(rr_start, dev).reshape(1).clone()
     assignments = torch.empty((p,), dtype=torch.int32, device=dev)
     scores = torch.empty((p,), dtype=f32, device=dev)
     counts = torch.empty((p,), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(ms.data_ptr(), requests.data_ptr(),
-                 nonzero_requests.data_ptr(), alloc.data_ptr(),
-                 req.data_ptr(), nz.data_ptr(), terms[0].data_ptr(),
-                 terms[1].data_ptr(), assignments.data_ptr(),
+        err = fn(masked_static.data_ptr(), requests.data_ptr(),
+                 nonzero_requests.data_ptr(), allocatable.data_ptr(),
+                 req.data_ptr(), nz.data_ptr(), assignments.data_ptr(),
                  scores.data_ptr(), counts.data_ptr(), rr.data_ptr(),
-                 p, n_pad, float(w_lr), float(w_ba), stream)
+                 p, n, run, float(w_lr), float(w_ba), stream)
     if err != 0:
         raise RuntimeError(f"assign_scan kernel launch failed: CUDA error {err}")
     assign_scan.launches += 1
-    return ScanResult(assignments, scores, counts, _deinterleave(req, n),
-                      _deinterleave(nz, n), rr.reshape(()))
+    return ScanResult(assignments, scores, counts, req, nz, rr.reshape(()))
 
 
 assign_scan.launches = 0

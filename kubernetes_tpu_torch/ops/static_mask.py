@@ -8,7 +8,9 @@ is csrc/static_mask.cu (its header gives the design and the bound).
 
 `static_mask` is the wrapper: on CUDA tensors it launches the kernel (and
 counts the launch in `static_mask.launches`), on CPU tensors it computes
-`static_mask_plain`, the same function in plain PyTorch.
+`static_mask_plain`, the same function in plain PyTorch. The kernel packs
+its four matching operands into bit sets; `pack_bits_plain` is that
+packing's layout in plain PyTorch.
 """
 
 from __future__ import annotations
@@ -52,7 +54,19 @@ def static_mask_plain(sel_onehot, sel_count, untol, best_effort, pod_lo,
     return ok
 
 
-_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+def pack_bits_plain(x: torch.Tensor) -> torch.Tensor:
+    """i32[R, ceil(K/32)] from [R, K]: bit b of word w is `x[:, 32w + b] !=
+    0`, zero past column K. The layout in which the kernel packs each
+    matching operand (its selector words, then its taint words)."""
+    rows, k = x.shape
+    words = -(-k // 32)
+    bits = torch.nn.functional.pad(x != 0, (0, 32 * words - k))
+    shifts = torch.arange(32, dtype=torch.int64, device=x.device)
+    packed = (bits.reshape(rows, words, 32).to(torch.int64) << shifts).sum(-1)
+    return torch.where(packed >= 2**31, packed - 2**32, packed).to(torch.int32)
+
+
+_ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
 def static_mask(sel_onehot, sel_count, untol, best_effort, pod_lo, pod_hi,
@@ -62,7 +76,12 @@ def static_mask(sel_onehot, sel_count, untol, best_effort, pod_lo, pod_hi,
     Pod side: sel_onehot f32[P, US], sel_count f32[P], untol f32[P, UT],
     best_effort bool[P], pod_lo / pod_hi i32[P] (nodeName hash lanes, 0 =
     unpinned). Node side: sel_member f32[N, US], hard_member f32[N, UT],
-    bits i32[N] (`node_bits`), name_lo / name_hi i32[N]."""
+    bits i32[N] (`node_bits`), name_lo / name_hi i32[N].
+
+    The kernel reads sel_onehot, untol, sel_member and hard_member as bit
+    sets (`pack_bits_plain`): it equals `static_mask_plain` when their
+    entries are 0 or 1, which the encoders guarantee (one-hot selector
+    terms, membership rows, untol = 1 - tolerated)."""
     p, us = sel_onehot.shape
     n = sel_member.shape[0]
     ut = untol.shape[1]
@@ -91,13 +110,16 @@ def static_mask(sel_onehot, sel_count, untol, best_effort, pod_lo, pod_hi,
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
     out = torch.empty((p, n), dtype=torch.bool, device=dev)
+    # kernel scratch: the packed pod rows, then the packed node rows
+    words = torch.empty((p + n, -(-us // 32) + -(-ut // 32)), dtype=i32,
+                        device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(sel_onehot.data_ptr(), sel_count.data_ptr(), untol.data_ptr(),
                  best_effort.data_ptr(), pod_lo.data_ptr(), pod_hi.data_ptr(),
                  sel_member.data_ptr(), hard_member.data_ptr(), bits.data_ptr(),
                  name_lo.data_ptr(), name_hi.data_ptr(), out.data_ptr(),
-                 p, n, us, ut, stream)
+                 words.data_ptr(), p, n, us, ut, stream)
     if err != 0:
         raise RuntimeError(f"static_mask kernel launch failed: CUDA error {err}")
     static_mask.launches += 1

@@ -162,24 +162,75 @@ def test_assign_scan_wrapper_on_cpu_is_the_plain_version():
                     state.requested, state.nonzero_requested, 0)
 
 
-@pytest.mark.parametrize("n", [1, 1000, 1024, 3000])
-def test_assign_scan_layout_keeps_node_runs(n):
-    """The kernel's interleaved node layout: thread t's run of nodes
-    [t*run, (t+1)*run) lies at columns j*THREADS + t, padding fills the
-    tail, and the ledger columns come back in node order."""
-    from kubernetes_tpu_torch.ops.assign_scan import (
-        THREADS,
-        _deinterleave,
-        _interleave,
-    )
+@pytest.mark.parametrize("n", [1, 1000, 1024, 3000, 16384, 65536])
+def test_assign_scan_partition_keeps_node_order(n):
+    """The wrapper's side of the node partition only: it takes the smallest
+    run of nodes per thread with which the cluster holds n nodes, and hands
+    the ledger back as [n, F]. The partition itself (block ranges, thread
+    runs, -inf padding, the kernel's ledger write-back) runs only on the
+    card, where chip_smoke.py holds the kernel exactly against
+    assign_scan_plain at an n for every run."""
+    from kubernetes_tpu_torch.ops.assign_scan import CLUSTER, RUNS, THREADS, node_run
 
-    x = torch.arange(2 * n, dtype=torch.float32).reshape(2, n)
-    n_pad = max(THREADS, -(-n // THREADS) * THREADS)
-    cols = _interleave(x, n_pad, -1.0)
-    run = n_pad // THREADS
-    assert cols.shape == (2, n_pad) and cols.is_contiguous()
-    for node in {0, n - 1, n // 2, min(n, n_pad - 1)}:
-        t, j = divmod(node, run)
-        want = x[:, node] if node < n else torch.full((2,), -1.0)
-        assert torch.equal(cols[:, j * THREADS + t], want), node
-    assert torch.equal(_deinterleave(cols, n), x.T)
+    run = node_run(n)
+    assert run in RUNS and CLUSTER * THREADS * run >= n
+    assert run == RUNS[0] or CLUSTER * THREADS * (run // 2) < n
+
+    rng = np.random.RandomState(n % 1000)
+    alloc = torch.from_numpy(rng.randint(1, 9, (n, 6)).astype(np.float32) * 1000)
+    masked = torch.from_numpy(np.where(rng.rand(2, n) < 0.5, 1.0, -np.inf)
+                              .astype(np.float32))
+    requests = torch.tensor([[1.0, 100, 100, 0, 0, 0]] * 2)
+    got = assign_scan(masked, requests, requests[:, 1:3].contiguous(), alloc,
+                      torch.zeros(n, 6), torch.zeros(n, 2), 0)
+    assert got.new_requested.shape == (n, 6) and got.new_nonzero.shape == (n, 2)
+    assert float(got.new_requested[:, 0].sum()) == float((got.assignments >= 0).sum())
+
+
+def test_assign_scan_refuses_more_nodes_than_the_cluster_holds():
+    from kubernetes_tpu_torch.ops.assign_scan import node_run
+
+    assert node_run(65536) == 8
+    with pytest.raises(ValueError, match="65537 nodes"):
+        node_run(65537)
+
+
+@pytest.mark.parametrize("width", [128, 64, 45])
+def test_pack_bits_matches_numpy_packbits(width):
+    """The kernel's bit-set layout of a 0/1 operand: bit b of word w is
+    column 32w + b, zero past the last column (numpy's little-endian
+    packbits, read as little-endian 32-bit words)."""
+    from kubernetes_tpu_torch.ops.static_mask import pack_bits_plain
+
+    rng = np.random.RandomState(width)
+    x = (rng.rand(37, width) < 0.3).astype(np.float32)
+    x[0] = 1.0  # every bit of a word set: the sign bit of the i32 word
+    words = -(-width // 32)
+    padded = np.zeros((37, 32 * words), bool)
+    padded[:, :width] = x != 0
+    want = np.packbits(padded, axis=1, bitorder="little").view("<u4").view(np.int32)
+    got = pack_bits_plain(torch.from_numpy(x))
+    assert got.dtype == torch.int32 and got.shape == (37, words)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("width", [128, 64, 45])
+def test_bit_set_counts_equal_the_products(width):
+    """What the mask kernel computes from the packed words equals what the
+    plain version computes with products, for 0/1 operands: the popcount of
+    the ANDed words is the dot product, and their OR is zero exactly when
+    the product is."""
+    from kubernetes_tpu_torch.ops.static_mask import pack_bits_plain
+
+    rng = np.random.RandomState(100 + width)
+    a = torch.from_numpy((rng.rand(29, width) < 0.2).astype(np.float32))
+    b = torch.from_numpy((rng.rand(41, width) < 0.2).astype(np.float32))
+    pa = pack_bits_plain(a).to(torch.int64) & 0xFFFFFFFF
+    pb = pack_bits_plain(b).to(torch.int64) & 0xFFFFFFFF
+    both = pa[:, None, :] & pb[None, :, :]               # [29, 41, words]
+    popc = sum(((both >> i) & 1) for i in range(32)).sum(-1)
+    product = torch.matmul(a, b.T)
+    np.testing.assert_array_equal(popc.numpy(), product.numpy().astype(np.int64))
+    any_bit = (both != 0).any(-1)
+    np.testing.assert_array_equal(any_bit.numpy(), (product != 0).numpy())
+    assert (product != 0).any() and (product == 0).any()
