@@ -21,11 +21,26 @@ fails; nothing is caught and skipped:
    each kernel time is reported as median, min and max; then both
    kernels against their plain versions at ragged shapes (tile edges,
    node padding), which reach every build of the scan (N up to 65,536);
-4. the main path: Scheduler(device="cuda") places 30,000 pods on 15,000
-   nodes in 3 zones; every pod must be placed, no node may exceed its
-   allocatable (recomputed on the host), both kernels must have launched,
-   and the first batch must equal the plain path on the card;
-5. the kernels line, the nvidia-smi line, and last the result line.
+4. packed_batch: the main path's first batch encoded through the
+   EncodeCache into page-locked blobs, uploaded and unpacked on the card,
+   must equal the fresh encoding (encode_pods, batch_from_numpy) field for
+   field, exactly; times both encodings and the upload;
+5. the main path: Scheduler(device="cuda") places 30,000 pods on 15,000
+   nodes in 3 zones through the encode cache; every pod must be placed and
+   go through the cache, no node may exceed its allocatable (recomputed on
+   the host), both kernels must have launched, and the first batch must
+   equal the plain path on the card;
+6. many_classes: the main path again on a backlog where every pod is its
+   own class (30,000 distinct memory requests, more classes than the
+   cache keeps), so every pod misses and is encoded; every pod must be
+   placed, within allocatable, and both kernels must have launched;
+7. lifecycle, at 15,000 nodes: 15,000 bound pods accounted, 1,000 of them
+   removed, 100 nodes removed and 100 added on the freed rows, then 4,096
+   pods scheduled through the cache; the kernel path must equal
+   schedule_batch_plain on the same flushed state, both kernels must have
+   launched, and every node's pods, cpu and memory (bound pods included),
+   recomputed on the host, must equal its ledger row and fit allocatable;
+8. the kernels line, the nvidia-smi line, and last the result line.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
@@ -33,6 +48,8 @@ checkout of the repository.
 
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
 import statistics
 import subprocess
@@ -184,6 +201,49 @@ def compare_scan(torch, got, want) -> float:
     return max_abs_err(torch, [(getattr(got, n), getattr(want, n)) for n in names])
 
 
+def many_class_pod_dicts(n: int) -> list[dict]:
+    """n pending pods, each its own equivalence class: make_pods' spec with
+    memory requests 250Mi + k KiB (k < n)."""
+    return [{"metadata": {"name": f"distinct-{k}", "namespace": "default"},
+             "spec": {"containers": [{
+                 "name": "app", "image": "k8s.gcr.io/pause:3.0",
+                 "resources": {"requests": {"cpu": "100m",
+                                            "memory": f"{256000 + k}Ki"}}}]}}
+            for k in range(n)]
+
+
+def check_load(pods, placements: dict, nodes) -> dict:
+    """Recompute every node's pods, cpu and memory from the placements on
+    the host; raise if one is over its allocatable. Returns the load."""
+    from kubernetes_tpu_torch.api.quantity import parse_quantity
+
+    by_key = {p.key: p for p in pods}
+    load: dict[str, list] = {}
+    for key, node in placements.items():
+        acc = load.setdefault(node, [0, 0, 0])
+        requests = by_key[key].spec.containers[0].requests
+        acc[0] += 1
+        acc[1] += parse_quantity(requests["cpu"])
+        acc[2] += parse_quantity(requests["memory"])
+    alloc_of = {n.metadata.name: n.status.allocatable for n in nodes}
+    for node, (npods, cpu, mem) in load.items():
+        a = alloc_of[node]
+        if (npods > int(a["pods"]) or cpu > parse_quantity(a["cpu"])
+                or mem > parse_quantity(a["memory"])):
+            raise AssertionError(f"node {node} over allocatable: "
+                                 f"{npods} pods, cpu {cpu}, memory {mem}")
+    return load
+
+
+def run_fields(result) -> dict:
+    """The timing fields of a harness ThroughputResult."""
+    return {"scheduled": result.scheduled, "seconds": result.seconds,
+            "pods_per_sec": result.pods_per_sec, "batches": result.batches,
+            "ms_per_solve": result.ms_per_solve,
+            "ms_encode_per_batch": result.ms_encode_per_batch,
+            "cache_hits": result.cache_hits, "cache_misses": result.cache_misses}
+
+
 def first_batch(torch, dev):
     """The main path's cluster and its first batch of P pods, encoded and
     through Phase A: (caps, nodes, pods, scheduler, state, batch, the scan's
@@ -213,6 +273,134 @@ def first_batch(torch, dev):
     return caps, nodes, pods, ref, state, first, scan_args
 
 
+def packed_batch_phase(torch, caps, nodes, pods, dev) -> dict:
+    """The first batch through the cache and the blobs against the fresh
+    encoding, field by field; raises on any difference."""
+    from kubernetes_tpu_torch.scheduler import Scheduler
+    from kubernetes_tpu_torch.state.convert import (
+        batch_from_numpy,
+        host_blobs,
+        upload_blobs,
+    )
+    from kubernetes_tpu_torch.state.encode_cache import EncodeCache
+    from kubernetes_tpu_torch.state.pod_batch import (
+        BATCH_FIELDS,
+        blob_widths,
+        encode_pods,
+        unpack_batch,
+    )
+
+    sched = Scheduler(caps, device=dev)
+    sched.add_nodes(nodes)
+    table = sched.statedb.table
+    cache = EncodeCache(caps, table)
+    fpin, ipin = host_blobs(P, *blob_widths(caps), dev)
+    fblob, iblob = fpin.numpy(), ipin.numpy()
+    # garbage of earlier phases is collected outside each timed region
+    gc.collect()
+    t0 = time.perf_counter()
+    fresh = batch_from_numpy(encode_pods(pods[:P], caps, table), dev)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    gc.collect()
+    t1b = time.perf_counter()
+    for i, pod in enumerate(pods[:P]):
+        cache.encode_packed_into(fblob, iblob, i, pod)
+    t2 = time.perf_counter()
+    packed = unpack_batch(*upload_blobs(fpin, ipin, dev), caps)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    for name in BATCH_FIELDS:
+        a, b = getattr(packed, name), getattr(fresh, name)
+        if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(a, b):
+            raise AssertionError(f"packed batch != fresh encoding on {name}")
+    return {"phase": "packed_batch", "pods": P, "fields": len(BATCH_FIELDS),
+            "blob_widths": list(blob_widths(caps)),
+            "blob_bytes": fblob.nbytes + iblob.nbytes,
+            "pinned": bool(fpin.is_pinned()),
+            "cache_hits": cache.hits, "cache_misses": cache.misses,
+            "fresh_encode_upload_ms": 1e3 * (t1 - t0),
+            "cached_encode_ms": 1e3 * (t2 - t1b),
+            "upload_unpack_ms": 1e3 * (t3 - t2), "equal": True}
+
+
+def lifecycle_phase(torch, caps, dev, kernels) -> dict:
+    """Bound pods, deletions, node removal and row reuse at 15,000 nodes,
+    then one batch through the cache, held against the plain path on the
+    same flushed state and against a host recompute of every node."""
+    from kubernetes_tpu_torch.api.quantity import parse_quantity
+    from kubernetes_tpu_torch.ops import solver
+    from kubernetes_tpu_torch.perf.fixtures import make_nodes, make_pods
+    from kubernetes_tpu_torch.scheduler import Scheduler
+    from kubernetes_tpu_torch.state.convert import batch_from_numpy, host_tensor
+    from kubernetes_tpu_torch.state.pod_batch import encode_pods
+
+    removed = [f"node-{k}" for k in range(0, HEADLINE_NODES, 150)]
+    all_nodes = make_nodes(HEADLINE_NODES + len(removed), zones=3)
+    nodes, extra = all_nodes[:HEADLINE_NODES], all_nodes[HEADLINE_NODES:]
+    sched = Scheduler(caps, device=dev)
+    sched.add_nodes(nodes)
+    db, table = sched.statedb, sched.statedb.table
+    bound = make_pods(HEADLINE_NODES, cpu="300m", memory="700Mi",
+                      name_prefix="bound")
+    on = {}
+    for k, pod in enumerate(bound):
+        on[pod.key] = nodes[k].metadata.name
+        if not sched.add_pod(pod, on[pod.key]):
+            raise AssertionError(f"{pod.key} not accounted")
+    for pod in bound[::15]:
+        sched.remove_pod(pod.key)
+        del on[pod.key]
+    freed = [table.row_of[name] for name in removed]
+    for name in removed:
+        sched.remove_node(name)
+    on = {k: v for k, v in on.items() if v not in set(removed)}
+    sched.add_nodes(extra)
+    reused = [table.row_of[n.metadata.name] for n in extra]
+    if reused != freed[::-1] or any(db.has_node(name) for name in removed):
+        raise AssertionError("new nodes did not take the freed rows last-in first-out")
+    if [p.key for p in bound if db.is_accounted(p.key)] != list(on):
+        raise AssertionError("accounted bound pods differ from the expected set")
+
+    state0 = dataclasses.replace(db.flush())
+    pending = make_pods(P, name_prefix="pending")
+    first = batch_from_numpy(encode_pods(pending, caps, table), dev)
+    for k in kernels:
+        k.launches = 0
+    placed = sched.schedule(pending)
+    launches = {k.__name__: k.launches for k in kernels}
+    if not all(launches.values()):
+        raise AssertionError(f"kernels not launched in the lifecycle run: {launches}")
+    plain = solver.schedule_batch_plain(state0, first, 0)
+    compare_scan(torch, sched.last_result, plain)
+    names = [table.name_of[r] if r >= 0 else None for r in plain.assignments.tolist()]
+    if names != [placed[p.key] for p in pending]:
+        raise AssertionError("lifecycle placements != the plain path's")
+    # host recompute of every live node: (pods, cpu milli, memory MiB)
+    want = np.zeros((caps.num_nodes, 3), np.float64)
+    by_key = {p.key: p for p in bound + pending}
+    for key, node in list(on.items()) + list(placed.items()):
+        if node is None:
+            continue
+        req = by_key[key].spec.containers[0].requests
+        want[table.row_of[node]] += (1, float(parse_quantity(req["cpu"]) * 1000),
+                                     float(parse_quantity(req["memory"]) / 2**20))
+    got = db.host.requested[:, :3].astype(np.float64)
+    if not np.array_equal(got, want):
+        raise AssertionError("host ledger != recompute of bound and placed pods")
+    alloc = db.host.allocatable[:, :3]
+    if (want > alloc).any():
+        raise AssertionError("a node is over its allocatable")
+    if not torch.equal(db.flush().requested, host_tensor(db.host.requested).to(dev)):
+        raise AssertionError("device ledger != host ledger after the batch")
+    return {"phase": "lifecycle", "nodes": HEADLINE_NODES, "bound": len(bound),
+            "bound_removed": len(bound[::15]), "nodes_removed": len(removed),
+            "nodes_added": len(extra), "accounted_bound": len(on),
+            "scheduled": sum(v is not None for v in placed.values()),
+            "pods": len(pending), "launches": launches,
+            "equals_plain": True, "host_recompute_equal": True}
+
+
 def main() -> int:
     import torch
 
@@ -220,7 +408,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
         return 2
-    from kubernetes_tpu_torch.api.quantity import parse_quantity
+    from kubernetes_tpu_torch.api.objects import Pod
     from kubernetes_tpu_torch.native.build import KERNELS, build, build_log
     from kubernetes_tpu_torch.ops import solver
     from kubernetes_tpu_torch.ops.assign_scan import (
@@ -325,7 +513,10 @@ def main() -> int:
     emit({"phase": "edge_shapes", "shapes": [list(x[:2]) for x in shapes],
           "scan_runs": runs, "kernels_equal_plain": True})
 
-    # ---- 4: the main path ----
+    # ---- 4: the first batch through the cache and the blobs ----
+    emit(packed_batch_phase(torch, caps, nodes, pods, dev))
+
+    # ---- 5: the main path ----
     sched = Scheduler(caps, device=dev)
     sched.add_nodes(nodes)
     static_mask.launches = 0
@@ -335,25 +526,13 @@ def main() -> int:
     k2["launches"] = assign_scan.launches
     if result.scheduled != HEADLINE_PODS:
         raise AssertionError(f"placed {result.scheduled}/{HEADLINE_PODS} pods")
+    if result.cache_hits + result.cache_misses != HEADLINE_PODS:
+        raise AssertionError(f"{result.cache_hits} hits + {result.cache_misses} "
+                             f"misses for {HEADLINE_PODS} pods")
     if not (k1["launches"] > 0 and k2["launches"] > 0):
         raise AssertionError(f"kernels not launched on the main path: "
                              f"{k1['launches']}, {k2['launches']}")
-    # host recompute: per-node pods, cpu and memory against allocatable
-    by_key = {p.key: p for p in pods}
-    load: dict[str, list] = {}
-    for key, node in result.placements.items():
-        acc = load.setdefault(node, [0, 0, 0])
-        requests = by_key[key].spec.containers[0].requests
-        acc[0] += 1
-        acc[1] += parse_quantity(requests["cpu"])
-        acc[2] += parse_quantity(requests["memory"])
-    alloc_of = {n.metadata.name: n.status.allocatable for n in nodes}
-    for node, (npods, cpu, mem) in load.items():
-        a = alloc_of[node]
-        if (npods > int(a["pods"]) or cpu > parse_quantity(a["cpu"])
-                or mem > parse_quantity(a["memory"])):
-            raise AssertionError(f"node {node} over allocatable: "
-                                 f"{npods} pods, cpu {cpu}, memory {mem}")
+    load = check_load(pods, result.placements, nodes)
     # the first batch against the plain path on the card, same inputs
     kern = solver.schedule_batch(state, first, 0)
     plain = solver.schedule_batch_plain(state, first, 0)
@@ -363,15 +542,37 @@ def main() -> int:
     if first_names != [result.placements[p.key] for p in pods[:P]]:
         raise AssertionError("main path's first batch != the solver on its inputs")
     emit({"phase": "main_path", "nodes": HEADLINE_NODES, "pods": HEADLINE_PODS,
-          "caps": [caps.num_nodes, caps.batch_pods], "scheduled": result.scheduled,
-          "seconds": result.seconds, "pods_per_sec": result.pods_per_sec,
-          "batches": result.batches, "ms_per_solve": result.ms_per_solve,
-          "ms_encode_per_batch": result.ms_encode_per_batch,
+          "caps": [caps.num_nodes, caps.batch_pods], **run_fields(result),
           "nodes_used": len(load), "max_pods_per_node": max(v[0] for v in load.values()),
           "launches": {"static_mask": k1["launches"], "assign_scan": k2["launches"]},
           "first_batch_equals_plain": True})
+    del result, sched, load
 
-    # ---- 5: kernels line, card line, result line ----
+    # ---- 6: the main path where every pod misses the encode cache ----
+    distinct = [Pod.from_dict(d) for d in many_class_pod_dicts(HEADLINE_PODS)]
+    sched = Scheduler(caps, device=dev)
+    sched.add_nodes(nodes)
+    static_mask.launches = 0
+    assign_scan.launches = 0
+    result = measure(sched, distinct)
+    launches = {"static_mask": static_mask.launches,
+                "assign_scan": assign_scan.launches}
+    if result.scheduled != HEADLINE_PODS:
+        raise AssertionError(f"many classes: placed {result.scheduled}/{HEADLINE_PODS}")
+    if (result.cache_hits, result.cache_misses) != (0, HEADLINE_PODS):
+        raise AssertionError(f"many classes: {result.cache_hits} hits, "
+                             f"{result.cache_misses} misses")
+    if not all(launches.values()):
+        raise AssertionError(f"kernels not launched on many classes: {launches}")
+    load = check_load(distinct, result.placements, nodes)
+    emit({"phase": "many_classes", "nodes": HEADLINE_NODES, "pods": HEADLINE_PODS,
+          **run_fields(result), "nodes_used": len(load), "launches": launches})
+    del result, sched, load, distinct
+
+    # ---- 7: the StateDB's pod and node lifecycle ----
+    emit(lifecycle_phase(torch, caps, dev, (static_mask, assign_scan)))
+
+    # ---- 8: kernels line, card line, result line ----
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [{k: entry[k] for k in keys} for entry in (k1, k2)]})

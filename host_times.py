@@ -1,0 +1,111 @@
+#!/usr/bin/env python3
+"""Time `Scheduler.schedule` end to end at the headline cell on two kinds of
+pending traffic, for comparing two trees of the repository on one card.
+
+    python3 host_times.py [--root DIR] [--reps K]
+
+Imports `kubernetes_tpu_torch` from DIR (default: this file's directory),
+so `--root` can point at an unpacked older commit: its kernels are built
+from its own sources and its Scheduler places the same pods on the same
+15,000 nodes (3 zones, padded to N=16384, batches of P=4096):
+
+- one_class: chip_smoke.py's main-path backlog, 30,000 `make_pods` pods
+  with one spec (one equivalence class);
+- many_classes: 30,000 pods whose memory requests all differ
+  (chip_smoke.py `many_class_pod_dicts`), so an encode cache misses on
+  every pod.
+
+Each traffic runs K times (default 2), each on a fresh Scheduler after the
+kernels are built and warmed. The script collects garbage before each
+clock starts, for every tree alike, and reads each tree's own per-batch
+timers. Prints one JSON line: the card (nvidia-smi name and power limit),
+the root, and for each run pods/s, the whole run in ms, the tree's
+`encode_seconds` and `solve_seconds` per batch in ms (a tree defines its
+encode window itself), the remainder (the run less both), and the cache's
+hits and misses where the tree has a cache. Exits non-zero without a CUDA
+device or when a run leaves a pod unplaced.
+"""
+
+from __future__ import annotations
+
+import argparse
+import gc
+import importlib.util
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parent
+
+
+def run(torch, sched, pods) -> dict:
+    cache = getattr(sched, "encode_cache", None)
+    hits0, misses0 = (cache.hits, cache.misses) if cache else (None, None)
+    gc.collect()
+    t0 = time.perf_counter()
+    placed = sched.schedule(pods)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    if sum(v is not None for v in placed.values()) != len(pods):
+        raise AssertionError(f"{len(pods) - sum(v is not None for v in placed.values())}"
+                             f" of {len(pods)} pods unplaced")
+    enc, sol = sched.encode_seconds, sched.solve_seconds
+    return {"pods_per_sec": len(pods) / seconds, "ms": 1e3 * seconds,
+            "batches": len(enc),
+            "ms_encode_per_batch": 1e3 * sum(enc) / len(enc),
+            "ms_per_solve": 1e3 * sum(sol) / len(sol),
+            "remainder_ms": 1e3 * (seconds - sum(enc) - sum(sol)),
+            "cache_hits": cache.hits - hits0 if cache else None,
+            "cache_misses": cache.misses - misses0 if cache else None}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", type=Path, default=HERE)
+    ap.add_argument("--reps", type=int, default=2)
+    opts = ap.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("host_times: no CUDA device", file=sys.stderr)
+        return 2
+    spec = importlib.util.spec_from_file_location("smoke", HERE / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    sys.path.insert(0, str(opts.root.resolve()))
+    from kubernetes_tpu_torch.api.objects import Pod
+    from kubernetes_tpu_torch.models.policy import DEFAULT_POLICY
+    from kubernetes_tpu_torch.native.build import build
+    from kubernetes_tpu_torch.perf.fixtures import make_nodes, make_pods
+    from kubernetes_tpu_torch.perf.harness import default_caps, warm
+    from kubernetes_tpu_torch.scheduler import Scheduler
+
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    build()
+    caps = default_caps(smoke.HEADLINE_NODES, smoke.HEADLINE_PODS)
+    warm(caps, DEFAULT_POLICY, dev)
+    nodes = make_nodes(smoke.HEADLINE_NODES, zones=3)
+    traffic = {
+        "one_class": make_pods(smoke.HEADLINE_PODS),
+        "many_classes": [Pod.from_dict(d) for d in
+                         smoke.many_class_pod_dicts(smoke.HEADLINE_PODS)],
+    }
+    out = {"nvidia_smi": smi.splitlines()[0], "root": str(opts.root.resolve())}
+    for name, pods in traffic.items():
+        out[name] = []
+        for _ in range(opts.reps):
+            sched = Scheduler(caps, device=dev)
+            sched.add_nodes(nodes)
+            out[name].append(run(torch, sched, pods))
+            del sched
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

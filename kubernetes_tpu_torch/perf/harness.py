@@ -1,11 +1,13 @@
 """Throughput harness: the scheduler_perf equivalent for this package.
 
-- `run_device_solve` times the solver alone: one encoded batch solved
-  `iters` times against device-resident state, chained through the
-  round-robin counter, with one synchronization at the end.
+- `run_device_solve` times the solver alone: one batch, encoded through
+  the EncodeCache into packed blobs and uploaded once, solved `iters`
+  times against device-resident state, chained through the round-robin
+  counter, with one synchronization at the end.
 - `run_throughput` times `Scheduler.schedule` end to end over a fixture
-  cluster (encode, upload, solve, readback, ledger commit) and reports
-  pods/s and ms per solve.
+  cluster (encode through the cache, upload, solve, readback, ledger
+  commit) and reports pods/s, ms per solve and the cache's hits and
+  misses.
 
 Both build the CUDA kernels and warm the device before the clock starts,
 and run on `cuda` unless given another device.
@@ -13,6 +15,7 @@ and run on `cuda` unless given another device.
 
 from __future__ import annotations
 
+import gc
 import time
 from dataclasses import dataclass, field
 
@@ -22,9 +25,14 @@ from kubernetes_tpu_torch.models.policy import DEFAULT_POLICY, Policy
 from kubernetes_tpu_torch.ops.solver import schedule_batch
 from kubernetes_tpu_torch.perf.fixtures import make_nodes, make_pods
 from kubernetes_tpu_torch.scheduler.driver import Scheduler
-from kubernetes_tpu_torch.state.convert import batch_from_numpy
+from kubernetes_tpu_torch.state.convert import upload_blobs
 from kubernetes_tpu_torch.state.layout import Capacities
-from kubernetes_tpu_torch.state.pod_batch import encode_pods
+from kubernetes_tpu_torch.state.pod_batch import (
+    empty_batch,
+    pack_batch,
+    packed_batch_flags,
+    unpack_batch,
+)
 from kubernetes_tpu_torch.utils.device import resolve_device
 
 
@@ -81,15 +89,19 @@ def run_device_solve(n_nodes: int, batch_pods: int = 4096, iters: int = 16,
     warm(caps, policy, dev)
     sched = Scheduler(caps, policy, dev)
     sched.add_nodes(make_nodes(n_nodes, **(node_kwargs or {})))
-    host = encode_pods(make_pods(batch_pods, **(pod_kwargs or {})), caps,
-                       sched.statedb.table)
+    fblob, iblob = pack_batch(empty_batch(caps), caps)
+    for i, pod in enumerate(make_pods(batch_pods, **(pod_kwargs or {}))):
+        sched.encode_cache.encode_packed_into(fblob, iblob, i, pod)
+    flags = packed_batch_flags(fblob, iblob, batch_pods, sched.statedb.host,
+                               caps)
     state = sched.statedb.flush()
-    batch = batch_from_numpy(host, dev)
-    rr = schedule_batch(state, batch, 0, policy).rr_end
+    # the batch stays on the device: this times the solver, not the upload
+    batch = unpack_batch(*upload_blobs(fblob, iblob, dev), caps)
+    rr = schedule_batch(state, batch, 0, policy, flags).rr_end
     _sync(dev)
     t0 = time.perf_counter()
     for _ in range(iters):
-        rr = schedule_batch(state, batch, rr, policy).rr_end
+        rr = schedule_batch(state, batch, rr, policy, flags).rr_end
     _sync(dev)
     dt = time.perf_counter() - t0
     return DeviceSolveResult(
@@ -108,6 +120,8 @@ class ThroughputResult:
     batches: int
     ms_per_solve: float         # mean host time from dispatch to assignments
     ms_encode_per_batch: float  # mean host time to encode + upload a batch
+    cache_hits: int             # EncodeCache hits and misses in the run
+    cache_misses: int
     device: str
     placements: dict = field(default_factory=dict, repr=False)
 
@@ -118,9 +132,13 @@ class ThroughputResult:
 
 
 def measure(sched: Scheduler, pods) -> ThroughputResult:
-    """Time one `sched.schedule(pods)` call."""
-    t0 = time.perf_counter()
+    """Time one `sched.schedule(pods)` call. Garbage left by the set-up
+    is collected before the clock starts, so its pause is not timed."""
+    gc.collect()
+    cache = sched.encode_cache
+    hits0, misses0 = cache.hits, cache.misses
     n_batches = len(sched.solve_seconds)
+    t0 = time.perf_counter()
     placements = sched.schedule(pods)
     _sync(sched.device)
     dt = time.perf_counter() - t0
@@ -133,6 +151,7 @@ def measure(sched: Scheduler, pods) -> ThroughputResult:
         batches=len(solves),
         ms_per_solve=1e3 * sum(solves) / max(len(solves), 1),
         ms_encode_per_batch=1e3 * sum(encodes) / max(len(encodes), 1),
+        cache_hits=cache.hits - hits0, cache_misses=cache.misses - misses0,
         device=str(sched.device), placements=placements)
 
 

@@ -1,11 +1,16 @@
 """Scheduler: the batch driver of the main path, without an apiserver.
 
-`add_nodes` registers nodes in the StateDB; `schedule(pods)` encodes the
-pods in `caps.batch_pods` chunks, solves each chunk on the device, commits
-its ledger, and chains the round-robin counter from batch to batch, so a
-sequence of `schedule` calls makes the decisions one long serial schedule
-would. Watching an apiserver and binding are host-plane work for a later
-slice of the port.
+`add_nodes` registers nodes in the StateDB; `schedule(pods)` places the
+pods in `caps.batch_pods` chunks. Each chunk is encoded through the
+EncodeCache into one reused pair of host blobs (the unused tail rows reset
+to the padding row), its gates are read from those blobs, the blobs are
+uploaded and sliced back into a PodBatch on the device, solved, read back,
+and committed to the StateDB from the f32 blob. The round-robin counter
+chains from batch to batch, so a sequence of `schedule` calls makes the
+decisions one long serial schedule would. `add_pod`, `remove_pod` and
+`remove_node` keep the StateDB in step for pods bound and deleted, and
+nodes dropped, outside `schedule`. Watching an apiserver and binding are
+host-plane work for a later slice of the port.
 """
 
 from __future__ import annotations
@@ -13,12 +18,20 @@ from __future__ import annotations
 import time
 from typing import Sequence
 
+import numpy as np
+
 from kubernetes_tpu_torch.api.objects import Node, Pod
 from kubernetes_tpu_torch.models.policy import DEFAULT_POLICY, Policy
 from kubernetes_tpu_torch.ops.solver import schedule_batch
-from kubernetes_tpu_torch.state.convert import batch_from_numpy
+from kubernetes_tpu_torch.state.convert import host_blobs, upload_blobs
+from kubernetes_tpu_torch.state.encode_cache import EncodeCache
 from kubernetes_tpu_torch.state.layout import Capacities
-from kubernetes_tpu_torch.state.pod_batch import encode_pods
+from kubernetes_tpu_torch.state.pod_batch import (
+    blob_widths,
+    packed_batch_flags,
+    padding_row,
+    unpack_batch,
+)
 from kubernetes_tpu_torch.state.statedb import StateDB
 
 
@@ -29,6 +42,13 @@ class Scheduler:
         self.policy = policy
         self.statedb = StateDB(self.caps, device)
         self.device = self.statedb.device
+        self.encode_cache = EncodeCache(self.caps, self.statedb.table)
+        f_width, i_width = blob_widths(self.caps)
+        # one host pair, reused by every batch: written only after the
+        # previous batch's readback has synchronized the upload's stream
+        self._blobs = host_blobs(self.caps.batch_pods, f_width, i_width,
+                                 self.device)
+        self._host_blobs = (self._blobs[0].numpy(), self._blobs[1].numpy())
         self.rr = 0  # round-robin counter: an int, then the device's i64 scalar
         self.last_result = None  # SolverResult of the latest batch
         # per batch: host seconds to encode + upload, and to solve through
@@ -39,6 +59,17 @@ class Scheduler:
     def add_nodes(self, nodes: Sequence[Node]) -> None:
         for node in nodes:
             self.statedb.upsert_node(node)
+
+    def remove_node(self, name: str) -> None:
+        self.statedb.remove_node(name)
+
+    def add_pod(self, pod: Pod, node_name: str | None = None) -> bool:
+        """Account a pod bound outside `schedule` (StateDB.add_pod)."""
+        return self.statedb.add_pod(pod, node_name)
+
+    def remove_pod(self, pod_key: str) -> None:
+        """Forget a deleted pod: its requests leave its node's row."""
+        self.statedb.remove_pod(pod_key)
 
     def schedule(self, pods: Sequence[Pod]) -> dict[str, str | None]:
         """Place `pods` in order. Returns {pod key: node name, or None when
@@ -51,18 +82,33 @@ class Scheduler:
 
     def _schedule_chunk(self, pods: Sequence[Pod]) -> dict[str, str | None]:
         t0 = time.perf_counter()
-        host_batch = encode_pods(pods, self.caps, self.statedb.table)
+        fblob, iblob = self._host_blobs
+        n = len(pods)
+        # only node upserts intern avoid signatures, so the epoch cannot
+        # move inside this loop and no row needs re-encoding against a
+        # grown universe
+        encode = self.encode_cache.encode_packed_into
+        for i, pod in enumerate(pods):
+            encode(fblob, iblob, i, pod)
+        if n < self.caps.batch_pods:
+            # a reused blob's tail must read as padding, not as the
+            # previous batch's pods (zeros would be live ids: -1 = unused)
+            fblob[n:], iblob[n:] = padding_row(self.caps)
+        flags = packed_batch_flags(fblob, iblob, n, self.statedb.host, self.caps)
         state = self.statedb.flush()
-        batch = batch_from_numpy(host_batch, self.device)
+        batch = unpack_batch(*upload_blobs(*self._blobs, self.device), self.caps)
         t1 = time.perf_counter()
-        result = schedule_batch(state, batch, self.rr, self.policy)
+        result = schedule_batch(state, batch, self.rr, self.policy, flags)
         assignments = result.assignments.cpu().numpy()
         t2 = time.perf_counter()
-        self.statedb.commit_batch(result, host_batch, assignments)
+        name_of = self.statedb.table.name_of
+        placed = [name_of[row] if row >= 0 else None
+                  for row in assignments[:n].tolist()]
+        hit = np.flatnonzero(assignments[:n] >= 0).tolist()
+        self.statedb.commit_batch(result, fblob, zip(
+            map(pods.__getitem__, hit), map(placed.__getitem__, hit), hit))
         self.rr = result.rr_end
         self.last_result = result
         self.encode_seconds.append(t1 - t0)
         self.solve_seconds.append(t2 - t1)
-        name_of = self.statedb.table.name_of
-        return {pod.key: (name_of[int(row)] if row >= 0 else None)
-                for pod, row in zip(pods, assignments)}
+        return dict(zip((pod.key for pod in pods), placed))

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import json
 from dataclasses import dataclass, fields
+from functools import lru_cache
 from typing import Iterable
 
 import numpy as np
@@ -139,18 +140,28 @@ def resource_rows(quantities: dict[str, str]) -> np.ndarray:
     """v1 resource map -> f32[R] in device units."""
     out = np.zeros((Resource.COUNT,), np.float32)
     for name, qty in quantities.items():
-        entry = Resource.NAMES.get(name)
-        if entry is None:
-            continue  # opaque int resources are not modeled on device
-        row, kind = entry
-        frac = parse_quantity(qty)
-        if kind == "milli":
-            out[row] = float(frac * 1000)
-        elif kind == "mem":
-            out[row] = float(frac / MEM_UNIT)
-        else:
-            out[row] = float(frac)
+        entry = _resource_value(name, qty)
+        if entry is not None:
+            out[entry[0]] = entry[1]
     return out
+
+
+@lru_cache(maxsize=65536)
+def _resource_value(name: str, qty) -> tuple[int, float] | None:
+    """(row, value in device units) of one resource quantity, None for an
+    opaque resource the device does not model. Memoized: the exact
+    Fraction arithmetic dominates encoding a pod, and a pod's requests are
+    read twice (pod_requests, pod_nonzero_requests)."""
+    entry = Resource.NAMES.get(name)
+    if entry is None:
+        return None
+    row, kind = entry
+    frac = parse_quantity(qty)
+    if kind == "milli":
+        return row, float(frac * 1000)
+    if kind == "mem":
+        return row, float(frac / MEM_UNIT)
+    return row, float(frac)
 
 
 def condition_mask(node: Node) -> int:
@@ -269,6 +280,12 @@ class NodeTable:
         # terms interned after nodes were encoded: columns awaiting refill
         self.pending_sel_refresh: list[tuple[int, str, str]] = []
         self.pending_req_refresh: list[tuple[int, str, str, tuple[str, ...]]] = []
+        # bumped when node-side interning can invalidate encoded pod rows (a
+        # new preferAvoidPods signature: rows encoded earlier lack its
+        # one-hot); EncodeCache stamps its rows with it. Only node upserts
+        # intern avoid signatures here, so the epoch cannot move while a
+        # batch of pods is being encoded.
+        self.pod_row_epoch = 0
 
     def assign_row(self, name: str) -> int:
         row = self.row_of.get(name)
@@ -279,6 +296,17 @@ class NodeTable:
             row = self.free.pop()
             self.row_of[name] = row
             self.name_of[row] = name
+        return row
+
+    def release_row(self, name: str) -> int:
+        """Free a node's row. The free list is a stack, so the next
+        `assign_row` reuses the row released last (the reference's order:
+        the scan breaks ties by row, so reuse order is part of the
+        schedule)."""
+        row = self.row_of.pop(name)
+        self.name_of[row] = None
+        self.labels_of[row] = None
+        self.free.append(row)
         return row
 
     def intern_sel_term(self, key: str, value: str) -> int:
@@ -346,6 +374,7 @@ class NodeTable:
                 f"interning {sig!r}")
         oid = len(self.avoids)
         self.avoids[sig] = oid
+        self.pod_row_epoch += 1
         return oid
 
 

@@ -9,6 +9,10 @@ fed the same encoded inputs. Dtypes follow the CUDA kernels' needs:
 - float arrays are float32, bools stay bool, other integers become int32.
 
 `rr` (uint32 in the reference) is carried as a Python int in [0, 2^32).
+
+`upload_blobs` carries a batch's two packed blobs (state.pod_batch
+`pack_batch`) across, from this package's driver or from the reference
+package's, and `host_blobs` allocates the driver's reusable host pair.
 """
 
 from __future__ import annotations
@@ -53,3 +57,38 @@ def batch_from_numpy(obj, device) -> PodBatch:
 def rr_from_numpy(rr) -> int:
     """The round-robin counter as a Python int, reduced mod 2^32."""
     return int(np.asarray(rr).astype(np.int64)) % (1 << 32)
+
+
+def host_blobs(p: int, f_width: int, i_width: int,
+               device) -> tuple[torch.Tensor, torch.Tensor]:
+    """A reusable host pair (f32[p, F], i32[p, I]) for uploads to `device`,
+    page-locked when `device` is a CUDA card so the copies run
+    asynchronously."""
+    pin = torch.device(device).type == "cuda"
+    return (torch.empty((p, f_width), dtype=torch.float32, pin_memory=pin),
+            torch.empty((p, i_width), dtype=torch.int32, pin_memory=pin))
+
+
+def upload_blobs(fblob, iblob, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The f32 and i32 batch blobs on `device`, from CPU tensors or numpy
+    arrays (the reference package's blobs too).
+
+    On a CUDA device the copies are issued with non_blocking=True; from
+    page-locked buffers (`host_blobs`) they run asynchronously on the
+    current stream. The host buffers may be written again only after that
+    stream has passed the copies: the driver reuses its pair only after the
+    batch's readback has synchronized the stream. On the CPU the result is
+    a copy, never a view of the host buffers."""
+    dev = torch.device(device)
+    out = []
+    for blob, dtype in ((fblob, torch.float32), (iblob, torch.int32)):
+        t = blob if isinstance(blob, torch.Tensor) else torch.from_numpy(
+            np.ascontiguousarray(blob))
+        if t.dtype != dtype or t.dim() != 2:
+            raise TypeError(f"blob of {t.dtype}[{tuple(t.shape)}], want a "
+                            f"2-d {dtype}")
+        if dev.type == "cuda":
+            out.append(t.to(dev, non_blocking=True))
+        else:
+            out.append(t.to(dev, copy=True))
+    return out[0], out[1]

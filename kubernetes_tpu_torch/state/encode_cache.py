@@ -1,0 +1,121 @@
+"""Pod-encoding equivalence cache.
+
+Pods with identical scheduling-relevant specs encode to identical batch
+rows (the reference scheduler's equivalence classes). Encoding a pod
+(quantity parsing, FNV hashing of tolerations and nodeName, interning) is
+the expensive host step, so each class is encoded once, straight into a
+packed row (state.pod_batch.PackedRow), and that row is copied into the
+batch blobs by array assignment.
+
+The fingerprint covers exactly what this package's encoder and its refusal
+check (`unsupported_feature`) read: container requests, limits presence
+(QoS) and host ports, nodeSelector, tolerations, nodeName, priority, the
+raw affinity and volumes, the gang annotation and the controller
+reference. A pod the encoder refuses therefore never shares a class with
+a supported one, and every miss goes through the encoder, which raises for
+it. Namespace, labels and images are read by nothing here and stay out.
+Rows are stamped with `NodeTable.pod_row_epoch` and the cache's
+`generation`; pods with claim-backed volumes are never cached (their rows
+resolve through mutable claim state). At most MAX_ENTRIES classes are
+kept, least recently used evicted first.
+"""
+
+from __future__ import annotations
+
+import json
+from collections import OrderedDict
+
+import numpy as np
+
+from kubernetes_tpu_torch.api.objects import Pod
+from kubernetes_tpu_torch.state.cluster_state import NodeTable, pod_controller_ref
+from kubernetes_tpu_torch.state.layout import Capacities
+from kubernetes_tpu_torch.state.pod_batch import (
+    GROUP_NAME_ANNOTATION,
+    PackedRow,
+    encode_pod_into,
+)
+
+# classes kept; the least recently used is evicted first
+MAX_ENTRIES = 4096
+
+
+def cacheable(pod: Pod) -> bool:
+    """Claim-backed volumes resolve through mutable PVC/PV state: never
+    cache those rows."""
+    return not any("persistentVolumeClaim" in v for v in pod.spec.volumes)
+
+
+def pod_fingerprint(pod: Pod) -> tuple:
+    """Hashable equivalence class of everything the encoder and
+    `unsupported_feature` read."""
+    spec = pod.spec
+    return (
+        tuple((tuple(sorted(c.requests.items())), tuple(c.host_ports),
+               bool(c.requests or c.limits))
+              for c in spec.containers),
+        tuple(sorted(spec.node_selector.items())),
+        tuple((t.key, t.operator, t.value, t.effect) for t in spec.tolerations),
+        spec.node_name,
+        spec.priority,
+        GROUP_NAME_ANNOTATION in pod.metadata.annotations,
+        pod_controller_ref(pod),
+        json.dumps(spec.affinity, sort_keys=True) if spec.affinity else "",
+        json.dumps(spec.volumes, sort_keys=True) if spec.volumes else "",
+    )
+
+
+class EncodeCache:
+    # bumped on Service and controller events in the reference driver
+    # (spreading entries depend on workload objects); this package encodes
+    # no spreading entry yet, so it stays 0
+    generation = 0
+
+    def __init__(self, caps: Capacities, table: NodeTable):
+        self.caps = caps
+        self.table = table
+        self._packed: OrderedDict[tuple, tuple[np.ndarray, np.ndarray]] = OrderedDict()
+        self._scratch = PackedRow(caps)
+        self.hits = 0
+        self.misses = 0
+
+    def _must_reencode(self, pod: Pod) -> bool:
+        return not cacheable(pod)
+
+    def _key(self, pod: Pod) -> tuple:
+        return (pod_fingerprint(pod), self.table.pod_row_epoch, self.generation)
+
+    def _encode(self, pod: Pod) -> tuple[np.ndarray, np.ndarray]:
+        """The pod's packed row, encoded now (the encoder raises for a pod
+        it refuses): the scratch row's buffers, valid until the next
+        encode."""
+        encode_pod_into(self._scratch.batch, 0, pod, self.caps, self.table)
+        return self._scratch.pack()
+
+    def _packed_row(self, pod: Pod) -> tuple[np.ndarray, np.ndarray]:
+        """The shared packed row of the pod's class, encoded on first
+        sight."""
+        fp = self._key(pod)
+        packed = self._packed.get(fp)
+        if packed is None:
+            self.misses += 1
+            frow, irow = self._encode(pod)
+            packed = self._packed[fp] = (frow.copy(), irow.copy())
+            if len(self._packed) > MAX_ENTRIES:
+                self._packed.popitem(last=False)
+        else:
+            self.hits += 1
+            self._packed.move_to_end(fp)
+        return packed
+
+    def encode_packed_into(self, fblob: np.ndarray, iblob: np.ndarray,
+                           i: int, pod: Pod) -> None:
+        """Encode `pod` into row i of the host blobs: a class hit is two
+        row copies; a miss encodes (and raises for a pod the encoder
+        refuses)."""
+        if self._must_reencode(pod):
+            frow, irow = self._encode(pod)
+        else:
+            frow, irow = self._packed_row(pod)
+        fblob[i] = frow
+        iblob[i] = irow

@@ -14,11 +14,19 @@ priority). Features the solver gates per batch (gpu and storage requests,
 preferred node affinity) are encoded, and the solver raises on them.
 Fields the main path never reads (container images, labels) are accepted
 and left unencoded.
+
+The driver moves a batch as two blobs (`pack_batch`, `pack_row`): one
+f32[P, F] holding every float field's columns and one i32[P, I] holding
+the integer fields, the uint32 hash lanes bitcast and the bools as 0/1, in
+the reference package's column layout. `unpack_batch` slices them back into
+a PodBatch on the device, and `packed_batch_flags` reads the batch gates
+from the host blobs. `PackedRow` lets the encoder write one packed row in
+place (the encode cache's miss path).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass, fields
+from dataclasses import dataclass, fields, replace
 from typing import Sequence
 
 import numpy as np
@@ -350,6 +358,197 @@ def batch_flags(state: ClusterState, batch: PodBatch):
     return BatchFlags(ipa=ipa, spread=spread, svcanti=svcanti, vol=vol,
                       attach=attach, tt=tt, na=na, ports=ports, gpu=gpu,
                       storage=storage, gang=gang, preempt=preempt)
+
+
+def _batch_layout(caps: Capacities):
+    """Blob column layout: field -> (blob, offset, width, trailing shape,
+    host dtype), in PodBatch field order; and the two blob widths. Float
+    fields go to the f32 blob, every other field to the i32 blob."""
+    proto = empty_batch(caps)
+    layout = {}
+    offsets = {"f": 0, "i": 0}
+    for name in BATCH_FIELDS:
+        arr = getattr(proto, name)
+        trailing = arr.shape[1:]
+        width = int(np.prod(trailing)) if trailing else 1
+        blob = "f" if arr.dtype == np.float32 else "i"
+        layout[name] = (blob, offsets[blob], width, trailing, arr.dtype)
+        offsets[blob] += width
+    return layout, offsets["f"], offsets["i"]
+
+
+_LAYOUTS: dict = {}
+_PADDING: dict = {}
+
+
+def _layout(caps: Capacities):
+    lay = _LAYOUTS.get(caps)
+    if lay is None:
+        lay = _LAYOUTS[caps] = _batch_layout(caps)
+    return lay
+
+
+def blob_widths(caps: Capacities) -> tuple[int, int]:
+    """(F, I): the widths of the f32 and i32 blobs."""
+    _lay, f_width, i_width = _layout(caps)
+    return f_width, i_width
+
+
+def pack_batch(batch: PodBatch, caps: Capacities,
+               out: tuple[np.ndarray, np.ndarray] | None = None):
+    """Pack a host (numpy) PodBatch into (f32[P, F], i32[P, I]) blobs;
+    `out` reuses a pair of buffers."""
+    layout, f_width, i_width = _layout(caps)
+    p = batch.valid.shape[0]
+    if out is None:
+        out = (np.empty((p, f_width), np.float32),
+               np.empty((p, i_width), np.int32))
+    fblob, iblob = out
+    for name, (blob, off, width, _trailing, dtype) in layout.items():
+        flat = np.asarray(getattr(batch, name)).reshape(p, width)
+        if blob == "f":
+            fblob[:, off:off + width] = flat
+        elif dtype == np.uint32:
+            iblob[:, off:off + width] = flat.view(np.int32)
+        else:
+            iblob[:, off:off + width] = flat
+    return fblob, iblob
+
+
+def pack_row(batch: PodBatch, i: int, caps: Capacities):
+    """Row i of a host batch as (f32[F], i32[I]): the unit EncodeCache
+    keeps, so a cache hit is two row copies."""
+    layout, f_width, i_width = _layout(caps)
+    frow = np.empty((f_width,), np.float32)
+    irow = np.empty((i_width,), np.int32)
+    for name, (blob, off, width, _trailing, dtype) in layout.items():
+        flat = np.asarray(getattr(batch, name)[i]).reshape(width)
+        if blob == "f":
+            frow[off:off + width] = flat
+        elif dtype == np.uint32:
+            irow[off:off + width] = flat.view(np.int32)
+        else:
+            irow[off:off + width] = flat
+    return frow, irow
+
+
+class PackedRow:
+    """One packed row (`f` f32[F], `i` i32[I]) under a one-row PodBatch
+    (`batch`) whose float, int32 and uint32 fields are views of the row's
+    columns, so encoding into row 0 of `batch` writes the packed row in
+    place. The bool fields (a bool array cannot view int32 storage) are
+    views of one bool array, copied into their columns by `pack()`. Fields
+    the encoder does not write keep their padding values."""
+
+    def __init__(self, caps: Capacities):
+        layout, f_width, i_width = _layout(caps)
+        proto = empty_batch(replace(caps, batch_pods=1))
+        self.f = np.empty((f_width,), np.float32)
+        self.i = np.empty((i_width,), np.int32)
+        bool_cols = [np.arange(off, off + width)
+                     for blob, off, width, _t, dtype in layout.values()
+                     if dtype == np.bool_]
+        self._bool_cols = np.concatenate(bool_cols)
+        self._bools = np.empty((len(self._bool_cols),), np.bool_)
+        views = {}
+        at = 0
+        for name, (blob, off, width, _trailing, dtype) in layout.items():
+            pad = getattr(proto, name)
+            if dtype == np.bool_:
+                view = self._bools[at:at + width].reshape(pad.shape)
+                at += width
+            else:
+                src = self.f if blob == "f" else self.i.view(dtype)
+                view = src[off:off + width].reshape(pad.shape)
+            view[...] = pad
+            views[name] = view
+        self.batch = PodBatch(**views)
+
+    def pack(self) -> tuple[np.ndarray, np.ndarray]:
+        """(f, i) with the bool fields written in: the row's own buffers,
+        valid until the next encode into `batch`."""
+        self.i[self._bool_cols] = self._bools
+        return self.f, self.i
+
+
+def padding_row(caps: Capacities):
+    """The packed padding row (valid 0, -1 in the unused-id columns): what
+    a batch's unused tail rows hold."""
+    row = _PADDING.get(caps)
+    if row is None:
+        row = _PADDING[caps] = pack_row(empty_batch(caps), 0, caps)
+    return row
+
+
+def blob_col(fblob, iblob, name: str, caps: Capacities, n: int | None = None):
+    """View of one field's columns in the blobs, [P(, ...)] (or the first n
+    rows), in blob dtype: uint32 lanes as int32, bools as int32 0/1."""
+    layout, _f, _i = _layout(caps)
+    blob, off, width, trailing, _dtype = layout[name]
+    src = fblob if blob == "f" else iblob
+    rows = src if n is None else src[:n]
+    col = rows[:, off:off + width]
+    return col.reshape((col.shape[0], *trailing)) if trailing else col[:, 0]
+
+
+def packed_batch_flags(fblob: np.ndarray, iblob: np.ndarray, n: int,
+                       host: ClusterState, caps: Capacities):
+    """`batch_flags` of the first n rows of host blobs, with the carried
+    affinity terms and interned PreferNoSchedule taints read from the
+    StateDB's host arrays `host`: no device transfer."""
+    from kubernetes_tpu_torch.ops.solver import BatchFlags
+    from kubernetes_tpu_torch.state.layout import Resource
+
+    def col(name):
+        return blob_col(fblob, iblob, name, caps, n)
+
+    def any_(name):
+        return bool(col(name).any())
+
+    def any_id(name):  # i32 id columns, -1 = unused
+        return bool((col(name) >= 0).any())
+
+    req = col("requests")
+    return BatchFlags(
+        ipa=bool((host.term_q >= 0).any()) or any_id("paff_q")
+        or any_id("panti_q") or any_id("ppref_q") or any_("ipaff_fail"),
+        spread=any_id("spread_q") or any_id("spread_svc_q"),
+        svcanti=any_id("svcanti_q"),
+        vol=any_("vol_want_rw") or any_("vol_want_ro"),
+        attach=any_("att_onehot") or any_("att_fail"),
+        tt=bool((host.taint_u_effect == Effect.PREFER_NO_SCHEDULE).any()),
+        na=bool((col("pref_weight") > 0).any()),
+        ports=any_("port_onehot"),
+        gpu=bool(req[:, Resource.GPU].any()),
+        storage=bool(req[:, Resource.SCRATCH].any()
+                     or req[:, Resource.OVERLAY].any()),
+        gang=bool((col("gang_id") > 0).any()),
+        preempt=any_("priority"))
+
+
+# the batch fields the CUDA kernels take as operands (ops.static_mask,
+# ops.assign_scan), which must be contiguous
+KERNEL_OPERANDS = frozenset({"sel_onehot", "sel_count", "best_effort",
+                             "node_name_lo", "node_name_hi", "requests",
+                             "nonzero_requests"})
+
+
+def unpack_batch(fblob: torch.Tensor, iblob: torch.Tensor,
+                 caps: Capacities) -> PodBatch:
+    """The PodBatch of two blobs on a device: column slices and reshapes
+    (views of the blobs), `!= 0` for the bool fields, and contiguous copies
+    of the kernels' operands (`KERNEL_OPERANDS`). Nothing is read back to
+    the host."""
+    layout, _f, _i = _layout(caps)
+    p = fblob.shape[0]
+    out = {}
+    for name, (blob, off, width, trailing, dtype) in layout.items():
+        src = fblob if blob == "f" else iblob
+        col = src[:, off:off + width].reshape((p, *trailing))
+        if dtype == np.bool_:
+            col = col != 0
+        out[name] = col.contiguous() if name in KERNEL_OPERANDS else col
+    return PodBatch(**out)
 
 
 def encode_cluster(nodes, pods, caps: Capacities):

@@ -1,25 +1,29 @@
 """StateDB: host-canonical cluster state mirrored to one device.
 
-The scheduler-cache role: node objects and accounted pods aggregate into
-host numpy arrays (`host`), and `flush()` hands the solver a device view,
-moving only what changed:
+The scheduler-cache role: node objects and accounted pods (bound, or
+placed by a batch) aggregate into host numpy arrays (`host`), and
+`flush()` hands the solver a device view, moving only what changed:
 - the first flush uploads every field;
-- later node changes and membership refills (a pod interning a new
-  selector term) mark host rows dirty, and the next flush copies just
-  those rows with one `index_copy_` per node-axis field;
+- later node changes, pod accounting and membership refills (a pod
+  interning a new selector term) mark host rows dirty, and the next flush
+  copies just those rows with one `index_copy_` per node-axis field;
+- `mark_ledger_dirty` forces the next flush to re-upload the whole ledger;
 - a batch's assignments come back as the solver's device-resident ledger,
   which `commit_batch` adopts as the device truth (batch-to-batch chaining
   never leaves the device) while it mirrors the same additions into the
-  host arrays from the batch's encoded rows, so host and device agree
-  without a transfer.
+  host arrays from the batch's f32 blob, so host and device agree without
+  a transfer, and accounts each placed pod so `remove_pod` can undo it.
 """
 
 from __future__ import annotations
 
+from itertools import compress, repeat
+from typing import Iterable
+
 import numpy as np
 import torch
 
-from kubernetes_tpu_torch.api.objects import Node
+from kubernetes_tpu_torch.api.objects import Node, Pod
 from kubernetes_tpu_torch.state.cluster_state import (
     NODE_AXIS_FIELDS,
     STATE_FIELDS,
@@ -28,13 +32,38 @@ from kubernetes_tpu_torch.state.cluster_state import (
     apply_pending_refreshes,
     empty_state,
     fill_node_row,
+    pod_nonzero_requests,
+    pod_requests,
 )
 from kubernetes_tpu_torch.state.convert import state_from_numpy, to_device
 from kubernetes_tpu_torch.state.layout import Capacities
-from kubernetes_tpu_torch.state.pod_batch import PodBatch
+from kubernetes_tpu_torch.state.pod_batch import blob_col
 from kubernetes_tpu_torch.utils.device import resolve_device
 
 _UNIVERSE_FIELDS = tuple(f for f in STATE_FIELDS if f not in NODE_AXIS_FIELDS)
+_LEDGER_FIELDS = ("requested", "nonzero_requested")
+
+
+# What removing an accounted pod takes back from its node's row, in the
+# columns of this package's ledger: (node name, j, requests f32[K, R],
+# nonzero f32[K, 2]), the pod's columns being row j of arrays it shares
+# with the pods accounted beside it. A plain tuple of atoms, which the
+# garbage collector stops tracking: a batch accounts thousands of pods.
+AccountedPod = tuple[str, int, np.ndarray, np.ndarray]
+
+
+def unaccountable_feature(pod: Pod) -> str | None:
+    """The first part of a bound pod whose accounting needs a ledger this
+    package does not carry (host-port counts, volume atoms, pod-affinity
+    counts), else None."""
+    aff = pod.spec.affinity or {}
+    if pod.host_ports():
+        return "host ports"
+    if pod.spec.volumes:
+        return "volumes"
+    if aff.get("podAffinity") or aff.get("podAntiAffinity"):
+        return "pod-affinity terms"
+    return None
 
 
 class StateDB:
@@ -43,14 +72,94 @@ class StateDB:
         self.device = resolve_device(device)
         self.host: ClusterState = empty_state(caps)
         self.table = NodeTable(caps)
+        self._accounted: dict[str, AccountedPod] = {}
         self._device: ClusterState | None = None
         self._dirty_rows: set[int] = set()
+        self._dirty_ledger_all = False
         self.flush_rows_total = 0   # node rows copied to the device
+
+    # ---- node lifecycle ----
 
     def upsert_node(self, node: Node) -> None:
         row = self.table.assign_row(node.metadata.name)
         fill_node_row(self.host, self.table, row, node)
         self._dirty_rows.add(row)
+
+    def remove_node(self, name: str) -> None:
+        """Drop a node: its row returns to the free list with every
+        node-axis field zeroed (topology -1), and its pods are no longer
+        accounted."""
+        if name not in self.table.row_of:
+            return
+        row = self.table.release_row(name)
+        for key in [k for k, v in self._accounted.items() if v[0] == name]:
+            del self._accounted[key]
+        for field in NODE_AXIS_FIELDS:
+            getattr(self.host, field)[row] = -1 if field == "topology" else 0
+        self._dirty_rows.add(row)
+
+    def has_node(self, name: str) -> bool:
+        return name in self.table.row_of
+
+    # ---- pod accounting ----
+
+    def _apply_pod(self, row: int, acc: AccountedPod, sign: int) -> None:
+        _name, j, requests, nonzero = acc
+        self.host.requested[row] += sign * requests[j]
+        self.host.nonzero_requested[row] += sign * nonzero[j]
+        self._dirty_rows.add(row)
+
+    def add_pod(self, pod: Pod, node_name: str | None = None) -> bool:
+        """Account a bound pod against its node (`node_name`, else the
+        pod's spec.nodeName). Returns False when the node is unknown; an
+        already accounted pod is left as it is. Raises NotImplementedError
+        for a pod whose accounting needs a ledger this package lacks."""
+        node_name = node_name or pod.spec.node_name
+        row = self.table.row_of.get(node_name)
+        if row is None:
+            return False
+        if pod.key in self._accounted:
+            return True
+        feature = unaccountable_feature(pod)
+        if feature is not None:
+            raise NotImplementedError(
+                f"pod {pod.key}: accounting {feature} needs a ledger this "
+                f"package does not carry")
+        acc = (node_name, 0, pod_requests(pod)[None],
+               pod_nonzero_requests(pod)[None])
+        self._apply_pod(row, acc, +1)
+        self._accounted[pod.key] = acc
+        return True
+
+    def remove_pod(self, pod_key: str) -> None:
+        """Take an accounted pod's requests back from its node."""
+        acc = self._accounted.pop(pod_key, None)
+        if acc is None:
+            return
+        row = self.table.row_of.get(acc[0])
+        if row is None:
+            return  # node removed; its row was zeroed already
+        self._apply_pod(row, acc, -1)
+
+    def is_accounted(self, pod_key: str) -> bool:
+        return pod_key in self._accounted
+
+    @property
+    def ledger_dirty(self) -> bool:
+        """True when the next flush() copies host rows to the device: a
+        batch still running on the device must be settled first, or its
+        charges are overwritten."""
+        return (bool(self._dirty_rows) or self._dirty_ledger_all
+                or bool(self.table.pending_sel_refresh)
+                or bool(self.table.pending_req_refresh))
+
+    def mark_ledger_dirty(self) -> None:
+        """Force the next flush() to re-upload the whole host ledger (the
+        device ledger carries charges the host truth does not, e.g. a
+        placement whose binding was rolled back; which rows is unknown)."""
+        self._dirty_ledger_all = True
+
+    # ---- device mirror ----
 
     def flush(self) -> ClusterState:
         """The device view, refreshed from the host where rows changed.
@@ -60,18 +169,26 @@ class StateDB:
         if self._device is None:
             self._device = state_from_numpy(self.host, self.device)
             self.flush_rows_total += self.caps.num_nodes
-        elif self._dirty_rows:
-            rows = np.fromiter(sorted(self._dirty_rows), np.int64)
-            idx = torch.from_numpy(rows).to(self.device)
-            for name in NODE_AXIS_FIELDS:
-                getattr(self._device, name).index_copy_(
-                    0, idx, to_device(getattr(self.host, name)[rows], self.device))
-            # universe attributes (taint hashes and effects, ...) are tiny
-            for name in _UNIVERSE_FIELDS:
-                setattr(self._device, name,
-                        to_device(getattr(self.host, name), self.device))
-            self.flush_rows_total += len(rows)
+        else:
+            if self._dirty_rows:
+                rows = np.fromiter(sorted(self._dirty_rows), np.int64)
+                idx = torch.from_numpy(rows).to(self.device)
+                for name in NODE_AXIS_FIELDS:
+                    getattr(self._device, name).index_copy_(
+                        0, idx, to_device(getattr(self.host, name)[rows],
+                                          self.device))
+                # universe attributes (taint hashes and effects, ...) are tiny
+                for name in _UNIVERSE_FIELDS:
+                    setattr(self._device, name,
+                            to_device(getattr(self.host, name), self.device))
+                self.flush_rows_total += len(rows)
+            if self._dirty_ledger_all:
+                for name in _LEDGER_FIELDS:
+                    setattr(self._device, name,
+                            to_device(getattr(self.host, name), self.device))
+                self.flush_rows_total += self.caps.num_nodes
         self._dirty_rows.clear()
+        self._dirty_ledger_all = False
         return self._device
 
     def adopt_result(self, result) -> None:
@@ -82,16 +199,39 @@ class StateDB:
         self._device.requested = result.new_requested
         self._device.nonzero_requested = result.new_nonzero
 
-    def commit_batch(self, result, batch: PodBatch,
-                     assignments: np.ndarray) -> None:
-        """Adopt the batch's device ledger and mirror its assignments into
-        the host arrays: host row `assignments[i]` gains the encoded
-        requests of batch row i, added in pod order as the scan added them.
+    def commit_batch(self, result, fblob: np.ndarray,
+                     committed: Iterable[tuple[Pod, str, int]]) -> None:
+        """Adopt the batch's device ledger, mirror its placements into the
+        host arrays and account the placed pods.
 
-        batch: the host (numpy) batch that was solved; assignments: the
-        solver's node rows on the host, -1 for unassigned rows."""
+        fblob: the f32 blob of the batch that was solved; committed:
+        (pod, node name, batch row) of each placed pod, in batch order. The
+        host row of each node gains the blob's `requests` and
+        `nonzero_requests` columns of its pods, added in pod order as the
+        scan added them. Pods already accounted, or on nodes removed since,
+        are skipped."""
         self.adopt_result(result)
-        idx = np.flatnonzero(assignments >= 0)
-        rows = assignments[idx]
-        np.add.at(self.host.requested, rows, batch.requests[idx])
-        np.add.at(self.host.nonzero_requested, rows, batch.nonzero_requests[idx])
+        committed = list(committed)
+        if not committed:
+            return
+        row_of, accounted = self.table.row_of, self._accounted
+        pods, names, idx = zip(*committed)
+        keys = [pod.key for pod in pods]
+        n = len(keys)
+        idx = np.asarray(idx, np.int64)
+        # membership by C-level passes (map), not a per-pod Python loop
+        rows = np.fromiter(map(row_of.get, names, repeat(-1)), np.int64, n)
+        live = ~np.fromiter(map(accounted.__contains__, keys), np.bool_, n)
+        live &= rows >= 0
+        if not live.all():
+            keys = list(compress(keys, live))
+            names = list(compress(names, live))
+            rows, idx = rows[live], idx[live]
+            if not keys:
+                return
+        req = blob_col(fblob, None, "requests", self.caps)[idx]
+        nz = blob_col(fblob, None, "nonzero_requests", self.caps)[idx]
+        np.add.at(self.host.requested, rows, req)
+        np.add.at(self.host.nonzero_requested, rows, nz)
+        accounted.update(zip(keys, zip(names, range(len(keys)), repeat(req),
+                                       repeat(nz))))
