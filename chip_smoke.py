@@ -19,8 +19,11 @@ fails; nothing is caught and skipped:
    requests differ from the previous pod's): assignments, scores, feasible
    counts, both ledgers and rr_end must equal the plain loop's exactly;
    each kernel time is reported as median, min and max; then both
-   kernels against their plain versions at ragged shapes (tile edges,
-   node padding), which reach every build of the scan (N up to 65,536);
+   kernels, and the scan's spread build, against their plain versions at
+   ragged shapes (tile edges, node padding), which reach every build of
+   the scan (N up to 65,536), the spread build on seeded selector counts
+   and zones with its edge cases (a pod with no feasible node, nodes
+   without a zone, a zero maximum count, zoned counts all zero);
 4. packed_batch: the main path's first batch encoded through the
    EncodeCache into page-locked blobs, uploaded and unpacked on the card,
    must equal the fresh encoding (encode_pods, batch_from_numpy) field for
@@ -40,7 +43,15 @@ fails; nothing is caught and skipped:
    schedule_batch_plain on the same flushed state, both kernels must have
    launched, and every node's pods, cpu and memory (bound pods included),
    recomputed on the host, must equal its ledger row and fit allocatable;
-8. the kernels line, the nvidia-smi line, and last the result line.
+8. spread: the reference bench's bench[spread] (15,000 nodes in 3 zones,
+   30,000 pods in 16 app groups, 16 Services) through
+   Scheduler(device="cuda"); every pod must be placed within allocatable,
+   the spread build must have launched once per batch (and the main scan
+   never), and the first and the fifth batch must equal
+   schedule_batch_plain on the state and batch the driver solved them on,
+   pod-selector ledger included; times the spread build on the first
+   batch against its plain version;
+9. the kernels line, the nvidia-smi line, and last the result line.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
@@ -66,6 +77,14 @@ H100_F32_OPS_PER_S = 67e12     # f32 outside the tensor cores
 # arithmetic and compare operations of the scan per evaluated (pod, node):
 # fit 6, LeastRequested 20, BalancedAllocation 14, score 4, tie update 2
 SCAN_OPS_PER_PAIR = 46
+# and of SelectorSpread per (spread pod, statically feasible node): the
+# count's max and zone sum 3, node and zone scores 6, blend 3, floor 2,
+# weighted add 2
+SPREAD_OPS_PER_PAIR = 16
+# bench[spread] (bench.py:327-338): app groups and Services
+SPREAD_GROUPS = 16
+# the later bench[spread] batch held against the plain path
+SPREAD_CHECKED = (0, 4)
 
 
 def emit(obj) -> None:
@@ -199,6 +218,204 @@ def compare_scan(torch, got, want) -> float:
         if not torch.equal(getattr(got, name), getattr(want, name)):
             raise AssertionError(f"assign_scan kernel != plain on {name}")
     return max_abs_err(torch, [(getattr(got, n), getattr(want, n)) for n in names])
+
+
+def compare_spread(torch, got, want) -> float:
+    """compare_scan plus the pod-selector ledger."""
+    err = compare_scan(torch, got, want)
+    if not torch.equal(got.new_podsel, want.new_podsel):
+        raise AssertionError("assign_scan_spread kernel != plain on new_podsel")
+    return max(err, max_abs_err(torch, [(got.new_podsel, want.new_podsel)]))
+
+
+def spread_inputs(torch, rng, dev, n, p, uq=32, zones=3):
+    """Seeded SpreadInputs for p pods on n nodes: selector counts, zones
+    (a fifth of the nodes without one), each pod's entry (-1 for some) and
+    match row. Column 0 is zero everywhere (a zero maximum count) and
+    column 1 counts only on nodes without a zone (zoned counts all zero)."""
+    from kubernetes_tpu_torch.ops.assign_scan import SpreadInputs
+    from kubernetes_tpu_torch.state.layout import TOPO_SPREAD_ZONE
+
+    zone = rng.integers(0, zones, n)
+    zone[rng.random(n) < 0.2] = -1
+    topo = np.full((n, 8), -1, np.int32)
+    topo[:, TOPO_SPREAD_ZONE] = zone
+    podsel = rng.integers(0, 6, (n, uq)).astype(np.float32)
+    podsel[rng.random((n, uq)) < 0.5] = 0.0
+    podsel[:, 0] = 0.0
+    podsel[zone >= 0, 1] = 0.0
+    q = rng.integers(-1, uq, p).astype(np.int32)
+    match = (rng.random((p, uq)) < 0.1).astype(np.float32)
+    match[q >= 0, q[q >= 0]] = 1.0
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    return SpreadInputs(w_ss=1.0, spread_q=t(q), pod_matches_q=t(match),
+                        podsel_count=t(podsel), topology=t(topo),
+                        domain_universe=64)
+
+
+def spread_bound(scan_args, spread) -> tuple[float, str]:
+    """scan_bound's bytes plus the spread inputs once and the pod-selector
+    ledger written once; its operations plus SPREAD_OPS_PER_PAIR per
+    statically feasible pair of a pod with an entry."""
+    masked = scan_args[0]
+    t_bytes, _ = scan_bound(*scan_args[:6])
+    ins = (spread.spread_q, spread.pod_matches_q, spread.podsel_count)
+    nbytes = (t_bytes * 1e-3 * H100_BYTES_PER_S
+              + sum(a.numel() * a.element_size() for a in ins)
+              + masked.shape[1] * 4 + spread.podsel_count.numel() * 4)
+    feasible = masked > float("-inf")
+    pairs = float(feasible.sum())
+    spread_pairs = float(feasible[spread.spread_q >= 0].sum())
+    return bound(nbytes, SCAN_OPS_PER_PAIR * pairs + SPREAD_OPS_PER_PAIR * spread_pairs)
+
+
+def spread_scan_args(torch, state, batch, caps, flags):
+    """The spread build's arguments for one solved batch: Phase A's masked
+    scores and the scan operands, and its SpreadInputs."""
+    from kubernetes_tpu_torch.ops import solver
+    from kubernetes_tpu_torch.ops.assign_scan import SpreadInputs
+
+    g = solver.check_supported(solver.DEFAULT_POLICY, flags)
+    masked = solver.masked_static_scores(state, batch, solver.DEFAULT_POLICY, g)
+    args = (masked, batch.requests, batch.nonzero_requests, state.allocatable,
+            state.requested, state.nonzero_requested, 0, float(g.w_lr),
+            float(g.w_ba))
+    return args, SpreadInputs(
+        w_ss=float(g.w_ss), spread_q=batch.spread_q.contiguous(),
+        pod_matches_q=batch.pod_matches_q.contiguous(),
+        podsel_count=state.podsel_count, topology=state.topology,
+        domain_universe=caps.domain_universe)
+
+
+def spread_first_batch(torch, dev):
+    """bench[spread]'s cluster and the flushed state and batch of its first
+    batch, encoded through a Scheduler: (caps, nodes, pods, services,
+    state, batch, flags)."""
+    from kubernetes_tpu_torch.ops import solver
+    from kubernetes_tpu_torch.perf.fixtures import make_nodes, make_pods, make_services
+    from kubernetes_tpu_torch.perf.harness import default_caps
+    from kubernetes_tpu_torch.scheduler import Scheduler
+    from kubernetes_tpu_torch.state.convert import batch_from_numpy
+    from kubernetes_tpu_torch.state.pod_batch import encode_pods
+
+    caps = default_caps(HEADLINE_NODES, HEADLINE_PODS)
+    nodes = make_nodes(HEADLINE_NODES, zones=3)
+    pods = make_pods(HEADLINE_PODS, app_groups=SPREAD_GROUPS)
+    services = make_services(SPREAD_GROUPS)
+    ref = Scheduler(caps, device=dev)
+    ref.add_nodes(nodes)
+    for svc in services:
+        ref.add_service(svc)
+    host = encode_pods(pods[:caps.batch_pods], caps, ref.statedb.table,
+                       ctx=ref.encode_cache.ctx)
+    state = ref.statedb.flush()
+    batch = batch_from_numpy(host, dev)
+    return caps, nodes, pods, services, state, batch, solver.batch_flags(state, batch)
+
+
+def spread_phase(torch, caps, dev, kernels) -> tuple[dict, dict]:
+    """bench[spread] through Scheduler(device="cuda"), its first and fifth
+    batch held against the plain path on the state and batch the driver
+    solved them on, and the spread build timed on the first batch. Returns
+    (the phase line, the kernels-line entry)."""
+    from kubernetes_tpu_torch.ops import solver
+    from kubernetes_tpu_torch.ops.assign_scan import (
+        assign_scan_spread,
+        assign_scan_spread_plain,
+    )
+    from kubernetes_tpu_torch.perf.harness import measure, warm
+    from kubernetes_tpu_torch.scheduler import Scheduler, driver
+
+    _caps, nodes, pods, services, state0, first, flags0 = spread_first_batch(torch, dev)
+    warm(caps, solver.DEFAULT_POLICY, dev, n_services=SPREAD_GROUPS)
+    sched = Scheduler(caps, device=dev)
+    sched.add_nodes(nodes)
+    for svc in services:
+        sched.add_service(svc)
+    # record what the driver solves in the checked batches: a copy of the
+    # state (the next flush may write it in place), the batch, rr, flags
+    seen = []
+    solve = driver.schedule_batch
+
+    def recording(state, batch, rr, policy, flags, caps_):
+        k = len(seen)
+        keep = None
+        if k in SPREAD_CHECKED:
+            keep = (dataclasses.replace(state, **{
+                f.name: getattr(state, f.name).clone()
+                for f in dataclasses.fields(state)}), batch,
+                rr.clone() if isinstance(rr, torch.Tensor) else rr, flags)
+        result = solve(state, batch, rr, policy, flags, caps_)
+        seen.append((keep, result))
+        return result
+
+    driver.schedule_batch = recording
+    for k in kernels:
+        k.launches = 0
+    try:
+        result = measure(sched, pods)
+    finally:
+        driver.schedule_batch = solve
+    launches = {k.__name__: k.launches for k in kernels}
+    if result.scheduled != HEADLINE_PODS:
+        raise AssertionError(f"spread: placed {result.scheduled}/{HEADLINE_PODS}")
+    if launches != {"static_mask": result.batches, "assign_scan": 0,
+                    "assign_scan_spread": result.batches}:
+        raise AssertionError(f"spread: launches {launches} over "
+                             f"{result.batches} batches")
+    load = check_load(pods, result.placements, nodes)
+    for k in SPREAD_CHECKED:
+        (state, batch, rr, flags), got = seen[k]
+        plain = solver.schedule_batch_plain(state, batch, rr, solver.DEFAULT_POLICY,
+                                            flags, caps)
+        compare_spread(torch, got, plain)
+    # the first batch as the driver solved it is the one encoded afresh
+    names = sched.statedb.table.name_of
+    if [names[r] for r in seen[0][1].assignments.tolist()] != \
+            [result.placements[p.key] for p in pods[:caps.batch_pods]]:
+        raise AssertionError("spread: first batch placements != its result")
+    if not torch.equal(seen[0][0][1].pod_matches_q, first.pod_matches_q) or \
+            not torch.equal(seen[0][0][1].spread_q, first.spread_q):
+        raise AssertionError("spread: the driver's first batch != the fresh encoding")
+    # per app group, pods in the fullest and the emptiest zone
+    zone_of = {n.metadata.name: n.metadata.labels[
+        "failure-domain.beta.kubernetes.io/zone"] for n in nodes}
+    spread_counts: dict = {}
+    for p in pods:
+        key = (p.metadata.labels["app"], zone_of[result.placements[p.key]])
+        spread_counts[key] = spread_counts.get(key, 0) + 1
+    per_group = {}
+    for (app, _z), c in spread_counts.items():
+        per_group.setdefault(app, []).append(c)
+    imbalance = max(max(v) - min(v) for v in per_group.values())
+
+    args, spread = spread_scan_args(torch, state0, first, caps, flags0)
+    err = compare_spread(torch, assign_scan_spread(*args, spread),
+                         assign_scan_spread_plain(*args, spread))
+    entry = {
+        "name": "assign_scan_spread", "route": "cuda",
+        "source": "kubernetes_tpu_torch/csrc/assign_scan.cu",
+        "replaces": "kubernetes_tpu/ops/spread.py:29",
+        "launches": launches["assign_scan_spread"], "max_abs_err": err,
+        **timed(torch, lambda: assign_scan_spread(*args, spread), reps=5),
+        "plain_ms": time_ms(torch, lambda: assign_scan_spread_plain(*args, spread),
+                            reps=1, warmup=0)[0],
+        "library_ms": None,
+    }
+    entry["bound_ms"], entry["bound_by"] = spread_bound(args, spread)
+    encode_ms = 1e3 * sum(sched.encode_seconds)
+    solve_ms = 1e3 * sum(sched.solve_seconds)
+    line = {"phase": "spread", "nodes": HEADLINE_NODES, "pods": HEADLINE_PODS,
+            "services": len(services), "app_groups": SPREAD_GROUPS,
+            **run_fields(result), "encode_ms": encode_ms, "solve_ms": solve_ms,
+            "remainder_ms": 1e3 * result.seconds - encode_ms - solve_ms,
+            "podsel_entries": len(sched.statedb.table.podsels),
+            "nodes_used": len(load), "max_zone_imbalance_per_group": imbalance,
+            "launches": launches, "checked_batches_equal_plain": list(SPREAD_CHECKED)}
+    return line, entry
 
 
 def many_class_pod_dicts(n: int) -> list[dict]:
@@ -415,6 +632,8 @@ def main() -> int:
         RUNS,
         assign_scan,
         assign_scan_plain,
+        assign_scan_spread,
+        assign_scan_spread_plain,
         node_run,
     )
     from kubernetes_tpu_torch.ops.static_mask import static_mask, static_mask_plain
@@ -498,20 +717,26 @@ def main() -> int:
     del het, miss, scan_args
 
     # ---- 3b: ragged shapes (tile edges, node padding) on both kernels; the
-    # scan at an N for each of its builds (1, 2, 4 and 8 nodes per thread)
+    # scan and its spread build at an N for each of their builds (1, 2, 4
+    # and 8 nodes per thread)
     shapes = ((1, 65, 60), (100, 1000, 990), (333, 3000, 2900), (64, 1024, 1024),
-              (16, 30000, 29000), (16, 40000, 39000), (8, 65536, 65536))
+              (50, 12000, 11900), (16, 30000, 29000), (16, 40000, 39000),
+              (8, 65536, 65536))
     for p_, n_, live_ in shapes:
         args = static_mask_inputs(torch, rng, dev, p_, n_, live_)
         if not torch.equal(static_mask(*args), static_mask_plain(*args)):
             raise AssertionError(f"static_mask kernel != plain at P={p_} N={n_}")
         sargs = scan_inputs(torch, rng, dev, p_, n_)
+        sargs[0][0] = float("-inf")   # a pod with no feasible node
         compare_scan(torch, assign_scan(*sargs), assign_scan_plain(*sargs))
-    runs = sorted({node_run(n_) for _, n_, _ in shapes} | {node_run(N)})
+        spread = spread_inputs(torch, rng, dev, n_, p_)
+        compare_spread(torch, assign_scan_spread(*sargs, 1.0, 1.0, spread),
+                       assign_scan_spread_plain(*sargs, 1.0, 1.0, spread))
+    runs = sorted({node_run(n_) for _, n_, _ in shapes})
     if runs != list(RUNS):
         raise AssertionError(f"scan builds checked {runs}, built {RUNS}")
     emit({"phase": "edge_shapes", "shapes": [list(x[:2]) for x in shapes],
-          "scan_runs": runs, "kernels_equal_plain": True})
+          "scan_runs": runs, "spread_runs": runs, "kernels_equal_plain": True})
 
     # ---- 4: the first batch through the cache and the blobs ----
     emit(packed_batch_phase(torch, caps, nodes, pods, dev))
@@ -572,10 +797,16 @@ def main() -> int:
     # ---- 7: the StateDB's pod and node lifecycle ----
     emit(lifecycle_phase(torch, caps, dev, (static_mask, assign_scan)))
 
-    # ---- 8: kernels line, card line, result line ----
+    # ---- 8: bench[spread] ----
+    line, k3 = spread_phase(torch, caps, dev,
+                            (static_mask, assign_scan, assign_scan_spread))
+    emit(line)
+    emit({"phase": "spread_build", "shape": [P, N], **k3})
+
+    # ---- 9: kernels line, card line, result line ----
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    emit({"kernels": [{k: entry[k] for k in keys} for entry in (k1, k2)]})
+    emit({"kernels": [{k: entry[k] for k in keys} for entry in (k1, k2, k3)]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Time `Scheduler.schedule` end to end at the headline cell on two kinds of
-pending traffic, for comparing two trees of the repository on one card.
+pending traffic (three where the tree carries SelectorSpread), for
+comparing two trees of the repository on one card.
 
     python3 host_times.py [--root DIR] [--reps K]
 
@@ -13,7 +14,10 @@ from its own sources and its Scheduler places the same pods on the same
   with one spec (one equivalence class);
 - many_classes: 30,000 pods whose memory requests all differ
   (chip_smoke.py `many_class_pod_dicts`), so an encode cache misses on
-  every pod.
+  every pod;
+- spread, where the tree's Scheduler has `add_service`: the reference
+  bench's bench[spread], 30,000 pods in 16 app groups with 16 Services
+  selecting them.
 
 Each traffic runs K times (default 2), each on a fresh Scheduler after the
 kernels are built and warmed. The script collects garbage before each
@@ -78,6 +82,7 @@ def main() -> int:
     from kubernetes_tpu_torch.api.objects import Pod
     from kubernetes_tpu_torch.models.policy import DEFAULT_POLICY
     from kubernetes_tpu_torch.native.build import build
+    from kubernetes_tpu_torch.perf import fixtures
     from kubernetes_tpu_torch.perf.fixtures import make_nodes, make_pods
     from kubernetes_tpu_torch.perf.harness import default_caps, warm
     from kubernetes_tpu_torch.scheduler import Scheduler
@@ -95,12 +100,20 @@ def main() -> int:
         "many_classes": [Pod.from_dict(d) for d in
                          smoke.many_class_pod_dicts(smoke.HEADLINE_PODS)],
     }
+    services = {}
+    if hasattr(Scheduler, "add_service"):
+        traffic["spread"] = make_pods(smoke.HEADLINE_PODS,
+                                      app_groups=smoke.SPREAD_GROUPS)
+        services["spread"] = fixtures.make_services(smoke.SPREAD_GROUPS)
+        warm(caps, DEFAULT_POLICY, dev, n_services=smoke.SPREAD_GROUPS)
     out = {"nvidia_smi": smi.splitlines()[0], "root": str(opts.root.resolve())}
     for name, pods in traffic.items():
         out[name] = []
         for _ in range(opts.reps):
             sched = Scheduler(caps, device=dev)
             sched.add_nodes(nodes)
+            for svc in services.get(name, ()):
+                sched.add_service(svc)
             out[name].append(run(torch, sched, pods))
             del sched
     print(json.dumps(out), flush=True)

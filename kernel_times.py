@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the port's two CUDA kernels at the headline shape, for comparing
-two trees of the repository on one card.
+"""Time the port's CUDA kernels at the headline shape, for comparing two
+trees of the repository on one card.
 
     python3 kernel_times.py [--root DIR]
 
@@ -9,21 +9,27 @@ so `--root` can point at an unpacked older commit: its kernels are built
 from its own sources and fed the same seeded inputs as this tree's. The
 inputs come from chip_smoke.py beside this file (P=4096 pods, N=16384
 nodes): the static mask's operands, the main path's first batch, the
-heterogeneous batch and the all-miss batch of the scan. Prints one JSON
-line: the card (nvidia-smi name and power limit), the root, and each
+heterogeneous batch and the all-miss batch of the scan, and, where the
+tree has the scan's spread build, bench[spread]'s first batch. Prints one
+JSON line: the card (nvidia-smi name and power limit), the root, and each
 time as median, min and max of CUDA-event timed calls (20 of the mask,
-5 of each scan batch), in ms (a call's
-time includes its wrapper's host work), and each CUDA kernel's device
-time per launch on the main-path inputs (torch.profiler), in us, which
-splits a call's time into the card's work and the host's. Exits non-zero
-without a CUDA device.
+5 of each scan batch), in ms (a call's time includes its wrapper's host
+work); each CUDA kernel's device time per launch on the main-path inputs
+(torch.profiler), in us, which splits a call's time into the card's work
+and the host's; and, per build of the main scan (nodes per thread), its
+instruction count and two digests of its SASS (cuobjdump; exact, and with
+register numbers normalized), so two trees' main builds can be compared
+instruction for instruction. Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import importlib.util
 import json
+import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -47,7 +53,8 @@ def main() -> int:
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
     sys.path.insert(0, str(opts.root.resolve()))
-    from kubernetes_tpu_torch.native.build import build
+    from kubernetes_tpu_torch.native.build import build, library_path, nvcc_path
+    from kubernetes_tpu_torch.ops import assign_scan as scan_module
     from kubernetes_tpu_torch.ops.assign_scan import assign_scan
     from kubernetes_tpu_torch.ops.static_mask import static_mask
 
@@ -70,8 +77,43 @@ def main() -> int:
         out.update(smoke.timed(torch, lambda a=a: assign_scan(*a), REPS, key))
     out["device_us_per_launch"] = device_times(
         torch, lambda: static_mask(*args), lambda: assign_scan(*scan_args))
+    if hasattr(scan_module, "assign_scan_spread"):
+        spread_scan = scan_module.assign_scan_spread
+        _c, _n, _p, _s, state, batch, flags = smoke.spread_first_batch(torch, dev)
+        sargs, spread = smoke.spread_scan_args(torch, state, batch, _c, flags)
+        out.update(smoke.timed(torch, lambda: spread_scan(*sargs, spread), REPS,
+                               "spread_ms"))
+    cuobjdump = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
+    out["main_scan_sass"] = main_sass_digests(cuobjdump, library_path("assign_scan"))
     print(json.dumps(out), flush=True)
     return 0
+
+
+def main_sass_digests(cuobjdump: str, library: Path) -> dict:
+    """{nodes per thread: {instructions, exact, registers_renamed}} of the
+    main scan's builds in a built library (the kernel
+    `assign_scan_kernel<RUN>` or `assign_scan_kernel<RUN, false>`): the
+    instruction count, a sha1 of the instruction text, and one with the
+    register numbers replaced by R, so two builds that differ only in
+    register allocation share the second. Addresses, encodings and the
+    function's own name are left out."""
+    sass = subprocess.run([cuobjdump, "-sass", str(library)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    out = {}
+    for chunk in sass.split("Function : ")[1:]:
+        name, _, body = chunk.partition("\n")
+        m = re.search(r"assign_scan_kernelILi(\d)E(?:Lb([01])E)?E", name)
+        if m is None or m.group(2) == "1":
+            continue
+        lines = [re.sub(r"/\*[^*]*\*/", "", ln).strip()
+                 for ln in body.splitlines() if "/*" in ln and ";" in ln]
+        text = "\n".join(lines)
+        out[m.group(1)] = {
+            "instructions": len(lines),
+            "exact": hashlib.sha1(text.encode()).hexdigest()[:16],
+            "registers_renamed": hashlib.sha1(
+                re.sub(r"\bR\d+\b", "R", text).encode()).hexdigest()[:16]}
+    return out
 
 
 def device_times(torch, mask_call, scan_call, mask_calls=10, scan_calls=3) -> dict:

@@ -1,4 +1,6 @@
-"""Typed API objects: the v1 `Node` / `Pod` subset the encoders read.
+"""Typed API objects: the v1 `Node` / `Pod` subset the encoders read, and
+the workload objects SelectorSpread looks pods up in (Service,
+ReplicationController, ReplicaSet, StatefulSet).
 
 Parsed from the same Kubernetes-JSON dict shape the reference package
 accepts, so one fixture dict feeds both packages. Only the fields the
@@ -203,3 +205,52 @@ class Node:
         return cls(metadata=ObjectMeta.from_dict(d.get("metadata") or {}),
                    spec=NodeSpec.from_dict(d.get("spec") or {}),
                    status=NodeStatus.from_dict(d.get("status") or {}))
+
+
+@dataclass
+class _Workload:
+    """A workload object as SelectorSpread reads it: metadata and the raw
+    spec. `selector` is spec.selector: a map for Services and RCs
+    (selector_spreading.go:68), a LabelSelector dict for ReplicaSets and
+    StatefulSets (:73, :80)."""
+
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    spec: dict[str, Any] = field(default_factory=dict)
+
+    @property
+    def key(self) -> str:
+        return f"{self.metadata.namespace}/{self.metadata.name}"
+
+    @property
+    def selector(self) -> dict[str, Any]:
+        return dict(self.spec.get("selector") or {})
+
+    @classmethod
+    def from_dict(cls, d: dict[str, Any]):
+        return cls(metadata=ObjectMeta.from_dict(d.get("metadata") or {}),
+                   spec=dict(d.get("spec") or {}))
+
+
+@dataclass
+class Service(_Workload):
+    @property
+    def selector(self) -> dict[str, str] | None:
+        """None when absent, which selects nothing; a non-nil empty map
+        selects everything (service_expansion.go:45-50)."""
+        sel = self.spec.get("selector")
+        return None if sel is None else dict(sel)
+
+
+@dataclass
+class ReplicationController(_Workload):
+    pass
+
+
+@dataclass
+class ReplicaSet(_Workload):
+    pass
+
+
+@dataclass
+class StatefulSet(_Workload):
+    pass

@@ -88,12 +88,66 @@
 // bytes, 268 MB at P=4096, N=16384: 80 us at 3.35 TB/s). The serial
 // dependency between pods puts a chain of block barrier, DSMEM exchange
 // and reductions under every pod, which at 4096 pods is far above 80 us.
+//
+// The spread build (SPREAD = true, entry ktpu_assign_scan_spread) adds
+// SelectorSpread, the JAX step's `selector_spread` term and its
+// `ledger_add` of the pod-selector counts (kubernetes_tpu/ops/solver.py:
+// 579-581, ops/spread.py:29 selector_spread, ops/interpod.py:253
+// ledger_add). The main build (SPREAD = false) compiles to the same
+// instructions, in the same order, as before the spread build existed
+// (registers may be numbered differently; kernel_times.py compares the
+// SASS of two trees): every addition is behind `if constexpr (SPREAD)` or
+// unused by it, and its parameters are one trailing empty struct. Per
+// pod, between the terms and `best`:
+//   1. when the pod's spread_q (a word of its pod slot) is -1, every node
+//      scores MAX_PRIORITY (spread.py:65) and nothing is exchanged; every
+//      block reads the same pod row, so all skip together;
+//   2. else each thread reads its run's counts of column spread_q from a
+//      transposed [UQ, N] copy of the pod-selector ledger in device
+//      memory (the wrapper makes it and returns it as [N, UQ]; a column
+//      of the row-major ledger would be a 128-byte stride per node, and
+//      the ledger, 2 MiB at N = 16,384, does not fit beside the shared
+//      columns), keeps the feasible ones (masked_static > -inf and the
+//      pod fits, as the main scan decides it), and the block reduces the
+//      max count, the per-zone sums of the feasible counts (GetZoneKey
+//      slot TOPO_SPREAD_ZONE, one shared atomicAdd per nonzero count) and
+//      whether any feasible node has a zone;
+//   3. the 16 blocks exchange these partials (272 bytes each) the same
+//      way the triples travel, st.async onto a third mbarrier, whose phase
+//      is the parity of the spread pods seen so far; warps 0-1 reduce the
+//      16 partials (zone d on thread d), and after one more block barrier
+//      every thread has max_node, max_zone, have_zones and the zone sums;
+//   4. each thread adds w_ss * SelectorSpread to its feasible nodes'
+//      scores, then the main scan's selection follows.
+// After the choice, the owner of the chosen node adds the pod's match
+// row (pod_matches_q, in its pod slot) to that node's counts in device
+// memory. A thread reads and writes only the counts of the nodes it owns,
+// the main ledger's ownership rule, so no barrier guards the ledger. The
+// partials of one spread pod are all read before any block sends its
+// triple of that pod, and a block sends the next spread pod's partials
+// only after it has received every triple, so one slot buffer and one
+// mbarrier suffice; a wait that never completes traps as the triples'
+// does. The 8-node build keeps STAGES = 3 row slots (not 4) to fit the
+// spread build's shared memory under the block limit.
+//
+// Exactness. The counts are integers far below 2^24, so the zone sums
+// equal the JAX package's one-hot matmul (spread.py:45) in any order of
+// f32 additions, the shared atomics' included. The score is written with
+// the _rn intrinsics in spread.py:50-64's order (--fmad=false), and its
+// constants are JAX's weakly typed Python floats cast once to f32:
+// (float)(1.0 - 2.0 / 3.0) and (float)(2.0 / 3.0).
+//
+// Bound of the spread build: masked_static read once, plus the
+// pod-selector ledger read once and written once (N*UQ*4 bytes each way),
+// at 3.35 TB/s.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace cg = cooperative_groups;
 
@@ -103,8 +157,10 @@ constexpr int CLUSTER = 16;          // blocks of the cluster (non-portable)
 constexpr int THREADS = 512;
 constexpr int WARPS = THREADS / 32;
 constexpr int STAGES = 4;            // ring slots of masked_static rows
+constexpr int STAGES_MAIN = STAGES;
 constexpr int POD_SLOTS = 8;         // ring slots of pod rows (> STAGES)
 constexpr int POD_ROW = 8;           // floats of a pod slot: requests, nonzero
+constexpr int POD_ROW_MAIN = POD_ROW;
 constexpr int COLUMNS = 10;          // shared node columns (see Smem)
 constexpr int MAX_SMEM = 232448;     // opt-in shared memory of one block
 constexpr int R = 6;                 // resource columns of requests / requested
@@ -117,6 +173,41 @@ constexpr long long WAIT_LIMIT = 1LL << 33;      // cycles (seconds): a lost tri
 
 static_assert(WARPS <= 32 && CLUSTER <= 32, "one warp reduces the slots");
 static_assert(POD_SLOTS > STAGES && R + 2 == POD_ROW, "pod ring");
+
+// ---- the spread build's layout
+constexpr int MAX_DOMAINS = 64;      // zone ids a block sums (two warps' lanes)
+constexpr int MAX_UQ = 64;           // pod-selector columns
+constexpr int SP_Q = R + 2;          // pod-slot word: spread_q
+constexpr int SP_M = R + 3;          // pod-slot words: the match row
+constexpr int SP_POD_ROW = 80;       // floats of a spread pod slot
+constexpr int SP_WORDS = 2 + MAX_DOMAINS;   // max count, any zoned, zone sums
+constexpr int SP_CHUNKS = (SP_WORDS + 3) / 4;
+constexpr unsigned SP_BYTES = SP_CHUNKS * 16;   // one block's partial
+constexpr float ZONE_SHARE = (float)(2.0 / 3.0);        // zoneWeighting
+constexpr float NODE_SHARE = (float)(1.0 - 2.0 / 3.0);
+static_assert(MAX_DOMAINS == 2 * 32 && SP_M + MAX_UQ <= SP_POD_ROW
+              && SP_POD_ROW % 4 == 0, "spread layout");
+
+// Row-ring slots and pod-slot width of one build.
+template <int RUN, bool SPREAD>
+struct Build {
+  static constexpr int STAGES = (SPREAD && RUN == 8) ? 3 : STAGES_MAIN;
+  static constexpr int POD_ROW = SPREAD ? SP_POD_ROW : POD_ROW_MAIN;
+};
+
+// What the spread build reads beyond the main operands.
+struct SpreadArgs {
+  float* podsel_t;            // [UQ, N] counts, updated in place
+  const int* spread_q;        // [P] union entry, -1 = none
+  const float* pod_matches;   // [P, UQ] match rows
+  const int* zone;            // [N] TOPO_SPREAD_ZONE domain id, -1 = none
+  int uq;
+  int nd;                     // zone ids below nd are summed
+  float w_ss;
+};
+struct NoSpread {};
+template <bool SPREAD>
+using SpreadParam = typename std::conditional<SPREAD, SpreadArgs, NoSpread>::type;
 
 struct Triple {      // a partial reduction: best score's key, ties at it, feasible
   int key;
@@ -135,7 +226,8 @@ __device__ __forceinline__ int order_key(float x) {
   return b >= 0 ? b : b ^ 0x7fffffff;
 }
 
-// Dynamic shared memory of one block, NB = THREADS * RUN nodes.
+// Dynamic shared memory of one block, NB = THREADS * RUN nodes. The spread
+// build's regions follow the main build's.
 struct Smem {
   float* a_pods; float* a_cpu; float* a_mem;     // allocatable
   float* r_pods; float* r_cpu; float* r_mem;     // requested
@@ -146,15 +238,29 @@ struct Smem {
   int4* cslot;                                   // [2][CLUSTER] block triples
   float* pods;                                   // [POD_SLOTS][POD_ROW]
   Triple* wslot;                                 // [2][WARPS] warp triples
+  int4* sp_slot;                                 // [CLUSTER][SP_CHUNKS] partials
+  int4* sp_out;                                  // [SP_CHUNKS] this block's
+  float* zsum;                                   // [MAX_DOMAINS] block sums
+  float* zc;                                     // [MAX_DOMAINS] cluster sums
+  int2* wsp;                                     // [WARPS] (max count, zoned)
+  float* sp_misc;                                // max_node, have_zones, 2 zone maxima
+  uint64_t* bar_sp;                              // the partials' mbarrier
 };
 
-constexpr size_t smem_bytes(int nb) {
+template <bool SPREAD>
+constexpr size_t smem_bytes(int nb, int STAGES, int POD_ROW) {
   return (size_t)(COLUMNS + STAGES) * nb * sizeof(float) + 2 * sizeof(uint64_t)
          + (size_t)2 * CLUSTER * sizeof(int4)
          + (size_t)POD_SLOTS * POD_ROW * sizeof(float)
-         + (size_t)2 * WARPS * sizeof(Triple);
+         + (size_t)2 * WARPS * sizeof(Triple)
+         + (SPREAD ? (size_t)(CLUSTER + 1) * SP_CHUNKS * sizeof(int4)
+                         + (size_t)2 * MAX_DOMAINS * sizeof(float)
+                         + (size_t)WARPS * sizeof(int2) + 4 * sizeof(float)
+                         + 2 * sizeof(uint64_t)
+                   : 0);
 }
 
+template <bool SPREAD, int STAGES, int POD_ROW>
 __device__ Smem carve(float* base, int nb) {
   Smem s;
   s.a_pods = base;
@@ -173,6 +279,15 @@ __device__ Smem carve(float* base, int nb) {
   s.cslot = reinterpret_cast<int4*>(s.bar + 2);
   s.pods = reinterpret_cast<float*>(s.cslot + 2 * CLUSTER);
   s.wslot = reinterpret_cast<Triple*>(s.pods + POD_SLOTS * POD_ROW);
+  if constexpr (SPREAD) {   // every size below is a multiple of 16 bytes
+    s.sp_slot = reinterpret_cast<int4*>(s.wslot + 2 * WARPS);
+    s.sp_out = s.sp_slot + CLUSTER * SP_CHUNKS;
+    s.zsum = reinterpret_cast<float*>(s.sp_out + SP_CHUNKS);
+    s.zc = s.zsum + MAX_DOMAINS;
+    s.wsp = reinterpret_cast<int2*>(s.zc + MAX_DOMAINS);
+    s.sp_misc = reinterpret_cast<float*>(s.wsp + WARPS);
+    s.bar_sp = reinterpret_cast<uint64_t*>(s.sp_misc + 4);
+  }
   return s;
 }
 
@@ -335,18 +450,49 @@ __device__ __forceinline__ int exclusive_sum_small(int v, int lane) {
   return sum;
 }
 
-template <int RUN>
+// SelectorSpread of one node (spread.py:50-64): c its count, zc_node its
+// zone's feasible count (0 without a zone), has_zone its zone id >= 0.
+__device__ __forceinline__ float spread_score(float c, float zc_node,
+                                              bool has_zone, float max_node,
+                                              float max_zone, bool have_zones) {
+  const float node_score =
+      max_node > 0.0f
+          ? __fdiv_rn(__fmul_rn(MAX_PRIORITY, __fsub_rn(max_node, c)),
+                      fmaxf(max_node, 1.0f))
+          : MAX_PRIORITY;
+  const float zone_score =
+      max_zone > 0.0f
+          ? __fdiv_rn(__fmul_rn(MAX_PRIORITY, __fsub_rn(max_zone, zc_node)),
+                      fmaxf(max_zone, 1.0f))
+          : MAX_PRIORITY;
+  const float blended =
+      (have_zones && has_zone)
+          ? __fadd_rn(__fmul_rn(node_score, NODE_SHARE),
+                      __fmul_rn(ZONE_SHARE, zone_score))
+          : node_score;
+  return truncf(__fadd_rn(blended, FLOOR_EPS));
+}
+
+// Word w of block b's spread partial in this block's slots.
+__device__ __forceinline__ int sp_word(const Smem& s, int b, int w) {
+  return reinterpret_cast<const int*>(s.sp_slot + b * SP_CHUNKS)[w];
+}
+
+template <int RUN, bool SPREAD>
 __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
     const float* __restrict__ masked_static, const float* __restrict__ requests,
     const float* __restrict__ nonzero_requests,
     const float* __restrict__ allocatable, float* __restrict__ requested,
     float* __restrict__ nonzero, int* __restrict__ assignments,
     float* __restrict__ scores, int* __restrict__ feasible_counts,
-    long long* __restrict__ rr_io, int P, int N, float w_lr, float w_ba) {
+    long long* __restrict__ rr_io, int P, int N, float w_lr, float w_ba,
+    SpreadParam<SPREAD> sp) {
   constexpr int NB = THREADS * RUN;
+  constexpr int STAGES = Build<RUN, SPREAD>::STAGES;
+  constexpr int POD_ROW = Build<RUN, SPREAD>::POD_ROW;
   extern __shared__ __align__(16) float smem_base[];
   cg::cluster_group cluster = cg::this_cluster();
-  const Smem s = carve(smem_base, NB);
+  const Smem s = carve<SPREAD, STAGES, POD_ROW>(smem_base, NB);
   const int rank = (int)cluster.block_rank();
   const int t = threadIdx.x;
   const int lane = t % 32;
@@ -371,6 +517,12 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
     for (int k = 0; k < STAGES; ++k)
       if (!in) s.ring[k * NB + c] = -INFINITY;
   }
+  [[maybe_unused]] int dom[RUN];     // the run's zone ids (spread build)
+  if constexpr (SPREAD) {
+#pragma unroll
+    for (int j = 0; j < RUN; ++j) dom[j] = g0 + j < N ? sp.zone[g0 + j] : -1;
+    if (t < MAX_DOMAINS) s.zsum[t] = 0.0f;
+  }
   auto issue_row = [&](int p) {
     if (p < P) {
       float* slot = s.ring + (p % STAGES) * NB;
@@ -378,10 +530,19 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
 #pragma unroll
       for (int j = 0; j < RUN; ++j)
         if (g0 + j < N) cp_async4(slot + c0 + j, row + g0 + j);
-      if (t < POD_ROW)
-        cp_async4(s.pods + (p % POD_SLOTS) * POD_ROW + t,
-                  t < R ? requests + (size_t)p * R + t
-                        : nonzero_requests + (size_t)p * 2 + (t - R));
+      if constexpr (SPREAD) {   // + spread_q and the match row
+        if (t < SP_M + sp.uq)
+          cp_async4(s.pods + (p % POD_SLOTS) * POD_ROW + t,
+                    t < R ? requests + (size_t)p * R + t
+                    : t < SP_Q ? nonzero_requests + (size_t)p * 2 + (t - R)
+                    : t == SP_Q ? reinterpret_cast<const float*>(sp.spread_q + p)
+                    : sp.pod_matches + (size_t)p * sp.uq + (t - SP_M));
+      } else {
+        if (t < POD_ROW)
+          cp_async4(s.pods + (p % POD_SLOTS) * POD_ROW + t,
+                    t < R ? requests + (size_t)p * R + t
+                          : nonzero_requests + (size_t)p * 2 + (t - R));
+      }
     }
     cp_async_commit();    // one group per pod, empty past the last
   };
@@ -396,6 +557,11 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     mbar_arm(&s.bar[0], CLUSTER * TRIPLE_BYTES);
     mbar_arm(&s.bar[1], CLUSTER * TRIPLE_BYTES);
+    if constexpr (SPREAD) {
+      mbar_init(s.bar_sp, 1);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      mbar_arm(s.bar_sp, CLUSTER * SP_BYTES);
+    }
   }
   // where warp 0's lane l sends this block's triples: block l's slot
   // `rank` and mbarrier, of each parity
@@ -405,6 +571,15 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
     to_slot1 = map_rank(smem_u32(&s.cslot[CLUSTER + rank]), lane);
     to_bar0 = map_rank(smem_u32(&s.bar[0]), lane);
     to_bar1 = map_rank(smem_u32(&s.bar[1]), lane);
+  }
+  // where warp 0's lane l sends its chunks of this block's spread partial:
+  // block (l % 16)'s slot `rank` and mbarrier
+  unsigned to_sp_slot = 0u, to_sp_bar = 0u, sp_phase = 0u;
+  if constexpr (SPREAD) {
+    if (warp == 0) {
+      to_sp_slot = map_rank(smem_u32(&s.sp_slot[rank * SP_CHUNKS]), lane % CLUSTER);
+      to_sp_bar = map_rank(smem_u32(s.bar_sp), lane % CLUSTER);
+    }
   }
 
   unsigned int rr = (unsigned int)(*rr_io);
@@ -455,6 +630,86 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
         s.t_ba[c0 + j] = ba[j];
       }
     }
+    // ---- SelectorSpread of the run (spread build)
+    [[maybe_unused]] float ss[RUN];
+    if constexpr (SPREAD) {
+      const int q = __float_as_int(pr[SP_Q]);
+      if (q >= sp.uq) __trap();   // not an entry of the ledger
+      if (q < 0) {
+#pragma unroll
+        for (int j = 0; j < RUN; ++j) ss[j] = MAX_PRIORITY;
+      } else {
+        const float* col = sp.podsel_t + (size_t)q * N;
+        float cnt[RUN];
+        int cmax = 0;
+        bool zoned = false;
+#pragma unroll
+        for (int j = 0; j < RUN; ++j) {
+          cnt[j] = g0 + j < N ? col[g0 + j] : 0.0f;
+          if (!(ms[j] > -INFINITY) || lr[j] < 0.0f) continue;   // infeasible
+          cmax = max(cmax, (int)cnt[j]);
+          if (dom[j] >= 0) {
+            zoned = true;
+            if (dom[j] < sp.nd && cnt[j] != 0.0f) atomicAdd(&s.zsum[dom[j]], cnt[j]);
+          }
+        }
+        const int wmax = __reduce_max_sync(FULL, cmax);
+        const unsigned wzoned = __ballot_sync(FULL, zoned);
+        if (lane == 0) s.wsp[warp] = make_int2(wmax, wzoned != 0u);
+        __syncthreads();
+        if (warp == 0) {   // the block's partial, into slot `rank` of every block
+          const int2 w = lane < WARPS ? s.wsp[lane] : make_int2(0, 0);
+          int* out = reinterpret_cast<int*>(s.sp_out);
+          const int bmax = __reduce_max_sync(FULL, w.x);
+          const unsigned bzoned = __reduce_or_sync(FULL, (unsigned)w.y);
+          out[2 + lane] = __float_as_int(s.zsum[lane]);
+          out[2 + 32 + lane] = __float_as_int(s.zsum[32 + lane]);
+          s.zsum[lane] = 0.0f;
+          s.zsum[32 + lane] = 0.0f;
+          if (lane == 0) {
+            out[0] = bmax;
+            out[1] = (int)bzoned;
+            for (int k = SP_WORDS; k < 4 * SP_CHUNKS; ++k) out[k] = 0;
+          }
+          __syncwarp();
+          for (int k = lane / CLUSTER; k < SP_CHUNKS; k += 32 / CLUSTER)
+            st_async_v4(to_sp_slot + k * 16, s.sp_out[k], to_sp_bar);
+        }
+        mbar_wait(s.bar_sp, sp_phase);
+        if (t == 0) mbar_arm(s.bar_sp, CLUSTER * SP_BYTES);   // next spread pod
+        sp_phase ^= 1u;
+        if (warp < 2) {   // zone t: the cluster's sum, and the zone maximum
+          float zc = 0.0f;
+#pragma unroll
+          for (int b = 0; b < CLUSTER; ++b)
+            zc = __fadd_rn(zc, __int_as_float(sp_word(s, b, 2 + t)));
+          s.zc[t] = zc;
+          // sums are >= 0: their bits order as the floats do
+          const int zmax = __reduce_max_sync(FULL, __float_as_int(zc));
+          if (lane == 0) s.sp_misc[2 + warp] = __int_as_float(zmax);
+          if (warp == 0) {
+            const int m = __reduce_max_sync(FULL, lane < CLUSTER ? sp_word(s, lane, 0) : 0);
+            const unsigned z = __reduce_or_sync(
+                FULL, lane < CLUSTER ? (unsigned)sp_word(s, lane, 1) : 0u);
+            if (lane == 0) {
+              s.sp_misc[0] = (float)m;
+              s.sp_misc[1] = z ? 1.0f : 0.0f;
+            }
+          }
+        }
+        __syncthreads();
+        const float max_node = s.sp_misc[0];
+        const bool have_zones = s.sp_misc[1] != 0.0f;
+        const float max_zone = fmaxf(s.sp_misc[2], s.sp_misc[3]);
+#pragma unroll
+        for (int j = 0; j < RUN; ++j) {
+          const bool summed = dom[j] >= 0 && dom[j] < sp.nd;
+          ss[j] = spread_score(cnt[j], summed ? s.zc[dom[j]] : 0.0f, dom[j] >= 0,
+                               max_node, max_zone, have_zones);
+        }
+      }
+    }
+
     float best = -INFINITY;
     unsigned tied = 0u;     // bit j: run position j ties at `best`
     int feas = 0;
@@ -462,8 +717,14 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
     for (int j = 0; j < RUN; ++j) {
       if (!(ms[j] > -INFINITY) || lr[j] < 0.0f) continue;
       // + 0 turns a -0 score into +0, so equal scores have equal keys
-      const float sc = __fadd_rn(__fadd_rn(__fadd_rn(ms[j], __fmul_rn(w_lr, lr[j])),
-                                           __fmul_rn(w_ba, ba[j])), 0.0f);
+      float sc;
+      if constexpr (SPREAD)
+        sc = __fadd_rn(__fadd_rn(__fadd_rn(__fadd_rn(ms[j], __fmul_rn(w_lr, lr[j])),
+                                           __fmul_rn(w_ba, ba[j])),
+                                 __fmul_rn(sp.w_ss, ss[j])), 0.0f);
+      else
+        sc = __fadd_rn(__fadd_rn(__fadd_rn(ms[j], __fmul_rn(w_lr, lr[j])),
+                                 __fmul_rn(w_ba, ba[j])), 0.0f);
       ++feas;
       if (sc > best) {
         best = sc;
@@ -527,6 +788,15 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
             s.z_cpu[c] = __fadd_rn(s.z_cpu[c], pod.nz_cpu);
             s.z_mem[c] = __fadd_rn(s.z_mem[c], pod.nz_mem);
             node_terms(s, pod, c, &s.t_lr[c], &s.t_ba[c]);
+            if constexpr (SPREAD) {   // the pod's match row into its counts
+              for (int u = 0; u < sp.uq; ++u) {
+                const float v = pr[SP_M + u];
+                if (v != 0.0f) {
+                  float* cell = sp.podsel_t + (size_t)u * N + g;
+                  *cell = __fadd_rn(*cell, v);
+                }
+              }
+            }
             assignments[p] = g;
             scores[p] = best;
           }
@@ -556,14 +826,29 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
   cluster.sync();   // no block leaves while another may still store into it
 }
 
-template <int RUN>
-int launch(const float* masked_static, const float* requests,
-           const float* nonzero_requests, const float* allocatable,
-           float* requested, float* nonzero, int* assignments, float* scores,
-           int* feasible_counts, long long* rr_io, int P, int N, float w_lr,
-           float w_ba, cudaStream_t stream) {
-  auto kernel = assign_scan_kernel<RUN>;
-  const size_t smem = smem_bytes(THREADS * RUN);
+// The main operands of one launch.
+struct Operands {
+  const float* masked_static;
+  const float* requests;
+  const float* nonzero_requests;
+  const float* allocatable;
+  float* requested;
+  float* nonzero;
+  int* assignments;
+  float* scores;
+  int* feasible_counts;
+  long long* rr_io;
+  int P;
+  int N;
+  float w_lr;
+  float w_ba;
+};
+
+template <int RUN, bool SPREAD>
+int launch(const Operands& o, SpreadParam<SPREAD> sp, cudaStream_t stream) {
+  auto kernel = assign_scan_kernel<RUN, SPREAD>;
+  const size_t smem = smem_bytes<SPREAD>(THREADS * RUN, Build<RUN, SPREAD>::STAGES,
+                                         Build<RUN, SPREAD>::POD_ROW);
   if (smem > (size_t)MAX_SMEM) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -590,12 +875,29 @@ int launch(const float* masked_static, const float* requests,
   err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &config);
   if (err != cudaSuccess) return (int)err;
   if (clusters < 1) return (int)cudaErrorLaunchOutOfResources;
-  err = cudaLaunchKernelEx(&config, kernel, masked_static, requests,
-                           nonzero_requests, allocatable, requested, nonzero,
-                           assignments, scores, feasible_counts, rr_io, P, N,
-                           w_lr, w_ba);
+  err = cudaLaunchKernelEx(&config, kernel, o.masked_static, o.requests,
+                           o.nonzero_requests, o.allocatable, o.requested,
+                           o.nonzero, o.assignments, o.scores,
+                           o.feasible_counts, o.rr_io, o.P, o.N, o.w_lr,
+                           o.w_ba, sp);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// The build for `run` nodes per thread (1, 2, 4 or 8), with
+// N <= CLUSTER * 512 * run.
+template <bool SPREAD>
+int launch_run(const Operands& o, int run, SpreadParam<SPREAD> sp,
+               cudaStream_t stream) {
+  if (o.P <= 0) return (int)cudaSuccess;
+  if (o.N <= 0 || o.N > CLUSTER * THREADS * run) return (int)cudaErrorInvalidValue;
+  switch (run) {
+    case 1: return launch<1, SPREAD>(o, sp, stream);
+    case 2: return launch<2, SPREAD>(o, sp, stream);
+    case 4: return launch<4, SPREAD>(o, sp, stream);
+    case 8: return launch<8, SPREAD>(o, sp, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -610,21 +912,29 @@ extern "C" int ktpu_assign_scan(
     float* nonzero, int* assignments, float* scores, int* feasible_counts,
     long long* rr_io, int P, int N, int run, float w_lr, float w_ba,
     cudaStream_t stream) {
-  if (P <= 0) return (int)cudaSuccess;
-  if (N <= 0 || N > CLUSTER * THREADS * run) return (int)cudaErrorInvalidValue;
-  switch (run) {
-    case 1: return launch<1>(masked_static, requests, nonzero_requests, allocatable,
-                             requested, nonzero, assignments, scores,
-                             feasible_counts, rr_io, P, N, w_lr, w_ba, stream);
-    case 2: return launch<2>(masked_static, requests, nonzero_requests, allocatable,
-                             requested, nonzero, assignments, scores,
-                             feasible_counts, rr_io, P, N, w_lr, w_ba, stream);
-    case 4: return launch<4>(masked_static, requests, nonzero_requests, allocatable,
-                             requested, nonzero, assignments, scores,
-                             feasible_counts, rr_io, P, N, w_lr, w_ba, stream);
-    case 8: return launch<8>(masked_static, requests, nonzero_requests, allocatable,
-                             requested, nonzero, assignments, scores,
-                             feasible_counts, rr_io, P, N, w_lr, w_ba, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  const Operands o{masked_static, requests, nonzero_requests, allocatable,
+                   requested, nonzero, assignments, scores, feasible_counts,
+                   rr_io, P, N, w_lr, w_ba};
+  return launch_run<false>(o, run, NoSpread{}, stream);
+}
+
+// The spread build: the operands of ktpu_assign_scan, and podsel_t
+// [uq, N] (the pod-selector counts, transposed; updated in place),
+// spread_q [P] (-1 or an entry below uq), pod_matches [P, uq], zone [N]
+// (the GetZoneKey domain id, -1 = none; ids below nd are summed),
+// 1 <= nd <= 64, 0 <= uq <= 64, and the SelectorSpread weight w_ss.
+extern "C" int ktpu_assign_scan_spread(
+    const float* masked_static, const float* requests,
+    const float* nonzero_requests, const float* allocatable, float* requested,
+    float* nonzero, int* assignments, float* scores, int* feasible_counts,
+    long long* rr_io, int P, int N, int run, float w_lr, float w_ba,
+    float* podsel_t, const int* spread_q, const float* pod_matches,
+    const int* zone, int uq, int nd, float w_ss, cudaStream_t stream) {
+  if (uq < 0 || uq > MAX_UQ || nd < 1 || nd > MAX_DOMAINS)
+    return (int)cudaErrorInvalidValue;
+  const Operands o{masked_static, requests, nonzero_requests, allocatable,
+                   requested, nonzero, assignments, scores, feasible_counts,
+                   rr_io, P, N, w_lr, w_ba};
+  const SpreadArgs sp{podsel_t, spread_q, pod_matches, zone, uq, nd, w_ss};
+  return launch_run<true>(o, run, sp, stream);
 }

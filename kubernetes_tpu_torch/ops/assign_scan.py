@@ -6,9 +6,16 @@ Pallas source: in eager PyTorch each pod would cost about fifteen launches,
 so the whole scan is one CUDA launch of one thread-block cluster
 (csrc/assign_scan.cu; its header gives the design and the bound).
 
-`assign_scan` is the wrapper: on CUDA tensors it launches the kernel (and
-counts the launch in `assign_scan.launches`), on CPU tensors it runs
-`assign_scan_plain`, the same scan as a Python loop of tensor ops.
+Two builds of the kernel, chosen at compile time:
+- `assign_scan`, the main path's scan (resource fit, LeastRequested and
+  BalancedAllocation, the round-robin tie-break, the resource ledger);
+- `assign_scan_spread`, the same scan plus SelectorSpread over the
+  feasible nodes and the pod-selector ledger it reads (the JAX step's
+  `selector_spread` term and `ledger_add`, solver.py:579-581).
+
+Each wrapper launches its build on CUDA tensors (and counts the launch in
+`<wrapper>.launches`), runs its plain version, a Python loop of tensor
+ops, on CPU tensors, and raises on any other device.
 """
 
 from __future__ import annotations
@@ -18,8 +25,11 @@ from dataclasses import dataclass
 
 import torch
 
+from kubernetes_tpu_torch.ops.interpod import ledger_add, make_ledger, topology_onehot
 from kubernetes_tpu_torch.ops.predicates import fits_resources_dyn
 from kubernetes_tpu_torch.ops.priorities import balanced_allocation, least_requested
+from kubernetes_tpu_torch.ops.spread import selector_spread
+from kubernetes_tpu_torch.state.layout import TOPO_SPREAD_ZONE
 from kubernetes_tpu_torch.utils.device import check_tensor
 
 RR_MOD = 1 << 32
@@ -33,6 +43,7 @@ class ScanResult:
     new_requested: torch.Tensor    # f32[N, R] ledger after the batch
     new_nonzero: torch.Tensor      # f32[N, 2]
     rr_end: torch.Tensor           # i64 scalar in [0, 2^32)
+    new_podsel: torch.Tensor | None = None  # f32[N, UQ], spread build only
 
 
 def _rr_tensor(rr_start, device) -> torch.Tensor:
@@ -42,12 +53,47 @@ def _rr_tensor(rr_start, device) -> torch.Tensor:
     return torch.tensor(int(rr_start) % RR_MOD, dtype=torch.int64, device=device)
 
 
+@dataclass
+class SpreadInputs:
+    """What the spread build reads beyond the main scan's operands: the
+    SelectorSpread weight, each pod's union entry (spread_q i32[P], -1 =
+    none) and match row (pod_matches_q f32[P, UQ]), the batch-start
+    pod-selector ledger (podsel_count f32[N, UQ], not modified) and the
+    nodes' topology (i32[N, K], -1 = no domain), whose GetZoneKey slot
+    (TOPO_SPREAD_ZONE) holds ids below `domain_universe`."""
+
+    w_ss: float
+    spread_q: torch.Tensor
+    pod_matches_q: torch.Tensor
+    podsel_count: torch.Tensor
+    topology: torch.Tensor
+    domain_universe: int
+
+
 def assign_scan_plain(masked_static, requests, nonzero_requests, allocatable,
                       requested, nonzero, rr_start, w_lr: float = 1.0,
                       w_ba: float = 1.0) -> ScanResult:
     """The scan as a loop over pods of N-wide tensor ops (the CPU path and
     the reference the kernel is held against on the card). Nothing leaves
     the device inside the loop."""
+    return _scan_plain(masked_static, requests, nonzero_requests, allocatable,
+                       requested, nonzero, rr_start, w_lr, w_ba, None)
+
+
+def assign_scan_spread_plain(masked_static, requests, nonzero_requests,
+                             allocatable, requested, nonzero, rr_start,
+                             w_lr: float, w_ba: float,
+                             spread: SpreadInputs) -> ScanResult:
+    """`assign_scan_plain` plus, for each pod, `w_ss` times SelectorSpread
+    over the nodes feasible after the dynamic fit, and the pod's match row
+    added to the pod-selector ledger at the chosen node (`new_podsel`)."""
+    return _scan_plain(masked_static, requests, nonzero_requests, allocatable,
+                       requested, nonzero, rr_start, w_lr, w_ba, spread)
+
+
+def _scan_plain(masked_static, requests, nonzero_requests, allocatable,
+                requested, nonzero, rr_start, w_lr, w_ba,
+                spread: SpreadInputs | None) -> ScanResult:
     p_count, n = masked_static.shape
     dev = masked_static.device
     req = requested.clone()
@@ -57,6 +103,9 @@ def assign_scan_plain(masked_static, requests, nonzero_requests, allocatable,
     scores = torch.empty((p_count,), dtype=torch.float32, device=dev)
     counts = torch.empty((p_count,), dtype=torch.int32, device=dev)
     neg_inf = torch.tensor(float("-inf"), device=dev)
+    if spread is not None:
+        ledger = make_ledger(spread.podsel_count)
+        onehot = topology_onehot(spread.topology, spread.domain_universe)
     for p in range(p_count):
         ms = masked_static[p]
         feasible = (ms > float("-inf")) & fits_resources_dyn(
@@ -64,6 +113,10 @@ def assign_scan_plain(masked_static, requests, nonzero_requests, allocatable,
             dyn_storage=False)[0]
         score = (ms + w_lr * least_requested(allocatable, nonzero_requests[p:p + 1], nz)[0]
                  + w_ba * balanced_allocation(allocatable, nonzero_requests[p:p + 1], nz)[0])
+        if spread is not None:
+            score = score + spread.w_ss * selector_spread(
+                spread.topology, spread.spread_q[p], ledger, feasible,
+                spread.domain_universe, onehot)
         masked = torch.where(feasible, score, neg_inf)
         best = masked.max()
         ties = feasible & (masked == best)
@@ -77,11 +130,14 @@ def assign_scan_plain(masked_static, requests, nonzero_requests, allocatable,
         add = assigned.to(torch.float32)
         req[node] += add * requests[p]
         nz[node] += add * nonzero_requests[p]
+        if spread is not None:
+            ledger_add(ledger, spread.pod_matches_q[p], node, add)
         rr = (rr + assigned.to(torch.int64)) % RR_MOD
         assignments[p] = torch.where(assigned, node.to(torch.int32), -1)
         scores[p] = torch.where(assigned, best, 0.0)
         counts[p] = feasible.sum()
-    return ScanResult(assignments, scores, counts, req, nz, rr)
+    return ScanResult(assignments, scores, counts, req, nz, rr,
+                      None if spread is None else ledger.podsel_count)
 
 
 _ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 3
@@ -100,17 +156,8 @@ def node_run(n: int) -> int:
     raise ValueError(f"assign_scan: {n} nodes > {CLUSTER * THREADS * RUNS[-1]}")
 
 
-def assign_scan(masked_static, requests, nonzero_requests, allocatable,
-                requested, nonzero, rr_start, w_lr: float = 1.0,
-                w_ba: float = 1.0) -> ScanResult:
-    """Phase B over one batch.
-
-    masked_static f32[P, N] (static score where statically feasible and the
-    pod valid, else -inf), requests f32[P, R], nonzero_requests f32[P, 2],
-    allocatable f32[N, R], and the batch-start ledger requested f32[N, R] /
-    nonzero f32[N, 2] (not modified). rr_start is an int or an i64 scalar
-    tensor. Requests in the gpu and storage columns must be zero (the solver
-    hoists those compares into Phase A)."""
+def _check_operands(name, masked_static, requests, nonzero_requests,
+                    allocatable, requested, nonzero) -> torch.device:
     p, n = masked_static.shape
     r = requests.shape[1]
     dev = masked_static.device
@@ -123,24 +170,31 @@ def assign_scan(masked_static, requests, nonzero_requests, allocatable,
                  ("nonzero", nonzero, f32, (n, 2))):
         check_tensor(*args, dev)
     if r != 6:
-        raise ValueError(f"assign_scan: {r} resource columns, want 6")
-    if dev.type == "cpu":
-        return assign_scan_plain(masked_static, requests, nonzero_requests,
-                                 allocatable, requested, nonzero, rr_start,
-                                 w_lr, w_ba)
-    if dev.type != "cuda":
-        raise ValueError(f"assign_scan: unsupported device {dev}")
-    run = node_run(n)
+        raise ValueError(f"{name}: {r} resource columns, want 6")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {dev}")
+    return dev
+
+
+def _launch(symbol, argtypes, masked_static, requests, nonzero_requests,
+            allocatable, requested, nonzero, rr_start, w_lr, w_ba, extra=()):
+    """Launch one build on the current stream: the ledgers are cloned (the
+    kernel updates them in place) and `extra` (pointers and scalars after
+    the main operands) is passed through. Returns the ScanResult fields and
+    raises if the launch fails."""
     from kubernetes_tpu_torch.native.build import load
 
-    fn = load("assign_scan").ktpu_assign_scan
-    fn.argtypes = _ARGTYPES
+    p, n = masked_static.shape
+    run = node_run(n)
+    dev = masked_static.device
+    fn = getattr(load("assign_scan"), symbol)
+    fn.argtypes = argtypes
     fn.restype = ctypes.c_int
-    req = requested.clone()   # the kernel updates the ledger in place
+    req = requested.clone()
     nz = nonzero.clone()
     rr = _rr_tensor(rr_start, dev).reshape(1).clone()
     assignments = torch.empty((p,), dtype=torch.int32, device=dev)
-    scores = torch.empty((p,), dtype=f32, device=dev)
+    scores = torch.empty((p,), dtype=torch.float32, device=dev)
     counts = torch.empty((p,), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -148,11 +202,77 @@ def assign_scan(masked_static, requests, nonzero_requests, allocatable,
                  nonzero_requests.data_ptr(), allocatable.data_ptr(),
                  req.data_ptr(), nz.data_ptr(), assignments.data_ptr(),
                  scores.data_ptr(), counts.data_ptr(), rr.data_ptr(),
-                 p, n, run, float(w_lr), float(w_ba), stream)
+                 p, n, run, float(w_lr), float(w_ba), *extra, stream)
     if err != 0:
-        raise RuntimeError(f"assign_scan kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"{symbol} kernel launch failed: CUDA error {err}")
+    return assignments, scores, counts, req, nz, rr.reshape(())
+
+
+def assign_scan(masked_static, requests, nonzero_requests, allocatable,
+                requested, nonzero, rr_start, w_lr: float = 1.0,
+                w_ba: float = 1.0) -> ScanResult:
+    """Phase B over one batch.
+
+    masked_static f32[P, N] (static score where statically feasible and the
+    pod valid, else -inf), requests f32[P, R], nonzero_requests f32[P, 2],
+    allocatable f32[N, R], and the batch-start ledger requested f32[N, R] /
+    nonzero f32[N, 2] (not modified). rr_start is an int or an i64 scalar
+    tensor. Requests in the gpu and storage columns must be zero (the solver
+    hoists those compares into Phase A)."""
+    args = (masked_static, requests, nonzero_requests, allocatable,
+            requested, nonzero)
+    dev = _check_operands("assign_scan", *args)
+    if dev.type == "cpu":
+        return assign_scan_plain(*args, rr_start, w_lr, w_ba)
+    out = _launch("ktpu_assign_scan", _ARGTYPES, *args, rr_start, w_lr, w_ba)
     assign_scan.launches += 1
-    return ScanResult(assignments, scores, counts, req, nz, rr.reshape(()))
+    return ScanResult(*out)
 
 
 assign_scan.launches = 0
+
+# the kernel's zone-sum slots (MAX_DOMAINS) and pod-slot match columns
+# (MAX_UQ)
+MAX_DOMAINS = 64
+MAX_UQ = 64
+_SPREAD_ARGTYPES = (_ARGTYPES[:-1] + [ctypes.c_void_p] * 4
+                    + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_void_p])
+
+
+def assign_scan_spread(masked_static, requests, nonzero_requests, allocatable,
+                       requested, nonzero, rr_start, w_lr: float,
+                       w_ba: float, spread: SpreadInputs) -> ScanResult:
+    """Phase B with SelectorSpread (`assign_scan_spread_plain`): the
+    operands of `assign_scan`, and `spread` (SpreadInputs). On a card the
+    wrapper hands the kernel a transposed [UQ, N] copy of the pod-selector
+    ledger, which the kernel updates in place, and returns it as
+    new_podsel [N, UQ]."""
+    args = (masked_static, requests, nonzero_requests, allocatable,
+            requested, nonzero)
+    dev = _check_operands("assign_scan_spread", *args)
+    p, n = masked_static.shape
+    uq = spread.podsel_count.shape[1]
+    for check in (("spread_q", spread.spread_q, torch.int32, (p,)),
+                  ("pod_matches_q", spread.pod_matches_q, torch.float32, (p, uq)),
+                  ("podsel_count", spread.podsel_count, torch.float32, (n, uq)),
+                  ("topology", spread.topology, torch.int32,
+                   (n, spread.topology.shape[1]))):
+        check_tensor(*check, dev)
+    if dev.type == "cpu":
+        return assign_scan_spread_plain(*args, rr_start, w_lr, w_ba, spread)
+    if uq > MAX_UQ or spread.domain_universe > MAX_DOMAINS:
+        raise ValueError(
+            f"assign_scan_spread: {uq} pod selectors (at most {MAX_UQ}) and "
+            f"{spread.domain_universe} zone domains (at most {MAX_DOMAINS})")
+    podsel_t = spread.podsel_count.t().contiguous()
+    zone = spread.topology[:, TOPO_SPREAD_ZONE].contiguous()
+    out = _launch("ktpu_assign_scan_spread", _SPREAD_ARGTYPES, *args,
+                  rr_start, w_lr, w_ba,
+                  (podsel_t.data_ptr(), spread.spread_q.data_ptr(),
+                   spread.pod_matches_q.data_ptr(), zone.data_ptr(), uq,
+                   spread.domain_universe, float(spread.w_ss)))
+    assign_scan_spread.launches += 1
+    return ScanResult(*out, podsel_t.t().contiguous())
+
+
+assign_scan_spread.launches = 0

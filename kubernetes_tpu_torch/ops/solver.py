@@ -16,11 +16,16 @@ the next. This solver reproduces that decision for decision:
   ops/assign_scan.py) carries the (requested, nonzero) ledger, so pod K
   sees the claims of pods 0..K-1; it picks the max-score feasible node with
   the reference's round-robin tie-break and adds the pod's requests to it.
+  When the batch raises the spread gate and the policy weighs
+  SelectorSpreadPriority, the scan's spread build also scores SelectorSpread
+  over each pod's feasible nodes and carries the pod-selector ledger.
 
-This package carries the main path only: a batch whose content raises any
-other BatchFlags gate, or a policy outside the fused static mask or with
-argument-carrying registrations, raises NotImplementedError naming what is
-missing. It never computes an answer for a program it does not implement.
+This package carries the main path and the spread gate: a batch whose
+content raises any other BatchFlags gate, a policy that weighs
+ServiceSpreadingPriority on a spread batch, or a policy outside the fused
+static mask or with argument-carrying registrations, raises
+NotImplementedError naming what is missing. It never computes an answer
+for a program it does not implement.
 """
 
 from __future__ import annotations
@@ -38,10 +43,16 @@ from kubernetes_tpu_torch.models.policy import (
 )
 from kubernetes_tpu_torch.ops import predicates as preds
 from kubernetes_tpu_torch.ops import priorities as prios
-from kubernetes_tpu_torch.ops.assign_scan import assign_scan, assign_scan_plain
+from kubernetes_tpu_torch.ops.assign_scan import (
+    SpreadInputs,
+    assign_scan,
+    assign_scan_plain,
+    assign_scan_spread,
+    assign_scan_spread_plain,
+)
 from kubernetes_tpu_torch.ops.static_mask import node_bits, static_mask, static_mask_plain
 from kubernetes_tpu_torch.state.cluster_state import ClusterState
-from kubernetes_tpu_torch.state.layout import MAX_PRIORITY
+from kubernetes_tpu_torch.state.layout import MAX_PRIORITY, Capacities
 from kubernetes_tpu_torch.state.pod_batch import PodBatch, batch_flags
 
 
@@ -79,6 +90,7 @@ class PolicyGates:
     dyn_storage: bool  # scratch/overlay fit must track the in-batch ledger
     w_lr: float
     w_ba: float
+    w_ss: float        # SelectorSpread, 0 unless the batch raises spread
     const_score: float
 
 
@@ -100,6 +112,7 @@ def policy_gates(policy: Policy, flags: BatchFlags) -> PolicyGates:
         dyn_storage=flags.storage,
         w_lr=policy.weight("LeastRequestedPriority"),
         w_ba=policy.weight("BalancedResourceAllocation"),
+        w_ss=policy.weight("SelectorSpreadPriority") if flags.spread else 0,
         const_score=const_score,
     )
 
@@ -116,11 +129,17 @@ _STATIC_PRIORITIES = ("EqualPriority", "ImageLocalityPriority",
 def check_supported(policy: Policy, flags: BatchFlags) -> PolicyGates:
     """The gates of a (policy, flags) pair this solver implements; raises
     NotImplementedError naming every gate or registration it does not."""
-    raised = [f.name for f in fields(BatchFlags) if getattr(flags, f.name)]
+    # spread is carried; svcanti is neutral without a ServiceAntiAffinity
+    # registration, which the PolicyRows check below refuses
+    raised = [f.name for f in fields(BatchFlags)
+              if getattr(flags, f.name) and f.name not in ("spread", "svcanti")]
     if raised:
         raise NotImplementedError(
-            f"batch raises solver gates {raised}: only the main path "
-            f"(every BatchFlags gate False) is implemented")
+            f"batch raises solver gates {raised}: only the main path and "
+            f"the spread gate are implemented")
+    if flags.spread and policy.weight("ServiceSpreadingPriority"):
+        raise NotImplementedError(
+            "ServiceSpreadingPriority with a weight is not implemented")
     if (active_label_presence(policy) or active_label_priorities(policy)
             or active_service_anti(policy) or policy.service_affinity_predicates):
         raise NotImplementedError(
@@ -148,6 +167,9 @@ class SolverResult:
     new_requested: torch.Tensor    # f32[N, R] ledger after the batch
     new_nonzero: torch.Tensor      # f32[N, 2]
     rr_end: torch.Tensor           # i64 scalar: round-robin counter mod 2^32
+    # f32[N, UQ] pod-selector ledger after the batch when the scan carried
+    # it (the spread build); None when the batch's program passed it through
+    new_podsel: torch.Tensor | None
 
 
 def _static_rest(state: ClusterState, batch: PodBatch,
@@ -194,39 +216,53 @@ def masked_static_scores(state: ClusterState, batch: PodBatch, policy: Policy,
     return torch.where(ok, score, float("-inf"))
 
 
-def _solve(state, batch, rr_start, policy, flags, mask_fn, scan_fn):
+def _solve(state, batch, rr_start, policy, flags, caps, mask_fn, scan_fn,
+           spread_fn):
     if flags is None:
         flags = batch_flags(state, batch)
     g = check_supported(policy, flags)
     masked = masked_static_scores(state, batch, policy, g, mask_fn)
-    scan = scan_fn(masked, batch.requests, batch.nonzero_requests,
-                   state.allocatable, state.requested, state.nonzero_requested,
-                   rr_start, float(g.w_lr), float(g.w_ba))
+    args = (masked, batch.requests, batch.nonzero_requests, state.allocatable,
+            state.requested, state.nonzero_requested, rr_start,
+            float(g.w_lr), float(g.w_ba))
+    if g.w_ss:
+        scan = spread_fn(*args, SpreadInputs(
+            w_ss=float(g.w_ss), spread_q=batch.spread_q.contiguous(),
+            pod_matches_q=batch.pod_matches_q.contiguous(),
+            podsel_count=state.podsel_count, topology=state.topology,
+            domain_universe=(caps or Capacities()).domain_universe))
+    else:
+        scan = scan_fn(*args)
     return SolverResult(
         assignments=scan.assignments, scores=scan.scores,
         feasible_counts=scan.feasible_counts,
         new_requested=scan.new_requested, new_nonzero=scan.new_nonzero,
-        rr_end=scan.rr_end)
+        rr_end=scan.rr_end, new_podsel=scan.new_podsel)
 
 
 def schedule_batch(state: ClusterState, batch: PodBatch, rr_start,
                    policy: Policy = DEFAULT_POLICY,
-                   flags: BatchFlags | None = None) -> SolverResult:
+                   flags: BatchFlags | None = None,
+                   caps: Capacities | None = None) -> SolverResult:
     """Schedule a whole pending batch against the accounted state.
 
-    All tensors live on one device: CUDA tensors run the two kernels, CPU
+    All tensors live on one device: CUDA tensors run the kernels, CPU
     tensors their plain versions. `rr_start` is the round-robin counter (an
     int or an i64 scalar tensor, taken mod 2^32). `flags` defaults to the
-    gates read from the batch (state.pod_batch.batch_flags). Returns
-    per-pod assignments plus the post-batch ledger (assume semantics)."""
-    return _solve(state, batch, rr_start, policy, flags, static_mask,
-                  assign_scan)
+    gates read from the batch (state.pod_batch.batch_flags); `caps` gives
+    the zone-domain universe SelectorSpread sums over (default
+    Capacities()). Returns per-pod assignments plus the post-batch ledgers
+    (assume semantics)."""
+    return _solve(state, batch, rr_start, policy, flags, caps, static_mask,
+                  assign_scan, assign_scan_spread)
 
 
 def schedule_batch_plain(state: ClusterState, batch: PodBatch, rr_start,
                          policy: Policy = DEFAULT_POLICY,
-                         flags: BatchFlags | None = None) -> SolverResult:
+                         flags: BatchFlags | None = None,
+                         caps: Capacities | None = None) -> SolverResult:
     """`schedule_batch` through the kernels' plain versions on any device:
     the reference a card run holds the kernel path against."""
-    return _solve(state, batch, rr_start, policy, flags, static_mask_plain,
-                  assign_scan_plain)
+    return _solve(state, batch, rr_start, policy, flags, caps,
+                  static_mask_plain, assign_scan_plain,
+                  assign_scan_spread_plain)

@@ -5,7 +5,7 @@ name, for the options this package's solver carries."""
 
 from __future__ import annotations
 
-from kubernetes_tpu_torch.api.objects import Node, Pod
+from kubernetes_tpu_torch.api.objects import Node, Pod, Service
 
 
 def make_nodes(n: int, cpu: str = "4", memory: str = "8Gi", pods: str = "110",
@@ -39,12 +39,17 @@ def make_nodes(n: int, cpu: str = "4", memory: str = "8Gi", pods: str = "110",
 
 def make_pods(n: int, cpu: str = "100m", memory: str = "250Mi",
               name_prefix: str = "pod", selector_every: int = 0,
-              tolerate: bool = False, namespace: str = "default") -> list[Pod]:
+              tolerate: bool = False, namespace: str = "default",
+              app_groups: int = 0) -> list[Pod]:
     """Templated pending pods (the basic scheduler_perf pod spec: small cpu
-    and memory requests); optional periodic nodeSelector and a toleration
-    of the fixtures' NoSchedule taint."""
+    and memory requests); optional periodic nodeSelector, a toleration of
+    the fixtures' NoSchedule taint, and labels app=app-{i % app_groups}
+    (the targets of `make_services`)."""
     out = []
     for i in range(n):
+        meta: dict = {"name": f"{name_prefix}-{i}", "namespace": namespace}
+        if app_groups:
+            meta["labels"] = {"app": f"app-{i % app_groups}"}
         spec: dict = {"containers": [{
             "name": "app",
             "image": "k8s.gcr.io/pause:3.0",
@@ -54,7 +59,13 @@ def make_pods(n: int, cpu: str = "100m", memory: str = "250Mi",
             spec["nodeSelector"] = {"label-0": f"value-{i % 7}"}
         if tolerate:
             spec["tolerations"] = [{"key": "dedicated", "operator": "Exists"}]
-        out.append(Pod.from_dict({
-            "metadata": {"name": f"{name_prefix}-{i}", "namespace": namespace},
-            "spec": spec}))
+        out.append(Pod.from_dict({"metadata": meta, "spec": spec}))
     return out
+
+
+def make_services(n: int, namespace: str = "default") -> list[Service]:
+    """Services selecting the app groups of make_pods(app_groups=n)."""
+    return [Service.from_dict({
+        "metadata": {"name": f"svc-{i}", "namespace": namespace},
+        "spec": {"selector": {"app": f"app-{i}"}}})
+        for i in range(n)]

@@ -7,7 +7,10 @@
 - `run_throughput` times `Scheduler.schedule` end to end over a fixture
   cluster (encode through the cache, upload, solve, readback, ledger
   commit) and reports pods/s, ms per solve and the cache's hits and
-  misses.
+  misses. With `n_services` the cluster has that many Services over the
+  pods' app groups, which raises the spread gate: the reference bench's
+  `bench[spread]` is `run_throughput(15000, 30000, node_kwargs={"zones":
+  3}, pod_kwargs={"app_groups": 16}, n_services=16)`.
 
 Both build the CUDA kernels and warm the device before the clock starts,
 and run on `cuda` unless given another device.
@@ -23,7 +26,7 @@ import torch
 
 from kubernetes_tpu_torch.models.policy import DEFAULT_POLICY, Policy
 from kubernetes_tpu_torch.ops.solver import schedule_batch
-from kubernetes_tpu_torch.perf.fixtures import make_nodes, make_pods
+from kubernetes_tpu_torch.perf.fixtures import make_nodes, make_pods, make_services
 from kubernetes_tpu_torch.scheduler.driver import Scheduler
 from kubernetes_tpu_torch.state.convert import upload_blobs
 from kubernetes_tpu_torch.state.layout import Capacities
@@ -48,9 +51,11 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def warm(caps: Capacities, policy: Policy, device: torch.device) -> None:
+def warm(caps: Capacities, policy: Policy, device: torch.device,
+         n_services: int = 0) -> None:
     """Build the kernels and run one batch at these shapes on a throwaway
-    one-node cluster, so library handles and kernel loads are set up
+    one-node cluster (with a Service when `n_services`, so the spread
+    build loads too), so library handles and kernel loads are set up
     before any timed region."""
     if device.type == "cuda":
         from kubernetes_tpu_torch.native.build import build
@@ -58,7 +63,10 @@ def warm(caps: Capacities, policy: Policy, device: torch.device) -> None:
         build()
     sched = Scheduler(caps, policy, device)
     sched.add_nodes(make_nodes(1))
-    sched.schedule(make_pods(1, name_prefix="warm"))
+    for svc in make_services(min(n_services, 1)):
+        sched.add_service(svc)
+    sched.schedule(make_pods(1, name_prefix="warm",
+                             app_groups=min(n_services, 1)))
     _sync(device)
 
 
@@ -159,12 +167,15 @@ def run_throughput(n_nodes: int, n_pods: int, caps: Capacities | None = None,
                    policy: Policy = DEFAULT_POLICY,
                    node_kwargs: dict | None = None,
                    pod_kwargs: dict | None = None,
-                   device=None) -> ThroughputResult:
+                   device=None, n_services: int = 0) -> ThroughputResult:
     """Sustained scheduling throughput of `Scheduler` on a fixture cluster
-    (the headline shape is 15,000 nodes in 3 zones and 30,000 pods)."""
+    (the headline shape is 15,000 nodes in 3 zones and 30,000 pods), with
+    `n_services` Services (`make_services`) registered before the run."""
     dev = resolve_device(device)
     caps = caps or default_caps(n_nodes, n_pods)
-    warm(caps, policy, dev)
+    warm(caps, policy, dev, n_services)
     sched = Scheduler(caps, policy, dev)
     sched.add_nodes(make_nodes(n_nodes, **(node_kwargs or {})))
+    for svc in make_services(n_services):
+        sched.add_service(svc)
     return measure(sched, make_pods(n_pods, **(pod_kwargs or {})))

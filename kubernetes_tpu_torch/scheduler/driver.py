@@ -9,8 +9,18 @@ and committed to the StateDB from the f32 blob. The round-robin counter
 chains from batch to batch, so a sequence of `schedule` calls makes the
 decisions one long serial schedule would. `add_pod`, `remove_pod` and
 `remove_node` keep the StateDB in step for pods bound and deleted, and
-nodes dropped, outside `schedule`. Watching an apiserver and binding are
-host-plane work for a later slice of the port.
+nodes dropped, outside `schedule`.
+
+SelectorSpread reads the workload objects: `add_service`,
+`remove_service`, `add_controller` and `remove_controller` keep in-memory
+listers by namespace behind the encoder's EncodeContext, whose pod lister
+is the StateDB's bound pods; each call bumps the encode cache's
+`generation`, so no row encoded against the old objects is served. A pod's
+spreading entries intern into the pod-selector universe while a chunk is
+encoded, which moves `pod_row_epoch`: the chunk is then encoded again
+against the final universe, so earlier rows gain the new match columns.
+Watching an apiserver and binding are host-plane work for a later slice of
+the port.
 """
 
 from __future__ import annotations
@@ -20,9 +30,17 @@ from typing import Sequence
 
 import numpy as np
 
-from kubernetes_tpu_torch.api.objects import Node, Pod
+from kubernetes_tpu_torch.api.objects import (
+    Node,
+    Pod,
+    ReplicaSet,
+    ReplicationController,
+    Service,
+    StatefulSet,
+)
 from kubernetes_tpu_torch.models.policy import DEFAULT_POLICY, Policy
 from kubernetes_tpu_torch.ops.solver import schedule_batch
+from kubernetes_tpu_torch.state.context import EncodeContext
 from kubernetes_tpu_torch.state.convert import host_blobs, upload_blobs
 from kubernetes_tpu_torch.state.encode_cache import EncodeCache
 from kubernetes_tpu_torch.state.layout import Capacities
@@ -34,6 +52,9 @@ from kubernetes_tpu_torch.state.pod_batch import (
 )
 from kubernetes_tpu_torch.state.statedb import StateDB
 
+_WORKLOAD_KINDS = (Service, ReplicationController, ReplicaSet, StatefulSet)
+_NONE: dict = {}   # a namespace without objects of a kind (never written)
+
 
 class Scheduler:
     def __init__(self, caps: Capacities | None = None,
@@ -42,7 +63,19 @@ class Scheduler:
         self.policy = policy
         self.statedb = StateDB(self.caps, device)
         self.device = self.statedb.device
-        self.encode_cache = EncodeCache(self.caps, self.statedb.table)
+        # kind -> namespace -> name -> object
+        self._workloads: dict[type, dict[str, dict[str, object]]] = {
+            kind: {} for kind in _WORKLOAD_KINDS}
+
+        def lister(kind):
+            return lambda ns: self._workloads[kind].get(ns, _NONE).values()
+
+        ctx = EncodeContext(
+            get_services=lister(Service),
+            get_rcs=lister(ReplicationController),
+            get_rss=lister(ReplicaSet), get_sss=lister(StatefulSet),
+            list_pods=self.statedb.bound_pods)
+        self.encode_cache = EncodeCache(self.caps, self.statedb.table, ctx)
         f_width, i_width = blob_widths(self.caps)
         # one host pair, reused by every batch: written only after the
         # previous batch's readback has synchronized the upload's stream
@@ -71,6 +104,31 @@ class Scheduler:
         """Forget a deleted pod: its requests leave its node's row."""
         self.statedb.remove_pod(pod_key)
 
+    def add_service(self, service: Service) -> None:
+        self._put_workload(service, True)
+
+    def remove_service(self, service: Service) -> None:
+        self._put_workload(service, False)
+
+    def add_controller(self, controller) -> None:
+        """Add (or replace) a ReplicationController, ReplicaSet or
+        StatefulSet."""
+        self._put_workload(controller, True)
+
+    def remove_controller(self, controller) -> None:
+        self._put_workload(controller, False)
+
+    def _put_workload(self, obj, present: bool) -> None:
+        if type(obj) not in _WORKLOAD_KINDS:
+            raise TypeError(f"not a Service or controller: {type(obj).__name__}")
+        by_name = self._workloads[type(obj)].setdefault(obj.metadata.namespace, {})
+        if present:
+            by_name[obj.metadata.name] = obj
+        else:
+            by_name.pop(obj.metadata.name, None)
+        # cached rows carry spreading entries of the old objects
+        self.encode_cache.generation += 1
+
     def schedule(self, pods: Sequence[Pod]) -> dict[str, str | None]:
         """Place `pods` in order. Returns {pod key: node name, or None when
         no node fits}."""
@@ -84,12 +142,18 @@ class Scheduler:
         t0 = time.perf_counter()
         fblob, iblob = self._host_blobs
         n = len(pods)
-        # only node upserts intern avoid signatures, so the epoch cannot
-        # move inside this loop and no row needs re-encoding against a
-        # grown universe
+        table = self.statedb.table
+        epoch = table.pod_row_epoch
         encode = self.encode_cache.encode_packed_into
         for i, pod in enumerate(pods):
             encode(fblob, iblob, i, pod)
+        if table.pod_row_epoch != epoch:
+            # a pod interned a pod-selector entry: rows encoded before it
+            # lack its match column. Encode every row again against the
+            # final universe (the epoch is in the cache key, so no stale
+            # row is served, and nothing new is interned this time)
+            for i, pod in enumerate(pods):
+                encode(fblob, iblob, i, pod)
         if n < self.caps.batch_pods:
             # a reused blob's tail must read as padding, not as the
             # previous batch's pods (zeros would be live ids: -1 = unused)
@@ -98,7 +162,8 @@ class Scheduler:
         state = self.statedb.flush()
         batch = unpack_batch(*upload_blobs(*self._blobs, self.device), self.caps)
         t1 = time.perf_counter()
-        result = schedule_batch(state, batch, self.rr, self.policy, flags)
+        result = schedule_batch(state, batch, self.rr, self.policy, flags,
+                                self.caps)
         assignments = result.assignments.cpu().numpy()
         t2 = time.perf_counter()
         name_of = self.statedb.table.name_of

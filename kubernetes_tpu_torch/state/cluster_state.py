@@ -262,8 +262,8 @@ def pod_controller_ref(pod: Pod) -> tuple[str, str] | None:
 class NodeTable:
     """Host-side index over the state: row assignment from a free list,
     universe interning (selector terms, requirements, taints, topology
-    domains, preferAvoidPods signatures) and per-row label source data for
-    membership refills when a pod interns a new term."""
+    domains, preferAvoidPods signatures, pod selectors) and per-row label
+    source data for membership refills when a pod interns a new term."""
 
     def __init__(self, caps: Capacities):
         self.caps = caps
@@ -280,11 +280,16 @@ class NodeTable:
         # terms interned after nodes were encoded: columns awaiting refill
         self.pending_sel_refresh: list[tuple[int, str, str]] = []
         self.pending_req_refresh: list[tuple[int, str, str, tuple[str, ...]]] = []
-        # bumped when node-side interning can invalidate encoded pod rows (a
-        # new preferAvoidPods signature: rows encoded earlier lack its
-        # one-hot); EncodeCache stamps its rows with it. Only node upserts
-        # intern avoid signatures here, so the epoch cannot move while a
-        # batch of pods is being encoded.
+        # pod-selector universe: (namespaces, canonical selector) -> qid
+        self.podsels: dict[tuple, int] = {}
+        self.podsel_attrs: list[tuple] = []          # qid -> (ns_key, canon)
+        self.pending_podsel_refresh: list[int] = []  # qids awaiting pod refills
+        # bumped when interning can invalidate encoded pod rows: a new
+        # preferAvoidPods signature (rows encoded earlier lack its one-hot)
+        # or a new pod-selector entry (their pod_matches_q rows may match
+        # it). EncodeCache stamps its rows with it. A pod's spreading
+        # entries intern while a batch is encoded, so the epoch can move
+        # inside a batch: the driver then re-encodes the batch.
         self.pod_row_epoch = 0
 
     def assign_row(self, name: str) -> int:
@@ -377,6 +382,21 @@ class NodeTable:
         self.pod_row_epoch += 1
         return oid
 
+    def intern_podsel(self, ns_key: frozenset, canon) -> int:
+        entry = (ns_key, canon)
+        qid = self.podsels.get(entry)
+        if qid is not None:
+            return qid
+        if len(self.podsels) >= self.caps.podsel_universe:
+            raise CapacityError(
+                f"pod-selector universe {self.caps.podsel_universe} exhausted")
+        qid = len(self.podsels)
+        self.podsels[entry] = qid
+        self.podsel_attrs.append(entry)
+        self.pending_podsel_refresh.append(qid)
+        self.pod_row_epoch += 1
+        return qid
+
 
 def fill_node_row(state: ClusterState, table: NodeTable, row: int,
                   node: Node) -> None:
@@ -450,6 +470,26 @@ def apply_pending_refreshes(state: ClusterState, table: NodeTable) -> list[int]:
                 rows.add(row)
     table.pending_req_refresh.clear()
     return sorted(rows)
+
+
+def fill_match_row(out: np.ndarray, table: NodeTable, pod: Pod) -> None:
+    """Write into `out` f32[UQ] which pod-selector-universe entries this pod
+    matches (PodMatchesTermsNamespaceAndSelector against every interned
+    entry)."""
+    out[:] = 0.0
+    if table.podsel_attrs:
+        from kubernetes_tpu_torch.state.podaffinity import pod_matches_entry
+
+        for qid, (ns_key, canon) in enumerate(table.podsel_attrs):
+            if pod_matches_entry(pod, ns_key, canon):
+                out[qid] = 1.0
+
+
+def pod_match_row(table: NodeTable, pod: Pod) -> np.ndarray:
+    """f32[UQ]: `fill_match_row` into a new row."""
+    out = np.empty((table.caps.podsel_universe,), np.float32)
+    fill_match_row(out, table, pod)
+    return out
 
 
 def pod_requests(pod: Pod) -> np.ndarray:

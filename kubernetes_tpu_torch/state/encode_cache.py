@@ -10,14 +10,18 @@ batch blobs by array assignment.
 The fingerprint covers exactly what this package's encoder and its refusal
 check (`unsupported_feature`) read: container requests, limits presence
 (QoS) and host ports, nodeSelector, tolerations, nodeName, priority, the
-raw affinity and volumes, the gang annotation and the controller
+namespace and labels (the spreading entries and the pod-selector match
+row), the raw affinity and volumes, the gang annotation and the controller
 reference. A pod the encoder refuses therefore never shares a class with
 a supported one, and every miss goes through the encoder, which raises for
-it. Namespace, labels and images are read by nothing here and stay out.
-Rows are stamped with `NodeTable.pod_row_epoch` and the cache's
-`generation`; pods with claim-backed volumes are never cached (their rows
-resolve through mutable claim state). At most MAX_ENTRIES classes are
-kept, least recently used evicted first.
+it. Images are read by nothing here and stay out. Rows are stamped with
+`NodeTable.pod_row_epoch` (a new pod-selector entry or avoid signature)
+and the cache's `generation`, which the driver bumps on every Service or
+controller event (the spreading entries depend on those objects). Pods
+with claim-backed volumes are never cached (their rows resolve through
+mutable claim state), and no row is cached while the context carries
+ServiceAntiAffinity (its totals follow the bound pods). At most
+MAX_ENTRIES classes are kept, least recently used evicted first.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ import numpy as np
 
 from kubernetes_tpu_torch.api.objects import Pod
 from kubernetes_tpu_torch.state.cluster_state import NodeTable, pod_controller_ref
+from kubernetes_tpu_torch.state.context import EMPTY_CONTEXT, EncodeContext
 from kubernetes_tpu_torch.state.layout import Capacities
 from kubernetes_tpu_torch.state.pod_batch import (
     GROUP_NAME_ANNOTATION,
@@ -58,6 +63,8 @@ def pod_fingerprint(pod: Pod) -> tuple:
         tuple((t.key, t.operator, t.value, t.effect) for t in spec.tolerations),
         spec.node_name,
         spec.priority,
+        pod.metadata.namespace,
+        tuple(sorted(pod.metadata.labels.items())),
         GROUP_NAME_ANNOTATION in pod.metadata.annotations,
         pod_controller_ref(pod),
         json.dumps(spec.affinity, sort_keys=True) if spec.affinity else "",
@@ -66,21 +73,20 @@ def pod_fingerprint(pod: Pod) -> tuple:
 
 
 class EncodeCache:
-    # bumped on Service and controller events in the reference driver
-    # (spreading entries depend on workload objects); this package encodes
-    # no spreading entry yet, so it stays 0
-    generation = 0
-
-    def __init__(self, caps: Capacities, table: NodeTable):
+    def __init__(self, caps: Capacities, table: NodeTable,
+                 ctx: EncodeContext | None = None):
         self.caps = caps
         self.table = table
+        self.ctx = ctx or EMPTY_CONTEXT
+        # bumped by the driver on every Service or controller event
+        self.generation = 0
         self._packed: OrderedDict[tuple, tuple[np.ndarray, np.ndarray]] = OrderedDict()
         self._scratch = PackedRow(caps)
         self.hits = 0
         self.misses = 0
 
     def _must_reencode(self, pod: Pod) -> bool:
-        return not cacheable(pod)
+        return not cacheable(pod) or self.ctx.service_anti
 
     def _key(self, pod: Pod) -> tuple:
         return (pod_fingerprint(pod), self.table.pod_row_epoch, self.generation)
@@ -89,7 +95,8 @@ class EncodeCache:
         """The pod's packed row, encoded now (the encoder raises for a pod
         it refuses): the scratch row's buffers, valid until the next
         encode."""
-        encode_pod_into(self._scratch.batch, 0, pod, self.caps, self.table)
+        encode_pod_into(self._scratch.batch, 0, pod, self.caps, self.table,
+                        self.ctx)
         return self._scratch.pack()
 
     def _packed_row(self, pod: Pod) -> tuple[np.ndarray, np.ndarray]:

@@ -7,13 +7,18 @@ membership matrices, so encoding a pod can grow a universe: the state's
 membership columns must be refilled (StateDB.flush) before the batch is
 solved.
 
-This package's solver covers the scheduler's main path. The encoder
-rejects, with NotImplementedError, pods whose features would change the
-result outside it (pod affinity, volumes, host ports, gang membership,
-priority). Features the solver gates per batch (gpu and storage requests,
-preferred node affinity) are encoded, and the solver raises on them.
-Fields the main path never reads (container images, labels) are accepted
-and left unencoded.
+This package's solver covers the scheduler's main path and SelectorSpread.
+The encoder rejects, with NotImplementedError, pods whose features would
+change the result outside it (pod affinity, volumes, host ports, gang
+membership, priority). Features the solver gates per batch (gpu and
+storage requests, preferred node affinity) are encoded, and the solver
+raises on them. The spreading columns (spread_q, spread_svc_q, svcanti_q,
+svcanti_total, pod_matches_q) are read from the pod's namespace and labels
+and the workload objects of an EncodeContext, as the reference encodes
+them; a pod's own entries intern into the pod-selector universe, so
+encoding can grow it, and rows encoded before it grew miss the new
+columns (`fill_batch_affinity`, and the driver's re-encode). Container
+images are accepted and left unencoded (ImageLocality is not carried).
 
 The driver moves a batch as two blobs (`pack_batch`, `pack_row`): one
 f32[P, F] holding every float field's columns and one i32[P, I] holding
@@ -38,10 +43,12 @@ from kubernetes_tpu_torch.state.cluster_state import (
     NodeTable,
     apply_pending_refreshes,
     encode_nodes,
+    fill_match_row,
     pod_controller_ref,
     pod_nonzero_requests,
     pod_requests,
 )
+from kubernetes_tpu_torch.state.context import EMPTY_CONTEXT, EncodeContext
 from kubernetes_tpu_torch.state.layout import (
     Capacities,
     CapacityError,
@@ -261,8 +268,9 @@ def _encode_node_affinity(batch: PodBatch, i: int, pod: Pod, caps: Capacities,
 
 
 def encode_pod_into(batch: PodBatch, i: int, pod: Pod, caps: Capacities,
-                    table: NodeTable) -> None:
-    """Encode `pod` into host row `i` of `batch`."""
+                    table: NodeTable, ctx: EncodeContext | None = None) -> None:
+    """Encode `pod` into host row `i` of `batch`, with the workload objects
+    of `ctx` (none by default)."""
     feature = unsupported_feature(pod)
     if feature is not None:
         raise NotImplementedError(
@@ -300,7 +308,24 @@ def encode_pod_into(batch: PodBatch, i: int, pod: Pod, caps: Capacities,
         batch.node_name_hi[i] = 0
     batch.best_effort[i] = pod.is_best_effort()
     _encode_node_affinity(batch, i, pod, caps, table)
+    fill_match_row(batch.pod_matches_q[i], table, pod)
+    _encode_workloads(batch, i, pod, table, ctx or EMPTY_CONTEXT)
     fill_avoid_row(batch, i, pod, table)
+
+
+def _encode_workloads(batch: PodBatch, i: int, pod: Pod, table: NodeTable,
+                      ctx: EncodeContext) -> None:
+    """The spreading entries (state.spreading.spreading_entries)."""
+    from kubernetes_tpu_torch.state.spreading import spreading_entries
+
+    (batch.spread_q[i], batch.spread_svc_q[i], batch.svcanti_q[i],
+     batch.svcanti_total[i]) = entries = spreading_entries(pod, ctx, table)
+    # these entries were interned after pod_matches_q was filled; the pod
+    # matches them by construction (they are built from selectors that
+    # select it), and the in-batch ledger counts it through these columns
+    for q in entries[:3]:
+        if q >= 0:
+            batch.pod_matches_q[i, q] = 1.0
 
 
 def fill_avoid_row(batch: PodBatch, i: int, pod: Pod, table: NodeTable) -> None:
@@ -314,15 +339,28 @@ def fill_avoid_row(batch: PodBatch, i: int, pod: Pod, table: NodeTable) -> None:
             batch.avoid_onehot[i, oid] = 1.0
 
 
+def fill_batch_affinity(batch: PodBatch, pods: Sequence[Pod],
+                        table: NodeTable) -> None:
+    """Recompute the match rows once the pod-selector universe is final
+    (entries interned by later pods of the batch)."""
+    if not table.podsels:
+        return  # no selector anywhere: the rows are all zero
+    for i, pod in enumerate(pods):
+        fill_match_row(batch.pod_matches_q[i], table, pod)
+
+
 def encode_pods(pods: Sequence[Pod], caps: Capacities, table: NodeTable,
-                state: ClusterState | None = None) -> PodBatch:
-    """Encode a host batch against the cluster's universes. When `state` is
-    given, membership columns for newly interned terms are refilled."""
+                state: ClusterState | None = None,
+                ctx: EncodeContext | None = None) -> PodBatch:
+    """Encode a host batch against the cluster's universes, with the
+    workload objects of `ctx`. When `state` is given, membership columns
+    for newly interned terms are refilled."""
     if len(pods) > caps.batch_pods:
         raise CapacityError(f"{len(pods)} pods > batch capacity {caps.batch_pods}")
     batch = empty_batch(caps)
     for i, pod in enumerate(pods):
-        encode_pod_into(batch, i, pod, caps, table)
+        encode_pod_into(batch, i, pod, caps, table, ctx)
+    fill_batch_affinity(batch, pods, table)
     if state is not None:
         apply_pending_refreshes(state, table)
     return batch
@@ -551,15 +589,18 @@ def unpack_batch(fblob: torch.Tensor, iblob: torch.Tensor,
     return PodBatch(**out)
 
 
-def encode_cluster(nodes, pods, caps: Capacities):
+def encode_cluster(nodes, pods, caps: Capacities,
+                   ctx: EncodeContext | None = None):
     """One-shot host encoding of nodes + pending pods with a shared universe,
     in the reference encoder's order (pods first, then nodes) so universe
     ids agree with it. Returns (state, batch, table)."""
     table = NodeTable(caps)
-    batch = encode_pods(pods, caps, table)
+    batch = encode_pods(pods, caps, table, ctx=ctx)
     state, _ = encode_nodes(nodes, caps, table=table)
     # nodes may have interned avoid signatures after the pods were encoded
     for i, pod in enumerate(pods):
         fill_avoid_row(batch, i, pod, table)
     apply_pending_refreshes(state, table)
+    # no pod is accounted: the pod-selector counts are all zero already
+    table.pending_podsel_refresh.clear()
     return state, batch, table

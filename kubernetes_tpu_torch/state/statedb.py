@@ -13,6 +13,14 @@ placed by a batch) aggregate into host numpy arrays (`host`), and
   never leaves the device) while it mirrors the same additions into the
   host arrays from the batch's f32 blob, so host and device agree without
   a transfer, and accounts each placed pod so `remove_pod` can undo it.
+
+The pod-selector ledger (`podsel_count`, SelectorSpread's per-node
+counts) is accounted the same way, from each pod's match row. A selector
+entry interned after pods were accounted starts with an empty column:
+`flush` first counts the accounted pods it matches (`_refill_podsel`). A
+batch whose program passed the ledger through (no spread scan) leaves the
+device copy behind the host, so its placed pods' rows are copied at the
+next flush.
 """
 
 from __future__ import annotations
@@ -32,6 +40,7 @@ from kubernetes_tpu_torch.state.cluster_state import (
     apply_pending_refreshes,
     empty_state,
     fill_node_row,
+    pod_match_row,
     pod_nonzero_requests,
     pod_requests,
 )
@@ -41,15 +50,16 @@ from kubernetes_tpu_torch.state.pod_batch import blob_col
 from kubernetes_tpu_torch.utils.device import resolve_device
 
 _UNIVERSE_FIELDS = tuple(f for f in STATE_FIELDS if f not in NODE_AXIS_FIELDS)
-_LEDGER_FIELDS = ("requested", "nonzero_requested")
+_LEDGER_FIELDS = ("requested", "nonzero_requested", "podsel_count")
 
 
 # What removing an accounted pod takes back from its node's row, in the
-# columns of this package's ledger: (node name, j, requests f32[K, R],
-# nonzero f32[K, 2]), the pod's columns being row j of arrays it shares
-# with the pods accounted beside it. A plain tuple of atoms, which the
-# garbage collector stops tracking: a batch accounts thousands of pods.
-AccountedPod = tuple[str, int, np.ndarray, np.ndarray]
+# columns of this package's ledgers: (node name, j, requests f32[K, R],
+# nonzero f32[K, 2], match row f32[K, UQ], the pod), the pod's columns
+# being row j of arrays it shares with the pods accounted beside it; the
+# pod's namespace and labels refill entries interned after it. A plain
+# tuple, so a batch's thousands of records cost one small object each.
+AccountedPod = tuple[str, int, np.ndarray, np.ndarray, np.ndarray, Pod]
 
 
 def unaccountable_feature(pod: Pod) -> str | None:
@@ -73,6 +83,9 @@ class StateDB:
         self.host: ClusterState = empty_state(caps)
         self.table = NodeTable(caps)
         self._accounted: dict[str, AccountedPod] = {}
+        # pods accounted through add_pod (bound outside a batch), by
+        # namespace: the pod lister the spreading encoder counts from
+        self._bound: dict[str, dict[str, Pod]] = {}
         self._device: ClusterState | None = None
         self._dirty_rows: set[int] = set()
         self._dirty_ledger_all = False
@@ -93,7 +106,7 @@ class StateDB:
             return
         row = self.table.release_row(name)
         for key in [k for k, v in self._accounted.items() if v[0] == name]:
-            del self._accounted[key]
+            self._forget(key)
         for field in NODE_AXIS_FIELDS:
             getattr(self.host, field)[row] = -1 if field == "topology" else 0
         self._dirty_rows.add(row)
@@ -104,10 +117,21 @@ class StateDB:
     # ---- pod accounting ----
 
     def _apply_pod(self, row: int, acc: AccountedPod, sign: int) -> None:
-        _name, j, requests, nonzero = acc
+        _name, j, requests, nonzero, match, _pod = acc
         self.host.requested[row] += sign * requests[j]
         self.host.nonzero_requested[row] += sign * nonzero[j]
+        self.host.podsel_count[row] += sign * match[j]
         self._dirty_rows.add(row)
+
+    def _forget(self, key: str) -> AccountedPod | None:
+        acc = self._accounted.pop(key, None)
+        if acc is not None:
+            self._bound.get(acc[5].metadata.namespace, {}).pop(key, None)
+        return acc
+
+    def bound_pods(self, namespace: str) -> list[Pod]:
+        """The pods of `namespace` accounted through `add_pod`."""
+        return list(self._bound.get(namespace, {}).values())
 
     def add_pod(self, pod: Pod, node_name: str | None = None) -> bool:
         """Account a bound pod against its node (`node_name`, else the
@@ -126,14 +150,17 @@ class StateDB:
                 f"pod {pod.key}: accounting {feature} needs a ledger this "
                 f"package does not carry")
         acc = (node_name, 0, pod_requests(pod)[None],
-               pod_nonzero_requests(pod)[None])
+               pod_nonzero_requests(pod)[None],
+               pod_match_row(self.table, pod)[None], pod)
         self._apply_pod(row, acc, +1)
         self._accounted[pod.key] = acc
+        self._bound.setdefault(pod.metadata.namespace, {})[pod.key] = pod
         return True
 
     def remove_pod(self, pod_key: str) -> None:
-        """Take an accounted pod's requests back from its node."""
-        acc = self._accounted.pop(pod_key, None)
+        """Take an accounted pod's requests and selector matches back from
+        its node."""
+        acc = self._forget(pod_key)
         if acc is None:
             return
         row = self.table.row_of.get(acc[0])
@@ -151,7 +178,8 @@ class StateDB:
         charges are overwritten."""
         return (bool(self._dirty_rows) or self._dirty_ledger_all
                 or bool(self.table.pending_sel_refresh)
-                or bool(self.table.pending_req_refresh))
+                or bool(self.table.pending_req_refresh)
+                or bool(self.table.pending_podsel_refresh))
 
     def mark_ledger_dirty(self) -> None:
         """Force the next flush() to re-upload the whole host ledger (the
@@ -161,10 +189,29 @@ class StateDB:
 
     # ---- device mirror ----
 
+    def _refill_podsel(self) -> None:
+        """Count the accounted pods into the columns of selector entries
+        interned after they were accounted."""
+        from kubernetes_tpu_torch.state.podaffinity import pod_matches_entry
+
+        row_of = self.table.row_of
+        for qid in self.table.pending_podsel_refresh:
+            ns_key, canon = self.table.podsel_attrs[qid]
+            for name, j, _req, _nz, match, pod in self._accounted.values():
+                if match[j, qid]:
+                    continue  # accounted after the intern: already counted
+                if pod_matches_entry(pod, ns_key, canon):
+                    row = row_of[name]
+                    self.host.podsel_count[row, qid] += 1.0
+                    match[j, qid] = 1.0
+                    self._dirty_rows.add(row)
+        self.table.pending_podsel_refresh.clear()
+
     def flush(self) -> ClusterState:
         """The device view, refreshed from the host where rows changed.
-        Membership columns of terms interned since the last flush are
-        filled first."""
+        Membership columns of terms and pod-selector counts of entries
+        interned since the last flush are filled first."""
+        self._refill_podsel()
         self._dirty_rows.update(apply_pending_refreshes(self.host, self.table))
         if self._device is None:
             self._device = state_from_numpy(self.host, self.device)
@@ -192,12 +239,15 @@ class StateDB:
         return self._device
 
     def adopt_result(self, result) -> None:
-        """Chain the solver's post-batch ledger as the device truth (no
-        copy, no synchronization)."""
+        """Chain the solver's post-batch ledgers as the device truth (no
+        copy, no synchronization); a pod-selector ledger the batch passed
+        through (`new_podsel` None) stays as it was."""
         if self._device is None:
             raise RuntimeError("adopt_result before flush")
         self._device.requested = result.new_requested
         self._device.nonzero_requested = result.new_nonzero
+        if result.new_podsel is not None:
+            self._device.podsel_count = result.new_podsel
 
     def commit_batch(self, result, fblob: np.ndarray,
                      committed: Iterable[tuple[Pod, str, int]]) -> None:
@@ -208,8 +258,9 @@ class StateDB:
         (pod, node name, batch row) of each placed pod, in batch order. The
         host row of each node gains the blob's `requests` and
         `nonzero_requests` columns of its pods, added in pod order as the
-        scan added them. Pods already accounted, or on nodes removed since,
-        are skipped."""
+        scan added them, and its `pod_matches_q` columns to the pod-selector
+        counts. Pods already accounted, or on nodes removed since, are
+        skipped."""
         self.adopt_result(result)
         committed = list(committed)
         if not committed:
@@ -231,7 +282,15 @@ class StateDB:
                 return
         req = blob_col(fblob, None, "requests", self.caps)[idx]
         nz = blob_col(fblob, None, "nonzero_requests", self.caps)[idx]
+        match = blob_col(fblob, None, "pod_matches_q", self.caps)[idx]
         np.add.at(self.host.requested, rows, req)
         np.add.at(self.host.nonzero_requested, rows, nz)
+        if match.any():
+            hit, col = np.nonzero(match)   # a few selector matches a pod
+            np.add.at(self.host.podsel_count, (rows[hit], col), match[hit, col])
+            if result.new_podsel is None:
+                # the device ledger did not count these placements
+                self._dirty_rows.update(rows[hit].tolist())
         accounted.update(zip(keys, zip(names, range(len(keys)), repeat(req),
-                                       repeat(nz))))
+                                       repeat(nz), repeat(match),
+                                       compress(pods, live))))

@@ -391,11 +391,14 @@ def test_fingerprint_separates_every_field_the_encoder_reads(field):
     np.testing.assert_array_equal(iblob[:2], fresh[1][:2])
 
 
-@pytest.mark.parametrize("meta", [
-    {"ns": "other"}, {"labels": {"app": "web"}},
-    {"annotations": {"note": "x"}}, {"name": "another"}],
+@pytest.mark.parametrize("meta, read", [
+    ({"ns": "other"}, True), ({"labels": {"app": "web"}}, True),
+    ({"annotations": {"note": "x"}}, False), ({"name": "another"}, False)],
     ids=["namespace", "labels", "annotations", "name"])
-def test_fingerprint_ignores_what_the_encoder_never_reads(meta):
+def test_fingerprint_ignores_what_the_encoder_never_reads(meta, read):
+    """Annotations, names and images share a class. Namespace and labels
+    are read by the spreading encoder, so they separate classes; both rows
+    still equal the fresh encoding."""
     db = _port_db([_node("n0", avoid_uid="rs-x")])
     cache = EncodeCache(CAPS, db.table)
     fblob, iblob = _blobs()
@@ -404,9 +407,14 @@ def test_fingerprint_ignores_what_the_encoder_never_reads(meta):
                  owner="rs-x", nodeSelector={"disk": "ssd"},
                  tolerations=[{"key": "k", "operator": "Exists"}])
     other["spec"]["containers"][0]["image"] = "nginx:1"
-    for i, d in enumerate((_BASE, other)):
-        cache.encode_packed_into(fblob, iblob, i, Pod.from_dict(d))
-    assert (cache.misses, cache.hits) == (1, 1)
+    pods = [Pod.from_dict(d) for d in (_BASE, other)]
+    for i, pod in enumerate(pods):
+        cache.encode_packed_into(fblob, iblob, i, pod)
+    assert (cache.misses, cache.hits) == ((2, 0) if read else (1, 1))
+    fresh = pack_batch(encode_pods(pods, CAPS, _port_db(
+        [_node("n0", avoid_uid="rs-x")]).table), CAPS)
+    np.testing.assert_array_equal(_bits(fblob[:2]), _bits(fresh[0][:2]))
+    np.testing.assert_array_equal(iblob[:2], fresh[1][:2])
 
 
 @pytest.mark.parametrize("feature, meta, spec", [
