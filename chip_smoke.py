@@ -23,7 +23,10 @@ fails; nothing is caught and skipped:
    ragged shapes (tile edges, node padding), which reach every build of
    the scan (N up to 65,536), the spread build on seeded selector counts
    and zones with its edge cases (a pod with no feasible node, nodes
-   without a zone, a zero maximum count, zoned counts all zero);
+   without a zone, a zero maximum count, zoned counts all zero), and the
+   interpod build on seeded ledgers, topology and terms (at one shape
+   also without the predicate, without the priority, and with other
+   weights);
 4. packed_batch: the main path's first batch encoded through the
    EncodeCache into page-locked blobs, uploaded and unpacked on the card,
    must equal the fresh encoding (encode_pods, batch_from_numpy) field for
@@ -51,7 +54,19 @@ fails; nothing is caught and skipped:
    schedule_batch_plain on the state and batch the driver solved them on,
    pod-selector ledger included; times the spread build on the first
    batch against its plain version;
-9. the kernels line, the nvidia-smi line, and last the result line.
+9. interpod: the reference bench's bench[interpod] (5,000 nodes in 3
+   zones, 8,192 pods in 8 app groups, required hostname anti-affinity on
+   every 16th pod, weight-10 preferred zone affinity on every 2nd) through
+   Scheduler(device="cuda"); every pod must be placed within allocatable,
+   no node that holds an anti-affinity pod may hold another pod of its
+   group, the interpod build must have launched once per batch (and the
+   main and spread builds never), and the first and a later batch must
+   equal schedule_batch_plain on the state and batch the driver solved
+   them on, all three ledgers included; interpod_build times the build on
+   the first batch against its plain version (the edge shapes of phase 3
+   hold it at every build, with carried anti terms, a custom topology key
+   and the default-domain union);
+10. the kernels line, the nvidia-smi line, and last the result line.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
@@ -85,6 +100,18 @@ SPREAD_OPS_PER_PAIR = 16
 SPREAD_GROUPS = 16
 # the later bench[spread] batch held against the plain path
 SPREAD_CHECKED = (0, 4)
+# bench[interpod] (bench.py:313-323): nodes, pods and the pod mix
+INTERPOD_NODES, INTERPOD_PODS = 5000, 8192
+INTERPOD_MIX = {"app_groups": 8, "anti_affinity_every": 16,
+                "pref_affinity_every": 2}
+# the bench[interpod] batches held against the plain path (of 7)
+INTERPOD_CHECKED = (0, 5)
+# operations of the interpod build per (pod, statically feasible node):
+# per count entry a gather, a role test, a multiply-add or compare (4),
+# and for a pod whose priority counts, its min, max, subtract, multiply,
+# divide, add and truncate (7)
+IP_OPS_PER_ENTRY = 4
+IP_SCORE_OPS = 7
 
 
 def emit(obj) -> None:
@@ -316,6 +343,29 @@ def spread_first_batch(torch, dev):
     return caps, nodes, pods, services, state, batch, solver.batch_flags(state, batch)
 
 
+def record_solves(torch, driver, checked, seen):
+    """Wrap the driver's schedule_batch: append (inputs, result) of every
+    batch to `seen`, the inputs (a copy of the state, which the next flush
+    may write in place, the batch, rr and the flags) only for the batch
+    indices in `checked`. Returns the original function."""
+    solve = driver.schedule_batch
+
+    def recording(state, batch, rr, policy, flags, caps_):
+        k = len(seen)
+        keep = None
+        if k in checked:
+            keep = (dataclasses.replace(state, **{
+                f.name: getattr(state, f.name).clone()
+                for f in dataclasses.fields(state)}), batch,
+                rr.clone() if isinstance(rr, torch.Tensor) else rr, flags)
+        result = solve(state, batch, rr, policy, flags, caps_)
+        seen.append((keep, result))
+        return result
+
+    driver.schedule_batch = recording
+    return solve
+
+
 def spread_phase(torch, caps, dev, kernels) -> tuple[dict, dict]:
     """bench[spread] through Scheduler(device="cuda"), its first and fifth
     batch held against the plain path on the state and batch the driver
@@ -335,24 +385,9 @@ def spread_phase(torch, caps, dev, kernels) -> tuple[dict, dict]:
     sched.add_nodes(nodes)
     for svc in services:
         sched.add_service(svc)
-    # record what the driver solves in the checked batches: a copy of the
-    # state (the next flush may write it in place), the batch, rr, flags
+    # record what the driver solves in the checked batches
     seen = []
-    solve = driver.schedule_batch
-
-    def recording(state, batch, rr, policy, flags, caps_):
-        k = len(seen)
-        keep = None
-        if k in SPREAD_CHECKED:
-            keep = (dataclasses.replace(state, **{
-                f.name: getattr(state, f.name).clone()
-                for f in dataclasses.fields(state)}), batch,
-                rr.clone() if isinstance(rr, torch.Tensor) else rr, flags)
-        result = solve(state, batch, rr, policy, flags, caps_)
-        seen.append((keep, result))
-        return result
-
-    driver.schedule_batch = recording
+    solve = record_solves(torch, driver, SPREAD_CHECKED, seen)
     for k in kernels:
         k.launches = 0
     try:
@@ -415,6 +450,259 @@ def spread_phase(torch, caps, dev, kernels) -> tuple[dict, dict]:
             "podsel_entries": len(sched.statedb.table.podsels),
             "nodes_used": len(load), "max_zone_imbalance_per_group": imbalance,
             "launches": launches, "checked_batches_equal_plain": list(SPREAD_CHECKED)}
+    return line, entry
+
+
+def compare_interpod(torch, got, want) -> float:
+    """compare_scan plus the pod-selector and carried-term ledgers."""
+    err = compare_scan(torch, got, want)
+    for name in ("new_podsel", "new_term"):
+        if not torch.equal(getattr(got, name), getattr(want, name)):
+            raise AssertionError(f"assign_scan_interpod kernel != plain on {name}")
+    return max(err, max_abs_err(torch, [(got.new_podsel, want.new_podsel),
+                                        (got.new_term, want.new_term)]))
+
+
+def interpod_inputs(torch, rng, dev, n, p, uq=32, ue=32, k=8, poisoned=False):
+    """Seeded InterpodInputs for p pods on n nodes: zones, regions and their
+    composites (some nodes without one), a custom topology key in slot 5,
+    sparse pod-selector and carried-term counts, carried terms of every
+    kind at hostname, zone, region, the custom slot and (preferred ones)
+    the default-domain union, one required anti term with an empty key
+    and, with `poisoned`, a poisoned anti term with a carrier; pods with
+    match and carried-term rows, required affinity and anti-affinity on
+    those keys, preferred terms of both signs, and a few ipaff_fail."""
+    from kubernetes_tpu_torch.ops.assign_scan import InterpodInputs
+
+    topo = np.full((n, k), -1, np.int32)
+    topo[:, 0] = np.arange(n)
+    zone = rng.integers(-1, 3, n)
+    region = rng.integers(-1, 2, n)
+    topo[:, 1], topo[:, 2] = zone, region
+    topo[:, 3] = np.where((zone >= 0) & (region >= 0), zone * 2 + region, -1)
+    topo[:, 4] = np.where((zone >= 0) | (region >= 0), (region + 1) * 4 + zone + 1, -1)
+    topo[:, 5] = rng.integers(-1, 10, n)
+    podsel = rng.integers(0, 4, (n, uq)).astype(np.float32)
+    podsel[rng.random((n, uq)) < 0.7] = 0.0
+    term = rng.integers(0, 3, (n, ue)).astype(np.float32)
+    term[rng.random((n, ue)) < 0.8] = 0.0
+    keys = np.array([0, 1, 2, 5])
+    term_q = rng.integers(0, uq, ue).astype(np.int32)
+    kind = rng.integers(0, 4, ue).astype(np.int32)
+    tkey = rng.choice(keys, ue).astype(np.int32)
+    tkey[(kind >= 2) & (rng.random(ue) < 0.3)] = -2
+    weight = np.where(kind == 2, rng.integers(1, 100, ue),
+                      np.where(kind == 3, -rng.integers(1, 100, ue), 0)).astype(np.float32)
+    poison = np.zeros(ue, bool)
+    kind[0], tkey[0] = 0, -1                  # an empty key on a required anti term
+    term[:, 0] = 0.0
+    term[rng.integers(n), 0] = 1.0 if poisoned else 0.0
+    kind[1], poison[1] = 0, True              # a poisoned anti term
+    term[:, 1] = 0.0
+    if poisoned:
+        term[rng.integers(n), 1] = 1.0
+    match = (rng.random((p, uq)) < 0.15).astype(np.float32)
+    carry = (rng.random((p, ue)) < 0.05).astype(np.float32)
+    slots = 4
+
+    def ids(frac, lo_keys):
+        q = np.where(rng.random((p, slots)) < frac, rng.integers(0, uq, (p, slots)), -1)
+        return q.astype(np.int32), rng.choice(lo_keys, (p, slots)).astype(np.int32)
+
+    paff_q, paff_tkey = ids(0.15, keys)
+    panti_q, panti_tkey = ids(0.2, keys)
+    ppref_q, ppref_tkey = ids(0.4, np.append(keys, -2))
+    ppref_w = (rng.integers(1, 100, (p, slots)) * rng.choice([-1, 1], (p, slots))
+               ).astype(np.float32)
+    fail = rng.random(p) < 0.02
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    return InterpodInputs(
+        use_ipa=True, w_ip=1.0, hard_w=1.0, pod_matches_q=t(match),
+        pod_carries_e=t(carry), paff_q=t(paff_q), paff_tkey=t(paff_tkey),
+        panti_q=t(panti_q), panti_tkey=t(panti_tkey), ppref_q=t(ppref_q),
+        ppref_tkey=t(ppref_tkey), ppref_w=t(ppref_w), ipaff_fail=t(fail),
+        podsel_count=t(podsel), term_count=t(term), topology=t(topo),
+        term_q=t(term_q), term_tkey=t(tkey), term_kind=t(kind),
+        term_weight=t(weight), term_poison=t(poison), domain_universe=64)
+
+
+def interpod_entries(torch, ip):
+    """(count entries i64[P], priority counts bool[P]) of each pod: the
+    carried terms whose required anti-affinity or symmetric weight applies
+    to it, and its own terms in use (the kernel's list, csrc header)."""
+    q = ip.term_q.long().clamp(min=0)
+    match_e = torch.where(ip.term_q >= 0, ip.pod_matches_q[:, q], 0.0)
+    keyed = ip.term_tkey != -1
+    anti = (ip.term_kind == 0) & (match_e > 0) & keyed
+    eff = ip.term_weight + ip.hard_w * (ip.term_kind == 1).float()
+    sym = (match_e * eff != 0) & keyed
+    pref = (ip.ppref_q >= 0) & (ip.ppref_w != 0)
+    entries = (anti.sum(1) + sym.sum(1) + (ip.paff_q >= 0).sum(1)
+               + (ip.panti_q >= 0).sum(1) + pref.sum(1))
+    return entries, sym.any(1) | pref.any(1)
+
+
+def interpod_bound(torch, scan_args, ip) -> tuple[float, str]:
+    """scan_bound's bytes plus the per-pod rows, the topology, the term
+    attributes and the domain aggregates read once, and the node-level
+    ledgers read once and written once; its operations plus, per
+    statically feasible (pod, node) pair, IP_OPS_PER_ENTRY per count
+    entry of the pod and IP_SCORE_OPS when the pod's priority counts."""
+    from kubernetes_tpu_torch.ops.interpod import make_ledger
+
+    masked = scan_args[0]
+    t_bytes, _ = scan_bound(*scan_args[:6])
+    ledger = make_ledger(ip.podsel_count, ip.term_count, ip.topology,
+                         ip.domain_universe)
+    rows = [getattr(ip, f) for f in ("pod_matches_q", "pod_carries_e", "paff_q",
+                                     "paff_tkey", "panti_q", "panti_tkey",
+                                     "ppref_q", "ppref_tkey", "ppref_w",
+                                     "ipaff_fail", "topology", "term_q",
+                                     "term_tkey", "term_kind", "term_weight",
+                                     "term_poison")]
+    nbytes = (t_bytes * 1e-3 * H100_BYTES_PER_S
+              + sum(a.numel() * a.element_size() for a in rows)
+              + 4 * (ledger.dom_podsel.numel() + ledger.dom_term.numel())
+              + 2 * 4 * (ip.podsel_count.numel() + ip.term_count.numel()))
+    feasible = (masked > float("-inf")).sum(1).double()
+    entries, counting = interpod_entries(torch, ip)
+    ops = (SCAN_OPS_PER_PAIR * float(feasible.sum())
+           + IP_OPS_PER_ENTRY * float((feasible * entries.double()).sum())
+           + IP_SCORE_OPS * float(feasible[counting].sum()))
+    return bound(nbytes, ops)
+
+
+def interpod_first_batch(torch, dev):
+    """bench[interpod]'s first batch, encoded through a Scheduler's table
+    on its flushed state, and the interpod build's arguments for it:
+    (caps, the scan arguments, InterpodInputs)."""
+    from kubernetes_tpu_torch.ops import solver
+    from kubernetes_tpu_torch.perf.fixtures import make_nodes, make_pods
+    from kubernetes_tpu_torch.perf.harness import default_caps
+    from kubernetes_tpu_torch.scheduler import Scheduler
+    from kubernetes_tpu_torch.state.convert import batch_from_numpy
+    from kubernetes_tpu_torch.state.pod_batch import encode_pods
+
+    caps = default_caps(INTERPOD_NODES, INTERPOD_PODS)
+    sched = Scheduler(caps, device=dev)
+    sched.add_nodes(make_nodes(INTERPOD_NODES, zones=3))
+    pods = make_pods(INTERPOD_PODS, **INTERPOD_MIX)[:caps.batch_pods]
+    host = encode_pods(pods, caps, sched.statedb.table)
+    state = sched.statedb.flush()
+    batch = batch_from_numpy(host, dev)
+    g = solver.check_supported(solver.DEFAULT_POLICY, solver.batch_flags(state, batch))
+    masked = solver.masked_static_scores(state, batch, solver.DEFAULT_POLICY, g)
+    args = (masked, batch.requests, batch.nonzero_requests, state.allocatable,
+            state.requested, state.nonzero_requested, 0, float(g.w_lr),
+            float(g.w_ba))
+    return caps, args, solver.interpod_inputs(state, batch, g, caps.domain_universe)
+
+
+def interpod_phase(torch, caps, dev, kernels) -> tuple[dict, dict]:
+    """bench[interpod] through Scheduler(device="cuda"), the first and a
+    later batch held against the plain path on the state and batch the
+    driver solved them on, the anti-affinity checked on the placements,
+    and the interpod build timed on the first batch. Returns (the phase
+    line, the kernels-line entry)."""
+    from kubernetes_tpu_torch.ops import solver
+    from kubernetes_tpu_torch.ops.assign_scan import (
+        assign_scan_interpod,
+        assign_scan_interpod_plain,
+    )
+    from kubernetes_tpu_torch.perf.fixtures import make_nodes, make_pods
+    from kubernetes_tpu_torch.perf.harness import measure, warm
+    from kubernetes_tpu_torch.scheduler import Scheduler, driver
+    from kubernetes_tpu_torch.state.pod_batch import encode_pods
+
+    nodes = make_nodes(INTERPOD_NODES, zones=3)
+    pods = make_pods(INTERPOD_PODS, **INTERPOD_MIX)
+    warm(caps, solver.DEFAULT_POLICY, dev, pod_kwargs=INTERPOD_MIX)
+    sched = Scheduler(caps, device=dev)
+    sched.add_nodes(nodes)
+    seen = []
+    solve = record_solves(torch, driver, INTERPOD_CHECKED, seen)
+    for k in kernels:
+        k.launches = 0
+    try:
+        result = measure(sched, pods)
+    finally:
+        driver.schedule_batch = solve
+    launches = {k.__name__: k.launches for k in kernels}
+    if result.scheduled != INTERPOD_PODS:
+        raise AssertionError(f"interpod: placed {result.scheduled}/{INTERPOD_PODS}")
+    if launches != {"static_mask": result.batches, "assign_scan": 0,
+                    "assign_scan_spread": 0,
+                    "assign_scan_interpod": result.batches}:
+        raise AssertionError(f"interpod: launches {launches} over "
+                             f"{result.batches} batches")
+    load = check_load(pods, result.placements, nodes)
+    # required hostname anti-affinity against the pod's own group: a node
+    # that holds an anti-affinity pod holds no other pod of that group
+    group_on: dict = {}
+    anti_nodes = set()
+    for i, p in enumerate(pods):
+        node = result.placements[p.key]
+        app = p.metadata.labels["app"]
+        group_on[(node, app)] = group_on.get((node, app), 0) + 1
+        if i % INTERPOD_MIX["anti_affinity_every"] == 0:
+            anti_nodes.add((node, app))
+    crowded = [key for key in anti_nodes if group_on[key] != 1]
+    if crowded:
+        raise AssertionError(f"interpod: anti-affinity broken on {crowded[:5]}")
+    for k in INTERPOD_CHECKED:
+        (state, batch, rr, flags), got = seen[k]
+        plain = solver.schedule_batch_plain(state, batch, rr, solver.DEFAULT_POLICY,
+                                            flags, caps)
+        compare_interpod(torch, got, plain)
+    # the driver's first batch equals the fresh encoding of its pods
+    fresh = Scheduler(caps, device=dev)
+    fresh.add_nodes(nodes)
+    host = encode_pods(pods[:caps.batch_pods], caps, fresh.statedb.table)
+    first = seen[0][0][1]
+    for name in ("pod_matches_q", "pod_carries_e", "paff_q", "panti_q",
+                 "panti_tkey", "ppref_q", "ppref_tkey", "ppref_w"):
+        want = torch.from_numpy(np.ascontiguousarray(getattr(host, name))).to(dev)
+        if not torch.equal(getattr(first, name), want.to(getattr(first, name).dtype)):
+            raise AssertionError(f"interpod: the driver's first batch != the "
+                                 f"fresh encoding on {name}")
+
+    state0, batch0, _rr, flags0 = seen[0][0]
+    g = solver.check_supported(solver.DEFAULT_POLICY, flags0)
+    masked = solver.masked_static_scores(state0, batch0, solver.DEFAULT_POLICY, g)
+    args = (masked, batch0.requests, batch0.nonzero_requests, state0.allocatable,
+            state0.requested, state0.nonzero_requested, 0, float(g.w_lr),
+            float(g.w_ba))
+    ip = solver.interpod_inputs(state0, batch0, g, caps.domain_universe)
+    err = compare_interpod(torch, assign_scan_interpod(*args, ip),
+                           assign_scan_interpod_plain(*args, ip))
+    entries, counting = interpod_entries(torch, ip)
+    entry = {
+        "name": "assign_scan_interpod", "route": "cuda",
+        "source": "kubernetes_tpu_torch/csrc/assign_scan.cu",
+        "replaces": "kubernetes_tpu/ops/interpod.py:152",
+        "launches": launches["assign_scan_interpod"], "max_abs_err": err,
+        **timed(torch, lambda: assign_scan_interpod(*args, ip), reps=5),
+        "plain_ms": time_ms(torch, lambda: assign_scan_interpod_plain(*args, ip),
+                            reps=1, warmup=0)[0],
+        "library_ms": None,
+    }
+    entry["bound_ms"], entry["bound_by"] = interpod_bound(torch, args, ip)
+    encode_ms = 1e3 * sum(sched.encode_seconds)
+    solve_ms = 1e3 * sum(sched.solve_seconds)
+    line = {"phase": "interpod", "nodes": INTERPOD_NODES, "pods": INTERPOD_PODS,
+            **INTERPOD_MIX, "caps": [caps.num_nodes, caps.batch_pods],
+            **run_fields(result), "encode_ms": encode_ms, "solve_ms": solve_ms,
+            "remainder_ms": 1e3 * result.seconds - encode_ms - solve_ms,
+            "podsel_entries": len(sched.statedb.table.podsels),
+            "carried_terms": len(sched.statedb.table.terms),
+            "nodes_used": len(load), "anti_affinity_nodes": len(anti_nodes),
+            "first_batch_entries_mean": float(entries.double().mean()),
+            "first_batch_counting_pods": int(counting.sum()),
+            "launches": launches,
+            "checked_batches_equal_plain": list(INTERPOD_CHECKED)}
     return line, entry
 
 
@@ -631,13 +919,15 @@ def main() -> int:
     from kubernetes_tpu_torch.ops.assign_scan import (
         RUNS,
         assign_scan,
+        assign_scan_interpod,
+        assign_scan_interpod_plain,
         assign_scan_plain,
         assign_scan_spread,
         assign_scan_spread_plain,
         node_run,
     )
     from kubernetes_tpu_torch.ops.static_mask import static_mask, static_mask_plain
-    from kubernetes_tpu_torch.perf.harness import measure
+    from kubernetes_tpu_torch.perf.harness import default_caps, measure
     from kubernetes_tpu_torch.scheduler import Scheduler
 
     # the plain versions' selector/taint counts are matmuls: full f32
@@ -717,8 +1007,10 @@ def main() -> int:
     del het, miss, scan_args
 
     # ---- 3b: ragged shapes (tile edges, node padding) on both kernels; the
-    # scan and its spread build at an N for each of their builds (1, 2, 4
-    # and 8 nodes per thread)
+    # scan and its spread and interpod builds at an N for each of their
+    # builds (1, 2, 4 and 8 nodes per thread); the one-pod shape with a
+    # poisoned carried anti term, which rejects every node, and the
+    # 100-pod shape under four policies of the interpod build
     shapes = ((1, 65, 60), (100, 1000, 990), (333, 3000, 2900), (64, 1024, 1024),
               (50, 12000, 11900), (16, 30000, 29000), (16, 40000, 39000),
               (8, 65536, 65536))
@@ -732,11 +1024,22 @@ def main() -> int:
         spread = spread_inputs(torch, rng, dev, n_, p_)
         compare_spread(torch, assign_scan_spread(*sargs, 1.0, 1.0, spread),
                        assign_scan_spread_plain(*sargs, 1.0, 1.0, spread))
+        ip = interpod_inputs(torch, rng, dev, n_, p_, poisoned=p_ == 1)
+        # at one shape, the policies that drop the predicate or the
+        # priority, or weigh them otherwise, too
+        variants = [ip] + ([dataclasses.replace(ip, use_ipa=False),
+                            dataclasses.replace(ip, w_ip=0.0),
+                            dataclasses.replace(ip, w_ip=2.0, hard_w=5.0)]
+                           if (p_, n_) == (100, 1000) else [])
+        for v in variants:
+            compare_interpod(torch, assign_scan_interpod(*sargs, 1.0, 1.0, v),
+                             assign_scan_interpod_plain(*sargs, 1.0, 1.0, v))
     runs = sorted({node_run(n_) for _, n_, _ in shapes})
     if runs != list(RUNS):
         raise AssertionError(f"scan builds checked {runs}, built {RUNS}")
     emit({"phase": "edge_shapes", "shapes": [list(x[:2]) for x in shapes],
-          "scan_runs": runs, "spread_runs": runs, "kernels_equal_plain": True})
+          "scan_runs": runs, "spread_runs": runs, "interpod_runs": runs,
+          "kernels_equal_plain": True})
 
     # ---- 4: the first batch through the cache and the blobs ----
     emit(packed_batch_phase(torch, caps, nodes, pods, dev))
@@ -803,10 +1106,19 @@ def main() -> int:
     emit(line)
     emit({"phase": "spread_build", "shape": [P, N], **k3})
 
-    # ---- 9: kernels line, card line, result line ----
+    # ---- 9: bench[interpod] ----
+    ip_caps = default_caps(INTERPOD_NODES, INTERPOD_PODS)
+    line, k4 = interpod_phase(torch, ip_caps, dev,
+                              (static_mask, assign_scan, assign_scan_spread,
+                               assign_scan_interpod))
+    emit(line)
+    emit({"phase": "interpod_build",
+          "shape": [ip_caps.batch_pods, ip_caps.num_nodes], **k4})
+
+    # ---- 10: kernels line, card line, result line ----
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    emit({"kernels": [{k: entry[k] for k in keys} for entry in (k1, k2, k3)]})
+    emit({"kernels": [{k: entry[k] for k in keys} for entry in (k1, k2, k3, k4)]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time `Scheduler.schedule` end to end at the headline cell on two kinds of
-pending traffic (three where the tree carries SelectorSpread), for
-comparing two trees of the repository on one card.
+"""Time `Scheduler.schedule` end to end on the kinds of pending traffic a
+tree carries (two, three with SelectorSpread, four with inter-pod
+affinity), for comparing two trees of the repository on one card.
 
     python3 host_times.py [--root DIR] [--reps K]
 
@@ -17,7 +17,11 @@ from its own sources and its Scheduler places the same pods on the same
   every pod;
 - spread, where the tree's Scheduler has `add_service`: the reference
   bench's bench[spread], 30,000 pods in 16 app groups with 16 Services
-  selecting them.
+  selecting them;
+- interpod, where the tree's `make_pods` takes `anti_affinity_every`: the
+  reference bench's bench[interpod], 8,192 pods in 8 app groups with
+  hostname anti-affinity on every 16th and zone affinity on every 2nd, on
+  its own 5,000 nodes in 3 zones (padded to N=8192, batches of P=1365).
 
 Each traffic runs K times (default 2), each on a fresh Scheduler after the
 kernels are built and warmed. The script collects garbage before each
@@ -35,6 +39,7 @@ from __future__ import annotations
 import argparse
 import gc
 import importlib.util
+import inspect
 import json
 import subprocess
 import sys
@@ -95,24 +100,31 @@ def main() -> int:
     caps = default_caps(smoke.HEADLINE_NODES, smoke.HEADLINE_PODS)
     warm(caps, DEFAULT_POLICY, dev)
     nodes = make_nodes(smoke.HEADLINE_NODES, zones=3)
+    # name -> (caps, nodes, pods, services)
     traffic = {
-        "one_class": make_pods(smoke.HEADLINE_PODS),
-        "many_classes": [Pod.from_dict(d) for d in
-                         smoke.many_class_pod_dicts(smoke.HEADLINE_PODS)],
+        "one_class": (caps, nodes, make_pods(smoke.HEADLINE_PODS), ()),
+        "many_classes": (caps, nodes, [Pod.from_dict(d) for d in
+                                       smoke.many_class_pod_dicts(smoke.HEADLINE_PODS)],
+                         ()),
     }
-    services = {}
     if hasattr(Scheduler, "add_service"):
-        traffic["spread"] = make_pods(smoke.HEADLINE_PODS,
-                                      app_groups=smoke.SPREAD_GROUPS)
-        services["spread"] = fixtures.make_services(smoke.SPREAD_GROUPS)
+        traffic["spread"] = (caps, nodes, make_pods(smoke.HEADLINE_PODS,
+                                                    app_groups=smoke.SPREAD_GROUPS),
+                             fixtures.make_services(smoke.SPREAD_GROUPS))
         warm(caps, DEFAULT_POLICY, dev, n_services=smoke.SPREAD_GROUPS)
+    if "anti_affinity_every" in inspect.signature(make_pods).parameters:
+        ip_caps = default_caps(smoke.INTERPOD_NODES, smoke.INTERPOD_PODS)
+        traffic["interpod"] = (ip_caps, make_nodes(smoke.INTERPOD_NODES, zones=3),
+                               make_pods(smoke.INTERPOD_PODS, **smoke.INTERPOD_MIX),
+                               ())
+        warm(ip_caps, DEFAULT_POLICY, dev, pod_kwargs=smoke.INTERPOD_MIX)
     out = {"nvidia_smi": smi.splitlines()[0], "root": str(opts.root.resolve())}
-    for name, pods in traffic.items():
+    for name, (caps_, nodes_, pods, services) in traffic.items():
         out[name] = []
         for _ in range(opts.reps):
-            sched = Scheduler(caps, device=dev)
-            sched.add_nodes(nodes)
-            for svc in services.get(name, ()):
+            sched = Scheduler(caps_, device=dev)
+            sched.add_nodes(nodes_)
+            for svc in services:
                 sched.add_service(svc)
             out[name].append(run(torch, sched, pods))
             del sched

@@ -2,29 +2,41 @@
 """Time the port's CUDA kernels at the headline shape, for comparing two
 trees of the repository on one card.
 
-    python3 kernel_times.py [--root DIR]
+    python3 kernel_times.py [--root DIR] [--sass-out DIR]
 
 Imports `kubernetes_tpu_torch` from DIR (default: this file's directory),
 so `--root` can point at an unpacked older commit: its kernels are built
 from its own sources and fed the same seeded inputs as this tree's. The
 inputs come from chip_smoke.py beside this file (P=4096 pods, N=16384
 nodes): the static mask's operands, the main path's first batch, the
-heterogeneous batch and the all-miss batch of the scan, and, where the
-tree has the scan's spread build, bench[spread]'s first batch. Prints one
+heterogeneous batch and the all-miss batch of the scan, where the tree
+has the scan's spread build, bench[spread]'s first batch, and where it has
+the interpod build, bench[interpod]'s first batch. Prints one
 JSON line: the card (nvidia-smi name and power limit), the root, and each
 time as median, min and max of CUDA-event timed calls (20 of the mask,
 5 of each scan batch), in ms (a call's time includes its wrapper's host
 work); each CUDA kernel's device time per launch on the main-path inputs
 (torch.profiler), in us, which splits a call's time into the card's work
-and the host's; and, per build of the main scan (nodes per thread), its
-instruction count and two digests of its SASS (cuobjdump; exact, and with
-register numbers normalized), so two trees' main builds can be compared
-instruction for instruction. Exits non-zero without a CUDA device.
+and the host's; and, per build of the scan (main, spread, interpod) and
+nodes per thread, its instruction count and two digests of its SASS
+(cuobjdump; exact, and with register numbers normalized), so two trees'
+builds can be compared instruction for instruction (`--sass-out` also
+writes each build's register-normalized SASS there, one file a build and
+RUN, for `diff`). Where the tree has the interpod build, it is also timed
+with parts of its per-pod chain switched off by its inputs, which prices
+each part: `interpod_no_rows_ms` with the match and carried-term rows
+zeroed (no winner broadcast, no replica update), `interpod_no_score_ms`
+with the priority's weight 0 (no count exchange), and
+`interpod_list_only_ms` with both and the predicate off (the count list's
+barrier alone), beside the main build on the same batch
+(`interpod_batch_main_ms`); the placements differ between them, so they
+price the chain, not a result. Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import hashlib
 import importlib.util
 import json
@@ -43,6 +55,7 @@ REPS = 5
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", type=Path, default=HERE)
+    ap.add_argument("--sass-out", type=Path, default=None)
     opts = ap.parse_args()
     import torch
 
@@ -83,36 +96,64 @@ def main() -> int:
         sargs, spread = smoke.spread_scan_args(torch, state, batch, _c, flags)
         out.update(smoke.timed(torch, lambda: spread_scan(*sargs, spread), REPS,
                                "spread_ms"))
+    if hasattr(scan_module, "assign_scan_interpod"):
+        interpod_scan = scan_module.assign_scan_interpod
+        _c, iargs, ip = smoke.interpod_first_batch(torch, dev)
+        no_rows = dataclasses.replace(
+            ip, pod_matches_q=torch.zeros_like(ip.pod_matches_q),
+            pod_carries_e=torch.zeros_like(ip.pod_carries_e))
+        # the main build on the same batch: the chain without inter-pod work
+        out.update(smoke.timed(torch, lambda: assign_scan(*iargs), REPS,
+                               "interpod_batch_main_ms"))
+        variants = (("interpod_ms", ip), ("interpod_no_rows_ms", no_rows),
+                    ("interpod_no_score_ms", dataclasses.replace(ip, w_ip=0.0)),
+                    ("interpod_list_only_ms", dataclasses.replace(
+                        no_rows, w_ip=0.0, use_ipa=False)))
+        for key, v in variants:
+            out.update(smoke.timed(torch, lambda v=v: interpod_scan(*iargs, v),
+                                   REPS, key))
     cuobjdump = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
-    out["main_scan_sass"] = main_sass_digests(cuobjdump, library_path("assign_scan"))
+    out["scan_sass"] = sass_digests(cuobjdump, library_path("assign_scan"),
+                                    opts.sass_out)
     print(json.dumps(out), flush=True)
     return 0
 
 
-def main_sass_digests(cuobjdump: str, library: Path) -> dict:
-    """{nodes per thread: {instructions, exact, registers_renamed}} of the
-    main scan's builds in a built library (the kernel
-    `assign_scan_kernel<RUN>` or `assign_scan_kernel<RUN, false>`): the
-    instruction count, a sha1 of the instruction text, and one with the
-    register numbers replaced by R, so two builds that differ only in
+# the scan's builds by their template flags after RUN: (SPREAD[, IPA])
+BUILDS = {"": "main", "0": "main", "00": "main", "1": "spread", "10": "spread",
+          "01": "interpod"}
+
+
+def sass_digests(cuobjdump: str, library: Path, sass_out: Path | None = None) -> dict:
+    """{build: {nodes per thread: {instructions, exact, registers_renamed}}}
+    of the scan's builds in a built library (the kernel
+    `assign_scan_kernel<RUN[, SPREAD[, IPA]]>`): the instruction count, a
+    sha1 of the instruction text, and one with the register numbers
+    replaced by R and the operand-reuse hints (`.reuse`, which follow the
+    register allocation) dropped, so two builds that differ only in
     register allocation share the second. Addresses, encodings and the
-    function's own name are left out."""
+    function's own name are left out. With `sass_out`, the normalized text
+    of each build goes to `<sass_out>/<build>-<RUN>.sass`."""
     sass = subprocess.run([cuobjdump, "-sass", str(library)], capture_output=True,
                           text=True, timeout=300, check=True).stdout
-    out = {}
+    out: dict = {}
     for chunk in sass.split("Function : ")[1:]:
         name, _, body = chunk.partition("\n")
-        m = re.search(r"assign_scan_kernelILi(\d)E(?:Lb([01])E)?E", name)
-        if m is None or m.group(2) == "1":
+        m = re.search(r"assign_scan_kernelILi(\d)E((?:Lb[01]E)*)E", name)
+        if m is None:
             continue
+        build = BUILDS[re.sub(r"[^01]", "", m.group(2))]
         lines = [re.sub(r"/\*[^*]*\*/", "", ln).strip()
                  for ln in body.splitlines() if "/*" in ln and ";" in ln]
         text = "\n".join(lines)
-        out[m.group(1)] = {
+        renamed = re.sub(r"\bR\d+\b", "R", text).replace(".reuse", "")
+        out.setdefault(build, {})[m.group(1)] = {
             "instructions": len(lines),
             "exact": hashlib.sha1(text.encode()).hexdigest()[:16],
-            "registers_renamed": hashlib.sha1(
-                re.sub(r"\bR\d+\b", "R", text).encode()).hexdigest()[:16]}
+            "registers_renamed": hashlib.sha1(renamed.encode()).hexdigest()[:16]}
+        if sass_out is not None:
+            sass_out.mkdir(parents=True, exist_ok=True)
+            (sass_out / f"{build}-{m.group(1)}.sass").write_text(renamed + "\n")
     return out
 
 

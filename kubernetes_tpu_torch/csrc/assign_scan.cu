@@ -140,6 +140,77 @@
 // Bound of the spread build: masked_static read once, plus the
 // pod-selector ledger read once and written once (N*UQ*4 bytes each way),
 // at 3.35 TB/s.
+//
+// The interpod build (IPA = true, entry ktpu_assign_scan_interpod) adds
+// inter-pod (anti-)affinity, the JAX step's `interpod_feasible`,
+// `interpod_counts`, `interpod_score` and the carried-term half of
+// `ledger_add` (kubernetes_tpu/ops/solver.py:549-551,574-577,783-784;
+// ops/interpod.py:152,208,241,253). Like the spread build it sits behind
+// `if constexpr (IPA)` with its arguments in one trailing struct, so the
+// main and spread builds keep their instructions. A batch raises either
+// gate, not both: the solver refuses a batch that needs both builds.
+// State it keeps:
+//   - node-level counts: a transposed [UQ+UE, N] copy of the pod-selector
+//     and carried-term ledgers (the wrapper makes it, and returns it as
+//     [N, UQ] and [N, UE]), read and written by each node's owner only,
+//     as the main ledger;
+//   - domain aggregates dom[K, D, UQ+UE] (the pods matching selector q, or
+//     carrying term e, in domain d of topology slot k): one replica per
+//     block in block-private device memory ([CLUSTER, K, D, UQ+UE], 2 MiB
+//     at K = 8, D = 64, UQ = UE = 32; it does not fit beside the node
+//     columns in shared memory), read by every thread of the block;
+//   - the totals total_q / total_e and the term attributes in shared
+//     memory (the totals replicated per block, the attributes loaded once).
+// Per pod, after the main build's fit and terms:
+//   1. if the previous pod was placed and its match or carried-term row is
+//      not zero, the block waits for its node index (below), reads that
+//      node's domain ids and adds the row into its replica (every thread a
+//      (slot, column) cell) and into the totals; every block knows the row
+//      and whether the pod was placed, so every block waits alike;
+//   2. warp 0 turns the pod row (it rides the pod ring: the required and
+//      preferred term slots, ipaff_fail, the match and carried-term rows)
+//      and the term attributes into a list of count entries, each a
+//      (column, topology code, role, weight): the active carried required
+//      anti terms (role: their counts summed must be 0), the carried terms
+//      that weigh the pod symmetrically (match x (weight + hard_w for
+//      required affinity)), the pod's own required anti (count 0) and
+//      affinity terms (count > 0, unless none exists anywhere and the pod
+//      matches its own term: then the term holds everywhere), and its
+//      preferred terms (ppref_w); a carried poisoned anti term with a
+//      carrier, an active carried anti term with TKEY_INVALID and a
+//      carrier, and ipaff_fail reject every node; one block barrier;
+//   3. each thread evaluates the list on its feasible nodes: a count at
+//      topology code k reads the node-level column for slot 0 (hostname),
+//      the replica at the node's domain for slots 1..K-1, the inclusion-
+//      exclusion union for TKEY_DEFAULT_UNION, and 0 for TKEY_INVALID;
+//   4. when the list has a weighted entry (else every node's score is 0
+//      and nothing is exchanged; every block reads the same list), the
+//      min and max count over the feasible nodes, clamped through 0, are
+//      reduced over the warp, the block and the cluster (st.async onto
+//      a fourth mbarrier, its phase the parity of the counting pods seen);
+//      each node adds w_ip * trunc(10 (c - min) / max(max - min, 1) + eps)
+//      (0 when max == min) before `best`.
+// After the choice, when the pod's match or carried-term row is not zero,
+// the owner's warp adds the rows to the node's counts (a column a lane;
+// the columns of a node are read by its owner only, in later pods, after
+// the barriers between) and sends the node index to every block (a block
+// a lane, st.async onto a fifth mbarrier), whose phase the next pod's
+// step 1 waits for. A block reads the index before it sends its next triple and
+// the winner sends the next index only after every block's triple of that
+// pod, so one slot suffices; the replica is written in step 1 and read
+// after step 2's barrier, and every thread has passed the previous pod's
+// barriers before step 1. The 8-node build keeps STAGES = 3 to fit.
+//
+// Exactness. Every count and weight is an integer-valued f32 far below
+// 2^24 (weights are integers: int(weight) and hardPodAffinityWeight), so
+// the counts, their weighted sums and their min and max (reduced as ints)
+// equal the JAX package's einsums in any order; the score is written with
+// the _rn intrinsics in interpod.py:246-250's order.
+//
+// Bound of the interpod build: masked_static read once, the node-level
+// counts read once and written once, the per-pod rows and the domain
+// aggregates read once, at 3.35 TB/s; or the count entries' operations
+// at 67 TFLOP/s.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -188,11 +259,33 @@ constexpr float NODE_SHARE = (float)(1.0 - 2.0 / 3.0);
 static_assert(MAX_DOMAINS == 2 * 32 && SP_M + MAX_UQ <= SP_POD_ROW
               && SP_POD_ROW % 4 == 0, "spread layout");
 
+// ---- the interpod build's layout
+constexpr int IP_SLOTS = 4;          // required (and preferred) term slots
+constexpr int IP_MAX_UQ = 64;        // pod-selector columns
+constexpr int IP_MAX_UE = 64;        // carried-term columns
+constexpr int IP_MAX_U = IP_MAX_UQ + IP_MAX_UE;
+constexpr int IP_MAX_K = 16;         // topology slots
+constexpr int IP_MAX_D = 64;         // domains of a non-hostname slot
+// per-pod words (i32; the float ones as bits) after requests and nonzero
+constexpr int IPW_FAIL = 0, IPW_PAFF_Q = 1, IPW_PAFF_TK = 5, IPW_PANTI_Q = 9,
+              IPW_PANTI_TK = 13, IPW_PREF_Q = 17, IPW_PREF_TK = 21,
+              IPW_PREF_W = 25, IPW_ROWS = 29;   // then match[uq], carry[ue]
+constexpr int IP_POD_ROW = 168;      // floats of an interpod pod slot
+constexpr int IP_MAX_ENTRIES = 2 * IP_MAX_UE + 3 * IP_SLOTS;
+constexpr int TKEY_INVALID = -1, TKEY_DEFAULT_UNION = -2;
+constexpr int TOPO_ZONE = 1, TOPO_REGION = 2, TOPO_ZONE_REGION = 3;
+constexpr int ANTI_REQ = 0, AFF_REQ = 1;           // TermKind
+// count-entry roles
+constexpr int ROLE_SCORE = 0, ROLE_CARRIED_ANTI = 1, ROLE_ANTI = 2, ROLE_AFF = 3;
+constexpr unsigned IP_BYTES = 16;    // one block's (min, max), one st.async.v4
+static_assert(POD_ROW_MAIN + IPW_ROWS + IP_MAX_U <= IP_POD_ROW
+              && IP_POD_ROW % 4 == 0 && IP_POD_ROW <= THREADS, "interpod layout");
+
 // Row-ring slots and pod-slot width of one build.
-template <int RUN, bool SPREAD>
+template <int RUN, bool SPREAD, bool IPA>
 struct Build {
-  static constexpr int STAGES = (SPREAD && RUN == 8) ? 3 : STAGES_MAIN;
-  static constexpr int POD_ROW = SPREAD ? SP_POD_ROW : POD_ROW_MAIN;
+  static constexpr int STAGES = ((SPREAD || IPA) && RUN == 8) ? 3 : STAGES_MAIN;
+  static constexpr int POD_ROW = SPREAD ? SP_POD_ROW : IPA ? IP_POD_ROW : POD_ROW_MAIN;
 };
 
 // What the spread build reads beyond the main operands.
@@ -208,6 +301,27 @@ struct SpreadArgs {
 struct NoSpread {};
 template <bool SPREAD>
 using SpreadParam = typename std::conditional<SPREAD, SpreadArgs, NoSpread>::type;
+
+// What the interpod build reads beyond the main operands.
+struct IpaArgs {
+  float* node_t;              // [uq + ue, N] node-level counts, updated in place
+  float* dom;                 // [CLUSTER, k, nd, uq + ue] replicas, updated in place
+  const float* totals;        // [uq + ue] batch-start total_q, total_e
+  const int* pod_ip;          // [P, IPW_ROWS + uq + ue] per-pod words
+  const int* topology;        // [N, k] domain ids, -1 = none
+  const int* term_attr;       // [5, ue]: term_q, term_tkey, term_kind,
+                              // term_weight (f32 bits), term_poison
+  int uq;
+  int ue;
+  int k;                      // topology slots
+  int nd;                     // domains of a non-hostname slot
+  int use_ipa;                // MatchInterPodAffinity in the policy
+  float w_ip;                 // InterPodAffinityPriority's weight
+  float hard_w;               // hardPodAffinityWeight
+};
+struct NoIpa {};
+template <bool IPA>
+using IpaParam = typename std::conditional<IPA, IpaArgs, NoIpa>::type;
 
 struct Triple {      // a partial reduction: best score's key, ties at it, feasible
   int key;
@@ -245,9 +359,19 @@ struct Smem {
   int2* wsp;                                     // [WARPS] (max count, zoned)
   float* sp_misc;                                // max_node, have_zones, 2 zone maxima
   uint64_t* bar_sp;                              // the partials' mbarrier
+  // the interpod build's regions follow the main build's
+  int4* ip_list;                                 // [IP_MAX_ENTRIES] count entries
+  int4* ip_head;                                 // entries, reject, counting, row != 0
+  int* t_attr;                                   // [5][IP_MAX_UE] term attributes
+  float* totals;                                 // [IP_MAX_U] total_q, total_e
+  int4* ip_slot;                                 // [CLUSTER] block (min, max)
+  int2* ip_w;                                    // [WARPS] warp (min, max)
+  int4* win_slot;                                // the placed node's index
+  uint64_t* bar_ip;                              // the (min, max) mbarrier
+  uint64_t* bar_win;                             // the placed node's mbarrier
 };
 
-template <bool SPREAD>
+template <bool SPREAD, bool IPA = false>
 constexpr size_t smem_bytes(int nb, int STAGES, int POD_ROW) {
   return (size_t)(COLUMNS + STAGES) * nb * sizeof(float) + 2 * sizeof(uint64_t)
          + (size_t)2 * CLUSTER * sizeof(int4)
@@ -257,10 +381,16 @@ constexpr size_t smem_bytes(int nb, int STAGES, int POD_ROW) {
                          + (size_t)2 * MAX_DOMAINS * sizeof(float)
                          + (size_t)WARPS * sizeof(int2) + 4 * sizeof(float)
                          + 2 * sizeof(uint64_t)
-                   : 0);
+                   : 0)
+         + (IPA ? (size_t)(IP_MAX_ENTRIES + 1) * sizeof(int4)
+                      + (size_t)5 * IP_MAX_UE * sizeof(int)
+                      + (size_t)IP_MAX_U * sizeof(float)
+                      + (size_t)(CLUSTER + 1) * sizeof(int4)
+                      + (size_t)WARPS * sizeof(int2) + 2 * sizeof(uint64_t)
+                : 0);
 }
 
-template <bool SPREAD, int STAGES, int POD_ROW>
+template <bool SPREAD, int STAGES, int POD_ROW, bool IPA = false>
 __device__ Smem carve(float* base, int nb) {
   Smem s;
   s.a_pods = base;
@@ -287,6 +417,17 @@ __device__ Smem carve(float* base, int nb) {
     s.wsp = reinterpret_cast<int2*>(s.zc + MAX_DOMAINS);
     s.sp_misc = reinterpret_cast<float*>(s.wsp + WARPS);
     s.bar_sp = reinterpret_cast<uint64_t*>(s.sp_misc + 4);
+  }
+  if constexpr (IPA) {   // every size below is a multiple of 16 bytes
+    s.ip_list = reinterpret_cast<int4*>(s.wslot + 2 * WARPS);
+    s.ip_head = s.ip_list + IP_MAX_ENTRIES;
+    s.t_attr = reinterpret_cast<int*>(s.ip_head + 1);
+    s.totals = reinterpret_cast<float*>(s.t_attr + 5 * IP_MAX_UE);
+    s.ip_slot = reinterpret_cast<int4*>(s.totals + IP_MAX_U);
+    s.win_slot = s.ip_slot + CLUSTER;
+    s.ip_w = reinterpret_cast<int2*>(s.win_slot + 1);
+    s.bar_ip = reinterpret_cast<uint64_t*>(s.ip_w + WARPS);
+    s.bar_win = s.bar_ip + 1;
   }
   return s;
 }
@@ -478,7 +619,113 @@ __device__ __forceinline__ int sp_word(const Smem& s, int b, int w) {
   return reinterpret_cast<const int*>(s.sp_slot + b * SP_CHUNKS)[w];
 }
 
-template <int RUN, bool SPREAD>
+// The count of column u (a pod selector below ip.uq, else a carried term)
+// at topology code tk for node g: the node-level count for the hostname
+// slot, the block's replica at the node's domain for slots 1..k-1, the
+// inclusion-exclusion union for TKEY_DEFAULT_UNION (interpod.py:119-128),
+// and 0 for TKEY_INVALID or a slot past k.
+__device__ __forceinline__ float ip_count(const IpaArgs& ip, const float* dom_b,
+                                          int u, int tk, int g, int N) {
+  const int U = ip.uq + ip.ue;
+  if (tk == 0) return ip.node_t[(size_t)u * N + g];
+  const int* row = ip.topology + (size_t)g * ip.k;
+  auto at = [&](int k, int d) {
+    return (d >= 0 && d < ip.nd) ? dom_b[((size_t)k * ip.nd + d) * U + u] : 0.0f;
+  };
+  if (tk > 0 && tk < ip.k) return at(tk, __ldg(row + tk));
+  if (tk == TKEY_DEFAULT_UNION) {
+    const int z = __ldg(row + TOPO_ZONE);
+    const int r = __ldg(row + TOPO_REGION);
+    const float host = (z < 0 && r < 0) ? ip.node_t[(size_t)u * N + g] : 0.0f;
+    return __fsub_rn(__fadd_rn(__fadd_rn(host, at(TOPO_ZONE, z)), at(TOPO_REGION, r)),
+                     at(TOPO_ZONE_REGION, __ldg(row + TOPO_ZONE_REGION)));
+  }
+  return 0.0f;
+}
+
+// Warp 0: pod row pr's count entries into s.ip_list (see the header) and
+// *s.ip_head = (entries, reject every node, a weighted entry exists, the
+// match or carried-term row is not zero). Reads the term attributes and
+// the block's totals.
+__device__ void ip_build_list(const Smem& s, const IpaArgs& ip, const float* pr,
+                              int lane) {
+  const int* w = reinterpret_cast<const int*>(pr + POD_ROW_MAIN);
+  const float* match = pr + POD_ROW_MAIN + IPW_ROWS;   // then carry[ue]
+  const unsigned below = (1u << lane) - 1u;
+  int n = 0;
+  bool reject = false, counting = false, row_nz = false;
+  // ballot-compacted appends: every lane calls with its own pred
+  auto emit = [&](bool pred, int4 e) {
+    const unsigned b = __ballot_sync(FULL, pred);
+    if (pred) s.ip_list[n + __popc(b & below)] = e;
+    n += __popc(b);
+    return b != 0u;
+  };
+  for (int e0 = 0; e0 < IP_MAX_UE; e0 += 32) {
+    const int e = e0 + lane;
+    bool anti_e = false, score_e = false;
+    int tk = 0;
+    float wgt = 0.0f;
+    if (e < ip.ue) {
+      const int q = s.t_attr[e];
+      tk = s.t_attr[IP_MAX_UE + e];
+      const int kind = s.t_attr[2 * IP_MAX_UE + e];
+      const float tw = __int_as_float(s.t_attr[3 * IP_MAX_UE + e]);
+      const bool poison = s.t_attr[4 * IP_MAX_UE + e] != 0;
+      if (q >= ip.uq) __trap();   // not an entry of the ledger
+      const float m = q >= 0 ? match[q] : 0.0f;
+      const bool carried = s.totals[ip.uq + e] > 0.0f;
+      if (ip.use_ipa && kind == ANTI_REQ) {
+        if (poison && carried) reject = true;
+        if (m > 0.0f) {
+          if (tk == TKEY_INVALID) reject = reject || carried;
+          else anti_e = true;
+        }
+      }
+      if (ip.w_ip != 0.0f) {
+        // match_e * (term_weight + hard_w * [kind == AFF_REQ])
+        const float eff = __fadd_rn(tw, __fmul_rn(ip.hard_w, kind == AFF_REQ ? 1.0f : 0.0f));
+        wgt = __fmul_rn(m, eff);
+        score_e = wgt != 0.0f && tk != TKEY_INVALID;
+      }
+    }
+    emit(anti_e, make_int4(ip.uq + e, tk, ROLE_CARRIED_ANTI, 0));
+    counting |= emit(score_e, make_int4(ip.uq + e, tk, ROLE_SCORE, __float_as_int(wgt)));
+  }
+  // the pod's own terms: lanes 0-3 required affinity, 4-7 required anti,
+  // 8-11 preferred
+  bool own = false;
+  int4 oe = make_int4(0, 0, 0, 0);
+  if (ip.use_ipa && lane < IP_SLOTS) {
+    const int q = w[IPW_PAFF_Q + lane];
+    if (q >= ip.uq) __trap();
+    if (q >= 0) {   // no match anywhere and the pod matches it: holds everywhere
+      own = !(!(s.totals[q] > 0.0f) && match[q] > 0.0f);
+      oe = make_int4(q, w[IPW_PAFF_TK + lane], ROLE_AFF, 0);
+    }
+  } else if (ip.use_ipa && lane < 2 * IP_SLOTS) {
+    const int q = w[IPW_PANTI_Q + lane - IP_SLOTS];
+    if (q >= ip.uq) __trap();
+    own = q >= 0;
+    oe = make_int4(q, w[IPW_PANTI_TK + lane - IP_SLOTS], ROLE_ANTI, 0);
+  } else if (ip.w_ip != 0.0f && lane >= 2 * IP_SLOTS && lane < 3 * IP_SLOTS) {
+    const int q = w[IPW_PREF_Q + lane - 2 * IP_SLOTS];
+    const int tk = w[IPW_PREF_TK + lane - 2 * IP_SLOTS];
+    const int wb = w[IPW_PREF_W + lane - 2 * IP_SLOTS];
+    if (q >= ip.uq) __trap();
+    own = q >= 0 && __int_as_float(wb) != 0.0f && tk != TKEY_INVALID;
+    oe = make_int4(q, tk, ROLE_SCORE, wb);
+  }
+  counting |= __any_sync(FULL, own && oe.z == ROLE_SCORE) != 0;
+  emit(own, oe);
+  if (ip.use_ipa && w[IPW_FAIL] != 0) reject = true;
+  for (int u = lane; u < ip.uq + ip.ue; u += 32) row_nz |= match[u] != 0.0f;
+  reject = __any_sync(FULL, reject) != 0;
+  row_nz = __any_sync(FULL, row_nz) != 0;
+  if (lane == 0) *s.ip_head = make_int4(n, reject, counting, row_nz);
+}
+
+template <int RUN, bool SPREAD, bool IPA>
 __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
     const float* __restrict__ masked_static, const float* __restrict__ requests,
     const float* __restrict__ nonzero_requests,
@@ -486,13 +733,13 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
     float* __restrict__ nonzero, int* __restrict__ assignments,
     float* __restrict__ scores, int* __restrict__ feasible_counts,
     long long* __restrict__ rr_io, int P, int N, float w_lr, float w_ba,
-    SpreadParam<SPREAD> sp) {
+    SpreadParam<SPREAD> sp, IpaParam<IPA> ip) {
   constexpr int NB = THREADS * RUN;
-  constexpr int STAGES = Build<RUN, SPREAD>::STAGES;
-  constexpr int POD_ROW = Build<RUN, SPREAD>::POD_ROW;
+  constexpr int STAGES = Build<RUN, SPREAD, IPA>::STAGES;
+  constexpr int POD_ROW = Build<RUN, SPREAD, IPA>::POD_ROW;
   extern __shared__ __align__(16) float smem_base[];
   cg::cluster_group cluster = cg::this_cluster();
-  const Smem s = carve<SPREAD, STAGES, POD_ROW>(smem_base, NB);
+  const Smem s = carve<SPREAD, STAGES, POD_ROW, IPA>(smem_base, NB);
   const int rank = (int)cluster.block_rank();
   const int t = threadIdx.x;
   const int lane = t % 32;
@@ -523,6 +770,15 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
     for (int j = 0; j < RUN; ++j) dom[j] = g0 + j < N ? sp.zone[g0 + j] : -1;
     if (t < MAX_DOMAINS) s.zsum[t] = 0.0f;
   }
+  [[maybe_unused]] float* dom_b = nullptr;   // this block's replica (interpod build)
+  if constexpr (IPA) {
+    dom_b = ip.dom + (size_t)rank * ip.k * ip.nd * (ip.uq + ip.ue);
+    for (int i = t; i < 5 * IP_MAX_UE; i += THREADS) {
+      const int a = i / IP_MAX_UE, e = i - a * IP_MAX_UE;
+      s.t_attr[i] = e < ip.ue ? ip.term_attr[a * ip.ue + e] : 0;
+    }
+    if (t < IP_MAX_U) s.totals[t] = t < ip.uq + ip.ue ? ip.totals[t] : 0.0f;
+  }
   auto issue_row = [&](int p) {
     if (p < P) {
       float* slot = s.ring + (p % STAGES) * NB;
@@ -537,6 +793,14 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
                     : t < SP_Q ? nonzero_requests + (size_t)p * 2 + (t - R)
                     : t == SP_Q ? reinterpret_cast<const float*>(sp.spread_q + p)
                     : sp.pod_matches + (size_t)p * sp.uq + (t - SP_M));
+      } else if constexpr (IPA) {   // + the interpod words
+        const int ipw = IPW_ROWS + ip.uq + ip.ue;
+        if (t < POD_ROW_MAIN + ipw)
+          cp_async4(s.pods + (p % POD_SLOTS) * POD_ROW + t,
+                    t < R ? requests + (size_t)p * R + t
+                    : t < POD_ROW_MAIN ? nonzero_requests + (size_t)p * 2 + (t - R)
+                    : reinterpret_cast<const float*>(
+                          ip.pod_ip + (size_t)p * ipw + (t - POD_ROW_MAIN)));
       } else {
         if (t < POD_ROW)
           cp_async4(s.pods + (p % POD_SLOTS) * POD_ROW + t,
@@ -562,6 +826,13 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
       asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
       mbar_arm(s.bar_sp, CLUSTER * SP_BYTES);
     }
+    if constexpr (IPA) {
+      mbar_init(s.bar_ip, 1);
+      mbar_init(s.bar_win, 1);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      mbar_arm(s.bar_ip, CLUSTER * IP_BYTES);
+      mbar_arm(s.bar_win, IP_BYTES);
+    }
   }
   // where warp 0's lane l sends this block's triples: block l's slot
   // `rank` and mbarrier, of each parity
@@ -579,6 +850,17 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
     if (warp == 0) {
       to_sp_slot = map_rank(smem_u32(&s.sp_slot[rank * SP_CHUNKS]), lane % CLUSTER);
       to_sp_bar = map_rank(smem_u32(s.bar_sp), lane % CLUSTER);
+    }
+  }
+
+  // where warp 0's lane l sends this block's (min, max) of a counting pod:
+  // block l's slot `rank` and mbarrier
+  unsigned to_ip_slot = 0u, to_ip_bar = 0u, ip_phase = 0u, win_phase = 0u;
+  [[maybe_unused]] bool win_pending = false;   // the last pod's node is on its way
+  if constexpr (IPA) {
+    if (warp == 0 && lane < CLUSTER) {
+      to_ip_slot = map_rank(smem_u32(&s.ip_slot[rank]), lane);
+      to_ip_bar = map_rank(smem_u32(s.bar_ip), lane);
     }
   }
 
@@ -710,18 +992,114 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
       }
     }
 
+    // ---- inter-pod (anti-)affinity of the run (interpod build)
+    [[maybe_unused]] float ipsc[RUN];   // InterPodAffinityPriority
+    [[maybe_unused]] bool ipok[RUN];    // InterPodAffinityMatches
+    [[maybe_unused]] int4 head = make_int4(0, 0, 0, 0);
+    if constexpr (IPA) {
+      // 1. the previous pod's placement into the replica and the totals
+      if (win_pending) {
+        mbar_wait(s.bar_win, win_phase);
+        if (t == 0) mbar_arm(s.bar_win, IP_BYTES);   // for the next one
+        win_phase ^= 1u;
+        const int gw = s.win_slot->x;
+        const float* row = s.pods + ((p - 1) % POD_SLOTS) * POD_ROW + POD_ROW_MAIN
+                           + IPW_ROWS;
+        const int U = ip.uq + ip.ue;
+        for (int i = t; i < ip.k * U; i += THREADS) {
+          const int k = i / U;
+          const int u = i - k * U;
+          const float v = row[u];
+          if (k == 0 || v == 0.0f) continue;   // hostname: node-level counts
+          const int d = __ldg(ip.topology + (size_t)gw * ip.k + k);
+          if (d >= 0 && d < ip.nd) {
+            float* cell = dom_b + ((size_t)k * ip.nd + d) * U + u;
+            *cell = __fadd_rn(*cell, v);
+          }
+        }
+        if (warp == 0) {
+          for (int u = lane; u < U; u += 32) s.totals[u] = __fadd_rn(s.totals[u], row[u]);
+          __syncwarp();
+        }
+      }
+      // 2. the pod's count entries
+      if (warp == 0) ip_build_list(s, ip, pr, lane);
+      __syncthreads();
+      head = *s.ip_head;
+      // 3. feasibility and counts of the run's feasible nodes
+      float cnt[RUN];
+      int lo = 0, hi = 0;   // min and max count, clamped through 0
+#pragma unroll
+      for (int j = 0; j < RUN; ++j) {
+        ipsc[j] = 0.0f;
+        cnt[j] = 0.0f;
+        ipok[j] = head.y == 0 && ms[j] > -INFINITY && lr[j] >= 0.0f;
+        if (!ipok[j] || head.x == 0) continue;
+        float c = 0.0f, viol = 0.0f;
+        for (int i = 0; i < head.x; ++i) {
+          const int4 e = s.ip_list[i];
+          const float v = ip_count(ip, dom_b, e.x, e.y, g0 + j, N);
+          if (e.z == ROLE_SCORE) c = __fadd_rn(c, __fmul_rn(__int_as_float(e.w), v));
+          else if (e.z == ROLE_CARRIED_ANTI) viol = __fadd_rn(viol, v);
+          else if (e.z == ROLE_ANTI) ipok[j] = ipok[j] && v == 0.0f;
+          else ipok[j] = ipok[j] && v > 0.0f;   // ROLE_AFF
+        }
+        ipok[j] = ipok[j] && viol == 0.0f;
+        cnt[j] = c;
+        if (ipok[j]) {
+          lo = min(lo, (int)c);
+          hi = max(hi, (int)c);
+        }
+      }
+      // 4. the cluster's min and max, and the scores
+      if (head.z != 0) {
+        const int wlo = __reduce_min_sync(FULL, lo);
+        const int whi = __reduce_max_sync(FULL, hi);
+        if (lane == 0) s.ip_w[warp] = make_int2(wlo, whi);
+        __syncthreads();
+        if (warp == 0) {   // the block's (min, max), into slot `rank` of every block
+          const int2 v = lane < WARPS ? s.ip_w[lane] : make_int2(0, 0);
+          const int blo = __reduce_min_sync(FULL, v.x);
+          const int bhi = __reduce_max_sync(FULL, v.y);
+          if (lane < CLUSTER) st_async_v4(to_ip_slot, make_int4(blo, bhi, 0, 0), to_ip_bar);
+        }
+        mbar_wait(s.bar_ip, ip_phase);
+        if (t == 0) mbar_arm(s.bar_ip, CLUSTER * IP_BYTES);   // next counting pod
+        ip_phase ^= 1u;
+        const int4 b4 = s.ip_slot[lane < CLUSTER ? lane : 0];
+        const float min_c = (float)__reduce_min_sync(FULL, lane < CLUSTER ? b4.x : 0);
+        const float max_c = (float)__reduce_max_sync(FULL, lane < CLUSTER ? b4.y : 0);
+        const float spread_c = __fsub_rn(max_c, min_c);
+        if (spread_c > 0.0f) {
+#pragma unroll
+          for (int j = 0; j < RUN; ++j)
+            if (ipok[j])
+              ipsc[j] = truncf(__fadd_rn(
+                  __fdiv_rn(__fmul_rn(MAX_PRIORITY, __fsub_rn(cnt[j], min_c)),
+                            fmaxf(spread_c, 1.0f)),
+                  FLOOR_EPS));
+        }
+      }
+    }
+
     float best = -INFINITY;
     unsigned tied = 0u;     // bit j: run position j ties at `best`
     int feas = 0;
 #pragma unroll
     for (int j = 0; j < RUN; ++j) {
       if (!(ms[j] > -INFINITY) || lr[j] < 0.0f) continue;
+      if constexpr (IPA)
+        if (!ipok[j]) continue;
       // + 0 turns a -0 score into +0, so equal scores have equal keys
       float sc;
       if constexpr (SPREAD)
         sc = __fadd_rn(__fadd_rn(__fadd_rn(__fadd_rn(ms[j], __fmul_rn(w_lr, lr[j])),
                                            __fmul_rn(w_ba, ba[j])),
                                  __fmul_rn(sp.w_ss, ss[j])), 0.0f);
+      else if constexpr (IPA)
+        sc = __fadd_rn(__fadd_rn(__fadd_rn(__fadd_rn(ms[j], __fmul_rn(w_lr, lr[j])),
+                                           __fmul_rn(w_ba, ba[j])),
+                                 __fmul_rn(ip.w_ip, ipsc[j])), 0.0f);
       else
         sc = __fadd_rn(__fadd_rn(__fadd_rn(ms[j], __fmul_rn(w_lr, lr[j])),
                                  __fmul_rn(w_ba, ba[j])), 0.0f);
@@ -771,6 +1149,7 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
         if (woff <= k && k < woff + wmine) {    // and this warp
           const int tties = key == tot.key ? nt : 0;
           const int excl = woff + exclusive_sum_small<RUN>(tties, lane);
+          [[maybe_unused]] int won = -1;        // the chosen node (interpod build)
           if (tties > 0 && excl <= k && k < excl + tties) {
             unsigned m = tied;
             for (int r = k - excl; r > 0; --r) m &= m - 1u;
@@ -797,8 +1176,28 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
                 }
               }
             }
+            if constexpr (IPA) won = g;
             assignments[p] = g;
             scores[p] = best;
+          }
+          if constexpr (IPA) {
+            // the owner's warp: the pod's match and carried-term rows into
+            // the node's counts (a column a lane), and the node to every
+            // block, whose replica waits for it
+            if (head.w != 0) {
+              const int gw = __reduce_max_sync(FULL, won);
+              const float* row = pr + POD_ROW_MAIN + IPW_ROWS;
+              for (int u = lane; u < ip.uq + ip.ue; u += 32) {
+                const float v = row[u];
+                if (v != 0.0f) {
+                  float* cell = ip.node_t + (size_t)u * N + gw;
+                  *cell = __fadd_rn(*cell, v);
+                }
+              }
+              if (lane < CLUSTER)
+                st_async_v4(map_rank(smem_u32(s.win_slot), lane), make_int4(gw, p, 0, 0),
+                            map_rank(smem_u32(s.bar_win), lane));
+            }
           }
         }
       }
@@ -808,7 +1207,10 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
       scores[p] = 0.0f;
     }
     if (rank == 0 && t == 0) feasible_counts[p] = tot.feas;
+    if constexpr (IPA) win_pending = ntie > 0 && head.w != 0;
   }
+  if constexpr (IPA)
+    if (win_pending) mbar_wait(s.bar_win, win_phase);   // the last pod's node
 
   // ---- write the run's ledger back
 #pragma unroll
@@ -844,11 +1246,13 @@ struct Operands {
   float w_ba;
 };
 
-template <int RUN, bool SPREAD>
-int launch(const Operands& o, SpreadParam<SPREAD> sp, cudaStream_t stream) {
-  auto kernel = assign_scan_kernel<RUN, SPREAD>;
-  const size_t smem = smem_bytes<SPREAD>(THREADS * RUN, Build<RUN, SPREAD>::STAGES,
-                                         Build<RUN, SPREAD>::POD_ROW);
+template <int RUN, bool SPREAD, bool IPA>
+int launch(const Operands& o, SpreadParam<SPREAD> sp, IpaParam<IPA> ip,
+           cudaStream_t stream) {
+  auto kernel = assign_scan_kernel<RUN, SPREAD, IPA>;
+  const size_t smem = smem_bytes<SPREAD, IPA>(THREADS * RUN,
+                                              Build<RUN, SPREAD, IPA>::STAGES,
+                                              Build<RUN, SPREAD, IPA>::POD_ROW);
   if (smem > (size_t)MAX_SMEM) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -879,23 +1283,23 @@ int launch(const Operands& o, SpreadParam<SPREAD> sp, cudaStream_t stream) {
                            o.nonzero_requests, o.allocatable, o.requested,
                            o.nonzero, o.assignments, o.scores,
                            o.feasible_counts, o.rr_io, o.P, o.N, o.w_lr,
-                           o.w_ba, sp);
+                           o.w_ba, sp, ip);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
 // The build for `run` nodes per thread (1, 2, 4 or 8), with
 // N <= CLUSTER * 512 * run.
-template <bool SPREAD>
+template <bool SPREAD, bool IPA = false>
 int launch_run(const Operands& o, int run, SpreadParam<SPREAD> sp,
-               cudaStream_t stream) {
+               cudaStream_t stream, IpaParam<IPA> ip = {}) {
   if (o.P <= 0) return (int)cudaSuccess;
   if (o.N <= 0 || o.N > CLUSTER * THREADS * run) return (int)cudaErrorInvalidValue;
   switch (run) {
-    case 1: return launch<1, SPREAD>(o, sp, stream);
-    case 2: return launch<2, SPREAD>(o, sp, stream);
-    case 4: return launch<4, SPREAD>(o, sp, stream);
-    case 8: return launch<8, SPREAD>(o, sp, stream);
+    case 1: return launch<1, SPREAD, IPA>(o, sp, ip, stream);
+    case 2: return launch<2, SPREAD, IPA>(o, sp, ip, stream);
+    case 4: return launch<4, SPREAD, IPA>(o, sp, ip, stream);
+    case 8: return launch<8, SPREAD, IPA>(o, sp, ip, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -937,4 +1341,34 @@ extern "C" int ktpu_assign_scan_spread(
                    rr_io, P, N, w_lr, w_ba};
   const SpreadArgs sp{podsel_t, spread_q, pod_matches, zone, uq, nd, w_ss};
   return launch_run<true>(o, run, sp, stream);
+}
+
+// The interpod build: the operands of ktpu_assign_scan, and node_t
+// [uq + ue, N] (the pod-selector then carried-term counts, transposed;
+// updated in place), dom [16, k, nd, uq + ue] (the domain aggregates, one
+// replica per block; updated in place), totals [uq + ue] (their sums over
+// the nodes), pod_ip [P, 29 + uq + ue] (per pod: ipaff_fail, paff_q,
+// paff_tkey, panti_q, panti_tkey, ppref_q, ppref_tkey, ppref_w as f32
+// bits, 4 slots each, then the match and carried-term rows as f32 bits),
+// topology [N, k], term_attr [5, ue] (term_q, term_tkey, term_kind,
+// term_weight as f32 bits, term_poison), 0 <= uq, ue <= 64, 5 <= k <= 16,
+// 1 <= nd <= 64, and use_ipa (MatchInterPodAffinity), the
+// InterPodAffinityPriority weight w_ip and hardPodAffinityWeight hard_w.
+extern "C" int ktpu_assign_scan_interpod(
+    const float* masked_static, const float* requests,
+    const float* nonzero_requests, const float* allocatable, float* requested,
+    float* nonzero, int* assignments, float* scores, int* feasible_counts,
+    long long* rr_io, int P, int N, int run, float w_lr, float w_ba,
+    float* node_t, float* dom, const float* totals, const int* pod_ip,
+    const int* topology, const int* term_attr, int uq, int ue, int k, int nd,
+    int use_ipa, float w_ip, float hard_w, cudaStream_t stream) {
+  if (uq < 0 || uq > IP_MAX_UQ || ue < 0 || ue > IP_MAX_UE || k < 5
+      || k > IP_MAX_K || nd < 1 || nd > IP_MAX_D)
+    return (int)cudaErrorInvalidValue;
+  const Operands o{masked_static, requests, nonzero_requests, allocatable,
+                   requested, nonzero, assignments, scores, feasible_counts,
+                   rr_io, P, N, w_lr, w_ba};
+  const IpaArgs ip{node_t, dom, totals, pod_ip, topology, term_attr, uq, ue, k,
+                   nd, use_ipa, w_ip, hard_w};
+  return launch_run<false, true>(o, run, NoSpread{}, stream, ip);
 }

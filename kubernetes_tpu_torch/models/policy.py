@@ -58,6 +58,10 @@ KNOWN_PRIORITIES = frozenset({
 class Policy:
     predicates: tuple[str, ...] = DEFAULT_PREDICATES
     priorities: tuple[tuple[str, int], ...] = DEFAULT_PRIORITIES
+    # HardPodAffinitySymmetricWeight: the score granted per existing pod
+    # whose *required* affinity term matches the incoming pod, in
+    # InterPodAffinityPriority's symmetric pass
+    hard_pod_affinity_weight: int = 1
     # (name, (labels...), presence) — CheckNodeLabelPresence instances
     label_presence_predicates: tuple = ()
     # (name, (labels...)) — ServiceAffinity instances

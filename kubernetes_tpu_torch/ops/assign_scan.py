@@ -6,12 +6,17 @@ Pallas source: in eager PyTorch each pod would cost about fifteen launches,
 so the whole scan is one CUDA launch of one thread-block cluster
 (csrc/assign_scan.cu; its header gives the design and the bound).
 
-Two builds of the kernel, chosen at compile time:
+Three builds of the kernel, chosen at compile time:
 - `assign_scan`, the main path's scan (resource fit, LeastRequested and
   BalancedAllocation, the round-robin tie-break, the resource ledger);
 - `assign_scan_spread`, the same scan plus SelectorSpread over the
   feasible nodes and the pod-selector ledger it reads (the JAX step's
-  `selector_spread` term and `ledger_add`, solver.py:579-581).
+  `selector_spread` term and `ledger_add`, solver.py:579-581);
+- `assign_scan_interpod`, the main scan plus inter-pod (anti-)affinity:
+  its predicate, its priority normalized over the feasible nodes, and the
+  pod-selector, carried-term and domain ledgers it reads (the JAX step's
+  `interpod_feasible`, `interpod_counts`, `interpod_score` and
+  `ledger_add` with terms, solver.py:549-551,574-577,783-784).
 
 Each wrapper launches its build on CUDA tensors (and counts the launch in
 `<wrapper>.launches`), runs its plain version, a Python loop of tensor
@@ -22,10 +27,18 @@ from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass
+from types import SimpleNamespace
 
 import torch
 
-from kubernetes_tpu_torch.ops.interpod import ledger_add, make_ledger, topology_onehot
+from kubernetes_tpu_torch.ops.interpod import (
+    interpod_counts,
+    interpod_feasible,
+    interpod_score,
+    ledger_add,
+    make_ledger,
+    topology_onehot,
+)
 from kubernetes_tpu_torch.ops.predicates import fits_resources_dyn
 from kubernetes_tpu_torch.ops.priorities import balanced_allocation, least_requested
 from kubernetes_tpu_torch.ops.spread import selector_spread
@@ -43,7 +56,8 @@ class ScanResult:
     new_requested: torch.Tensor    # f32[N, R] ledger after the batch
     new_nonzero: torch.Tensor      # f32[N, 2]
     rr_end: torch.Tensor           # i64 scalar in [0, 2^32)
-    new_podsel: torch.Tensor | None = None  # f32[N, UQ], spread build only
+    new_podsel: torch.Tensor | None = None  # f32[N, UQ], spread and interpod builds
+    new_term: torch.Tensor | None = None    # f32[N, UE], interpod build only
 
 
 def _rr_tensor(rr_start, device) -> torch.Tensor:
@@ -70,6 +84,51 @@ class SpreadInputs:
     domain_universe: int
 
 
+@dataclass
+class InterpodInputs:
+    """What the interpod build reads beyond the main scan's operands:
+    whether the predicate runs (use_ipa, MatchInterPodAffinity), the
+    priority's weight w_ip and hardPodAffinityWeight hard_w; per pod its
+    match row (pod_matches_q f32[P, UQ]), carried-term row (pod_carries_e
+    f32[P, UE]), required affinity and anti-affinity terms (paff_q,
+    paff_tkey, panti_q, panti_tkey i32[P, IA], -1 = unused), preferred
+    terms (ppref_q, ppref_tkey i32[P, IP], ppref_w f32[P, IP]) and
+    ipaff_fail (bool[P]); the batch-start ledgers (podsel_count f32[N, UQ],
+    term_count f32[N, UE], not modified); the nodes' topology (i32[N, K],
+    -1 = no domain, ids of the non-hostname slots below domain_universe);
+    and the carried terms' attributes (term_q, term_tkey, term_kind
+    i32[UE], term_weight f32[UE], term_poison bool[UE])."""
+
+    use_ipa: bool
+    w_ip: float
+    hard_w: float
+    pod_matches_q: torch.Tensor
+    pod_carries_e: torch.Tensor
+    paff_q: torch.Tensor
+    paff_tkey: torch.Tensor
+    panti_q: torch.Tensor
+    panti_tkey: torch.Tensor
+    ppref_q: torch.Tensor
+    ppref_tkey: torch.Tensor
+    ppref_w: torch.Tensor
+    ipaff_fail: torch.Tensor
+    podsel_count: torch.Tensor
+    term_count: torch.Tensor
+    topology: torch.Tensor
+    term_q: torch.Tensor
+    term_tkey: torch.Tensor
+    term_kind: torch.Tensor
+    term_weight: torch.Tensor
+    term_poison: torch.Tensor
+    domain_universe: int
+
+
+# the InterpodInputs fields with a row a pod
+POD_ROW_FIELDS = ("pod_matches_q", "pod_carries_e", "paff_q", "paff_tkey",
+                  "panti_q", "panti_tkey", "ppref_q", "ppref_tkey", "ppref_w",
+                  "ipaff_fail")
+
+
 def assign_scan_plain(masked_static, requests, nonzero_requests, allocatable,
                       requested, nonzero, rr_start, w_lr: float = 1.0,
                       w_ba: float = 1.0) -> ScanResult:
@@ -91,9 +150,24 @@ def assign_scan_spread_plain(masked_static, requests, nonzero_requests,
                        requested, nonzero, rr_start, w_lr, w_ba, spread)
 
 
+def assign_scan_interpod_plain(masked_static, requests, nonzero_requests,
+                               allocatable, requested, nonzero, rr_start,
+                               w_lr: float, w_ba: float,
+                               interpod: InterpodInputs) -> ScanResult:
+    """`assign_scan_plain` with inter-pod (anti-)affinity: for each pod,
+    InterPodAffinityMatches (when `use_ipa`) ANDed into the feasible nodes,
+    `w_ip` times InterPodAffinityPriority normalized over them added to the
+    score, and the pod's match and carried-term rows added to the ledgers
+    and domain aggregates at the chosen node (`new_podsel`, `new_term`)."""
+    return _scan_plain(masked_static, requests, nonzero_requests, allocatable,
+                       requested, nonzero, rr_start, w_lr, w_ba, None,
+                       interpod)
+
+
 def _scan_plain(masked_static, requests, nonzero_requests, allocatable,
                 requested, nonzero, rr_start, w_lr, w_ba,
-                spread: SpreadInputs | None) -> ScanResult:
+                spread: SpreadInputs | None,
+                interpod: InterpodInputs | None = None) -> ScanResult:
     p_count, n = masked_static.shape
     dev = masked_static.device
     req = requested.clone()
@@ -106,6 +180,11 @@ def _scan_plain(masked_static, requests, nonzero_requests, allocatable,
     if spread is not None:
         ledger = make_ledger(spread.podsel_count)
         onehot = topology_onehot(spread.topology, spread.domain_universe)
+    ip = interpod
+    if ip is not None:
+        ledger = make_ledger(ip.podsel_count, ip.term_count, ip.topology,
+                             ip.domain_universe)
+        onehot = topology_onehot(ip.topology, ip.domain_universe)
     for p in range(p_count):
         ms = masked_static[p]
         feasible = (ms > float("-inf")) & fits_resources_dyn(
@@ -113,6 +192,14 @@ def _scan_plain(masked_static, requests, nonzero_requests, allocatable,
             dyn_storage=False)[0]
         score = (ms + w_lr * least_requested(allocatable, nonzero_requests[p:p + 1], nz)[0]
                  + w_ba * balanced_allocation(allocatable, nonzero_requests[p:p + 1], nz)[0])
+        if ip is not None:
+            pod = SimpleNamespace(**{f: getattr(ip, f)[p] for f in POD_ROW_FIELDS})
+            if ip.use_ipa:
+                feasible = feasible & interpod_feasible(ip, pod, ledger, onehot)
+            if ip.w_ip:
+                score = score + ip.w_ip * interpod_score(
+                    interpod_counts(ip, pod, ledger, ip.hard_w, onehot),
+                    feasible)
         if spread is not None:
             score = score + spread.w_ss * selector_spread(
                 spread.topology, spread.spread_q[p], ledger, feasible,
@@ -132,12 +219,18 @@ def _scan_plain(masked_static, requests, nonzero_requests, allocatable,
         nz[node] += add * nonzero_requests[p]
         if spread is not None:
             ledger_add(ledger, spread.pod_matches_q[p], node, add)
+        if ip is not None:
+            ledger_add(ledger, ip.pod_matches_q[p], node, add,
+                       ip.pod_carries_e[p], ip.topology)
         rr = (rr + assigned.to(torch.int64)) % RR_MOD
         assignments[p] = torch.where(assigned, node.to(torch.int32), -1)
         scores[p] = torch.where(assigned, best, 0.0)
         counts[p] = feasible.sum()
+    if spread is None and ip is None:
+        return ScanResult(assignments, scores, counts, req, nz, rr)
     return ScanResult(assignments, scores, counts, req, nz, rr,
-                      None if spread is None else ledger.podsel_count)
+                      ledger.podsel_count,
+                      None if ip is None else ledger.term_count)
 
 
 _ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 3
@@ -276,3 +369,113 @@ def assign_scan_spread(masked_static, requests, nonzero_requests, allocatable,
 
 
 assign_scan_spread.launches = 0
+
+# the interpod build's columns (IP_MAX_UQ, IP_MAX_UE), term slots per pod
+# (IP_SLOTS), topology slots (IP_MAX_K) and domains of a slot (IP_MAX_D)
+IP_MAX_UQ = IP_MAX_UE = 64
+IP_SLOTS = 4
+IP_MAX_K = 16
+IP_MAX_D = 64
+_INTERPOD_ARGTYPES = (_ARGTYPES[:-1] + [ctypes.c_void_p] * 6
+                      + [ctypes.c_int] * 5 + [ctypes.c_float] * 2
+                      + [ctypes.c_void_p])
+
+
+def _pod_words(ip: InterpodInputs) -> torch.Tensor:
+    """i32[P, 29 + UQ + UE]: the kernel's per-pod words (ipaff_fail, the
+    required and preferred term slots padded to 4 with -1, ppref_w, the
+    match and carried-term rows; floats as their bits)."""
+    p = ip.paff_q.shape[0]
+
+    def slots(a, fill):
+        pad = IP_SLOTS - a.shape[1]
+        a = a.to(torch.int32)
+        if pad:
+            a = torch.cat([a, torch.full((p, pad), fill, dtype=torch.int32,
+                                         device=a.device)], 1)
+        return a
+
+    def bits(a):
+        return a.contiguous().view(torch.int32)
+
+    return torch.cat([
+        ip.ipaff_fail.to(torch.int32)[:, None],
+        slots(ip.paff_q, -1), slots(ip.paff_tkey, 0),
+        slots(ip.panti_q, -1), slots(ip.panti_tkey, 0),
+        slots(ip.ppref_q, -1), slots(ip.ppref_tkey, 0),
+        slots(bits(ip.ppref_w), 0),
+        bits(ip.pod_matches_q), bits(ip.pod_carries_e)], 1).contiguous()
+
+
+def assign_scan_interpod(masked_static, requests, nonzero_requests,
+                         allocatable, requested, nonzero, rr_start,
+                         w_lr: float, w_ba: float,
+                         interpod: InterpodInputs) -> ScanResult:
+    """Phase B with inter-pod (anti-)affinity (`assign_scan_interpod_plain`):
+    the operands of `assign_scan`, and `interpod` (InterpodInputs). On a
+    card the wrapper hands the kernel a transposed [UQ + UE, N] copy of the
+    node-level ledgers, which the kernel updates in place and the wrapper
+    returns as new_podsel [N, UQ] and new_term [N, UE], and one replica per
+    block of the domain aggregates, which the kernel updates and drops."""
+    args = (masked_static, requests, nonzero_requests, allocatable,
+            requested, nonzero)
+    dev = _check_operands("assign_scan_interpod", *args)
+    p, n = masked_static.shape
+    ip = interpod
+    uq, ue = ip.podsel_count.shape[1], ip.term_count.shape[1]
+    ia, ipp = ip.paff_q.shape[1], ip.ppref_q.shape[1]
+    k = ip.topology.shape[1]
+    i32, f32 = torch.int32, torch.float32
+    for check in (("pod_matches_q", ip.pod_matches_q, f32, (p, uq)),
+                  ("pod_carries_e", ip.pod_carries_e, f32, (p, ue)),
+                  ("paff_q", ip.paff_q, i32, (p, ia)),
+                  ("paff_tkey", ip.paff_tkey, i32, (p, ia)),
+                  ("panti_q", ip.panti_q, i32, (p, ia)),
+                  ("panti_tkey", ip.panti_tkey, i32, (p, ia)),
+                  ("ppref_q", ip.ppref_q, i32, (p, ipp)),
+                  ("ppref_tkey", ip.ppref_tkey, i32, (p, ipp)),
+                  ("ppref_w", ip.ppref_w, f32, (p, ipp)),
+                  ("ipaff_fail", ip.ipaff_fail, torch.bool, (p,)),
+                  ("podsel_count", ip.podsel_count, f32, (n, uq)),
+                  ("term_count", ip.term_count, f32, (n, ue)),
+                  ("topology", ip.topology, i32, (n, k)),
+                  ("term_q", ip.term_q, i32, (ue,)),
+                  ("term_tkey", ip.term_tkey, i32, (ue,)),
+                  ("term_kind", ip.term_kind, i32, (ue,)),
+                  ("term_weight", ip.term_weight, f32, (ue,)),
+                  ("term_poison", ip.term_poison, torch.bool, (ue,))):
+        check_tensor(*check, dev)
+    if dev.type == "cpu":
+        return assign_scan_interpod_plain(*args, rr_start, w_lr, w_ba, ip)
+    if (uq > IP_MAX_UQ or ue > IP_MAX_UE or ia > IP_SLOTS or ipp > IP_SLOTS
+            or not 5 <= k <= IP_MAX_K
+            or not 1 <= ip.domain_universe <= IP_MAX_D):
+        raise ValueError(
+            f"assign_scan_interpod: {uq} pod selectors, {ue} carried terms "
+            f"(at most {IP_MAX_UQ} each), {ia} and {ipp} term slots (at most "
+            f"{IP_SLOTS}), {k} topology slots (5 to {IP_MAX_K}) and "
+            f"{ip.domain_universe} domains (1 to {IP_MAX_D})")
+    counts = torch.cat([ip.podsel_count, ip.term_count], 1)
+    node_t = counts.t().contiguous()
+    ledger = make_ledger(ip.podsel_count, ip.term_count, ip.topology,
+                         ip.domain_universe)
+    dom = torch.cat([ledger.dom_podsel, ledger.dom_term], 2)
+    dom = dom[None].expand(CLUSTER, *dom.shape).contiguous()
+    totals = torch.cat([ledger.total_q, ledger.total_e]).contiguous()
+    words = _pod_words(ip)
+    attrs = torch.stack([ip.term_q, ip.term_tkey, ip.term_kind,
+                         ip.term_weight.contiguous().view(i32),
+                         ip.term_poison.to(i32)]).contiguous()
+    topology = ip.topology.contiguous()
+    out = _launch("ktpu_assign_scan_interpod", _INTERPOD_ARGTYPES, *args,
+                  rr_start, w_lr, w_ba,
+                  (node_t.data_ptr(), dom.data_ptr(), totals.data_ptr(),
+                   words.data_ptr(), topology.data_ptr(), attrs.data_ptr(),
+                   uq, ue, k, ip.domain_universe, int(bool(ip.use_ipa)),
+                   float(ip.w_ip), float(ip.hard_w)))
+    assign_scan_interpod.launches += 1
+    return ScanResult(*out, node_t[:uq].t().contiguous(),
+                      node_t[uq:].t().contiguous())
+
+
+assign_scan_interpod.launches = 0

@@ -18,10 +18,16 @@ the next. This solver reproduces that decision for decision:
   the reference's round-robin tie-break and adds the pod's requests to it.
   When the batch raises the spread gate and the policy weighs
   SelectorSpreadPriority, the scan's spread build also scores SelectorSpread
-  over each pod's feasible nodes and carries the pod-selector ledger.
+  over each pod's feasible nodes and carries the pod-selector ledger. When
+  the batch raises the ipa gate (a pod with pod-affinity terms, or a
+  carried term anywhere) and the policy runs MatchInterPodAffinity or
+  weighs InterPodAffinityPriority, the scan's interpod build applies the
+  predicate, scores the priority over each pod's feasible nodes and
+  carries the pod-selector, carried-term and domain ledgers.
 
-This package carries the main path and the spread gate: a batch whose
-content raises any other BatchFlags gate, a policy that weighs
+This package carries the main path, the spread gate and the ipa gate: a
+batch whose content raises any other BatchFlags gate, a batch that needs
+both the spread and the interpod build, a policy that weighs
 ServiceSpreadingPriority on a spread batch, or a policy outside the fused
 static mask or with argument-carrying registrations, raises
 NotImplementedError naming what is missing. It never computes an answer
@@ -44,8 +50,12 @@ from kubernetes_tpu_torch.models.policy import (
 from kubernetes_tpu_torch.ops import predicates as preds
 from kubernetes_tpu_torch.ops import priorities as prios
 from kubernetes_tpu_torch.ops.assign_scan import (
+    POD_ROW_FIELDS,
+    InterpodInputs,
     SpreadInputs,
     assign_scan,
+    assign_scan_interpod,
+    assign_scan_interpod_plain,
     assign_scan_plain,
     assign_scan_spread,
     assign_scan_spread_plain,
@@ -91,7 +101,15 @@ class PolicyGates:
     w_lr: float
     w_ba: float
     w_ss: float        # SelectorSpread, 0 unless the batch raises spread
+    use_ipa: bool      # InterPodAffinityMatches: in the policy and ipa raised
+    w_ip: float        # InterPodAffinityPriority, 0 unless the batch raises ipa
+    hard_w: float      # hardPodAffinityWeight
     const_score: float
+
+    @property
+    def use_terms(self) -> bool:
+        """The batch runs the carried-term ledger (the interpod build)."""
+        return self.use_ipa or bool(self.w_ip)
 
 
 def policy_gates(policy: Policy, flags: BatchFlags) -> PolicyGates:
@@ -113,6 +131,9 @@ def policy_gates(policy: Policy, flags: BatchFlags) -> PolicyGates:
         w_lr=policy.weight("LeastRequestedPriority"),
         w_ba=policy.weight("BalancedResourceAllocation"),
         w_ss=policy.weight("SelectorSpreadPriority") if flags.spread else 0,
+        use_ipa=policy.has_predicate("MatchInterPodAffinity") and flags.ipa,
+        w_ip=policy.weight("InterPodAffinityPriority") if flags.ipa else 0,
+        hard_w=float(policy.hard_pod_affinity_weight),
         const_score=const_score,
     )
 
@@ -129,14 +150,15 @@ _STATIC_PRIORITIES = ("EqualPriority", "ImageLocalityPriority",
 def check_supported(policy: Policy, flags: BatchFlags) -> PolicyGates:
     """The gates of a (policy, flags) pair this solver implements; raises
     NotImplementedError naming every gate or registration it does not."""
-    # spread is carried; svcanti is neutral without a ServiceAntiAffinity
-    # registration, which the PolicyRows check below refuses
-    raised = [f.name for f in fields(BatchFlags)
-              if getattr(flags, f.name) and f.name not in ("spread", "svcanti")]
+    # spread and ipa are carried; svcanti is neutral without a
+    # ServiceAntiAffinity registration, which the PolicyRows check below
+    # refuses
+    raised = [f.name for f in fields(BatchFlags) if getattr(flags, f.name)
+              and f.name not in ("spread", "svcanti", "ipa")]
     if raised:
         raise NotImplementedError(
-            f"batch raises solver gates {raised}: only the main path and "
-            f"the spread gate are implemented")
+            f"batch raises solver gates {raised}: only the main path, the "
+            f"spread gate and the ipa gate are implemented")
     if flags.spread and policy.weight("ServiceSpreadingPriority"):
         raise NotImplementedError(
             "ServiceSpreadingPriority with a weight is not implemented")
@@ -156,6 +178,10 @@ def check_supported(policy: Policy, flags: BatchFlags) -> PolicyGates:
     g = policy_gates(policy, flags)
     if not g.use_resources:
         raise NotImplementedError("policy without PodFitsResources")
+    if g.w_ss and g.use_terms:
+        raise NotImplementedError(
+            "batch raises both the 'spread' and the 'ipa' gate: the scan "
+            "builds SelectorSpread and inter-pod affinity apart, not together")
     return g
 
 
@@ -168,8 +194,12 @@ class SolverResult:
     new_nonzero: torch.Tensor      # f32[N, 2]
     rr_end: torch.Tensor           # i64 scalar: round-robin counter mod 2^32
     # f32[N, UQ] pod-selector ledger after the batch when the scan carried
-    # it (the spread build); None when the batch's program passed it through
+    # it (the spread and interpod builds); None when the batch's program
+    # passed it through
     new_podsel: torch.Tensor | None
+    # f32[N, UE] carried-term ledger after the batch when the scan carried
+    # it (the interpod build), else None
+    new_term: torch.Tensor | None = None
 
 
 def _static_rest(state: ClusterState, batch: PodBatch,
@@ -216,8 +246,20 @@ def masked_static_scores(state: ClusterState, batch: PodBatch, policy: Policy,
     return torch.where(ok, score, float("-inf"))
 
 
+def interpod_inputs(state: ClusterState, batch: PodBatch, g: PolicyGates,
+                    domain_universe: int) -> InterpodInputs:
+    """The interpod build's operands of one batch."""
+    return InterpodInputs(
+        use_ipa=g.use_ipa, w_ip=float(g.w_ip), hard_w=g.hard_w,
+        **{name: getattr(batch, name).contiguous() for name in POD_ROW_FIELDS},
+        **{name: getattr(state, name) for name in (
+            "podsel_count", "term_count", "topology", "term_q", "term_tkey",
+            "term_kind", "term_weight", "term_poison")},
+        domain_universe=domain_universe)
+
+
 def _solve(state, batch, rr_start, policy, flags, caps, mask_fn, scan_fn,
-           spread_fn):
+           spread_fn, interpod_fn):
     if flags is None:
         flags = batch_flags(state, batch)
     g = check_supported(policy, flags)
@@ -225,7 +267,10 @@ def _solve(state, batch, rr_start, policy, flags, caps, mask_fn, scan_fn,
     args = (masked, batch.requests, batch.nonzero_requests, state.allocatable,
             state.requested, state.nonzero_requested, rr_start,
             float(g.w_lr), float(g.w_ba))
-    if g.w_ss:
+    if g.use_terms:
+        scan = interpod_fn(*args, interpod_inputs(
+            state, batch, g, (caps or Capacities()).domain_universe))
+    elif g.w_ss:
         scan = spread_fn(*args, SpreadInputs(
             w_ss=float(g.w_ss), spread_q=batch.spread_q.contiguous(),
             pod_matches_q=batch.pod_matches_q.contiguous(),
@@ -237,7 +282,8 @@ def _solve(state, batch, rr_start, policy, flags, caps, mask_fn, scan_fn,
         assignments=scan.assignments, scores=scan.scores,
         feasible_counts=scan.feasible_counts,
         new_requested=scan.new_requested, new_nonzero=scan.new_nonzero,
-        rr_end=scan.rr_end, new_podsel=scan.new_podsel)
+        rr_end=scan.rr_end, new_podsel=scan.new_podsel,
+        new_term=scan.new_term)
 
 
 def schedule_batch(state: ClusterState, batch: PodBatch, rr_start,
@@ -251,10 +297,11 @@ def schedule_batch(state: ClusterState, batch: PodBatch, rr_start,
     int or an i64 scalar tensor, taken mod 2^32). `flags` defaults to the
     gates read from the batch (state.pod_batch.batch_flags); `caps` gives
     the zone-domain universe SelectorSpread sums over (default
-    Capacities()). Returns per-pod assignments plus the post-batch ledgers
-    (assume semantics)."""
+    Capacities()), and the domain universe of the topology slots
+    inter-pod affinity aggregates over. Returns per-pod assignments plus
+    the post-batch ledgers (assume semantics)."""
     return _solve(state, batch, rr_start, policy, flags, caps, static_mask,
-                  assign_scan, assign_scan_spread)
+                  assign_scan, assign_scan_spread, assign_scan_interpod)
 
 
 def schedule_batch_plain(state: ClusterState, batch: PodBatch, rr_start,
@@ -265,4 +312,4 @@ def schedule_batch_plain(state: ClusterState, batch: PodBatch, rr_start,
     the reference a card run holds the kernel path against."""
     return _solve(state, batch, rr_start, policy, flags, caps,
                   static_mask_plain, assign_scan_plain,
-                  assign_scan_spread_plain)
+                  assign_scan_spread_plain, assign_scan_interpod_plain)

@@ -40,11 +40,15 @@ def make_nodes(n: int, cpu: str = "4", memory: str = "8Gi", pods: str = "110",
 def make_pods(n: int, cpu: str = "100m", memory: str = "250Mi",
               name_prefix: str = "pod", selector_every: int = 0,
               tolerate: bool = False, namespace: str = "default",
-              app_groups: int = 0) -> list[Pod]:
+              app_groups: int = 0, anti_affinity_every: int = 0,
+              pref_affinity_every: int = 0) -> list[Pod]:
     """Templated pending pods (the basic scheduler_perf pod spec: small cpu
     and memory requests); optional periodic nodeSelector, a toleration of
     the fixtures' NoSchedule taint, and labels app=app-{i % app_groups}
-    (the targets of `make_services`)."""
+    (the targets of `make_services`). With app groups, every
+    `anti_affinity_every`-th pod has required hostname anti-affinity
+    against its own group and every `pref_affinity_every`-th a weight-10
+    preferred zone affinity toward it (the inter-pod-heavy shape)."""
     out = []
     for i in range(n):
         meta: dict = {"name": f"{name_prefix}-{i}", "namespace": namespace}
@@ -59,6 +63,24 @@ def make_pods(n: int, cpu: str = "100m", memory: str = "250Mi",
             spec["nodeSelector"] = {"label-0": f"value-{i % 7}"}
         if tolerate:
             spec["tolerations"] = [{"key": "dedicated", "operator": "Exists"}]
+        affinity: dict = {}
+        sel = {"matchLabels": {"app": f"app-{i % app_groups}"}} \
+            if app_groups else None
+        if anti_affinity_every and sel and i % anti_affinity_every == 0:
+            affinity["podAntiAffinity"] = {
+                "requiredDuringSchedulingIgnoredDuringExecution": [{
+                    "labelSelector": sel,
+                    "topologyKey": "kubernetes.io/hostname"}]}
+        if pref_affinity_every and sel and i % pref_affinity_every == 0:
+            affinity["podAffinity"] = {
+                "preferredDuringSchedulingIgnoredDuringExecution": [{
+                    "weight": 10,
+                    "podAffinityTerm": {
+                        "labelSelector": sel,
+                        "topologyKey":
+                            "failure-domain.beta.kubernetes.io/zone"}}]}
+        if affinity:
+            spec["affinity"] = affinity
         out.append(Pod.from_dict({"metadata": meta, "spec": spec}))
     return out
 

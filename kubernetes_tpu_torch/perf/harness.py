@@ -10,7 +10,10 @@
   misses. With `n_services` the cluster has that many Services over the
   pods' app groups, which raises the spread gate: the reference bench's
   `bench[spread]` is `run_throughput(15000, 30000, node_kwargs={"zones":
-  3}, pod_kwargs={"app_groups": 16}, n_services=16)`.
+  3}, pod_kwargs={"app_groups": 16}, n_services=16)`. Pods with
+  pod-affinity terms raise the ipa gate: `bench[interpod]` is
+  `run_throughput(5000, 8192, node_kwargs={"zones": 3},
+  pod_kwargs=INTERPOD_PODS)`.
 
 Both build the CUDA kernels and warm the device before the clock starts,
 and run on `cuda` unless given another device.
@@ -39,6 +42,12 @@ from kubernetes_tpu_torch.state.pod_batch import (
 from kubernetes_tpu_torch.utils.device import resolve_device
 
 
+# bench[interpod]'s pod mix: 8 app groups, required hostname anti-affinity
+# on every 16th pod, weight-10 preferred zone affinity on every 2nd
+INTERPOD_PODS = {"app_groups": 8, "anti_affinity_every": 16,
+                 "pref_affinity_every": 2}
+
+
 def default_caps(n_nodes: int, n_pods: int) -> Capacities:
     """The reference harness's shapes: nodes padded to a power of two, and
     batches of n_pods / 6 clamped to [64, 4096]."""
@@ -52,11 +61,12 @@ def _sync(device: torch.device) -> None:
 
 
 def warm(caps: Capacities, policy: Policy, device: torch.device,
-         n_services: int = 0) -> None:
+         n_services: int = 0, pod_kwargs: dict | None = None) -> None:
     """Build the kernels and run one batch at these shapes on a throwaway
     one-node cluster (with a Service when `n_services`, so the spread
-    build loads too), so library handles and kernel loads are set up
-    before any timed region."""
+    build loads too; with one pod of `pod_kwargs`, so a pod-affinity mix
+    loads the interpod build), so library handles and kernel loads are set
+    up before any timed region."""
     if device.type == "cuda":
         from kubernetes_tpu_torch.native.build import build
 
@@ -65,8 +75,10 @@ def warm(caps: Capacities, policy: Policy, device: torch.device,
     sched.add_nodes(make_nodes(1))
     for svc in make_services(min(n_services, 1)):
         sched.add_service(svc)
-    sched.schedule(make_pods(1, name_prefix="warm",
-                             app_groups=min(n_services, 1)))
+    kwargs = dict(pod_kwargs or {})
+    if n_services:
+        kwargs.setdefault("app_groups", 1)
+    sched.schedule(make_pods(1, name_prefix="warm", **kwargs))
     _sync(device)
 
 
@@ -100,7 +112,7 @@ def run_device_solve(n_nodes: int, batch_pods: int = 4096, iters: int = 16,
     fblob, iblob = pack_batch(empty_batch(caps), caps)
     for i, pod in enumerate(make_pods(batch_pods, **(pod_kwargs or {}))):
         sched.encode_cache.encode_packed_into(fblob, iblob, i, pod)
-    flags = packed_batch_flags(fblob, iblob, batch_pods, sched.statedb.host,
+    flags = packed_batch_flags(fblob, iblob, batch_pods, sched.statedb.table,
                                caps)
     state = sched.statedb.flush()
     # the batch stays on the device: this times the solver, not the upload
@@ -173,7 +185,7 @@ def run_throughput(n_nodes: int, n_pods: int, caps: Capacities | None = None,
     `n_services` Services (`make_services`) registered before the run."""
     dev = resolve_device(device)
     caps = caps or default_caps(n_nodes, n_pods)
-    warm(caps, policy, dev, n_services)
+    warm(caps, policy, dev, n_services, pod_kwargs)
     sched = Scheduler(caps, policy, dev)
     sched.add_nodes(make_nodes(n_nodes, **(node_kwargs or {})))
     for svc in make_services(n_services):

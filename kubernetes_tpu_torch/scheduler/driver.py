@@ -16,9 +16,13 @@ SelectorSpread reads the workload objects: `add_service`,
 listers by namespace behind the encoder's EncodeContext, whose pod lister
 is the StateDB's bound pods; each call bumps the encode cache's
 `generation`, so no row encoded against the old objects is served. A pod's
-spreading entries intern into the pod-selector universe while a chunk is
-encoded, which moves `pod_row_epoch`: the chunk is then encoded again
-against the final universe, so earlier rows gain the new match columns.
+spreading entries and pod-affinity terms intern into the pod-selector
+universe while a chunk is encoded, which moves `pod_row_epoch`: the chunk
+is then encoded again against the final universe, so earlier rows gain
+the new match columns (a carried term interned on the way changes no
+earlier row: a pod's carried-term row holds its own terms only). Bound
+pods with pod-affinity terms are accounted through `add_pod` like any
+other.
 Watching an apiserver and binding are host-plane work for a later slice of
 the port.
 """
@@ -148,7 +152,8 @@ class Scheduler:
         for i, pod in enumerate(pods):
             encode(fblob, iblob, i, pod)
         if table.pod_row_epoch != epoch:
-            # a pod interned a pod-selector entry: rows encoded before it
+            # a pod interned a pod-selector entry (a spreading entry or an
+            # affinity term's selector): rows encoded before it
             # lack its match column. Encode every row again against the
             # final universe (the epoch is in the cache key, so no stale
             # row is served, and nothing new is interned this time)
@@ -158,7 +163,7 @@ class Scheduler:
             # a reused blob's tail must read as padding, not as the
             # previous batch's pods (zeros would be live ids: -1 = unused)
             fblob[n:], iblob[n:] = padding_row(self.caps)
-        flags = packed_batch_flags(fblob, iblob, n, self.statedb.host, self.caps)
+        flags = packed_batch_flags(fblob, iblob, n, self.statedb.table, self.caps)
         state = self.statedb.flush()
         batch = unpack_batch(*upload_blobs(*self._blobs, self.device), self.caps)
         t1 = time.perf_counter()

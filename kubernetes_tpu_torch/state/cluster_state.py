@@ -28,7 +28,10 @@ from kubernetes_tpu_torch.api.quantity import parse_quantity
 from kubernetes_tpu_torch.state.layout import (
     DEFAULT_NONZERO_CPU_MILLI,
     DEFAULT_NONZERO_MEM_MIB,
+    FIRST_CUSTOM_TOPO,
     MEM_UNIT,
+    TKEY_DEFAULT_UNION,
+    TKEY_INVALID,
     TOPO_HOSTNAME,
     TOPO_SPREAD_ZONE,
     TOPO_ZONE_REGION,
@@ -39,6 +42,7 @@ from kubernetes_tpu_torch.state.layout import (
     Effect,
     ReqOp,
     Resource,
+    TermKind,
     VolType,
 )
 from kubernetes_tpu_torch.utils.hashing import hash32, hash_lanes
@@ -262,8 +266,9 @@ def pod_controller_ref(pod: Pod) -> tuple[str, str] | None:
 class NodeTable:
     """Host-side index over the state: row assignment from a free list,
     universe interning (selector terms, requirements, taints, topology
-    domains, preferAvoidPods signatures, pod selectors) and per-row label
-    source data for membership refills when a pod interns a new term."""
+    keys and domains, preferAvoidPods signatures, pod selectors, carried
+    pod-affinity terms) and per-row label source data for membership and
+    topology refills when a pod interns a new term or key."""
 
     def __init__(self, caps: Capacities):
         self.caps = caps
@@ -284,6 +289,13 @@ class NodeTable:
         self.podsels: dict[tuple, int] = {}
         self.podsel_attrs: list[tuple] = []          # qid -> (ns_key, canon)
         self.pending_podsel_refresh: list[int] = []  # qids awaiting pod refills
+        # custom topology keys interned after nodes were encoded: slots
+        # whose column awaits a refill
+        self.pending_topo_refresh: list[int] = []
+        # carried-term universe: (qid, tkey code, weight, kind, poison) -> eid
+        self.terms: dict[tuple, int] = {}
+        self.term_attrs: list[tuple] = []
+        self.dirty_term_attrs = False    # term attributes not yet in the state
         # bumped when interning can invalidate encoded pod rows: a new
         # preferAvoidPods signature (rows encoded earlier lack its one-hot)
         # or a new pod-selector entry (their pod_matches_q rows may match
@@ -369,6 +381,52 @@ class NodeTable:
             table[value] = did
         return did
 
+    def intern_topo_key(self, key: str) -> int:
+        """The topology slot of an affinity term's key; a new custom key
+        takes the next slot from FIRST_CUSTOM_TOPO and queues a refill of
+        its column."""
+        slot = self.topo_key_of.get(key)
+        if slot is not None:
+            return slot
+        slot = max(max(self.topo_key_of.values()) + 1, FIRST_CUSTOM_TOPO)
+        if slot >= self.caps.topology_slots:
+            raise CapacityError(
+                f"topology slots {self.caps.topology_slots} exhausted "
+                f"interning key {key!r}")
+        self.topo_key_of[key] = slot
+        self.pending_topo_refresh.append(slot)
+        return slot
+
+    def tkey_code(self, key: str, *, required: bool) -> int:
+        """A term's topologyKey as a device code: a topology slot, or
+        TKEY_INVALID (an empty key on a required term fails everywhere; a
+        preferred term's key past the slots scores nothing), or
+        TKEY_DEFAULT_UNION (an empty key on a preferred term matches any
+        default failure domain)."""
+        if not key:
+            return TKEY_INVALID if required else TKEY_DEFAULT_UNION
+        try:
+            return self.intern_topo_key(key)
+        except CapacityError:
+            if required:
+                raise
+            return TKEY_INVALID
+
+    def intern_term(self, qid: int, tkey_code: int, weight: float, kind: int,
+                    poison: bool) -> int:
+        entry = (qid, tkey_code, float(weight), int(kind), bool(poison))
+        eid = self.terms.get(entry)
+        if eid is not None:
+            return eid
+        if len(self.terms) >= self.caps.term_universe:
+            raise CapacityError(
+                f"carried-term universe {self.caps.term_universe} exhausted")
+        eid = len(self.terms)
+        self.terms[entry] = eid
+        self.term_attrs.append(entry)
+        self.dirty_term_attrs = True
+        return eid
+
     def intern_avoid(self, sig: tuple[str, str]) -> int:
         oid = self.avoids.get(sig)
         if oid is not None:
@@ -453,9 +511,11 @@ def fill_node_row(state: ClusterState, table: NodeTable, row: int,
 
 
 def apply_pending_refreshes(state: ClusterState, table: NodeTable) -> list[int]:
-    """Fill membership columns for selector terms / requirements interned
-    after nodes were encoded. Returns the node rows whose membership
-    changed (the device mirror re-uploads just those rows)."""
+    """Fill membership columns for selector terms / requirements, and
+    topology columns for custom keys, interned after nodes were encoded,
+    and write the carried-term attributes (term_q, term_tkey, term_weight,
+    term_kind, term_poison) when terms were interned. Returns the node rows
+    that changed (the device mirror re-uploads just those rows)."""
     rows: set[int] = set()
     for term_id, key, value in table.pending_sel_refresh:
         for row, labels in enumerate(table.labels_of):
@@ -469,6 +529,24 @@ def apply_pending_refreshes(state: ClusterState, table: NodeTable) -> list[int]:
                 state.req_member[row, rid] = 1.0
                 rows.add(row)
     table.pending_req_refresh.clear()
+    if table.pending_topo_refresh:
+        slot_key = {s: k for k, s in table.topo_key_of.items()}
+        for slot in table.pending_topo_refresh:
+            key = slot_key[slot]
+            for row, labels in enumerate(table.labels_of):
+                if labels is not None and key in labels:
+                    state.topology[row, slot] = table.intern_domain(
+                        slot, labels[key])
+                    rows.add(row)
+        table.pending_topo_refresh.clear()
+    if table.dirty_term_attrs:
+        for eid, (qid, tk, w, kind, poison) in enumerate(table.term_attrs):
+            state.term_q[eid] = qid
+            state.term_tkey[eid] = tk
+            state.term_weight[eid] = w
+            state.term_kind[eid] = kind
+            state.term_poison[eid] = poison
+        table.dirty_term_attrs = False
     return sorted(rows)
 
 
@@ -489,6 +567,43 @@ def pod_match_row(table: NodeTable, pod: Pod) -> np.ndarray:
     """f32[UQ]: `fill_match_row` into a new row."""
     out = np.empty((table.caps.podsel_universe,), np.float32)
     fill_match_row(out, table, pod)
+    return out
+
+
+def intern_pod_affinity_terms(table: NodeTable, pod: Pod):
+    """Intern every pod-affinity term a pod carries into the pod-selector
+    and carried-term universes. Returns (carried eids, parsed terms)."""
+    from kubernetes_tpu_torch.state.podaffinity import PARSE_ERROR, parse_pod_affinity
+
+    terms = parse_pod_affinity(pod.spec.affinity, pod.metadata.namespace)
+    eids: list[int] = []
+    for kind, lst, required in (
+        (TermKind.ANTI_REQ, terms.anti_req, True),
+        (TermKind.AFF_REQ, terms.aff_req, True),
+        (TermKind.AFF_PREF, terms.aff_pref, False),
+        (TermKind.ANTI_PREF, terms.anti_pref, False),
+    ):
+        for t in lst:
+            qid = table.intern_podsel(t.namespaces, t.selector)
+            tk = table.tkey_code(t.topology_key, required=required)
+            if kind == TermKind.AFF_PREF:
+                w = float(t.weight)
+            elif kind == TermKind.ANTI_PREF:
+                w = -float(t.weight)
+            else:
+                w = 0.0
+            # a required anti term whose selector cannot be parsed rejects
+            # every incoming pod while a carrier exists
+            poison = kind == TermKind.ANTI_REQ and t.selector == PARSE_ERROR
+            eids.append(table.intern_term(qid, tk, w, kind, poison))
+    return eids, terms
+
+
+def carried_term_row(table: NodeTable, eids) -> np.ndarray:
+    """f32[UE]: a pod's carried-term multiplicities."""
+    out = np.zeros((table.caps.term_universe,), np.float32)
+    for e in eids:
+        out[e] += 1.0
     return out
 
 

@@ -15,9 +15,13 @@ row), the raw affinity and volumes, the gang annotation and the controller
 reference. A pod the encoder refuses therefore never shares a class with
 a supported one, and every miss goes through the encoder, which raises for
 it. Images are read by nothing here and stay out. Rows are stamped with
-`NodeTable.pod_row_epoch` (a new pod-selector entry or avoid signature)
-and the cache's `generation`, which the driver bumps on every Service or
-controller event (the spreading entries depend on those objects). Pods
+`NodeTable.pod_row_epoch` (a new pod-selector entry or avoid signature:
+the match row of a class encoded before it lacks its column) and the
+cache's `generation`, which the driver bumps on every Service or
+controller event (the spreading entries depend on those objects). A
+class's inter-pod columns hold ids its miss interned (selectors, carried
+terms, topology slots), which never change, so they need no stamp of
+their own. Pods
 with claim-backed volumes are never cached (their rows resolve through
 mutable claim state), and no row is cached while the context carries
 ServiceAntiAffinity (its totals follow the bound pods). At most

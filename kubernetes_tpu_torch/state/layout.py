@@ -98,6 +98,20 @@ TOPO_ZONE_REGION = 3
 TOPO_SPREAD_ZONE = 4
 FIRST_CUSTOM_TOPO = 5
 
+# Sentinel topology-slot codes of affinity terms.
+TKEY_INVALID = -1        # empty/uninternable topologyKey on a required term
+TKEY_DEFAULT_UNION = -2  # empty topologyKey on a preferred term: any default domain
+
+
+class TermKind:
+    """Carried pod-affinity-term kinds (the existing-pod side of inter-pod
+    matching and its symmetric weighting)."""
+
+    ANTI_REQ = 0   # required anti-affinity: predicate, hard fail
+    AFF_REQ = 1    # required affinity: priority, weight = hardPodAffinityWeight
+    AFF_PREF = 2   # preferred affinity: priority, +weight
+    ANTI_PREF = 3  # preferred anti-affinity: priority, -weight
+
 
 class VolType:
     """Attachable-volume type codes (EMPTY marks a free attach slot)."""

@@ -7,18 +7,21 @@ membership matrices, so encoding a pod can grow a universe: the state's
 membership columns must be refilled (StateDB.flush) before the batch is
 solved.
 
-This package's solver covers the scheduler's main path and SelectorSpread.
-The encoder rejects, with NotImplementedError, pods whose features would
-change the result outside it (pod affinity, volumes, host ports, gang
-membership, priority). Features the solver gates per batch (gpu and
-storage requests, preferred node affinity) are encoded, and the solver
-raises on them. The spreading columns (spread_q, spread_svc_q, svcanti_q,
-svcanti_total, pod_matches_q) are read from the pod's namespace and labels
-and the workload objects of an EncodeContext, as the reference encodes
-them; a pod's own entries intern into the pod-selector universe, so
-encoding can grow it, and rows encoded before it grew miss the new
-columns (`fill_batch_affinity`, and the driver's re-encode). Container
-images are accepted and left unencoded (ImageLocality is not carried).
+This package's solver covers the scheduler's main path, SelectorSpread and
+inter-pod (anti-)affinity. The encoder rejects, with NotImplementedError,
+pods whose features would change the result outside it (volumes, host
+ports, gang membership, priority). Features the solver gates per batch
+(gpu and storage requests, preferred node affinity) are encoded, and the
+solver raises on them. The spreading columns (spread_q, spread_svc_q,
+svcanti_q, svcanti_total) are read from the pod's namespace and labels and
+the workload objects of an EncodeContext, and the inter-pod columns
+(paff_*, panti_*, ppref_*, ipaff_fail, pod_carries_e) from its
+podAffinity and podAntiAffinity, as the reference encodes them. A pod's
+selectors and terms intern into the pod-selector and carried-term
+universes, so encoding can grow them, and the match rows (pod_matches_q)
+of rows encoded before a selector was interned miss its column
+(`fill_batch_affinity`, and the driver's re-encode). Container images are
+accepted and left unencoded (ImageLocality is not carried).
 
 The driver moves a batch as two blobs (`pack_batch`, `pack_row`): one
 f32[P, F] holding every float field's columns and one i32[P, I] holding
@@ -42,14 +45,17 @@ from kubernetes_tpu_torch.state.cluster_state import (
     ClusterState,
     NodeTable,
     apply_pending_refreshes,
+    carried_term_row,
     encode_nodes,
     fill_match_row,
+    intern_pod_affinity_terms,
     pod_controller_ref,
     pod_nonzero_requests,
     pod_requests,
 )
 from kubernetes_tpu_torch.state.context import EMPTY_CONTEXT, EncodeContext
 from kubernetes_tpu_torch.state.layout import (
+    TKEY_INVALID,
     Capacities,
     CapacityError,
     Effect,
@@ -189,9 +195,6 @@ def empty_batch(caps: Capacities) -> PodBatch:
 def unsupported_feature(pod: Pod) -> str | None:
     """Name of the first feature of `pod` that this package's solver does
     not carry and that would change the result, else None."""
-    aff = pod.spec.affinity or {}
-    if aff.get("podAffinity") or aff.get("podAntiAffinity"):
-        return "inter-pod affinity"
     if pod.spec.volumes:
         return "volumes"
     if pod.host_ports():
@@ -308,9 +311,77 @@ def encode_pod_into(batch: PodBatch, i: int, pod: Pod, caps: Capacities,
         batch.node_name_hi[i] = 0
     batch.best_effort[i] = pod.is_best_effort()
     _encode_node_affinity(batch, i, pod, caps, table)
-    fill_match_row(batch.pod_matches_q[i], table, pod)
+    _encode_interpod_affinity(batch, i, pod, caps, table)
     _encode_workloads(batch, i, pod, table, ctx or EMPTY_CONTEXT)
     fill_avoid_row(batch, i, pod, table)
+
+
+def _encode_interpod_affinity(batch: PodBatch, i: int, pod: Pod,
+                              caps: Capacities, table: NodeTable) -> None:
+    """The pod's own pod-(anti-)affinity terms, its carried-term row and
+    its match row against the selector universe as interned now (later
+    pods of a batch may intern more: `fill_batch_affinity`). Unused slots
+    keep the padding values, as in a fresh batch."""
+    from kubernetes_tpu_torch.state.podaffinity import PARSE_ERROR
+
+    aff = pod.spec.affinity or {}
+    if not (aff.get("podAffinity") or aff.get("podAntiAffinity")):
+        # no term (an encode-cache miss's common case): the row's columns
+        # already hold the padding values unless it held a pod with terms;
+        # every such pod carries at least one, interned in this table
+        if table.terms and batch.pod_carries_e[i].any():
+            _reset_interpod(batch, i)
+        fill_match_row(batch.pod_matches_q[i], table, pod)
+        return
+    eids, terms = intern_pod_affinity_terms(table, pod)
+    _reset_interpod(batch, i)
+    # first: a row left half written by a capacity error below still reads
+    # as holding terms
+    batch.pod_carries_e[i] = carried_term_row(table, eids)
+    fail = False
+    for lst, q_arr, tk_arr in ((terms.aff_req, batch.paff_q, batch.paff_tkey),
+                               (terms.anti_req, batch.panti_q, batch.panti_tkey)):
+        if len(lst) > caps.interpod_slots:
+            raise CapacityError(
+                f"pod {pod.key}: {len(lst)} required pod-affinity terms > "
+                f"{caps.interpod_slots} slots")
+        for t_idx, t in enumerate(lst):
+            tk = table.tkey_code(t.topology_key, required=True)
+            if tk == TKEY_INVALID or t.selector == PARSE_ERROR:
+                # an empty topologyKey or an unparseable selector on a
+                # required term: the pod fits no node
+                fail = True
+                continue
+            q_arr[i, t_idx] = table.intern_podsel(t.namespaces, t.selector)
+            tk_arr[i, t_idx] = tk
+    batch.ipaff_fail[i] = fail
+
+    pref = ([(t, +1.0) for t in terms.aff_pref]
+            + [(t, -1.0) for t in terms.anti_pref])
+    pref = [(t, sign) for t, sign in pref if t.weight != 0]
+    if len(pref) > caps.interpod_pref_slots:
+        raise CapacityError(
+            f"pod {pod.key}: {len(pref)} preferred pod-affinity terms > "
+            f"{caps.interpod_pref_slots} slots")
+    for t_idx, (t, sign) in enumerate(pref):
+        batch.ppref_q[i, t_idx] = table.intern_podsel(t.namespaces, t.selector)
+        batch.ppref_tkey[i, t_idx] = table.tkey_code(t.topology_key,
+                                                     required=False)
+        batch.ppref_w[i, t_idx] = sign * float(t.weight)
+
+    fill_match_row(batch.pod_matches_q[i], table, pod)
+
+
+def _reset_interpod(batch: PodBatch, i: int) -> None:
+    """Row i's inter-pod columns to their padding values."""
+    for q_arr, tk_arr in ((batch.paff_q, batch.paff_tkey),
+                          (batch.panti_q, batch.panti_tkey),
+                          (batch.ppref_q, batch.ppref_tkey)):
+        q_arr[i] = -1
+        tk_arr[i] = 0
+    batch.ppref_w[i] = 0.0
+    batch.ipaff_fail[i] = False
+    batch.pod_carries_e[i] = 0.0
 
 
 def _encode_workloads(batch: PodBatch, i: int, pod: Pod, table: NodeTable,
@@ -341,12 +412,14 @@ def fill_avoid_row(batch: PodBatch, i: int, pod: Pod, table: NodeTable) -> None:
 
 def fill_batch_affinity(batch: PodBatch, pods: Sequence[Pod],
                         table: NodeTable) -> None:
-    """Recompute the match rows once the pod-selector universe is final
-    (entries interned by later pods of the batch)."""
-    if not table.podsels:
-        return  # no selector anywhere: the rows are all zero
+    """Recompute the match and carried-term rows once the universes are
+    final (entries interned by later pods of the batch)."""
+    if not table.podsels and not table.terms:
+        return  # no affinity anywhere: the rows are all zero
     for i, pod in enumerate(pods):
+        eids, _ = intern_pod_affinity_terms(table, pod)
         fill_match_row(batch.pod_matches_q[i], table, pod)
+        batch.pod_carries_e[i] = carried_term_row(table, eids)
 
 
 def encode_pods(pods: Sequence[Pod], caps: Capacities, table: NodeTable,
@@ -530,10 +603,11 @@ def blob_col(fblob, iblob, name: str, caps: Capacities, n: int | None = None):
 
 
 def packed_batch_flags(fblob: np.ndarray, iblob: np.ndarray, n: int,
-                       host: ClusterState, caps: Capacities):
+                       table: NodeTable, caps: Capacities):
     """`batch_flags` of the first n rows of host blobs, with the carried
     affinity terms and interned PreferNoSchedule taints read from the
-    StateDB's host arrays `host`: no device transfer."""
+    cluster's `table` (terms interned by this batch's pods count before
+    any flush): no device transfer."""
     from kubernetes_tpu_torch.ops.solver import BatchFlags
     from kubernetes_tpu_torch.state.layout import Resource
 
@@ -548,13 +622,13 @@ def packed_batch_flags(fblob: np.ndarray, iblob: np.ndarray, n: int,
 
     req = col("requests")
     return BatchFlags(
-        ipa=bool((host.term_q >= 0).any()) or any_id("paff_q")
+        ipa=bool(table.terms) or any_id("paff_q")
         or any_id("panti_q") or any_id("ppref_q") or any_("ipaff_fail"),
         spread=any_id("spread_q") or any_id("spread_svc_q"),
         svcanti=any_id("svcanti_q"),
         vol=any_("vol_want_rw") or any_("vol_want_ro"),
         attach=any_("att_onehot") or any_("att_fail"),
-        tt=bool((host.taint_u_effect == Effect.PREFER_NO_SCHEDULE).any()),
+        tt=any(effect == "PreferNoSchedule" for _k, _v, effect in table.taints),
         na=bool((col("pref_weight") > 0).any()),
         ports=any_("port_onehot"),
         gpu=bool(req[:, Resource.GPU].any()),

@@ -1,5 +1,5 @@
-"""Pod-selector canonicalization and matching: the selector half of the
-reference package's pod-affinity host code.
+"""Pod-affinity host code: selector canonicalization and matching, and the
+parsing of a pod's PodAffinityTerms.
 
 Selectors are canonicalized on the host and interned into the pod-selector
 universe (cluster_state.NodeTable.intern_podsel); pods are matched against
@@ -14,11 +14,14 @@ Semantics mirrored:
   ReplicationControllers.
 - `PodMatchesTermsNamespaceAndSelector`: namespace membership AND a
   selector match.
-
-The term half (`parse_pod_affinity`) comes with the inter-pod slice.
+- `GetNamespacesFromPodAffinityTerm`: an empty namespace list means the
+  namespace of the pod *carrying* the term.
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any
 
 from kubernetes_tpu_torch.api.objects import Pod
 from kubernetes_tpu_torch.state.cluster_state import match_requirement
@@ -74,6 +77,55 @@ def selector_matches(canon, labels: dict[str, str]) -> bool:
         return any(selector_matches(c, labels) for c in canon[1])
     return all(match_requirement(labels, k, op, values)
                for k, op, values in canon)
+
+
+@dataclass(frozen=True)
+class ParsedTerm:
+    """One PodAffinityTerm with namespaces resolved against its carrier."""
+
+    selector: Any                 # canonical selector form
+    namespaces: frozenset[str]
+    topology_key: str             # "" = empty (meaning depends on term kind)
+    weight: int = 0               # preferred terms only
+
+
+def _parse_term(term: dict, carrier_namespace: str, weight: int = 0) -> ParsedTerm:
+    return ParsedTerm(
+        selector=canonical_selector(term.get("labelSelector")),
+        namespaces=frozenset(term.get("namespaces") or [carrier_namespace]),
+        topology_key=term.get("topologyKey", "") or "",
+        weight=weight,
+    )
+
+
+@dataclass
+class PodAffinityTerms:
+    """All four term lists of one pod, parsed."""
+
+    aff_req: list[ParsedTerm]
+    anti_req: list[ParsedTerm]
+    aff_pref: list[ParsedTerm]
+    anti_pref: list[ParsedTerm]
+
+
+def parse_pod_affinity(affinity: dict | None,
+                       carrier_namespace: str) -> PodAffinityTerms:
+    """The four PodAffinityTerm lists of a raw v1 Affinity dict
+    (getPodAffinityTerms / getPodAntiAffinityTerms)."""
+    aff = (affinity or {}).get("podAffinity") or {}
+    anti = (affinity or {}).get("podAntiAffinity") or {}
+
+    def required(src):
+        return [_parse_term(t, carrier_namespace) for t in
+                src.get("requiredDuringSchedulingIgnoredDuringExecution") or []]
+
+    def preferred(src):
+        return [_parse_term(p.get("podAffinityTerm") or {}, carrier_namespace,
+                            weight=int(p.get("weight", 0))) for p in
+                src.get("preferredDuringSchedulingIgnoredDuringExecution") or []]
+
+    return PodAffinityTerms(aff_req=required(aff), anti_req=required(anti),
+                            aff_pref=preferred(aff), anti_pref=preferred(anti))
 
 
 def pod_matches_entry(pod: Pod, ns_key: frozenset, canon) -> bool:

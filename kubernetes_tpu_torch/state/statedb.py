@@ -14,13 +14,18 @@ placed by a batch) aggregate into host numpy arrays (`host`), and
   host arrays from the batch's f32 blob, so host and device agree without
   a transfer, and accounts each placed pod so `remove_pod` can undo it.
 
-The pod-selector ledger (`podsel_count`, SelectorSpread's per-node
-counts) is accounted the same way, from each pod's match row. A selector
-entry interned after pods were accounted starts with an empty column:
-`flush` first counts the accounted pods it matches (`_refill_podsel`). A
-batch whose program passed the ledger through (no spread scan) leaves the
-device copy behind the host, so its placed pods' rows are copied at the
-next flush.
+The affinity ledgers are accounted the same way: the pod-selector counts
+(`podsel_count`, read by SelectorSpread and inter-pod affinity) from each
+pod's match row, and the carried-term counts (`term_count`, the existing
+pods' pod-affinity terms) from its carried-term row. A selector entry
+interned after pods were accounted starts with an empty column: `flush`
+first counts the accounted pods it matches (`_refill_podsel`). A carried
+term is interned when the first pod carrying it is encoded or accounted,
+so its column needs no refill; `flush` uploads the term attributes
+(`term_q`, `term_tkey`, `term_weight`, `term_kind`, `term_poison`) when
+terms were interned. A batch whose program passed a ledger through (the
+scan build did not carry it) leaves the device copy behind the host, so
+its placed pods' rows are copied at the next flush.
 """
 
 from __future__ import annotations
@@ -38,8 +43,10 @@ from kubernetes_tpu_torch.state.cluster_state import (
     ClusterState,
     NodeTable,
     apply_pending_refreshes,
+    carried_term_row,
     empty_state,
     fill_node_row,
+    intern_pod_affinity_terms,
     pod_match_row,
     pod_nonzero_requests,
     pod_requests,
@@ -50,29 +57,28 @@ from kubernetes_tpu_torch.state.pod_batch import blob_col
 from kubernetes_tpu_torch.utils.device import resolve_device
 
 _UNIVERSE_FIELDS = tuple(f for f in STATE_FIELDS if f not in NODE_AXIS_FIELDS)
-_LEDGER_FIELDS = ("requested", "nonzero_requested", "podsel_count")
+_LEDGER_FIELDS = ("requested", "nonzero_requested", "podsel_count",
+                  "term_count")
 
 
 # What removing an accounted pod takes back from its node's row, in the
 # columns of this package's ledgers: (node name, j, requests f32[K, R],
-# nonzero f32[K, 2], match row f32[K, UQ], the pod), the pod's columns
-# being row j of arrays it shares with the pods accounted beside it; the
-# pod's namespace and labels refill entries interned after it. A plain
-# tuple, so a batch's thousands of records cost one small object each.
-AccountedPod = tuple[str, int, np.ndarray, np.ndarray, np.ndarray, Pod]
+# nonzero f32[K, 2], match row f32[K, UQ], carried-term row f32[K, UE],
+# the pod), the pod's columns being row j of arrays it shares with the
+# pods accounted beside it; the pod's namespace and labels refill entries
+# interned after it. A plain tuple, so a batch's thousands of records cost
+# one small object each.
+AccountedPod = tuple[str, int, np.ndarray, np.ndarray, np.ndarray,
+                     np.ndarray, Pod]
 
 
 def unaccountable_feature(pod: Pod) -> str | None:
     """The first part of a bound pod whose accounting needs a ledger this
-    package does not carry (host-port counts, volume atoms, pod-affinity
-    counts), else None."""
-    aff = pod.spec.affinity or {}
+    package does not carry (host-port counts, volume atoms), else None."""
     if pod.host_ports():
         return "host ports"
     if pod.spec.volumes:
         return "volumes"
-    if aff.get("podAffinity") or aff.get("podAntiAffinity"):
-        return "pod-affinity terms"
     return None
 
 
@@ -117,16 +123,17 @@ class StateDB:
     # ---- pod accounting ----
 
     def _apply_pod(self, row: int, acc: AccountedPod, sign: int) -> None:
-        _name, j, requests, nonzero, match, _pod = acc
+        _name, j, requests, nonzero, match, carry, _pod = acc
         self.host.requested[row] += sign * requests[j]
         self.host.nonzero_requested[row] += sign * nonzero[j]
         self.host.podsel_count[row] += sign * match[j]
+        self.host.term_count[row] += sign * carry[j]
         self._dirty_rows.add(row)
 
     def _forget(self, key: str) -> AccountedPod | None:
         acc = self._accounted.pop(key, None)
         if acc is not None:
-            self._bound.get(acc[5].metadata.namespace, {}).pop(key, None)
+            self._bound.get(acc[6].metadata.namespace, {}).pop(key, None)
         return acc
 
     def bound_pods(self, namespace: str) -> list[Pod]:
@@ -149,17 +156,20 @@ class StateDB:
             raise NotImplementedError(
                 f"pod {pod.key}: accounting {feature} needs a ledger this "
                 f"package does not carry")
+        # terms first: the match row then covers the selectors they intern
+        eids, _ = intern_pod_affinity_terms(self.table, pod)
         acc = (node_name, 0, pod_requests(pod)[None],
                pod_nonzero_requests(pod)[None],
-               pod_match_row(self.table, pod)[None], pod)
+               pod_match_row(self.table, pod)[None],
+               carried_term_row(self.table, eids)[None], pod)
         self._apply_pod(row, acc, +1)
         self._accounted[pod.key] = acc
         self._bound.setdefault(pod.metadata.namespace, {})[pod.key] = pod
         return True
 
     def remove_pod(self, pod_key: str) -> None:
-        """Take an accounted pod's requests and selector matches back from
-        its node."""
+        """Take an accounted pod's requests, selector matches and carried
+        terms back from its node."""
         acc = self._forget(pod_key)
         if acc is None:
             return
@@ -179,7 +189,8 @@ class StateDB:
         return (bool(self._dirty_rows) or self._dirty_ledger_all
                 or bool(self.table.pending_sel_refresh)
                 or bool(self.table.pending_req_refresh)
-                or bool(self.table.pending_podsel_refresh))
+                or bool(self.table.pending_podsel_refresh)
+                or bool(self.table.pending_topo_refresh))
 
     def mark_ledger_dirty(self) -> None:
         """Force the next flush() to re-upload the whole host ledger (the
@@ -197,7 +208,7 @@ class StateDB:
         row_of = self.table.row_of
         for qid in self.table.pending_podsel_refresh:
             ns_key, canon = self.table.podsel_attrs[qid]
-            for name, j, _req, _nz, match, pod in self._accounted.values():
+            for name, j, _req, _nz, match, _carry, pod in self._accounted.values():
                 if match[j, qid]:
                     continue  # accounted after the intern: already counted
                 if pod_matches_entry(pod, ns_key, canon):
@@ -209,9 +220,12 @@ class StateDB:
 
     def flush(self) -> ClusterState:
         """The device view, refreshed from the host where rows changed.
-        Membership columns of terms and pod-selector counts of entries
-        interned since the last flush are filled first."""
+        Membership columns of terms, topology columns of custom keys and
+        pod-selector counts of entries interned since the last flush are
+        filled first; the universe attributes are uploaded with any row,
+        and whenever carried terms were interned."""
         self._refill_podsel()
+        attrs = self.table.dirty_term_attrs
         self._dirty_rows.update(apply_pending_refreshes(self.host, self.table))
         if self._device is None:
             self._device = state_from_numpy(self.host, self.device)
@@ -229,6 +243,10 @@ class StateDB:
                     setattr(self._device, name,
                             to_device(getattr(self.host, name), self.device))
                 self.flush_rows_total += len(rows)
+            elif attrs:
+                for name in _UNIVERSE_FIELDS:
+                    setattr(self._device, name,
+                            to_device(getattr(self.host, name), self.device))
             if self._dirty_ledger_all:
                 for name in _LEDGER_FIELDS:
                     setattr(self._device, name,
@@ -240,14 +258,16 @@ class StateDB:
 
     def adopt_result(self, result) -> None:
         """Chain the solver's post-batch ledgers as the device truth (no
-        copy, no synchronization); a pod-selector ledger the batch passed
-        through (`new_podsel` None) stays as it was."""
+        copy, no synchronization); an affinity ledger the batch passed
+        through (`new_podsel` or `new_term` None) stays as it was."""
         if self._device is None:
             raise RuntimeError("adopt_result before flush")
         self._device.requested = result.new_requested
         self._device.nonzero_requested = result.new_nonzero
         if result.new_podsel is not None:
             self._device.podsel_count = result.new_podsel
+        if result.new_term is not None:
+            self._device.term_count = result.new_term
 
     def commit_batch(self, result, fblob: np.ndarray,
                      committed: Iterable[tuple[Pod, str, int]]) -> None:
@@ -258,9 +278,9 @@ class StateDB:
         (pod, node name, batch row) of each placed pod, in batch order. The
         host row of each node gains the blob's `requests` and
         `nonzero_requests` columns of its pods, added in pod order as the
-        scan added them, and its `pod_matches_q` columns to the pod-selector
-        counts. Pods already accounted, or on nodes removed since, are
-        skipped."""
+        scan added them, its `pod_matches_q` columns to the pod-selector
+        counts and its `pod_carries_e` columns to the carried-term counts.
+        Pods already accounted, or on nodes removed since, are skipped."""
         self.adopt_result(result)
         committed = list(committed)
         if not committed:
@@ -283,14 +303,18 @@ class StateDB:
         req = blob_col(fblob, None, "requests", self.caps)[idx]
         nz = blob_col(fblob, None, "nonzero_requests", self.caps)[idx]
         match = blob_col(fblob, None, "pod_matches_q", self.caps)[idx]
+        carry = blob_col(fblob, None, "pod_carries_e", self.caps)[idx]
         np.add.at(self.host.requested, rows, req)
         np.add.at(self.host.nonzero_requested, rows, nz)
-        if match.any():
-            hit, col = np.nonzero(match)   # a few selector matches a pod
-            np.add.at(self.host.podsel_count, (rows[hit], col), match[hit, col])
-            if result.new_podsel is None:
-                # the device ledger did not count these placements
-                self._dirty_rows.update(rows[hit].tolist())
+        for rows_of, ledger, device in (
+                (match, self.host.podsel_count, result.new_podsel),
+                (carry, self.host.term_count, result.new_term)):
+            if rows_of.any():
+                hit, col = np.nonzero(rows_of)   # a few columns a pod
+                np.add.at(ledger, (rows[hit], col), rows_of[hit, col])
+                if device is None:
+                    # the device ledger did not count these placements
+                    self._dirty_rows.update(rows[hit].tolist())
         accounted.update(zip(keys, zip(names, range(len(keys)), repeat(req),
-                                       repeat(nz), repeat(match),
+                                       repeat(nz), repeat(match), repeat(carry),
                                        compress(pods, live))))

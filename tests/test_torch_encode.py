@@ -218,12 +218,12 @@ def test_packed_flags_equal_batch_flags(edit, gated):
     rng = np.random.RandomState(60 + len(edit))
     n = BATCH - 5  # a tail of padding rows
     nodes, pods = random_cluster(rng, 30, n, gated=gated)
-    (state, batch, _t), _ = encode_both(nodes, pods)
+    (state, batch, table), _ = encode_both(nodes, pods)
     if _GATE_EDITS[edit] is not None:
         name, where, value = _GATE_EDITS[edit]
         getattr(batch, name)[where] = value
     fblob, iblob = pack_batch(batch, CAPS)
-    got = packed_batch_flags(fblob, iblob, n, state, CAPS)
+    got = packed_batch_flags(fblob, iblob, n, table, CAPS)
     want = batch_flags(state_from_numpy(state, "cpu"),
                        batch_from_numpy(batch, "cpu"))
     assert got == want
@@ -232,7 +232,7 @@ def test_packed_flags_equal_batch_flags(edit, gated):
     fblob[n:] = fblob[0]
     iblob[n:] = iblob[0]
     iblob[n:, _layout(CAPS)[0]["gang_id"][1]] = 3
-    assert packed_batch_flags(fblob, iblob, n, state, CAPS) == got
+    assert packed_batch_flags(fblob, iblob, n, table, CAPS) == got
 
 
 # ---- the cache ----
@@ -425,10 +425,6 @@ def test_fingerprint_ignores_what_the_encoder_never_reads(meta, read):
                                         "ports": [{"containerPort": 80, "hostPort": 80}],
                                         "resources": {"requests": {
                                             "cpu": "250m", "memory": "256Mi"}}}]}),
-    ("inter-pod affinity", {}, {"affinity": {"podAffinity": {
-        "requiredDuringSchedulingIgnoredDuringExecution": [{
-            "labelSelector": {"matchLabels": {"app": "a"}},
-            "topologyKey": "kubernetes.io/hostname"}]}}}),
     ("volumes", {}, {"volumes": [{"name": "v", "persistentVolumeClaim": {
         "claimName": "c"}}]}),
 ])

@@ -157,7 +157,7 @@ def test_scheduler_chains_batches_like_the_reference(seed, monkeypatch):
 
 
 @pytest.mark.parametrize("gate", ["tt", "gpu", "storage", "na", "ports",
-                                  "ipa", "vol", "gang", "preempt"])
+                                  "spread+ipa", "vol", "gang", "preempt"])
 def test_gates_outside_the_main_path_raise(gate):
     rng = np.random.RandomState(5)
     nodes, pods = random_cluster(rng, 24, BATCH, gated=gate in ("tt", "gpu",
@@ -165,17 +165,19 @@ def test_gates_outside_the_main_path_raise(gate):
     (state, batch, _), _ = encode_both(nodes, pods)
     if gate == "ports":
         batch.port_onehot[0, 0] = 1.0
-    elif gate == "ipa":
-        batch.paff_q[0, 0] = 0
+    elif gate == "spread+ipa":   # the spread and interpod builds apart only
+        batch.spread_q[0] = 0
+        batch.paff_q[1, 0] = 0
     elif gate == "vol":
         batch.vol_want_rw[0, 0] = 1.0
     elif gate == "gang":
         batch.gang_id[0] = 1
     elif gate == "preempt":
         batch.priority[0] = 5
-    with pytest.raises(NotImplementedError, match=f"'{gate}'"):
+    with pytest.raises(NotImplementedError) as info:
         schedule_batch(state_from_numpy(state, "cpu"),
                        batch_from_numpy(batch, "cpu"), 0)
+    assert all(f"'{g}'" in str(info.value) for g in gate.split("+"))
 
 
 @pytest.mark.parametrize("policy, match", [

@@ -245,10 +245,6 @@ def test_statedb_flush_copies_only_dirty_rows():
 
 
 @pytest.mark.parametrize("feature, spec, meta", [
-    ("inter-pod affinity", {"affinity": {"podAntiAffinity": {
-        "requiredDuringSchedulingIgnoredDuringExecution": [{
-            "labelSelector": {"matchLabels": {"app": "a"}},
-            "topologyKey": "kubernetes.io/hostname"}]}}}, {}),
     ("volumes", {"volumes": [{"name": "d", "gcePersistentDisk": {
         "pdName": "disk-0"}}]}, {}),
     ("host ports", {"containers": [{"name": "c", "ports": [
