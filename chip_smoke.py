@@ -66,7 +66,21 @@ fails; nothing is caught and skipped:
    the first batch against its plain version (the edge shapes of phase 3
    hold it at every build, with carried anti terms, a custom topology key
    and the default-domain union);
-10. the kernels line, the nvidia-smi line, and last the result line.
+10. gang: the reference bench's bench[gang] (50,000 nodes in 3 zones,
+   N = 65,536, 24,576 pods in 3,072 all-or-nothing groups of 8, 6 batches
+   of 4,096) through Scheduler(device="cuda"); every group must settle
+   (placed or reverted), no node may exceed its allocatable, the gang
+   build must have launched once per batch (and no other build of the
+   scan), and the gang build must equal its plain version on the first
+   driver batch, whose result must be the masked kernel result; times
+   kernel 1 and the gang build on that batch, the plain scan once;
+11. gang_build: revert-heavy batches at an N for each build of the scan
+   (1, 2, 4 and 8 nodes a thread): groups of 8 at quorum 8 and 6 with
+   members that fit nowhere, non-gang pods between groups, a group ending
+   on the last row, a node that takes two members of a group that
+   reverts, and gpu and storage requests in reverting groups; the gang
+   build must equal its plain version exactly, rr_end included;
+12. the kernels line, the nvidia-smi line, and last the result line.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
@@ -77,6 +91,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -112,6 +127,8 @@ INTERPOD_CHECKED = (0, 5)
 # divide, add and truncate (7)
 IP_OPS_PER_ENTRY = 4
 IP_SCORE_OPS = 7
+# bench[gang] (bench.py:343-366): nodes, pods and the group size
+GANG_NODES, GANG_PODS, GANG_SIZE = 50000, 24576, 8
 
 
 def emit(obj) -> None:
@@ -145,6 +162,30 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     t_ops = ops / H100_F32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def ptxas_report(log: str) -> dict:
+    """{kernel: "spill bytes, registers"} from nvcc's -Xptxas=-v report; a
+    template kernel is named with its template arguments (the scan's
+    `<RUN, SPREAD, IPA, GANG>` as e.g. "assign_scan_kernel<8,0,0,1>")."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(_Z\w+)'", ln)
+        if m:
+            # the mangled name's components: <length><identifier>...
+            mangled = m.group(1)
+            i = 3 if mangled.startswith("_ZN") else 2
+            while i < len(mangled) and mangled[i].isdigit():
+                j = i
+                while mangled[j].isdigit():
+                    j += 1
+                name, i = mangled[j:j + int(mangled[i:j])], j + int(mangled[i:j])
+            if mangled[i:i + 1] == "I":
+                args = re.findall(r"Li(\d+)E|Lb([01])E", mangled[i:].split("EEv")[0])
+                name += f"<{','.join(a or b for a, b in args)}>"
+        elif name and ("registers" in ln or "spill" in ln):
+            out[name] = (out.get(name, "") + " " + ln.strip()).strip()
+    return out
 
 
 def max_abs_err(torch, pairs) -> float:
@@ -221,11 +262,11 @@ def static_mask_bound(torch, args) -> tuple[float, str]:
     products' nonzero pairs (the one-hot operands are sparse) plus eight
     epilogue operations per output."""
     sel_onehot, _, untol, _, _, _, sel_member, hard, _, _, _ = args
-    nbytes = (sel_onehot.shape[0] * sel_member.shape[0]
-              + sum(a.numel() * a.element_size() for a in args))
+    p, n = sel_onehot.shape[0], sel_member.shape[0]
+    nbytes = p * n + sum(a.numel() * a.element_size() for a in args)
     pairs = sum(float(((a != 0).sum(0).double() * (b != 0).sum(0).double()).sum())
                 for a, b in ((sel_onehot, sel_member), (untol, hard)))
-    return bound(nbytes, 2 * pairs + 8 * P * N)
+    return bound(nbytes, 2 * pairs + 8 * p * n)
 
 
 def scan_bound(masked, requests, nonzero_requests, alloc, requested, nonzero):
@@ -706,6 +747,232 @@ def interpod_phase(torch, caps, dev, kernels) -> tuple[dict, dict]:
     return line, entry
 
 
+def random_gang(torch, rng, dev, p):
+    """Seeded GangInputs for p pods: runs of non-gang pods and groups of 1
+    to 8 members with a random quorum, ids 1, 2, ... in order."""
+    from kubernetes_tpu_torch.ops.assign_scan import GangInputs
+
+    gid, gmin, k = [], [], 0
+    while len(gid) < p:
+        size = min(int(rng.integers(1, 9)), p - len(gid))
+        if rng.random() < 0.7:
+            k += 1
+            gid += [k] * size
+            gmin += [int(rng.integers(1, size + 1))] * size
+        else:
+            gid += [0] * size
+            gmin += [0] * size
+
+    def t(a):
+        return torch.tensor(a, dtype=torch.int32, device=dev)
+
+    return GangInputs(gang_id=t(gid), gang_min=t(gmin))
+
+
+def revert_heavy_inputs(torch, rng, dev, n, p):
+    """A seeded kernel-2 batch of p pods on n nodes built to revert: tight
+    nodes (1 to 3 pods each); repeating blocks of a group of 8 at quorum 8,
+    non-gang pods, a group of 8 at quorum 6 with 2 members that fit
+    nowhere (placed), one at quorum 8 with 1 (reverted), one at quorum 6
+    with 3 (reverted), and a group of 3 whose first two members fit one
+    roomy node only and whose third fits nowhere (reverted: the node took
+    two members); gpu and storage requests in the reverting groups; the
+    last group ends on the last row. Returns (scan arguments, GangInputs)."""
+    from kubernetes_tpu_torch.ops.assign_scan import GangInputs
+
+    ms, reqs, nz, alloc, requested, nonzero, rr = scan_inputs(torch, rng, dev, p, n)
+    alloc[:, 0] = torch.from_numpy(rng.integers(1, 4, n).astype(np.float32)).to(dev)
+    requested[:, 0] = 0.0
+    gid, gmin, k = [], [], 0
+    nowhere, gpu = [], []
+
+    def group(size, quorum, n_nowhere=0, heavy=False):
+        nonlocal k
+        k += 1
+        start = len(gid)
+        gid.extend([k] * size)
+        gmin.extend([quorum] * size)
+        nowhere.extend(range(start + size - n_nowhere, start + size))
+        if heavy:
+            gpu.extend(range(start, start + size))
+        return start
+
+    while len(gid) + 40 + 4 <= p:   # a block of 40 rows, and room for the tail
+        group(8, 8)
+        gid.extend([0, 0, 0])
+        gmin.extend([0, 0, 0])
+        group(8, 6, 2)
+        group(8, 8, 1, heavy=True)
+        gid.extend([0, 0])
+        gmin.extend([0, 0])
+        group(8, 6, 3, heavy=True)
+        two = group(3, 3, 1)
+        roomy = int(rng.integers(0, n))
+        ms[two:two + 2] = float("-inf")
+        ms[two:two + 2, roomy] = 100020.0
+        alloc[roomy, :3] = torch.tensor([8.0, 8000.0, 16384.0], device=dev)
+    tail = p - len(gid)   # the last group ends on the last row
+    group(tail, tail, 1, heavy=True)
+    ms[nowhere] = float("-inf")
+    reqs[gpu, 3] = 1.0
+    reqs[gpu[::2], 4] = 1024.0
+
+    def t(a):
+        return torch.tensor(a, dtype=torch.int32, device=dev)
+
+    return ((ms, reqs, nz, alloc, requested, nonzero, rr),
+            GangInputs(gang_id=t(gid), gang_min=t(gmin)))
+
+
+def gang_bound(scan_args, gang, placed_members: int) -> tuple[float, str]:
+    """scan_bound plus the group ids and quorums read once and one undo-log
+    entry (32 bytes; 48 with gpu or storage columns) written per placed
+    group member."""
+    t_bytes, _ = scan_bound(*scan_args[:6])
+    nbytes = (t_bytes * 1e-3 * H100_BYTES_PER_S + 8 * gang.gang_id.numel()
+              + 32 * placed_members)
+    pairs = float((scan_args[0] > float("-inf")).sum())
+    return bound(nbytes, SCAN_OPS_PER_PAIR * pairs)
+
+
+def gang_first_batch(torch, dev):
+    """bench[gang]'s cluster and its first batch as the driver builds it
+    (its groups whole, the gang columns written after encoding) on the
+    flushed state: (caps, nodes, pods, static-mask arguments, the scan
+    arguments, GangInputs)."""
+    from kubernetes_tpu_torch.ops import solver
+    from kubernetes_tpu_torch.ops.assign_scan import GangInputs
+    from kubernetes_tpu_torch.ops.static_mask import node_bits
+    from kubernetes_tpu_torch.ops import predicates
+    from kubernetes_tpu_torch.perf.fixtures import make_nodes, make_pods
+    from kubernetes_tpu_torch.perf.harness import default_caps
+    from kubernetes_tpu_torch.scheduler import Scheduler
+    from kubernetes_tpu_torch.state.convert import batch_from_numpy
+    from kubernetes_tpu_torch.state.pod_batch import encode_pods
+
+    caps = default_caps(GANG_NODES, GANG_PODS)
+    nodes = make_nodes(GANG_NODES, zones=3)
+    pods = make_pods(GANG_PODS, gang_size=GANG_SIZE)
+    sched = Scheduler(caps, device=dev)
+    sched.add_nodes(nodes)
+    chunk, gang_id, gang_min = next(sched._gang_batches(pods))
+    host = encode_pods(chunk, caps, sched.statedb.table)
+    host.gang_id[:len(chunk)] = gang_id
+    host.gang_min[:len(chunk)] = gang_min
+    state = sched.statedb.flush()
+    batch = batch_from_numpy(host, dev)
+    g = solver.check_supported(solver.DEFAULT_POLICY, solver.batch_flags(state, batch))
+    mask_args = (batch.sel_onehot, batch.sel_count,
+                 predicates.untolerated(state, batch), batch.best_effort,
+                 batch.node_name_lo, batch.node_name_hi, state.sel_member,
+                 state.taint_hard_member, node_bits(state), state.name_lo,
+                 state.name_hi)
+    masked = solver.masked_static_scores(state, batch, solver.DEFAULT_POLICY, g)
+    args = (masked, batch.requests, batch.nonzero_requests, state.allocatable,
+            state.requested, state.nonzero_requested, 0, float(g.w_lr),
+            float(g.w_ba))
+    gang = GangInputs(gang_id=batch.gang_id.contiguous(),
+                      gang_min=batch.gang_min.contiguous())
+    return caps, nodes, pods, mask_args, args, gang
+
+
+def gang_phase(torch, dev, kernels) -> tuple[dict, dict]:
+    """bench[gang] through Scheduler(device="cuda"): every group settled,
+    allocatable held, one gang-build launch a batch; the first driver
+    batch's result equal to the masked plain scan on its inputs; kernel 1
+    and the gang build timed on it. Returns (the phase line, the
+    kernels-line entry)."""
+    from kubernetes_tpu_torch.ops import solver
+    from kubernetes_tpu_torch.ops.assign_scan import (
+        assign_scan,
+        assign_scan_gang,
+        assign_scan_gang_plain,
+    )
+    from kubernetes_tpu_torch.ops.static_mask import static_mask, static_mask_plain
+    from kubernetes_tpu_torch.perf.harness import measure, warm
+    from kubernetes_tpu_torch.scheduler import Scheduler, driver
+
+    caps, nodes, pods, mask_args, args, gang = gang_first_batch(torch, dev)
+    mask = static_mask(*mask_args)
+    if not torch.equal(mask, static_mask_plain(*mask_args)):
+        raise AssertionError("gang: static_mask kernel != plain at N=65536")
+    k1_ms = timed(torch, lambda: static_mask(*mask_args), reps=20, key="static_mask_ms")
+    k1_bound, k1_by = static_mask_bound(torch, mask_args)
+    del mask, mask_args
+    warm(caps, solver.DEFAULT_POLICY, dev, pod_kwargs={"gang_size": GANG_SIZE})
+    sched = Scheduler(caps, device=dev)
+    sched.add_nodes(nodes)
+    seen = []
+    solve = record_solves(torch, driver, (0,), seen)
+    for k in kernels:
+        k.launches = 0
+    try:
+        result = measure(sched, pods)
+    finally:
+        driver.schedule_batch = solve
+    launches = {k.__name__: k.launches for k in kernels}
+    groups = GANG_PODS // GANG_SIZE
+    if (result.gang_groups, result.gang_placed + result.gang_reverted) != (groups, groups):
+        raise AssertionError(f"gang: {result.gang_placed} placed + "
+                             f"{result.gang_reverted} reverted of "
+                             f"{result.gang_groups} groups ({groups} expected)")
+    if launches != {"static_mask": result.batches, "assign_scan": 0,
+                    "assign_scan_spread": 0, "assign_scan_interpod": 0,
+                    "assign_scan_gang": result.batches} or result.batches != 6:
+        raise AssertionError(f"gang: launches {launches} over {result.batches} batches")
+    placed = {k: v for k, v in result.placements.items() if v is not None}
+    load = check_load(pods, placed, nodes)
+
+    # the first driver batch: the same inputs as gang_first_batch's
+    (state0, batch0, _rr, _flags), got = seen[0]
+    if not (torch.equal(batch0.gang_id, gang.gang_id)
+            and torch.equal(batch0.gang_min, gang.gang_min)
+            and torch.equal(batch0.requests, args[1])
+            and torch.equal(state0.requested, args[4])):
+        raise AssertionError("gang: the driver's first batch != its fresh encoding")
+    kern = assign_scan_gang(*args, gang)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = assign_scan_gang_plain(*args, gang)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    err = compare_scan(torch, kern, plain)
+    masked_a, masked_s, n_placed, n_reverted = solver.gang_member_mask(
+        gang.gang_id, gang.gang_min, plain.assignments, plain.scores)
+    for name, want in (("assignments", masked_a), ("scores", masked_s),
+                       ("feasible_counts", plain.feasible_counts),
+                       ("new_requested", plain.new_requested),
+                       ("new_nonzero", plain.new_nonzero), ("rr_end", plain.rr_end),
+                       ("gang_placed", n_placed), ("gang_reverted", n_reverted)):
+        if not torch.equal(getattr(got, name), want):
+            raise AssertionError(f"gang: first driver batch != masked plain on {name}")
+    members = int(((gang.gang_id > 0) & (plain.assignments >= 0)).sum())
+    entry = {
+        "name": "assign_scan_gang", "route": "cuda",
+        "source": "kubernetes_tpu_torch/csrc/assign_scan.cu",
+        "replaces": "kubernetes_tpu/ops/solver.py:738",
+        "launches": launches["assign_scan_gang"], "max_abs_err": err,
+        **timed(torch, lambda: assign_scan_gang(*args, gang), reps=5),
+        "plain_ms": plain_ms, "library_ms": None, "shape": list(args[0].shape),
+    }
+    entry["bound_ms"], entry["bound_by"] = gang_bound(args, gang, members)
+    main_ms = timed(torch, lambda: assign_scan(*args), reps=5,
+                    key="main_build_same_batch_ms")
+    encode_ms = 1e3 * sum(sched.encode_seconds)
+    solve_ms = 1e3 * sum(sched.solve_seconds)
+    line = {"phase": "gang", "nodes": GANG_NODES, "pods": GANG_PODS,
+            "group_size": GANG_SIZE, "caps": [caps.num_nodes, caps.batch_pods],
+            **run_fields(result), "encode_ms": encode_ms, "solve_ms": solve_ms,
+            "remainder_ms": 1e3 * result.seconds - encode_ms - solve_ms,
+            "groups": result.gang_groups, "groups_placed": result.gang_placed,
+            "groups_reverted": result.gang_reverted, "nodes_used": len(load),
+            "launches": launches, **k1_ms, "static_mask_bound_ms": k1_bound,
+            "static_mask_bound_by": k1_by, **main_ms,
+            "first_batch_placed_members": members,
+            "first_batch_equals_plain": True}
+    return line, entry
+
+
 def many_class_pod_dicts(n: int) -> list[dict]:
     """n pending pods, each its own equivalence class: make_pods' spec with
     memory requests 250Mi + k KiB (k < n)."""
@@ -919,6 +1186,8 @@ def main() -> int:
     from kubernetes_tpu_torch.ops.assign_scan import (
         RUNS,
         assign_scan,
+        assign_scan_gang,
+        assign_scan_gang_plain,
         assign_scan_interpod,
         assign_scan_interpod_plain,
         assign_scan_plain,
@@ -951,9 +1220,7 @@ def main() -> int:
     per_kernel = build()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_kernel_seconds": per_kernel,
-          "ptxas": {k: [ln.strip() for ln in build_log(k).splitlines()
-                        if "registers" in ln or "spill" in ln]
-                    for k in KERNELS}})
+          "ptxas": {k: ptxas_report(build_log(k)) for k in KERNELS}})
 
     # ---- 2: static_mask at the headline shape ----
     args = static_mask_inputs(torch, rng, dev)
@@ -1007,7 +1274,7 @@ def main() -> int:
     del het, miss, scan_args
 
     # ---- 3b: ragged shapes (tile edges, node padding) on both kernels; the
-    # scan and its spread and interpod builds at an N for each of their
+    # scan and its spread, interpod and gang builds at an N for each of their
     # builds (1, 2, 4 and 8 nodes per thread); the one-pod shape with a
     # poisoned carried anti term, which rejects every node, and the
     # 100-pod shape under four policies of the interpod build
@@ -1034,12 +1301,15 @@ def main() -> int:
         for v in variants:
             compare_interpod(torch, assign_scan_interpod(*sargs, 1.0, 1.0, v),
                              assign_scan_interpod_plain(*sargs, 1.0, 1.0, v))
+        gang = random_gang(torch, rng, dev, p_)
+        compare_scan(torch, assign_scan_gang(*sargs, 1.0, 1.0, gang),
+                     assign_scan_gang_plain(*sargs, 1.0, 1.0, gang))
     runs = sorted({node_run(n_) for _, n_, _ in shapes})
     if runs != list(RUNS):
         raise AssertionError(f"scan builds checked {runs}, built {RUNS}")
     emit({"phase": "edge_shapes", "shapes": [list(x[:2]) for x in shapes],
           "scan_runs": runs, "spread_runs": runs, "interpod_runs": runs,
-          "kernels_equal_plain": True})
+          "gang_runs": runs, "kernels_equal_plain": True})
 
     # ---- 4: the first batch through the cache and the blobs ----
     emit(packed_batch_phase(torch, caps, nodes, pods, dev))
@@ -1115,10 +1385,37 @@ def main() -> int:
     emit({"phase": "interpod_build",
           "shape": [ip_caps.batch_pods, ip_caps.num_nodes], **k4})
 
-    # ---- 10: kernels line, card line, result line ----
+    # ---- 10: bench[gang] ----
+    line, k5 = gang_phase(torch, dev, (static_mask, assign_scan, assign_scan_spread,
+                                       assign_scan_interpod, assign_scan_gang))
+    emit(line)
+    emit({"phase": "gang_build_first_batch", "shape": list(k5.pop("shape")), **k5})
+
+    # ---- 11: the gang build on revert-heavy batches at every RUN ----
+    gb_shapes = ((100, 60), (160, 3000), (160, 12000), (120, 30000), (200, 65536))
+    reverted = []
+    for p_, n_ in gb_shapes:
+        gargs, gang = revert_heavy_inputs(torch, rng, dev, n_, p_)
+        got = assign_scan_gang(*gargs, 1.0, 1.0, gang)
+        want = assign_scan_gang_plain(*gargs, 1.0, 1.0, gang)
+        compare_scan(torch, got, want)
+        _a, _s, n_placed, n_reverted = solver.gang_member_mask(
+            gang.gang_id, gang.gang_min, want.assignments, want.scores)
+        if int(n_reverted) == 0:
+            raise AssertionError(f"gang_build: no group reverted at P={p_} N={n_}")
+        reverted.append([int(n_placed), int(n_reverted)])
+    gb_runs = sorted({node_run(n_) for _, n_ in gb_shapes})
+    if gb_runs != list(RUNS):
+        raise AssertionError(f"gang builds checked {gb_runs}, built {RUNS}")
+    emit({"phase": "gang_build", "shapes": [list(x) for x in gb_shapes],
+          "runs": gb_runs, "groups_placed_reverted": reverted,
+          "kernel_equals_plain": True})
+
+    # ---- 12: kernels line, card line, result line ----
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    emit({"kernels": [{k: entry[k] for k in keys} for entry in (k1, k2, k3, k4)]})
+    emit({"kernels": [{k: entry[k] for k in keys}
+                      for entry in (k1, k2, k3, k4, k5)]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Time `Scheduler.schedule` end to end on the kinds of pending traffic a
 tree carries (two, three with SelectorSpread, four with inter-pod
-affinity), for comparing two trees of the repository on one card.
+affinity, five with gang groups), for comparing two trees of the
+repository on one card.
 
     python3 host_times.py [--root DIR] [--reps K]
 
@@ -21,7 +22,10 @@ from its own sources and its Scheduler places the same pods on the same
 - interpod, where the tree's `make_pods` takes `anti_affinity_every`: the
   reference bench's bench[interpod], 8,192 pods in 8 app groups with
   hostname anti-affinity on every 16th and zone affinity on every 2nd, on
-  its own 5,000 nodes in 3 zones (padded to N=8192, batches of P=1365).
+  its own 5,000 nodes in 3 zones (padded to N=8192, batches of P=1365);
+- gang, where the tree's `make_pods` takes `gang_size`: the reference
+  bench's bench[gang], 24,576 pods in 3,072 all-or-nothing groups of 8, on
+  its own 50,000 nodes in 3 zones (padded to N=65536, batches of P=4096).
 
 Each traffic runs K times (default 2), each on a fresh Scheduler after the
 kernels are built and warmed. The script collects garbage before each
@@ -118,6 +122,11 @@ def main() -> int:
                                make_pods(smoke.INTERPOD_PODS, **smoke.INTERPOD_MIX),
                                ())
         warm(ip_caps, DEFAULT_POLICY, dev, pod_kwargs=smoke.INTERPOD_MIX)
+    if "gang_size" in inspect.signature(make_pods).parameters:
+        gang_caps = default_caps(smoke.GANG_NODES, smoke.GANG_PODS)
+        traffic["gang"] = (gang_caps, make_nodes(smoke.GANG_NODES, zones=3),
+                           make_pods(smoke.GANG_PODS, gang_size=smoke.GANG_SIZE), ())
+        warm(gang_caps, DEFAULT_POLICY, dev, pod_kwargs={"gang_size": smoke.GANG_SIZE})
     out = {"nvidia_smi": smi.splitlines()[0], "root": str(opts.root.resolve())}
     for name, (caps_, nodes_, pods, services) in traffic.items():
         out[name] = []

@@ -10,14 +10,16 @@ from its own sources and fed the same seeded inputs as this tree's. The
 inputs come from chip_smoke.py beside this file (P=4096 pods, N=16384
 nodes): the static mask's operands, the main path's first batch, the
 heterogeneous batch and the all-miss batch of the scan, where the tree
-has the scan's spread build, bench[spread]'s first batch, and where it has
-the interpod build, bench[interpod]'s first batch. Prints one
+has the scan's spread build, bench[spread]'s first batch, where it has
+the interpod build, bench[interpod]'s first batch, and where it has the
+gang build, bench[gang]'s first batch (P=4096, N=65536), on which the
+main build and kernel 1 are timed too. Prints one
 JSON line: the card (nvidia-smi name and power limit), the root, and each
 time as median, min and max of CUDA-event timed calls (20 of the mask,
 5 of each scan batch), in ms (a call's time includes its wrapper's host
 work); each CUDA kernel's device time per launch on the main-path inputs
 (torch.profiler), in us, which splits a call's time into the card's work
-and the host's; and, per build of the scan (main, spread, interpod) and
+and the host's; and, per build of the scan (main, spread, interpod, gang) and
 nodes per thread, its instruction count and two digests of its SASS
 (cuobjdump; exact, and with register numbers normalized), so two trees'
 builds can be compared instruction for instruction (`--sass-out` also
@@ -112,6 +114,15 @@ def main() -> int:
         for key, v in variants:
             out.update(smoke.timed(torch, lambda v=v: interpod_scan(*iargs, v),
                                    REPS, key))
+    if hasattr(scan_module, "assign_scan_gang"):
+        gang_scan = scan_module.assign_scan_gang
+        _c, _n, _p, mask_args, gargs, gang = smoke.gang_first_batch(torch, dev)
+        out.update(smoke.timed(torch, lambda: static_mask(*mask_args), 4 * REPS,
+                               "gang_batch_static_mask_ms"))
+        out.update(smoke.timed(torch, lambda: gang_scan(*gargs, gang), REPS,
+                               "gang_ms"))
+        out.update(smoke.timed(torch, lambda: assign_scan(*gargs), REPS,
+                               "gang_batch_main_ms"))
     cuobjdump = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
     out["scan_sass"] = sass_digests(cuobjdump, library_path("assign_scan"),
                                     opts.sass_out)
@@ -119,15 +130,16 @@ def main() -> int:
     return 0
 
 
-# the scan's builds by their template flags after RUN: (SPREAD[, IPA])
-BUILDS = {"": "main", "0": "main", "00": "main", "1": "spread", "10": "spread",
-          "01": "interpod"}
+# the scan's builds by their template flags after RUN: (SPREAD[, IPA[, GANG]])
+BUILDS = {"": "main", "0": "main", "00": "main", "000": "main", "1": "spread",
+          "10": "spread", "100": "spread", "01": "interpod", "010": "interpod",
+          "001": "gang"}
 
 
 def sass_digests(cuobjdump: str, library: Path, sass_out: Path | None = None) -> dict:
     """{build: {nodes per thread: {instructions, exact, registers_renamed}}}
     of the scan's builds in a built library (the kernel
-    `assign_scan_kernel<RUN[, SPREAD[, IPA]]>`): the instruction count, a
+    `assign_scan_kernel<RUN[, SPREAD[, IPA[, GANG]]]>`): the instruction count, a
     sha1 of the instruction text, and one with the register numbers
     replaced by R and the operand-reuse hints (`.reuse`, which follow the
     register allocation) dropped, so two builds that differ only in

@@ -1,6 +1,7 @@
-"""Typed API objects: the v1 `Node` / `Pod` subset the encoders read, and
-the workload objects SelectorSpread looks pods up in (Service,
-ReplicationController, ReplicaSet, StatefulSet).
+"""Typed API objects: the v1 `Node` / `Pod` subset the encoders read, the
+workload objects SelectorSpread looks pods up in (Service,
+ReplicationController, ReplicaSet, StatefulSet), and the PodGroup whose
+minMember is a gang's quorum.
 
 Parsed from the same Kubernetes-JSON dict shape the reference package
 accepts, so one fixture dict feeds both packages. Only the fields the
@@ -254,3 +255,15 @@ class ReplicaSet(_Workload):
 @dataclass
 class StatefulSet(_Workload):
     pass
+
+
+@dataclass
+class PodGroup(_Workload):
+    """Gang-scheduling group: spec.minMember pods must place together or
+    none do (the reference package's PodGroup; the scheduler reads its
+    quorum only)."""
+
+    @property
+    def min_member(self) -> int:
+        m = self.spec.get("minMember")
+        return 1 if m is None else int(m)

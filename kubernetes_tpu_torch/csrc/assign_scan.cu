@@ -211,6 +211,52 @@
 // counts read once and written once, the per-pod rows and the domain
 // aggregates read once, at 3.35 TB/s; or the count entries' operations
 // at 67 TFLOP/s.
+//
+// The gang build (GANG = true, entry ktpu_assign_scan_gang) adds the
+// all-or-nothing group carry of the JAX step (kubernetes_tpu/ops/
+// solver.py:738-764, 795-798, and the close-out of 825-853). Like the
+// other builds it sits behind `if constexpr (GANG)` with its arguments in
+// one trailing struct, so the main, spread and interpod builds keep their
+// instructions. Each pod row carries its batch-local group id and its
+// group's quorum (two more words of the pod slot). Per pod, before its
+// terms:
+//   1. where the pod's group id differs from the group open so far, the
+//      open group is settled: if fewer of its members were placed than its
+//      quorum, it is reverted (below); then, if the pod opens a group, the
+//      group's placed count restarts at 0, its quorum is read from the pod
+//      row, its undo log is emptied and rr is kept as the group's entry
+//      value. Every block reads the same pod rows and sees the same ntie
+//      of every pod, so every thread of the cluster keeps the group id,
+//      the placed count, the quorum, the entry rr and its block's log
+//      length in registers and decides alike: no exchange is added;
+//   2. when the owner of the chosen node places a member, it first appends
+//      the node's old ledger row (its shared column, requested pods, cpu
+//      and memory, nonzero cpu and memory, and the device-memory gpu and
+//      storage columns it is about to change) to its own block's undo log
+//      in device memory (48 bytes an entry, [CLUSTER, P, 3] float4s; a
+//      group's members fit in one batch, so P entries a block suffice).
+//      An undo log, not a snapshot: at 8 nodes a thread there is no room
+//      for a copy of the ledger in shared memory, and subtracting the
+//      members' requests back in f32 is not exact.
+// A revert is a block barrier (the log's newest entries, written by their
+// owners in the previous pod, become visible) and then every thread walks
+// its block's log from the newest entry to the oldest and restores the
+// entries of its own nodes, so a node that took two members ends with its
+// oldest value, and the ownership rule holds: no barrier after. rr returns
+// to the group's entry value (a reverted member's round-robin bump does
+// not survive, as in `_live_ledger`), and the request-keyed term cache is
+// dropped, since its terms belong to a ledger that no longer exists. The
+// group still open after the last pod is settled the same way before the
+// ledger is written back, so the written ledger and rr_end are final.
+// Assignments and scores are written as the scan makes them; masking the
+// members of a reverted group (solver.py:837-853) is a tensor op after the
+// launch. Reverts are rare (a group that does not fit), so the per-pod
+// cost is a compare of two registers. The 8-node build keeps STAGES = 4.
+//
+// Bound of the gang build: that of the main build, masked_static read once
+// (1.07 GB at P = 4,096, N = 65,536: 0.32 ms at 3.35 TB/s) plus the
+// ledger; bench[gang] (50,000 nodes, 24,576 pods in groups of 8) launches
+// it 6 times, once a 4,096-pod batch.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -281,11 +327,20 @@ constexpr unsigned IP_BYTES = 16;    // one block's (min, max), one st.async.v4
 static_assert(POD_ROW_MAIN + IPW_ROWS + IP_MAX_U <= IP_POD_ROW
               && IP_POD_ROW % 4 == 0 && IP_POD_ROW <= THREADS, "interpod layout");
 
+// ---- the gang build's layout
+constexpr int GW_ID = POD_ROW_MAIN;       // pod-slot word: the group id
+constexpr int GW_MIN = POD_ROW_MAIN + 1;  // and the group's quorum
+constexpr int GANG_POD_ROW = 12;          // floats of a gang pod slot
+constexpr int UNDO_WORDS = 3;             // float4s of an undo-log entry
+static_assert(GW_MIN < GANG_POD_ROW && GANG_POD_ROW % 4 == 0, "gang layout");
+
 // Row-ring slots and pod-slot width of one build.
-template <int RUN, bool SPREAD, bool IPA>
+template <int RUN, bool SPREAD, bool IPA, bool GANG>
 struct Build {
   static constexpr int STAGES = ((SPREAD || IPA) && RUN == 8) ? 3 : STAGES_MAIN;
-  static constexpr int POD_ROW = SPREAD ? SP_POD_ROW : IPA ? IP_POD_ROW : POD_ROW_MAIN;
+  static constexpr int POD_ROW = SPREAD ? SP_POD_ROW
+                                 : IPA ? IP_POD_ROW
+                                 : GANG ? GANG_POD_ROW : POD_ROW_MAIN;
 };
 
 // What the spread build reads beyond the main operands.
@@ -322,6 +377,16 @@ struct IpaArgs {
 struct NoIpa {};
 template <bool IPA>
 using IpaParam = typename std::conditional<IPA, IpaArgs, NoIpa>::type;
+
+// What the gang build reads beyond the main operands.
+struct GangArgs {
+  const int* gang_id;         // [P] batch-local group id, 0 = none
+  const int* gang_min;        // [P] the group's quorum
+  float4* undo;               // [CLUSTER, P, UNDO_WORDS] undo logs, one a block
+};
+struct NoGang {};
+template <bool GANG>
+using GangParam = typename std::conditional<GANG, GangArgs, NoGang>::type;
 
 struct Triple {      // a partial reduction: best score's key, ties at it, feasible
   int key;
@@ -725,7 +790,7 @@ __device__ void ip_build_list(const Smem& s, const IpaArgs& ip, const float* pr,
   if (lane == 0) *s.ip_head = make_int4(n, reject, counting, row_nz);
 }
 
-template <int RUN, bool SPREAD, bool IPA>
+template <int RUN, bool SPREAD, bool IPA, bool GANG>
 __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
     const float* __restrict__ masked_static, const float* __restrict__ requests,
     const float* __restrict__ nonzero_requests,
@@ -733,10 +798,10 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
     float* __restrict__ nonzero, int* __restrict__ assignments,
     float* __restrict__ scores, int* __restrict__ feasible_counts,
     long long* __restrict__ rr_io, int P, int N, float w_lr, float w_ba,
-    SpreadParam<SPREAD> sp, IpaParam<IPA> ip) {
+    SpreadParam<SPREAD> sp, IpaParam<IPA> ip, GangParam<GANG> gg) {
   constexpr int NB = THREADS * RUN;
-  constexpr int STAGES = Build<RUN, SPREAD, IPA>::STAGES;
-  constexpr int POD_ROW = Build<RUN, SPREAD, IPA>::POD_ROW;
+  constexpr int STAGES = Build<RUN, SPREAD, IPA, GANG>::STAGES;
+  constexpr int POD_ROW = Build<RUN, SPREAD, IPA, GANG>::POD_ROW;
   extern __shared__ __align__(16) float smem_base[];
   cg::cluster_group cluster = cg::this_cluster();
   const Smem s = carve<SPREAD, STAGES, POD_ROW, IPA>(smem_base, NB);
@@ -801,6 +866,13 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
                     : t < POD_ROW_MAIN ? nonzero_requests + (size_t)p * 2 + (t - R)
                     : reinterpret_cast<const float*>(
                           ip.pod_ip + (size_t)p * ipw + (t - POD_ROW_MAIN)));
+      } else if constexpr (GANG) {   // + the group id and quorum
+        if (t <= GW_MIN)
+          cp_async4(s.pods + (p % POD_SLOTS) * POD_ROW + t,
+                    t < R ? requests + (size_t)p * R + t
+                    : t < POD_ROW_MAIN ? nonzero_requests + (size_t)p * 2 + (t - R)
+                    : reinterpret_cast<const float*>(
+                          (t == GW_ID ? gg.gang_id : gg.gang_min) + p));
       } else {
         if (t < POD_ROW)
           cp_async4(s.pods + (p % POD_SLOTS) * POD_ROW + t,
@@ -868,6 +940,38 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
   // requests of the pod the cached terms belong to (none yet)
   unsigned key_cpu = 0u, key_mem = 0u, key_nzc = 0u, key_nzm = 0u;
   bool key_zero = false, have_terms = false;
+  // the open group (gang build): its id (0 = none), members placed, quorum,
+  // rr at its first member, and this block's undo-log entries
+  [[maybe_unused]] int gang_cur = 0, gang_placed = 0, gang_min_cur = 0, undo_n = 0;
+  [[maybe_unused]] unsigned int rr_entry = 0u;
+  [[maybe_unused]] float4* undo_b = nullptr;   // this block's undo log
+  if constexpr (GANG) undo_b = gg.undo + (size_t)rank * P * UNDO_WORDS;
+  // Revert the open group: every thread restores its own nodes' entries,
+  // newest first. Called by every thread of the cluster alike.
+  [[maybe_unused]] auto revert = [&]() {
+    __syncthreads();   // the owners' newest entries are visible
+    for (int i = undo_n - 1; i >= 0; --i) {
+      const float4 e0 = undo_b[i * UNDO_WORDS];
+      const int c = __float_as_int(e0.x);
+      if (c < c0 || c >= c0 + RUN) continue;   // another thread's node
+      const float4 e1 = undo_b[i * UNDO_WORDS + 1];
+      s.r_pods[c] = e0.y;
+      s.r_cpu[c] = e0.z;
+      s.r_mem[c] = e0.w;
+      s.z_cpu[c] = e1.x;
+      s.z_mem[c] = e1.y;
+      const int changed = __float_as_int(e1.z);   // bit f - GPU: column f
+      if (changed != 0) {
+        const float4 e2 = undo_b[i * UNDO_WORDS + 2];
+        const size_t row = (size_t)(rank * NB + c) * R;
+        if (changed & 1) requested[row + GPU] = e2.x;
+        if (changed & 2) requested[row + SCRATCH] = e2.y;
+        if (changed & 4) requested[row + OVERLAY] = e2.z;
+      }
+    }
+    rr = rr_entry;
+    have_terms = false;   // the cached terms are of the reverted ledger
+  };
   // barriers initialised and pod 0's row visible in every block before any
   // block sends
   cluster.sync();
@@ -875,6 +979,19 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
   for (int p = 0; p < P; ++p) {
     cp_async_wait<STAGES - 3>();  // this thread's copies of pods p and p+1 landed
     const float* pr = s.pods + (p % POD_SLOTS) * POD_ROW;   // pod p's row
+    if constexpr (GANG) {
+      const int gid = __float_as_int(pr[GW_ID]);
+      if (gid != gang_cur) {   // a group boundary: settle the group left
+        if (gang_cur > 0 && gang_placed < gang_min_cur) revert();
+        if (gid > 0) {         // and open the pod's group
+          gang_placed = 0;
+          gang_min_cur = __float_as_int(pr[GW_MIN]);
+          undo_n = 0;
+          rr_entry = rr;
+        }
+        gang_cur = gid;
+      }
+    }
     float rq[R];
 #pragma unroll
     for (int f = 0; f < R; ++f) rq[f] = pr[f];
@@ -1156,6 +1273,19 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
             const int j = __ffs((int)m) - 1;    // the tie's run position
             const int c = c0 + j;
             const int g = g0 + j;
+            if constexpr (GANG) {
+              if (gang_cur > 0) {   // the node's old row, into the undo log
+                int changed = 0;
+                float4 e2 = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+                if (rq[GPU] != 0.0f) { changed |= 1; e2.x = requested[(size_t)g * R + GPU]; }
+                if (rq[SCRATCH] != 0.0f) { changed |= 2; e2.y = requested[(size_t)g * R + SCRATCH]; }
+                if (rq[OVERLAY] != 0.0f) { changed |= 4; e2.z = requested[(size_t)g * R + OVERLAY]; }
+                float4* e = undo_b + (size_t)undo_n * UNDO_WORDS;
+                e[0] = make_float4(__int_as_float(c), s.r_pods[c], s.r_cpu[c], s.r_mem[c]);
+                e[1] = make_float4(s.z_cpu[c], s.z_mem[c], __int_as_float(changed), 0.0f);
+                if (changed != 0) e[2] = e2;
+              }
+            }
             s.r_pods[c] = __fadd_rn(s.r_pods[c], rq[PODS]);
             s.r_cpu[c] = __fadd_rn(s.r_cpu[c], rq[CPU]);
             s.r_mem[c] = __fadd_rn(s.r_mem[c], rq[MEM]);
@@ -1200,8 +1330,10 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
             }
           }
         }
+        if constexpr (GANG) undo_n += gang_cur > 0;   // the owner's entry, if any
       }
       rr += 1u;
+      if constexpr (GANG) gang_placed += gang_cur > 0;
     } else if (rank == 0 && t == 0) {
       assignments[p] = -1;
       scores[p] = 0.0f;
@@ -1211,6 +1343,8 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
   }
   if constexpr (IPA)
     if (win_pending) mbar_wait(s.bar_win, win_phase);   // the last pod's node
+  if constexpr (GANG)   // the group still open after the last pod
+    if (gang_cur > 0 && gang_placed < gang_min_cur) revert();
 
   // ---- write the run's ledger back
 #pragma unroll
@@ -1246,13 +1380,13 @@ struct Operands {
   float w_ba;
 };
 
-template <int RUN, bool SPREAD, bool IPA>
+template <int RUN, bool SPREAD, bool IPA, bool GANG>
 int launch(const Operands& o, SpreadParam<SPREAD> sp, IpaParam<IPA> ip,
-           cudaStream_t stream) {
-  auto kernel = assign_scan_kernel<RUN, SPREAD, IPA>;
+           GangParam<GANG> gg, cudaStream_t stream) {
+  auto kernel = assign_scan_kernel<RUN, SPREAD, IPA, GANG>;
   const size_t smem = smem_bytes<SPREAD, IPA>(THREADS * RUN,
-                                              Build<RUN, SPREAD, IPA>::STAGES,
-                                              Build<RUN, SPREAD, IPA>::POD_ROW);
+                                              Build<RUN, SPREAD, IPA, GANG>::STAGES,
+                                              Build<RUN, SPREAD, IPA, GANG>::POD_ROW);
   if (smem > (size_t)MAX_SMEM) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -1283,23 +1417,23 @@ int launch(const Operands& o, SpreadParam<SPREAD> sp, IpaParam<IPA> ip,
                            o.nonzero_requests, o.allocatable, o.requested,
                            o.nonzero, o.assignments, o.scores,
                            o.feasible_counts, o.rr_io, o.P, o.N, o.w_lr,
-                           o.w_ba, sp, ip);
+                           o.w_ba, sp, ip, gg);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
 // The build for `run` nodes per thread (1, 2, 4 or 8), with
 // N <= CLUSTER * 512 * run.
-template <bool SPREAD, bool IPA = false>
+template <bool SPREAD, bool IPA = false, bool GANG = false>
 int launch_run(const Operands& o, int run, SpreadParam<SPREAD> sp,
-               cudaStream_t stream, IpaParam<IPA> ip = {}) {
+               cudaStream_t stream, IpaParam<IPA> ip = {}, GangParam<GANG> gg = {}) {
   if (o.P <= 0) return (int)cudaSuccess;
   if (o.N <= 0 || o.N > CLUSTER * THREADS * run) return (int)cudaErrorInvalidValue;
   switch (run) {
-    case 1: return launch<1, SPREAD, IPA>(o, sp, ip, stream);
-    case 2: return launch<2, SPREAD, IPA>(o, sp, ip, stream);
-    case 4: return launch<4, SPREAD, IPA>(o, sp, ip, stream);
-    case 8: return launch<8, SPREAD, IPA>(o, sp, ip, stream);
+    case 1: return launch<1, SPREAD, IPA, GANG>(o, sp, ip, gg, stream);
+    case 2: return launch<2, SPREAD, IPA, GANG>(o, sp, ip, gg, stream);
+    case 4: return launch<4, SPREAD, IPA, GANG>(o, sp, ip, gg, stream);
+    case 8: return launch<8, SPREAD, IPA, GANG>(o, sp, ip, gg, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1371,4 +1505,21 @@ extern "C" int ktpu_assign_scan_interpod(
   const IpaArgs ip{node_t, dom, totals, pod_ip, topology, term_attr, uq, ue, k,
                    nd, use_ipa, w_ip, hard_w};
   return launch_run<false, true>(o, run, NoSpread{}, stream, ip);
+}
+
+// The gang build: the operands of ktpu_assign_scan, and gang_id [P] (the
+// batch-local group id, 0 = none; a group's members are consecutive
+// rows), gang_min [P] (the group's quorum) and undo [16, P, 3] float4s
+// (scratch: each block's undo log of the open group).
+extern "C" int ktpu_assign_scan_gang(
+    const float* masked_static, const float* requests,
+    const float* nonzero_requests, const float* allocatable, float* requested,
+    float* nonzero, int* assignments, float* scores, int* feasible_counts,
+    long long* rr_io, int P, int N, int run, float w_lr, float w_ba,
+    const int* gang_id, const int* gang_min, float* undo, cudaStream_t stream) {
+  const Operands o{masked_static, requests, nonzero_requests, allocatable,
+                   requested, nonzero, assignments, scores, feasible_counts,
+                   rr_io, P, N, w_lr, w_ba};
+  const GangArgs gg{gang_id, gang_min, reinterpret_cast<float4*>(undo)};
+  return launch_run<false, false, true>(o, run, NoSpread{}, stream, NoIpa{}, gg);
 }

@@ -6,7 +6,7 @@ Pallas source: in eager PyTorch each pod would cost about fifteen launches,
 so the whole scan is one CUDA launch of one thread-block cluster
 (csrc/assign_scan.cu; its header gives the design and the bound).
 
-Three builds of the kernel, chosen at compile time:
+Four builds of the kernel, chosen at compile time:
 - `assign_scan`, the main path's scan (resource fit, LeastRequested and
   BalancedAllocation, the round-robin tie-break, the resource ledger);
 - `assign_scan_spread`, the same scan plus SelectorSpread over the
@@ -16,7 +16,15 @@ Three builds of the kernel, chosen at compile time:
   its predicate, its priority normalized over the feasible nodes, and the
   pod-selector, carried-term and domain ledgers it reads (the JAX step's
   `interpod_feasible`, `interpod_counts`, `interpod_score` and
-  `ledger_add` with terms, solver.py:549-551,574-577,783-784).
+  `ledger_add` with terms, solver.py:549-551,574-577,783-784);
+- `assign_scan_gang`, the main scan plus the gang carry (solver.py:738-764,
+  795-798 and the close-out of :825-836): where a pod's group id differs
+  from the previous pod's, the group being left is settled first (below
+  its quorum of placed members, the ledger and the round-robin counter go
+  back to what they were when it opened), and the last open group is
+  settled after the last pod, so the returned ledger and rr_end are final.
+  Assignments and scores come back as the scan made them; the solver masks
+  the members of reverted groups out afterwards (solver.py:837-853).
 
 Each wrapper launches its build on CUDA tensors (and counts the launch in
 `<wrapper>.launches`), runs its plain version, a Python loop of tensor
@@ -123,6 +131,16 @@ class InterpodInputs:
     domain_universe: int
 
 
+@dataclass
+class GangInputs:
+    """What the gang build reads beyond the main scan's operands: each
+    pod's batch-local group id (gang_id i32[P], 0 = none; a group's members
+    are consecutive rows) and its group's quorum (gang_min i32[P])."""
+
+    gang_id: torch.Tensor
+    gang_min: torch.Tensor
+
+
 # the InterpodInputs fields with a row a pod
 POD_ROW_FIELDS = ("pod_matches_q", "pod_carries_e", "paff_q", "paff_tkey",
                   "panti_q", "panti_tkey", "ppref_q", "ppref_tkey", "ppref_w",
@@ -164,10 +182,24 @@ def assign_scan_interpod_plain(masked_static, requests, nonzero_requests,
                        interpod)
 
 
+def assign_scan_gang_plain(masked_static, requests, nonzero_requests,
+                           allocatable, requested, nonzero, rr_start,
+                           w_lr: float, w_ba: float,
+                           gang: GangInputs) -> ScanResult:
+    """`assign_scan_plain` with the gang carry: at each group boundary the
+    group being left is settled (below quorum, the ledger and rr return to
+    their values at the group's first member), and after the last pod the
+    group still open is settled the same way."""
+    return _scan_plain(masked_static, requests, nonzero_requests, allocatable,
+                       requested, nonzero, rr_start, w_lr, w_ba, None,
+                       gang=gang)
+
+
 def _scan_plain(masked_static, requests, nonzero_requests, allocatable,
                 requested, nonzero, rr_start, w_lr, w_ba,
                 spread: SpreadInputs | None,
-                interpod: InterpodInputs | None = None) -> ScanResult:
+                interpod: InterpodInputs | None = None,
+                gang: GangInputs | None = None) -> ScanResult:
     p_count, n = masked_static.shape
     dev = masked_static.device
     req = requested.clone()
@@ -185,7 +217,32 @@ def _scan_plain(masked_static, requests, nonzero_requests, allocatable,
         ledger = make_ledger(ip.podsel_count, ip.term_count, ip.topology,
                              ip.domain_universe)
         onehot = topology_onehot(ip.topology, ip.domain_universe)
+    if gang is not None:
+        # group ids and quorums steer the loop; whether a group reached its
+        # quorum stays on the device (`placed`)
+        gang_ids = gang.gang_id.tolist()
+        gang_mins = gang.gang_min.tolist()
+        gang_cur, quorum = 0, 0
+        placed = torch.zeros((), dtype=torch.int64, device=dev)
+
+        def settle(req, nz, rr):
+            """The ledger and rr after settling the open group."""
+            if gang_cur <= 0:
+                return req, nz, rr
+            revert = placed < quorum
+            return (torch.where(revert, snap[0], req),
+                    torch.where(revert, snap[1], nz),
+                    torch.where(revert, snap[2], rr))
     for p in range(p_count):
+        if gang is not None and gang_ids[p] != gang_cur:
+            # a boundary: settle the group being left, then snapshot the
+            # settled ledger when this pod opens a group
+            req, nz, rr = settle(req, nz, rr)
+            if gang_ids[p] > 0:
+                snap = (req.clone(), nz.clone(), rr.clone())
+                placed = torch.zeros_like(placed)
+                quorum = gang_mins[p]
+            gang_cur = gang_ids[p]
         ms = masked_static[p]
         feasible = (ms > float("-inf")) & fits_resources_dyn(
             allocatable, requests[p:p + 1], req, dyn_gpu=False,
@@ -223,9 +280,13 @@ def _scan_plain(masked_static, requests, nonzero_requests, allocatable,
             ledger_add(ledger, ip.pod_matches_q[p], node, add,
                        ip.pod_carries_e[p], ip.topology)
         rr = (rr + assigned.to(torch.int64)) % RR_MOD
+        if gang is not None and gang_cur > 0:
+            placed = placed + assigned.to(torch.int64)
         assignments[p] = torch.where(assigned, node.to(torch.int32), -1)
         scores[p] = torch.where(assigned, best, 0.0)
         counts[p] = feasible.sum()
+    if gang is not None:
+        req, nz, rr = settle(req, nz, rr)   # the group open at the end
     if spread is None and ip is None:
         return ScanResult(assignments, scores, counts, req, nz, rr)
     return ScanResult(assignments, scores, counts, req, nz, rr,
@@ -479,3 +540,34 @@ def assign_scan_interpod(masked_static, requests, nonzero_requests,
 
 
 assign_scan_interpod.launches = 0
+
+
+_GANG_ARGTYPES = _ARGTYPES[:-1] + [ctypes.c_void_p] * 3 + [ctypes.c_void_p]
+
+
+def assign_scan_gang(masked_static, requests, nonzero_requests, allocatable,
+                     requested, nonzero, rr_start, w_lr: float, w_ba: float,
+                     gang: GangInputs) -> ScanResult:
+    """Phase B with the gang carry (`assign_scan_gang_plain`): the operands
+    of `assign_scan`, and `gang` (GangInputs). On a card the wrapper gives
+    the kernel an undo log of 48 bytes a pod for each block of the cluster,
+    where the owner of a node a group member takes keeps the node's old
+    ledger row until the group settles."""
+    args = (masked_static, requests, nonzero_requests, allocatable,
+            requested, nonzero)
+    dev = _check_operands("assign_scan_gang", *args)
+    p = masked_static.shape[0]
+    for check in (("gang_id", gang.gang_id, torch.int32, (p,)),
+                  ("gang_min", gang.gang_min, torch.int32, (p,))):
+        check_tensor(*check, dev)
+    if dev.type == "cpu":
+        return assign_scan_gang_plain(*args, rr_start, w_lr, w_ba, gang)
+    undo = torch.empty((CLUSTER, p, 3, 4), dtype=torch.float32, device=dev)
+    out = _launch("ktpu_assign_scan_gang", _GANG_ARGTYPES, *args, rr_start,
+                  w_lr, w_ba, (gang.gang_id.data_ptr(), gang.gang_min.data_ptr(),
+                               undo.data_ptr()))
+    assign_scan_gang.launches += 1
+    return ScanResult(*out)
+
+
+assign_scan_gang.launches = 0

@@ -23,11 +23,16 @@ the next. This solver reproduces that decision for decision:
   carried term anywhere) and the policy runs MatchInterPodAffinity or
   weighs InterPodAffinityPriority, the scan's interpod build applies the
   predicate, scores the priority over each pod's feasible nodes and
-  carries the pod-selector, carried-term and domain ledgers.
+  carries the pod-selector, carried-term and domain ledgers. When the
+  batch raises the gang gate (a row with a group id), the scan's gang
+  build settles each all-or-nothing group as the scan leaves it: a group
+  below its quorum of placed members gives back its ledger charges and
+  round-robin bumps. After the scan, every member of such a group is
+  masked out of the result (node -1, score 0).
 
-This package carries the main path, the spread gate and the ipa gate: a
+This package carries the main path and the spread, ipa and gang gates: a
 batch whose content raises any other BatchFlags gate, a batch that needs
-both the spread and the interpod build, a policy that weighs
+two of the spread, interpod and gang builds, a policy that weighs
 ServiceSpreadingPriority on a spread batch, or a policy outside the fused
 static mask or with argument-carrying registrations, raises
 NotImplementedError naming what is missing. It never computes an answer
@@ -51,9 +56,12 @@ from kubernetes_tpu_torch.ops import predicates as preds
 from kubernetes_tpu_torch.ops import priorities as prios
 from kubernetes_tpu_torch.ops.assign_scan import (
     POD_ROW_FIELDS,
+    GangInputs,
     InterpodInputs,
     SpreadInputs,
     assign_scan,
+    assign_scan_gang,
+    assign_scan_gang_plain,
     assign_scan_interpod,
     assign_scan_interpod_plain,
     assign_scan_plain,
@@ -150,15 +158,15 @@ _STATIC_PRIORITIES = ("EqualPriority", "ImageLocalityPriority",
 def check_supported(policy: Policy, flags: BatchFlags) -> PolicyGates:
     """The gates of a (policy, flags) pair this solver implements; raises
     NotImplementedError naming every gate or registration it does not."""
-    # spread and ipa are carried; svcanti is neutral without a
+    # spread, ipa and gang are carried; svcanti is neutral without a
     # ServiceAntiAffinity registration, which the PolicyRows check below
     # refuses
     raised = [f.name for f in fields(BatchFlags) if getattr(flags, f.name)
-              and f.name not in ("spread", "svcanti", "ipa")]
+              and f.name not in ("spread", "svcanti", "ipa", "gang")]
     if raised:
         raise NotImplementedError(
-            f"batch raises solver gates {raised}: only the main path, the "
-            f"spread gate and the ipa gate are implemented")
+            f"batch raises solver gates {raised}: only the main path and "
+            f"the spread, ipa and gang gates are implemented")
     if flags.spread and policy.weight("ServiceSpreadingPriority"):
         raise NotImplementedError(
             "ServiceSpreadingPriority with a weight is not implemented")
@@ -178,10 +186,14 @@ def check_supported(policy: Policy, flags: BatchFlags) -> PolicyGates:
     g = policy_gates(policy, flags)
     if not g.use_resources:
         raise NotImplementedError("policy without PodFitsResources")
-    if g.w_ss and g.use_terms:
+    builds = [gate for gate, needed in (("spread", bool(g.w_ss)),
+                                        ("ipa", g.use_terms),
+                                        ("gang", flags.gang)) if needed]
+    if len(builds) > 1:
         raise NotImplementedError(
-            "batch raises both the 'spread' and the 'ipa' gate: the scan "
-            "builds SelectorSpread and inter-pod affinity apart, not together")
+            f"batch raises the {' and the '.join(map(repr, builds))} gates: "
+            f"the scan builds SelectorSpread, inter-pod affinity and gang "
+            f"groups apart, not together")
     return g
 
 
@@ -200,6 +212,10 @@ class SolverResult:
     # f32[N, UE] carried-term ledger after the batch when the scan carried
     # it (the interpod build), else None
     new_term: torch.Tensor | None = None
+    # i64 scalars: the batch's groups that reached their quorum and those
+    # reverted (the gang build), else None
+    gang_placed: torch.Tensor | None = None
+    gang_reverted: torch.Tensor | None = None
 
 
 def _static_rest(state: ClusterState, batch: PodBatch,
@@ -258,8 +274,28 @@ def interpod_inputs(state: ClusterState, batch: PodBatch, g: PolicyGates,
         domain_universe=domain_universe)
 
 
+def gang_member_mask(gang_id: torch.Tensor, gang_min: torch.Tensor,
+                     assignments: torch.Tensor, scores: torch.Tensor):
+    """Every member of a group below its quorum out of the scan's result
+    (kubernetes_tpu/ops/solver.py:837-853): groups are runs of equal
+    gang_id, found by a boundary cumsum, and a run's placed members are one
+    index_add. Returns (assignments, scores, groups placed, groups
+    reverted), the counts as i64 scalars."""
+    p = gang_id.shape[0]
+    first = torch.ones((p,), dtype=torch.bool, device=gang_id.device)
+    first[1:] = gang_id[1:] != gang_id[:-1]
+    seg = torch.cumsum(first.to(torch.int64), 0) - 1
+    placed = torch.zeros((p,), dtype=torch.int64, device=gang_id.device)
+    placed.index_add_(0, seg, (assignments >= 0).to(torch.int64))
+    failed = (gang_id > 0) & (placed[seg] < gang_min)
+    opened = first & (gang_id > 0)
+    return (torch.where(failed, -1, assignments),
+            torch.where(failed, 0.0, scores),
+            (opened & ~failed).sum(), (opened & failed).sum())
+
+
 def _solve(state, batch, rr_start, policy, flags, caps, mask_fn, scan_fn,
-           spread_fn, interpod_fn):
+           spread_fn, interpod_fn, gang_fn):
     if flags is None:
         flags = batch_flags(state, batch)
     g = check_supported(policy, flags)
@@ -276,14 +312,22 @@ def _solve(state, batch, rr_start, policy, flags, caps, mask_fn, scan_fn,
             pod_matches_q=batch.pod_matches_q.contiguous(),
             podsel_count=state.podsel_count, topology=state.topology,
             domain_universe=(caps or Capacities()).domain_universe))
+    elif flags.gang:
+        scan = gang_fn(*args, GangInputs(gang_id=batch.gang_id.contiguous(),
+                                         gang_min=batch.gang_min.contiguous()))
     else:
         scan = scan_fn(*args)
+    assignments, scores = scan.assignments, scan.scores
+    placed = reverted = None
+    if flags.gang:
+        assignments, scores, placed, reverted = gang_member_mask(
+            batch.gang_id, batch.gang_min, assignments, scores)
     return SolverResult(
-        assignments=scan.assignments, scores=scan.scores,
+        assignments=assignments, scores=scores,
         feasible_counts=scan.feasible_counts,
         new_requested=scan.new_requested, new_nonzero=scan.new_nonzero,
         rr_end=scan.rr_end, new_podsel=scan.new_podsel,
-        new_term=scan.new_term)
+        new_term=scan.new_term, gang_placed=placed, gang_reverted=reverted)
 
 
 def schedule_batch(state: ClusterState, batch: PodBatch, rr_start,
@@ -301,7 +345,8 @@ def schedule_batch(state: ClusterState, batch: PodBatch, rr_start,
     inter-pod affinity aggregates over. Returns per-pod assignments plus
     the post-batch ledgers (assume semantics)."""
     return _solve(state, batch, rr_start, policy, flags, caps, static_mask,
-                  assign_scan, assign_scan_spread, assign_scan_interpod)
+                  assign_scan, assign_scan_spread, assign_scan_interpod,
+                  assign_scan_gang)
 
 
 def schedule_batch_plain(state: ClusterState, batch: PodBatch, rr_start,
@@ -312,4 +357,5 @@ def schedule_batch_plain(state: ClusterState, batch: PodBatch, rr_start,
     the reference a card run holds the kernel path against."""
     return _solve(state, batch, rr_start, policy, flags, caps,
                   static_mask_plain, assign_scan_plain,
-                  assign_scan_spread_plain, assign_scan_interpod_plain)
+                  assign_scan_spread_plain, assign_scan_interpod_plain,
+                  assign_scan_gang_plain)

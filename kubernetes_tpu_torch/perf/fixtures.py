@@ -6,6 +6,7 @@ name, for the options this package's solver carries."""
 from __future__ import annotations
 
 from kubernetes_tpu_torch.api.objects import Node, Pod, Service
+from kubernetes_tpu_torch.gang import GROUP_MIN_ANNOTATION, GROUP_NAME_ANNOTATION
 
 
 def make_nodes(n: int, cpu: str = "4", memory: str = "8Gi", pods: str = "110",
@@ -41,19 +42,27 @@ def make_pods(n: int, cpu: str = "100m", memory: str = "250Mi",
               name_prefix: str = "pod", selector_every: int = 0,
               tolerate: bool = False, namespace: str = "default",
               app_groups: int = 0, anti_affinity_every: int = 0,
-              pref_affinity_every: int = 0) -> list[Pod]:
+              pref_affinity_every: int = 0, gang_size: int = 0,
+              gang_min: int | None = None) -> list[Pod]:
     """Templated pending pods (the basic scheduler_perf pod spec: small cpu
     and memory requests); optional periodic nodeSelector, a toleration of
     the fixtures' NoSchedule taint, and labels app=app-{i % app_groups}
     (the targets of `make_services`). With app groups, every
     `anti_affinity_every`-th pod has required hostname anti-affinity
     against its own group and every `pref_affinity_every`-th a weight-10
-    preferred zone affinity toward it (the inter-pod-heavy shape)."""
+    preferred zone affinity toward it (the inter-pod-heavy shape).
+    `gang_size` groups consecutive pods into all-or-nothing gangs of that
+    size (quorum `gang_min`, default the full size); keep n divisible by
+    gang_size, or the trailing group is below its quorum."""
     out = []
     for i in range(n):
         meta: dict = {"name": f"{name_prefix}-{i}", "namespace": namespace}
         if app_groups:
             meta["labels"] = {"app": f"app-{i % app_groups}"}
+        if gang_size:
+            meta["annotations"] = {
+                GROUP_NAME_ANNOTATION: f"{name_prefix}-gang-{i // gang_size}",
+                GROUP_MIN_ANNOTATION: str(gang_min or gang_size)}
         spec: dict = {"containers": [{
             "name": "app",
             "image": "k8s.gcr.io/pause:3.0",

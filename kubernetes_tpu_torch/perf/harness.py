@@ -13,7 +13,10 @@
   3}, pod_kwargs={"app_groups": 16}, n_services=16)`. Pods with
   pod-affinity terms raise the ipa gate: `bench[interpod]` is
   `run_throughput(5000, 8192, node_kwargs={"zones": 3},
-  pod_kwargs=INTERPOD_PODS)`.
+  pod_kwargs=INTERPOD_PODS)`. Gang-annotated pods raise the gang gate:
+  `bench[gang]` is `run_throughput(50000, 24576, node_kwargs={"zones":
+  3}, pod_kwargs={"gang_size": 8})`, and a run whose groups do not all
+  settle (placed or reverted) fails, as the reference bench's does.
 
 Both build the CUDA kernels and warm the device before the clock starts,
 and run on `cuda` unless given another device.
@@ -27,6 +30,7 @@ from dataclasses import dataclass, field
 
 import torch
 
+from kubernetes_tpu_torch.gang import pod_group_key
 from kubernetes_tpu_torch.models.policy import DEFAULT_POLICY, Policy
 from kubernetes_tpu_torch.ops.solver import schedule_batch
 from kubernetes_tpu_torch.perf.fixtures import make_nodes, make_pods, make_services
@@ -65,8 +69,9 @@ def warm(caps: Capacities, policy: Policy, device: torch.device,
     """Build the kernels and run one batch at these shapes on a throwaway
     one-node cluster (with a Service when `n_services`, so the spread
     build loads too; with one pod of `pod_kwargs`, so a pod-affinity mix
-    loads the interpod build), so library handles and kernel loads are set
-    up before any timed region."""
+    loads the interpod build, or one group of a gang mix, the gang build),
+    so library handles and kernel loads are set up before any timed
+    region."""
     if device.type == "cuda":
         from kubernetes_tpu_torch.native.build import build
 
@@ -78,7 +83,8 @@ def warm(caps: Capacities, policy: Policy, device: torch.device,
     kwargs = dict(pod_kwargs or {})
     if n_services:
         kwargs.setdefault("app_groups", 1)
-    sched.schedule(make_pods(1, name_prefix="warm", **kwargs))
+    sched.schedule(make_pods(kwargs.get("gang_size") or 1, name_prefix="warm",
+                             **kwargs))
     _sync(device)
 
 
@@ -143,6 +149,9 @@ class ThroughputResult:
     cache_hits: int             # EncodeCache hits and misses in the run
     cache_misses: int
     device: str
+    gang_groups: int = 0        # gang groups among the pods
+    gang_placed: int = 0        # of them, placed, and reverted by the solver
+    gang_reverted: int = 0
     placements: dict = field(default_factory=dict, repr=False)
 
     def __str__(self) -> str:
@@ -157,6 +166,7 @@ def measure(sched: Scheduler, pods) -> ThroughputResult:
     gc.collect()
     cache = sched.encode_cache
     hits0, misses0 = cache.hits, cache.misses
+    placed0, reverted0 = sched.gang_placed, sched.gang_reverted
     n_batches = len(sched.solve_seconds)
     t0 = time.perf_counter()
     placements = sched.schedule(pods)
@@ -172,7 +182,10 @@ def measure(sched: Scheduler, pods) -> ThroughputResult:
         ms_per_solve=1e3 * sum(solves) / max(len(solves), 1),
         ms_encode_per_batch=1e3 * sum(encodes) / max(len(encodes), 1),
         cache_hits=cache.hits - hits0, cache_misses=cache.misses - misses0,
-        device=str(sched.device), placements=placements)
+        device=str(sched.device),
+        gang_groups=len({pod_group_key(p) for p in pods} - {None}),
+        gang_placed=sched.gang_placed - placed0,
+        gang_reverted=sched.gang_reverted - reverted0, placements=placements)
 
 
 def run_throughput(n_nodes: int, n_pods: int, caps: Capacities | None = None,
@@ -190,4 +203,9 @@ def run_throughput(n_nodes: int, n_pods: int, caps: Capacities | None = None,
     sched.add_nodes(make_nodes(n_nodes, **(node_kwargs or {})))
     for svc in make_services(n_services):
         sched.add_service(svc)
-    return measure(sched, make_pods(n_pods, **(pod_kwargs or {})))
+    result = measure(sched, make_pods(n_pods, **(pod_kwargs or {})))
+    settled = result.gang_placed + result.gang_reverted
+    if settled != result.gang_groups:
+        raise RuntimeError(f"gang run: only {settled}/{result.gang_groups} "
+                           f"groups settled")
+    return result

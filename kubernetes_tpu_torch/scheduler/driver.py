@@ -23,6 +23,23 @@ the new match columns (a carried term interned on the way changes no
 earlier row: a pod's carried-term row holds its own terms only). Bound
 pods with pod-affinity terms are accounted through `add_pod` like any
 other.
+
+Gang members (pods with the group-name annotation) are batched by group,
+as the reference driver admits them (kubernetes_tpu/scheduler/driver.py
+`_admit_gang`): a group's quorum is its PodGroup's minMember
+(`add_pod_group`), else the largest group-min annotation on a member,
+else 1. A group of at least its quorum enters one batch whole, its members
+sorted by key, where its quorum-th member stands in the given order (where
+the reference's queue receives the group); if it does not fit the batch
+being filled, that batch is closed and the group opens the next one. Each
+group gets a batch-local id, written into the blobs after encoding, and
+the solver settles it all or nothing: every member of a reverted group
+comes back None and nothing of it is committed. A group larger than a
+batch, or below its quorum, is released: its members are scheduled
+individually where they stand (the reference's treatment after its
+quorum timeout; a call is given all the pods there are, so a group below
+quorum counts one timeout). `gang_placed`, `gang_reverted` and
+`gang_timeouts` count groups.
 Watching an apiserver and binding are host-plane work for a later slice of
 the port.
 """
@@ -33,14 +50,21 @@ import time
 from typing import Sequence
 
 import numpy as np
+import torch
 
 from kubernetes_tpu_torch.api.objects import (
     Node,
     Pod,
+    PodGroup,
     ReplicaSet,
     ReplicationController,
     Service,
     StatefulSet,
+)
+from kubernetes_tpu_torch.gang import (
+    GROUP_NAME_ANNOTATION,
+    annotation_min,
+    pod_group_key,
 )
 from kubernetes_tpu_torch.models.policy import DEFAULT_POLICY, Policy
 from kubernetes_tpu_torch.ops.solver import schedule_batch
@@ -53,6 +77,7 @@ from kubernetes_tpu_torch.state.pod_batch import (
     packed_batch_flags,
     padding_row,
     unpack_batch,
+    write_gang_columns,
 )
 from kubernetes_tpu_torch.state.statedb import StateDB
 
@@ -88,6 +113,12 @@ class Scheduler:
         self._host_blobs = (self._blobs[0].numpy(), self._blobs[1].numpy())
         self.rr = 0  # round-robin counter: an int, then the device's i64 scalar
         self.last_result = None  # SolverResult of the latest batch
+        self.pod_groups: dict[str, int] = {}   # group key -> minMember
+        # groups placed (at least their quorum), reverted by the solver, and
+        # released below their quorum
+        self.gang_placed = 0
+        self.gang_reverted = 0
+        self.gang_timeouts = 0
         # per batch: host seconds to encode + upload, and to solve through
         # to the assignments on the host
         self.encode_seconds: list[float] = []
@@ -122,6 +153,14 @@ class Scheduler:
     def remove_controller(self, controller) -> None:
         self._put_workload(controller, False)
 
+    def add_pod_group(self, group: PodGroup) -> None:
+        """Add (or replace) a PodGroup: its minMember is the quorum of the
+        pods annotated with its name in its namespace."""
+        self.pod_groups[group.key] = max(1, group.min_member)
+
+    def remove_pod_group(self, group: PodGroup) -> None:
+        self.pod_groups.pop(group.key, None)
+
     def _put_workload(self, obj, present: bool) -> None:
         if type(obj) not in _WORKLOAD_KINDS:
             raise TypeError(f"not a Service or controller: {type(obj).__name__}")
@@ -134,15 +173,72 @@ class Scheduler:
         self.encode_cache.generation += 1
 
     def schedule(self, pods: Sequence[Pod]) -> dict[str, str | None]:
-        """Place `pods` in order. Returns {pod key: node name, or None when
-        no node fits}."""
+        """Place `pods` in order, gang groups whole. Returns {pod key: node
+        name, or None when no node fits or the pod's group was reverted}."""
         out: dict[str, str | None] = {}
         step = self.caps.batch_pods
-        for start in range(0, len(pods), step):
-            out.update(self._schedule_chunk(pods[start:start + step]))
+        if any(GROUP_NAME_ANNOTATION in pod.metadata.annotations for pod in pods):
+            batches = self._gang_batches(pods)
+        else:   # no group: fixed slices, without a pass over each pod
+            batches = ((pods[start:start + step], None, None)
+                       for start in range(0, len(pods), step))
+        for chunk, gang_id, gang_min in batches:
+            out.update(self._schedule_chunk(chunk, gang_id, gang_min))
         return out
 
-    def _schedule_chunk(self, pods: Sequence[Pod]) -> dict[str, str | None]:
+    def _gang_quorum(self, gkey: str, members: Sequence[Pod]) -> int:
+        """The PodGroup's minMember, else the largest group-min annotation
+        on a member, else 1."""
+        if gkey in self.pod_groups:
+            return self.pod_groups[gkey]
+        hints = [m for m in map(annotation_min, members) if m is not None]
+        return max([1, *hints])
+
+    def _gang_batches(self, pods: Sequence[Pod]):
+        """(pods, gang_id, gang_min) of each batch: groups whole at their
+        quorum-th member, released groups' members where they stand."""
+        step = self.caps.batch_pods
+        groups: dict[str, list[Pod]] = {}
+        for pod in pods:
+            gkey = pod_group_key(pod)
+            if gkey is not None:
+                groups.setdefault(gkey, []).append(pod)
+        # group key -> (quorum, members sorted by key) for the groups
+        # admitted whole
+        admitted = {}
+        for gkey, members in groups.items():
+            quorum = self._gang_quorum(gkey, members)
+            if len(members) < quorum:
+                self.gang_timeouts += 1
+            elif len(members) <= step:
+                admitted[gkey] = (quorum, sorted(members, key=lambda m: m.key))
+        chunk: list[Pod] = []
+        gang_id: list[int] = []
+        gang_min: list[int] = []
+        n_groups = 0   # groups in the chunk: the next one's id is n_groups + 1
+        seen: dict[str, int] = {}
+        for pod in pods:
+            gkey = pod_group_key(pod)
+            if gkey not in admitted:
+                unit, quorum = [pod], 0
+            else:
+                seen[gkey] = seen.get(gkey, 0) + 1
+                quorum, unit = admitted[gkey]
+                if seen[gkey] != quorum:
+                    continue   # the group enters at its quorum-th member
+            if len(chunk) + len(unit) > step:
+                yield chunk, gang_id, gang_min
+                chunk, gang_id, gang_min, n_groups = [], [], [], 0
+            n_groups += bool(quorum)
+            seq = n_groups if quorum else 0
+            chunk.extend(unit)
+            gang_id.extend([seq] * len(unit))
+            gang_min.extend([quorum] * len(unit))
+        if chunk:
+            yield chunk, gang_id, gang_min
+
+    def _schedule_chunk(self, pods: Sequence[Pod], gang_id=None,
+                        gang_min=None) -> dict[str, str | None]:
         t0 = time.perf_counter()
         fblob, iblob = self._host_blobs
         n = len(pods)
@@ -163,6 +259,9 @@ class Scheduler:
             # a reused blob's tail must read as padding, not as the
             # previous batch's pods (zeros would be live ids: -1 = unused)
             fblob[n:], iblob[n:] = padding_row(self.caps)
+        if gang_id is not None:
+            # after every encode: a class row carries no batch-local group
+            write_gang_columns(fblob, iblob, gang_id, gang_min, self.caps)
         flags = packed_batch_flags(fblob, iblob, n, self.statedb.table, self.caps)
         state = self.statedb.flush()
         batch = unpack_batch(*upload_blobs(*self._blobs, self.device), self.caps)
@@ -179,6 +278,11 @@ class Scheduler:
             map(pods.__getitem__, hit), map(placed.__getitem__, hit), hit))
         self.rr = result.rr_end
         self.last_result = result
+        if result.gang_placed is not None:
+            placed_groups, reverted_groups = torch.stack(
+                (result.gang_placed, result.gang_reverted)).tolist()
+            self.gang_placed += placed_groups
+            self.gang_reverted += reverted_groups
         self.encode_seconds.append(t1 - t0)
         self.solve_seconds.append(t2 - t1)
         return dict(zip((pod.key for pod in pods), placed))

@@ -11,10 +11,13 @@ The fingerprint covers exactly what this package's encoder and its refusal
 check (`unsupported_feature`) read: container requests, limits presence
 (QoS) and host ports, nodeSelector, tolerations, nodeName, priority, the
 namespace and labels (the spreading entries and the pod-selector match
-row), the raw affinity and volumes, the gang annotation and the controller
-reference. A pod the encoder refuses therefore never shares a class with
-a supported one, and every miss goes through the encoder, which raises for
-it. Images are read by nothing here and stay out. Rows are stamped with
+row), the raw affinity and volumes, and the controller reference. A pod
+the encoder refuses therefore never shares a class with a supported one,
+and every miss goes through the encoder, which raises for it. Images and
+the gang annotations are read by nothing here and stay out: a gang
+member's row carries no group (the driver writes the batch-local gang
+columns after encoding), so it shares its class with a plain pod of the
+same spec. Rows are stamped with
 `NodeTable.pod_row_epoch` (a new pod-selector entry or avoid signature:
 the match row of a class encoded before it lacks its column) and the
 cache's `generation`, which the driver bumps on every Service or
@@ -39,11 +42,7 @@ from kubernetes_tpu_torch.api.objects import Pod
 from kubernetes_tpu_torch.state.cluster_state import NodeTable, pod_controller_ref
 from kubernetes_tpu_torch.state.context import EMPTY_CONTEXT, EncodeContext
 from kubernetes_tpu_torch.state.layout import Capacities
-from kubernetes_tpu_torch.state.pod_batch import (
-    GROUP_NAME_ANNOTATION,
-    PackedRow,
-    encode_pod_into,
-)
+from kubernetes_tpu_torch.state.pod_batch import PackedRow, encode_pod_into
 
 # classes kept; the least recently used is evicted first
 MAX_ENTRIES = 4096
@@ -69,7 +68,6 @@ def pod_fingerprint(pod: Pod) -> tuple:
         spec.priority,
         pod.metadata.namespace,
         tuple(sorted(pod.metadata.labels.items())),
-        GROUP_NAME_ANNOTATION in pod.metadata.annotations,
         pod_controller_ref(pod),
         json.dumps(spec.affinity, sort_keys=True) if spec.affinity else "",
         json.dumps(spec.volumes, sort_keys=True) if spec.volumes else "",

@@ -7,10 +7,10 @@ membership matrices, so encoding a pod can grow a universe: the state's
 membership columns must be refilled (StateDB.flush) before the batch is
 solved.
 
-This package's solver covers the scheduler's main path, SelectorSpread and
-inter-pod (anti-)affinity. The encoder rejects, with NotImplementedError,
-pods whose features would change the result outside it (volumes, host
-ports, gang membership, priority). Features the solver gates per batch
+This package's solver covers the scheduler's main path, SelectorSpread,
+inter-pod (anti-)affinity and gang groups. The encoder rejects, with
+NotImplementedError, pods whose features would change the result outside
+it (volumes, host ports, priority). Features the solver gates per batch
 (gpu and storage requests, preferred node affinity) are encoded, and the
 solver raises on them. The spreading columns (spread_q, spread_svc_q,
 svcanti_q, svcanti_total) are read from the pod's namespace and labels and
@@ -29,7 +29,10 @@ the integer fields, the uint32 hash lanes bitcast and the bools as 0/1, in
 the reference package's column layout. `unpack_batch` slices them back into
 a PodBatch on the device, and `packed_batch_flags` reads the batch gates
 from the host blobs. `PackedRow` lets the encoder write one packed row in
-place (the encode cache's miss path).
+place (the encode cache's miss path). The encoder leaves the gang columns
+(gang_id, gang_min) zero, as the reference encoder does: a group id is
+local to one batch, so the driver writes them into the blobs after
+encoding (`write_gang_columns`).
 """
 
 from __future__ import annotations
@@ -63,10 +66,6 @@ from kubernetes_tpu_torch.state.layout import (
     TolOp,
 )
 from kubernetes_tpu_torch.utils.hashing import hash32, hash_lanes
-
-# gang membership annotation (the reference package's gang scheduling)
-GROUP_NAME_ANNOTATION = "scheduling.ktpu.io/group-name"
-
 
 @dataclass
 class PodBatch:
@@ -199,8 +198,6 @@ def unsupported_feature(pod: Pod) -> str | None:
         return "volumes"
     if pod.host_ports():
         return "host ports"
-    if GROUP_NAME_ANNOTATION in pod.metadata.annotations:
-        return "gang membership"
     if pod.spec.priority:
         return "pod priority"
     return None
@@ -636,6 +633,16 @@ def packed_batch_flags(fblob: np.ndarray, iblob: np.ndarray, n: int,
                      or req[:, Resource.OVERLAY].any()),
         gang=bool((col("gang_id") > 0).any()),
         preempt=any_("priority"))
+
+
+def write_gang_columns(fblob: np.ndarray, iblob: np.ndarray, gang_id,
+                       gang_min, caps: Capacities) -> None:
+    """Write the gang columns of the first len(gang_id) rows of host blobs
+    (after encoding, which leaves them zero): each row's batch-local group
+    id (0 = none) and its group's quorum."""
+    n = len(gang_id)
+    blob_col(fblob, iblob, "gang_id", caps, n)[:] = gang_id
+    blob_col(fblob, iblob, "gang_min", caps, n)[:] = gang_min
 
 
 # the batch fields the CUDA kernels take as operands (ops.static_mask,

@@ -393,8 +393,10 @@ def test_fingerprint_separates_every_field_the_encoder_reads(field):
 
 @pytest.mark.parametrize("meta, read", [
     ({"ns": "other"}, True), ({"labels": {"app": "web"}}, True),
-    ({"annotations": {"note": "x"}}, False), ({"name": "another"}, False)],
-    ids=["namespace", "labels", "annotations", "name"])
+    ({"annotations": {"note": "x"}}, False), ({"name": "another"}, False),
+    ({"annotations": {"scheduling.ktpu.io/group-name": "g",
+                      "scheduling.ktpu.io/group-min": "2"}}, False)],
+    ids=["namespace", "labels", "annotations", "name", "gang_annotations"])
 def test_fingerprint_ignores_what_the_encoder_never_reads(meta, read):
     """Annotations, names and images share a class. Namespace and labels
     are read by the spreading encoder, so they separate classes; both rows
@@ -418,8 +420,6 @@ def test_fingerprint_ignores_what_the_encoder_never_reads(meta, read):
 
 
 @pytest.mark.parametrize("feature, meta, spec", [
-    ("gang membership", {"annotations": {
-        "scheduling.ktpu.io/group-name": "g"}}, {}),
     ("pod priority", {}, {"priority": 10}),
     ("host ports", {}, {"containers": [{"name": "c", "image": "pause",
                                         "ports": [{"containerPort": 80, "hostPort": 80}],

@@ -157,7 +157,8 @@ def test_scheduler_chains_batches_like_the_reference(seed, monkeypatch):
 
 
 @pytest.mark.parametrize("gate", ["tt", "gpu", "storage", "na", "ports",
-                                  "spread+ipa", "vol", "gang", "preempt"])
+                                  "spread+ipa", "vol", "gang+spread",
+                                  "gang+ipa", "preempt"])
 def test_gates_outside_the_main_path_raise(gate):
     rng = np.random.RandomState(5)
     nodes, pods = random_cluster(rng, 24, BATCH, gated=gate in ("tt", "gpu",
@@ -170,8 +171,12 @@ def test_gates_outside_the_main_path_raise(gate):
         batch.paff_q[1, 0] = 0
     elif gate == "vol":
         batch.vol_want_rw[0, 0] = 1.0
-    elif gate == "gang":
-        batch.gang_id[0] = 1
+    elif gate.startswith("gang"):   # the gang build apart from the others
+        batch.gang_id[:2], batch.gang_min[:2] = 1, 2
+        if gate == "gang+spread":
+            batch.spread_q[0] = 0
+        else:
+            batch.paff_q[1, 0] = 0
     elif gate == "preempt":
         batch.priority[0] = 5
     with pytest.raises(NotImplementedError) as info:

@@ -249,8 +249,6 @@ def test_statedb_flush_copies_only_dirty_rows():
         "pdName": "disk-0"}}]}, {}),
     ("host ports", {"containers": [{"name": "c", "ports": [
         {"containerPort": 80, "hostPort": 8080}]}]}, {}),
-    ("gang membership", {}, {"annotations": {
-        "scheduling.ktpu.io/group-name": "g", "scheduling.ktpu.io/group-min": "2"}}),
     ("pod priority", {"priority": 100}, {}),
 ])
 def test_encoder_rejects_pods_outside_the_main_path(feature, spec, meta):
