@@ -23,10 +23,14 @@ fails; nothing is caught and skipped:
    ragged shapes (tile edges, node padding), which reach every build of
    the scan (N up to 65,536), the spread build on seeded selector counts
    and zones with its edge cases (a pod with no feasible node, nodes
-   without a zone, a zero maximum count, zoned counts all zero), and the
-   interpod build on seeded ledgers, topology and terms (at one shape
-   also without the predicate, without the priority, and with other
-   weights);
+   without a zone or with an id past the universe, a zero maximum count,
+   zoned counts all zero), and the interpod build on seeded ledgers,
+   topology and terms (at one shape also without the predicate, without
+   the priority, and with other weights); then the spread build's
+   hazards at every build (spread_hazards): consecutive pods of one
+   selector landing on one thread's nodes with counts up to 110, runs of
+   pods without an entry between spread pods, and 0, 1, 3 and 64 zones
+   in use;
 4. packed_batch: the main path's first batch encoded through the
    EncodeCache into page-locked blobs, uploaded and unpacked on the card,
    must equal the fresh encoding (encode_pods, batch_from_numpy) field for
@@ -296,16 +300,22 @@ def compare_spread(torch, got, want) -> float:
     return max(err, max_abs_err(torch, [(got.new_podsel, want.new_podsel)]))
 
 
-def spread_inputs(torch, rng, dev, n, p, uq=32, zones=3):
+def spread_inputs(torch, rng, dev, n, p, uq=32, zones=3, no_entry=None,
+                  beyond=0.05, universe=64):
     """Seeded SpreadInputs for p pods on n nodes: selector counts, zones
-    (a fifth of the nodes without one), each pod's entry (-1 for some) and
-    match row. Column 0 is zero everywhere (a zero maximum count) and
-    column 1 counts only on nodes without a zone (zoned counts all zero)."""
+    (ids below `zones`, the zones in use; a fifth of the nodes without one
+    and a share `beyond` with an id past the universe), each pod's entry
+    (-1 for some; with `no_entry`, that share of short runs of pods is
+    -1 between runs of entries) and match row. Column 0 is zero everywhere
+    (a zero maximum count) and column 1 counts only on nodes without a
+    zone (zoned counts all zero)."""
     from kubernetes_tpu_torch.ops.assign_scan import SpreadInputs
     from kubernetes_tpu_torch.state.layout import TOPO_SPREAD_ZONE
 
-    zone = rng.integers(0, zones, n)
+    zone = rng.integers(0, zones, n) if zones else np.full(n, -1)
     zone[rng.random(n) < 0.2] = -1
+    past = rng.random(n) < beyond
+    zone[past] = rng.integers(universe, universe + 8, int(past.sum()))
     topo = np.full((n, 8), -1, np.int32)
     topo[:, TOPO_SPREAD_ZONE] = zone
     podsel = rng.integers(0, 6, (n, uq)).astype(np.float32)
@@ -313,6 +323,9 @@ def spread_inputs(torch, rng, dev, n, p, uq=32, zones=3):
     podsel[:, 0] = 0.0
     podsel[zone >= 0, 1] = 0.0
     q = rng.integers(-1, uq, p).astype(np.int32)
+    if no_entry is not None:   # runs of 1-3 pods, some without an entry
+        runs = np.cumsum(rng.random(p) < 0.5)
+        q[(rng.random(runs[-1] + 1) < no_entry)[runs]] = -1
     match = (rng.random((p, uq)) < 0.1).astype(np.float32)
     match[q >= 0, q[q >= 0]] = 1.0
 
@@ -321,7 +334,53 @@ def spread_inputs(torch, rng, dev, n, p, uq=32, zones=3):
 
     return SpreadInputs(w_ss=1.0, spread_q=t(q), pod_matches_q=t(match),
                         podsel_count=t(podsel), topology=t(topo),
-                        domain_universe=64)
+                        domain_universe=universe, zones=zones)
+
+
+def spread_hot_inputs(torch, rng, dev, n, p, uq=8):
+    """A spread batch whose pods of one selector land on one thread's nodes
+    pod after pod: only one thread's run of nodes (the scan gives a
+    thread node_run(n) consecutive nodes) and two other nodes are
+    feasible, the counts are heavy (up to 110 a node), and the pods take
+    one entry in long runs (now and then another entry, or none), so a
+    pod's count column is loaded before the pod ahead of it lands on the
+    same thread. Returns (the scan's arguments, SpreadInputs)."""
+    from kubernetes_tpu_torch.ops.assign_scan import SpreadInputs, node_run
+    from kubernetes_tpu_torch.state.layout import TOPO_SPREAD_ZONE
+
+    run = node_run(n)
+    first = run * int(rng.integers(0, n // run))
+    feasible = np.r_[np.arange(first, first + run), rng.choice(n, 2)]
+    ms = np.full((p, n), -np.inf, np.float32)
+    ms[:, feasible] = np.where(rng.random((p, feasible.size)) < 0.1, 20.0, 100020.0)
+    alloc = np.zeros((n, 6), np.float32)
+    alloc[:, 0], alloc[:, 1], alloc[:, 2] = 400, 64000, 262144
+    requested = np.zeros((n, 6), np.float32)
+    requested[:, 0] = rng.integers(0, 100, n)
+    nonzero = np.full((n, 2), 100.0, np.float32)
+    reqs = np.zeros((p, 6), np.float32)
+    reqs[:, 0], reqs[:, 1], reqs[:, 2] = 1, 100, 128
+    nz_reqs = np.tile(np.float32([100, 128]), (p, 1))
+    zone = rng.integers(0, 3, n)
+    zone[rng.random(n) < 0.2] = -1
+    topo = np.full((n, 8), -1, np.int32)
+    topo[:, TOPO_SPREAD_ZONE] = zone
+    podsel = rng.integers(0, 111, (n, uq)).astype(np.float32)
+    base = int(rng.integers(0, uq))
+    other = rng.integers(0, uq, p)
+    switch = np.cumsum(rng.random(p) < 0.15) % 3   # runs: base, another, base
+    q = np.where(switch == 1, other, base).astype(np.int32)
+    q[rng.random(p) < 0.1] = -1
+    match = (rng.random((p, uq)) < 0.3).astype(np.float32)
+    match[q >= 0, q[q >= 0]] = 1.0
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    args = (t(ms), t(reqs), t(nz_reqs), t(alloc), t(requested), t(nonzero), 2**32 - 5)
+    return args, SpreadInputs(w_ss=1.0, spread_q=t(q), pod_matches_q=t(match),
+                              podsel_count=t(podsel), topology=t(topo),
+                              domain_universe=64, zones=3)
 
 
 def spread_bound(scan_args, spread) -> tuple[float, str]:
@@ -340,9 +399,11 @@ def spread_bound(scan_args, spread) -> tuple[float, str]:
     return bound(nbytes, SCAN_OPS_PER_PAIR * pairs + SPREAD_OPS_PER_PAIR * spread_pairs)
 
 
-def spread_scan_args(torch, state, batch, caps, flags):
+def spread_scan_args(torch, state, batch, caps, flags, zones=None):
     """The spread build's arguments for one solved batch: Phase A's masked
-    scores and the scan operands, and its SpreadInputs."""
+    scores and the scan operands, and its SpreadInputs (with `zones`, the
+    zone ids in use, where given; a tree from before the field takes
+    none)."""
     from kubernetes_tpu_torch.ops import solver
     from kubernetes_tpu_torch.ops.assign_scan import SpreadInputs
 
@@ -355,13 +416,14 @@ def spread_scan_args(torch, state, batch, caps, flags):
         w_ss=float(g.w_ss), spread_q=batch.spread_q.contiguous(),
         pod_matches_q=batch.pod_matches_q.contiguous(),
         podsel_count=state.podsel_count, topology=state.topology,
-        domain_universe=caps.domain_universe)
+        domain_universe=caps.domain_universe,
+        **({} if zones is None else {"zones": zones}))
 
 
 def spread_first_batch(torch, dev):
     """bench[spread]'s cluster and the flushed state and batch of its first
     batch, encoded through a Scheduler: (caps, nodes, pods, services,
-    state, batch, flags)."""
+    state, batch, flags, the spread zones interned)."""
     from kubernetes_tpu_torch.ops import solver
     from kubernetes_tpu_torch.perf.fixtures import make_nodes, make_pods, make_services
     from kubernetes_tpu_torch.perf.harness import default_caps
@@ -371,6 +433,8 @@ def spread_first_batch(torch, dev):
 
     caps = default_caps(HEADLINE_NODES, HEADLINE_PODS)
     nodes = make_nodes(HEADLINE_NODES, zones=3)
+    from kubernetes_tpu_torch.state.layout import TOPO_SPREAD_ZONE
+
     pods = make_pods(HEADLINE_PODS, app_groups=SPREAD_GROUPS)
     services = make_services(SPREAD_GROUPS)
     ref = Scheduler(caps, device=dev)
@@ -381,7 +445,8 @@ def spread_first_batch(torch, dev):
                        ctx=ref.encode_cache.ctx)
     state = ref.statedb.flush()
     batch = batch_from_numpy(host, dev)
-    return caps, nodes, pods, services, state, batch, solver.batch_flags(state, batch)
+    return (caps, nodes, pods, services, state, batch, solver.batch_flags(state, batch),
+            len(ref.statedb.table.domains[TOPO_SPREAD_ZONE]))
 
 
 def record_solves(torch, driver, checked, seen):
@@ -391,7 +456,7 @@ def record_solves(torch, driver, checked, seen):
     indices in `checked`. Returns the original function."""
     solve = driver.schedule_batch
 
-    def recording(state, batch, rr, policy, flags, caps_):
+    def recording(state, batch, rr, policy, flags, caps_, **kw):
         k = len(seen)
         keep = None
         if k in checked:
@@ -399,7 +464,7 @@ def record_solves(torch, driver, checked, seen):
                 f.name: getattr(state, f.name).clone()
                 for f in dataclasses.fields(state)}), batch,
                 rr.clone() if isinstance(rr, torch.Tensor) else rr, flags)
-        result = solve(state, batch, rr, policy, flags, caps_)
+        result = solve(state, batch, rr, policy, flags, caps_, **kw)
         seen.append((keep, result))
         return result
 
@@ -420,7 +485,7 @@ def spread_phase(torch, caps, dev, kernels) -> tuple[dict, dict]:
     from kubernetes_tpu_torch.perf.harness import measure, warm
     from kubernetes_tpu_torch.scheduler import Scheduler, driver
 
-    _caps, nodes, pods, services, state0, first, flags0 = spread_first_batch(torch, dev)
+    _caps, nodes, pods, services, state0, first, flags0, zones = spread_first_batch(torch, dev)
     warm(caps, solver.DEFAULT_POLICY, dev, n_services=SPREAD_GROUPS)
     sched = Scheduler(caps, device=dev)
     sched.add_nodes(nodes)
@@ -468,7 +533,7 @@ def spread_phase(torch, caps, dev, kernels) -> tuple[dict, dict]:
         per_group.setdefault(app, []).append(c)
     imbalance = max(max(v) - min(v) for v in per_group.values())
 
-    args, spread = spread_scan_args(torch, state0, first, caps, flags0)
+    args, spread = spread_scan_args(torch, state0, first, caps, flags0, zones)
     err = compare_spread(torch, assign_scan_spread(*args, spread),
                          assign_scan_spread_plain(*args, spread))
     entry = {
@@ -1310,6 +1375,28 @@ def main() -> int:
     emit({"phase": "edge_shapes", "shapes": [list(x[:2]) for x in shapes],
           "scan_runs": runs, "spread_runs": runs, "interpod_runs": runs,
           "gang_runs": runs, "kernels_equal_plain": True})
+
+    # ---- 3c: the spread build's hazards at every RUN: pods of one
+    # selector landing on one thread's nodes pod after pod (the count
+    # column loaded a pod ahead), pods without an entry between spread
+    # pods (the partials' mbarrier parity), and 0, 1, 3 and 64 zones in
+    # use with nodes without a zone and ids past the universe
+    hz_shapes = ((120, 60), (120, 12000), (120, 30000), (160, 65536))
+    for p_, n_ in hz_shapes:
+        cases = [spread_hot_inputs(torch, rng, dev, n_, p_)]
+        sargs = scan_inputs(torch, rng, dev, p_, n_)
+        cases += [(sargs, spread_inputs(torch, rng, dev, n_, p_, zones=z, no_entry=ne))
+                  for z, ne in ((3, 0.5), (0, None), (1, None), (64, 0.3))]
+        for hargs, spread in cases:
+            compare_spread(torch, assign_scan_spread(*hargs, 1.0, 1.0, spread),
+                           assign_scan_spread_plain(*hargs, 1.0, 1.0, spread))
+    hz_runs = sorted({node_run(n_) for _, n_ in hz_shapes})
+    if hz_runs != list(RUNS):
+        raise AssertionError(f"spread hazards checked {hz_runs}, built {RUNS}")
+    emit({"phase": "spread_hazards", "shapes": [list(x) for x in hz_shapes],
+          "runs": hz_runs, "cases": ["one_thread", "no_entry_runs_3_zones",
+                                     "0_zones", "1_zone", "64_zones"],
+          "kernel_equals_plain": True})
 
     # ---- 4: the first batch through the cache and the blobs ----
     emit(packed_batch_phase(torch, caps, nodes, pods, dev))

@@ -24,7 +24,12 @@ nodes per thread, its instruction count and two digests of its SASS
 (cuobjdump; exact, and with register numbers normalized), so two trees'
 builds can be compared instruction for instruction (`--sass-out` also
 writes each build's register-normalized SASS there, one file a build and
-RUN, for `diff`). Where the tree has the interpod build, it is also timed
+RUN, for `diff`). Where the tree has the spread build, it is also timed
+with parts of its per-pod chain switched off by its inputs:
+`spread_no_entry_ms` with every pod's entry -1 (no spread work, no
+exchange), `spread_no_adds_ms` with an all-zero ledger and zero match rows
+(the chain, but no ledger adds), beside the main build on the same batch
+(`spread_batch_main_ms`). Where the tree has the interpod build, it is also timed
 with parts of its per-pod chain switched off by its inputs, which prices
 each part: `interpod_no_rows_ms` with the match and carried-term rows
 zeroed (no winner broadcast, no replica update), `interpod_no_score_ms`
@@ -94,10 +99,23 @@ def main() -> int:
         torch, lambda: static_mask(*args), lambda: assign_scan(*scan_args))
     if hasattr(scan_module, "assign_scan_spread"):
         spread_scan = scan_module.assign_scan_spread
-        _c, _n, _p, _s, state, batch, flags = smoke.spread_first_batch(torch, dev)
-        sargs, spread = smoke.spread_scan_args(torch, state, batch, _c, flags)
-        out.update(smoke.timed(torch, lambda: spread_scan(*sargs, spread), REPS,
-                               "spread_ms"))
+        _c, _n, _p, _s, state, batch, flags, zones = smoke.spread_first_batch(torch, dev)
+        fields = {f.name for f in dataclasses.fields(scan_module.SpreadInputs)}
+        sargs, spread = smoke.spread_scan_args(
+            torch, state, batch, _c, flags, zones if "zones" in fields else None)
+        # the main build on the same batch: the chain without spread work
+        out.update(smoke.timed(torch, lambda: assign_scan(*sargs), REPS,
+                               "spread_batch_main_ms"))
+        variants = (
+            ("spread_ms", spread),
+            ("spread_no_entry_ms", dataclasses.replace(
+                spread, spread_q=torch.full_like(spread.spread_q, -1))),
+            ("spread_no_adds_ms", dataclasses.replace(
+                spread, podsel_count=torch.zeros_like(spread.podsel_count),
+                pod_matches_q=torch.zeros_like(spread.pod_matches_q))))
+        for key, v in variants:
+            out.update(smoke.timed(torch, lambda v=v: spread_scan(*sargs, v), REPS,
+                                   key))
     if hasattr(scan_module, "assign_scan_interpod"):
         interpod_scan = scan_module.assign_scan_interpod
         _c, iargs, ip = smoke.interpod_first_batch(torch, dev)

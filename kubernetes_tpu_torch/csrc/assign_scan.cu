@@ -95,47 +95,88 @@
 // 579-581, ops/spread.py:29 selector_spread, ops/interpod.py:253
 // ledger_add). The main build (SPREAD = false) compiles to the same
 // instructions, in the same order, as before the spread build existed
-// (registers may be numbered differently; kernel_times.py compares the
-// SASS of two trees): every addition is behind `if constexpr (SPREAD)` or
-// unused by it, and its parameters are one trailing empty struct. Per
-// pod, between the terms and `best`:
-//   1. when the pod's spread_q (a word of its pod slot) is -1, every node
-//      scores MAX_PRIORITY (spread.py:65) and nothing is exchanged; every
-//      block reads the same pod row, so all skip together;
-//   2. else each thread reads its run's counts of column spread_q from a
-//      transposed [UQ, N] copy of the pod-selector ledger in device
-//      memory (the wrapper makes it and returns it as [N, UQ]; a column
-//      of the row-major ledger would be a 128-byte stride per node, and
-//      the ledger, 2 MiB at N = 16,384, does not fit beside the shared
-//      columns), keeps the feasible ones (masked_static > -inf and the
-//      pod fits, as the main scan decides it), and the block reduces the
-//      max count, the per-zone sums of the feasible counts (GetZoneKey
-//      slot TOPO_SPREAD_ZONE, one shared atomicAdd per nonzero count) and
-//      whether any feasible node has a zone;
-//   3. the 16 blocks exchange these partials (272 bytes each) the same
-//      way the triples travel, st.async onto a third mbarrier, whose phase
-//      is the parity of the spread pods seen so far; warps 0-1 reduce the
-//      16 partials (zone d on thread d), and after one more block barrier
-//      every thread has max_node, max_zone, have_zones and the zone sums;
-//   4. each thread adds w_ss * SelectorSpread to its feasible nodes'
-//      scores, then the main scan's selection follows.
-// After the choice, the owner of the chosen node adds the pod's match
-// row (pod_matches_q, in its pod slot) to that node's counts in device
-// memory. A thread reads and writes only the counts of the nodes it owns,
-// the main ledger's ownership rule, so no barrier guards the ledger. The
-// partials of one spread pod are all read before any block sends its
-// triple of that pod, and a block sends the next spread pod's partials
-// only after it has received every triple, so one slot buffer and one
-// mbarrier suffice; a wait that never completes traps as the triples'
-// does. The 8-node build keeps STAGES = 3 row slots (not 4) to fit the
+// (kernel_times.py compares the SASS of two trees): every addition is
+// behind `if constexpr (SPREAD)` or unused by it, and its parameters are
+// one trailing empty struct. The pod-selector ledger lives in device
+// memory as a transposed [UQ, N] copy (the wrapper makes it and returns
+// it as [N, UQ]; a column of the row-major ledger would be a 128-byte
+// stride per node, and the ledger, 2 MiB at N = 16,384, does not fit
+// beside the shared columns). Its per-pod chain:
+//   1. the count column is in registers before the pod starts: right
+//      after pod p's block barrier (which publishes pod p+1's slot) and
+//      before pod p's triple wait, each thread loads its run's counts of
+//      column spread_q(p+1) (none when it is -1). The only ledger change
+//      between that load and pod p+1 is pod p's placement, whose owner
+//      thread adds the pod's match entry of column spread_q(p+1) to its
+//      own register copy, so the copy is exact. The load is an ordinary
+//      one (an asynchronous copy would not be ordered before the same
+//      thread's later store), and a __syncwarp orders it before the
+//      owner's warp adds to the cell;
+//   2. when spread_q is -1, every node scores MAX_PRIORITY (spread.py:65)
+//      and nothing is exchanged; every block reads the same pod row, so
+//      all skip together;
+//   3. else each thread keeps its feasible counts (masked_static > -inf
+//      and the pod fits, as the main scan decides it), and its warp
+//      reduces them in integer arithmetic: the max count, whether a
+//      feasible node has a zone (GetZoneKey slot TOPO_SPREAD_ZONE), and
+//      one redux.sync add for each zone present among the warp's nodes (a
+//      node's zone is fixed for the launch, so each warp's set of zones is
+//      taken once, at the start); lane 0 writes them to the warp's slot.
+//      No shared atomics;
+//   4. one block barrier; warp 0 sums the 16 warp slots, lane d zone d,
+//      and sends the block's partial to every block of the cluster
+//      (st.async onto a third mbarrier, whose phase is the parity of the
+//      spread pods seen so far). The partial holds the max count with the
+//      any-zoned flag in bit 30 of one word (counts stay below 2^24), then
+//      the sums of the Z zones in use (Z from the host: the spread-zone
+//      ids interned so far), 1 + Z words in ceil((1 + Z) / 4) 16-byte
+//      chunks: one chunk a block for bench[spread]'s 3 zones, not the 17
+//      that 64 zones take;
+//   5. every warp reduces the 16 block partials itself, as it does the
+//      triples: lane d sums zone d (and zone 32 + d) in integer
+//      arithmetic, the warp takes the max count, the max zone sum and
+//      whether any block has a zoned feasible node, and a thread reads
+//      its nodes' zone sums with __shfl_sync. No second block barrier;
+//   6. each thread adds w_ss * SelectorSpread to its feasible nodes'
+//      scores, then the main scan's selection follows. Its two divisions
+//      a node share their divisors (the max count, the max zone sum), so
+//      each thread takes their double reciprocals once a pod and
+//      multiplies in double; no __fdiv_rn is left on the chain.
+// After the choice, the owner's warp adds the pod's match row (in its pod
+// slot) to the chosen node's counts in device memory, a column a lane, as
+// reductions whose result is not used (red.global.add.f32), so no lane
+// waits for a cell's old value to come back from L2. Column u of a node
+// is only ever added to by the same lane of the node's owner warp, and
+// read (step 1) only by the node's owner thread after the barriers that
+// follow the add, so no barrier guards the ledger. The partials of one
+// spread pod are all read before any block sends its triple of that pod,
+// and a block sends the next spread pod's partials only after it has
+// received every triple, so one slot buffer and one mbarrier suffice; a
+// wait that never completes traps as the triples' does. A zone id the
+// caller did not count (at least Z, below the universe) traps at the
+// start. The 8-node build keeps STAGES = 3 row slots (not 4) to fit the
 // spread build's shared memory under the block limit.
 //
-// Exactness. The counts are integers far below 2^24, so the zone sums
-// equal the JAX package's one-hot matmul (spread.py:45) in any order of
-// f32 additions, the shared atomics' included. The score is written with
-// the _rn intrinsics in spread.py:50-64's order (--fmad=false), and its
-// constants are JAX's weakly typed Python floats cast once to f32:
-// (float)(1.0 - 2.0 / 3.0) and (float)(2.0 / 3.0).
+// Exactness. The counts are integers far below 2^24 (a node holds at most
+// its pods' capacity, and a zone's sum is at most the pods placed in it),
+// so the integer max and sums, in any order, equal the JAX package's
+// one-hot matmul (spread.py:45) and its f32 max, and convert to f32
+// exactly; an f32 reduction rounds to nearest as __fadd_rn does, and an
+// integer count is never subnormal, so the ledger adds are exact too.
+// Zone ids from Z up belong to no node, so JAX's sums for them are 0 and
+// cannot raise max_zone; an id at or past the universe has a zero one-hot
+// row in JAX and is summed by no lane here, but still counts as a zone
+// for have_zones, as there. The score is written with the _rn intrinsics
+// in spread.py:50-64's order (--fmad=false), and its constants are JAX's
+// weakly typed Python floats cast once to f32: (float)(1.0 - 2.0 / 3.0)
+// and (float)(2.0 / 3.0). Each division n / y (n an integer-valued f32, y
+// an integer below 2^24, the quotient in [0, 10]) is taken as
+// (float)((double)n * r) with r = 1 / y rounded to double: two double
+// roundings put that product within 2^-52 relative of n / y, while an f32
+// rounding midpoint M * 2^-k (M < 2^25) that n / y does not equal lies at
+// least 1 / (y * 2^k) away, over 2^-49 relative; so the product rounds to
+// the same f32 as n / y itself. (Nodes whose count exceeds the max are
+// infeasible, and their score is never read.)
 //
 // Bound of the spread build: masked_static read once, plus the
 // pod-selector ledger read once and written once (N*UQ*4 bytes each way),
@@ -292,18 +333,20 @@ static_assert(WARPS <= 32 && CLUSTER <= 32, "one warp reduces the slots");
 static_assert(POD_SLOTS > STAGES && R + 2 == POD_ROW, "pod ring");
 
 // ---- the spread build's layout
-constexpr int MAX_DOMAINS = 64;      // zone ids a block sums (two warps' lanes)
+constexpr int MAX_DOMAINS = 64;      // zone ids summed (two a lane)
 constexpr int MAX_UQ = 64;           // pod-selector columns
 constexpr int SP_Q = R + 2;          // pod-slot word: spread_q
 constexpr int SP_M = R + 3;          // pod-slot words: the match row
 constexpr int SP_POD_ROW = 80;       // floats of a spread pod slot
-constexpr int SP_WORDS = 2 + MAX_DOMAINS;   // max count, any zoned, zone sums
-constexpr int SP_CHUNKS = (SP_WORDS + 3) / 4;
-constexpr unsigned SP_BYTES = SP_CHUNKS * 16;   // one block's partial
+constexpr int SP_WORDS = 1 + MAX_DOMAINS;   // max count | any zoned << 30, zone sums
+constexpr int SP_ZONED = 1 << 30;               // the any-zoned bit of word 0
+constexpr int SP_CHUNKS = (SP_WORDS + 3) / 4;   // 16-byte chunks of a partial
+constexpr int SP_SLOT = 4 * SP_CHUNKS;          // ints of a block's slot
 constexpr float ZONE_SHARE = (float)(2.0 / 3.0);        // zoneWeighting
 constexpr float NODE_SHARE = (float)(1.0 - 2.0 / 3.0);
 static_assert(MAX_DOMAINS == 2 * 32 && SP_M + MAX_UQ <= SP_POD_ROW
-              && SP_POD_ROW % 4 == 0, "spread layout");
+              && SP_POD_ROW % 4 == 0 && WARPS * SP_WORDS % 4 == 0,
+              "spread layout");   // counts stay below 2^24, clear of SP_ZONED
 
 // ---- the interpod build's layout
 constexpr int IP_SLOTS = 4;          // required (and preferred) term slots
@@ -350,7 +393,8 @@ struct SpreadArgs {
   const float* pod_matches;   // [P, UQ] match rows
   const int* zone;            // [N] TOPO_SPREAD_ZONE domain id, -1 = none
   int uq;
-  int nd;                     // zone ids below nd are summed
+  int nz;                     // zones in use: ids below nz are summed
+  int nd;                     // the zone universe: no id lies in [nz, nd)
   float w_ss;
 };
 struct NoSpread {};
@@ -417,12 +461,9 @@ struct Smem {
   int4* cslot;                                   // [2][CLUSTER] block triples
   float* pods;                                   // [POD_SLOTS][POD_ROW]
   Triple* wslot;                                 // [2][WARPS] warp triples
-  int4* sp_slot;                                 // [CLUSTER][SP_CHUNKS] partials
+  int4* sp_slot;                                 // [CLUSTER][SP_CHUNKS] block partials
   int4* sp_out;                                  // [SP_CHUNKS] this block's
-  float* zsum;                                   // [MAX_DOMAINS] block sums
-  float* zc;                                     // [MAX_DOMAINS] cluster sums
-  int2* wsp;                                     // [WARPS] (max count, zoned)
-  float* sp_misc;                                // max_node, have_zones, 2 zone maxima
+  int* sp_w;                                     // [WARPS][SP_WORDS] warp partials
   uint64_t* bar_sp;                              // the partials' mbarrier
   // the interpod build's regions follow the main build's
   int4* ip_list;                                 // [IP_MAX_ENTRIES] count entries
@@ -443,8 +484,7 @@ constexpr size_t smem_bytes(int nb, int STAGES, int POD_ROW) {
          + (size_t)POD_SLOTS * POD_ROW * sizeof(float)
          + (size_t)2 * WARPS * sizeof(Triple)
          + (SPREAD ? (size_t)(CLUSTER + 1) * SP_CHUNKS * sizeof(int4)
-                         + (size_t)2 * MAX_DOMAINS * sizeof(float)
-                         + (size_t)WARPS * sizeof(int2) + 4 * sizeof(float)
+                         + (size_t)WARPS * SP_WORDS * sizeof(int)
                          + 2 * sizeof(uint64_t)
                    : 0)
          + (IPA ? (size_t)(IP_MAX_ENTRIES + 1) * sizeof(int4)
@@ -477,11 +517,8 @@ __device__ Smem carve(float* base, int nb) {
   if constexpr (SPREAD) {   // every size below is a multiple of 16 bytes
     s.sp_slot = reinterpret_cast<int4*>(s.wslot + 2 * WARPS);
     s.sp_out = s.sp_slot + CLUSTER * SP_CHUNKS;
-    s.zsum = reinterpret_cast<float*>(s.sp_out + SP_CHUNKS);
-    s.zc = s.zsum + MAX_DOMAINS;
-    s.wsp = reinterpret_cast<int2*>(s.zc + MAX_DOMAINS);
-    s.sp_misc = reinterpret_cast<float*>(s.wsp + WARPS);
-    s.bar_sp = reinterpret_cast<uint64_t*>(s.sp_misc + 4);
+    s.sp_w = reinterpret_cast<int*>(s.sp_out + SP_CHUNKS);
+    s.bar_sp = reinterpret_cast<uint64_t*>(s.sp_w + WARPS * SP_WORDS);
   }
   if constexpr (IPA) {   // every size below is a multiple of 16 bytes
     s.ip_list = reinterpret_cast<int4*>(s.wslot + 2 * WARPS);
@@ -656,21 +693,21 @@ __device__ __forceinline__ int exclusive_sum_small(int v, int lane) {
   return sum;
 }
 
-// SelectorSpread of one node (spread.py:50-64): c its count, zc_node its
-// zone's feasible count (0 without a zone), has_zone its zone id >= 0.
-__device__ __forceinline__ float spread_score(float c, float zc_node,
-                                              bool has_zone, float max_node,
-                                              float max_zone, bool have_zones) {
-  const float node_score =
-      max_node > 0.0f
-          ? __fdiv_rn(__fmul_rn(MAX_PRIORITY, __fsub_rn(max_node, c)),
-                      fmaxf(max_node, 1.0f))
-          : MAX_PRIORITY;
-  const float zone_score =
-      max_zone > 0.0f
-          ? __fdiv_rn(__fmul_rn(MAX_PRIORITY, __fsub_rn(max_zone, zc_node)),
-                      fmaxf(max_zone, 1.0f))
-          : MAX_PRIORITY;
+// One half of SelectorSpread (spread.py:50-58): MAX_PRIORITY * (m - x) /
+// max(m, 1), or MAX_PRIORITY when the maximum m is 0, for integer-valued
+// 0 <= x <= m < 2^24; rm is the double reciprocal of max(m, 1),
+// __drcp_rn, taken once a pod. The f32 quotient is exact (the header's
+// Exactness).
+__device__ __forceinline__ float spread_part(float m, float x, double rm) {
+  if (!(m > 0.0f)) return MAX_PRIORITY;
+  const float num = __fmul_rn(MAX_PRIORITY, __fsub_rn(m, x));
+  return __double2float_rn(__dmul_rn((double)num, rm));
+}
+
+// SelectorSpread of one node from its node and zone parts (spread.py:
+// 59-64): has_zone, its zone id >= 0.
+__device__ __forceinline__ float spread_score(float node_score, float zone_score,
+                                              bool has_zone, bool have_zones) {
   const float blended =
       (have_zones && has_zone)
           ? __fadd_rn(__fmul_rn(node_score, NODE_SHARE),
@@ -681,7 +718,7 @@ __device__ __forceinline__ float spread_score(float c, float zc_node,
 
 // Word w of block b's spread partial in this block's slots.
 __device__ __forceinline__ int sp_word(const Smem& s, int b, int w) {
-  return reinterpret_cast<const int*>(s.sp_slot + b * SP_CHUNKS)[w];
+  return reinterpret_cast<const int*>(s.sp_slot)[b * SP_SLOT + w];
 }
 
 // The count of column u (a pod selector below ip.uq, else a carried term)
@@ -830,10 +867,31 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
       if (!in) s.ring[k * NB + c] = -INFINITY;
   }
   [[maybe_unused]] int dom[RUN];     // the run's zone ids (spread build)
+  // the zones in use among the warp's nodes: bit d of zlo (zone d) and of
+  // zhi (zone 32 + d), fixed for the launch
+  [[maybe_unused]] unsigned zlo = 0u, zhi = 0u;
   if constexpr (SPREAD) {
 #pragma unroll
-    for (int j = 0; j < RUN; ++j) dom[j] = g0 + j < N ? sp.zone[g0 + j] : -1;
-    if (t < MAX_DOMAINS) s.zsum[t] = 0.0f;
+    for (int j = 0; j < RUN; ++j) {
+      dom[j] = g0 + j < N ? sp.zone[g0 + j] : -1;
+      if (dom[j] >= sp.nz && dom[j] < sp.nd) __trap();   // a zone not counted in
+      if (dom[j] >= 0 && dom[j] < sp.nz) {
+        if (dom[j] < 32) zlo |= 1u << dom[j];
+        else zhi |= 1u << (dom[j] - 32);
+      }
+    }
+    zlo = __reduce_or_sync(FULL, zlo);
+    zhi = __reduce_or_sync(FULL, zhi);
+    // zones a warp never writes stay 0, and so do a partial's pad words
+    for (int i = t; i < WARPS * SP_WORDS; i += THREADS) s.sp_w[i] = 0;
+    if (t < SP_CHUNKS) s.sp_out[t] = make_int4(0, 0, 0, 0);
+  }
+  // a block's spread partial: 1 + nz words, in 16-byte chunks
+  [[maybe_unused]] int sp_chunks = 0;
+  [[maybe_unused]] unsigned sp_bytes = 0u;
+  if constexpr (SPREAD) {
+    sp_chunks = (1 + sp.nz + 3) / 4;
+    sp_bytes = 16u * (unsigned)sp_chunks;
   }
   [[maybe_unused]] float* dom_b = nullptr;   // this block's replica (interpod build)
   if constexpr (IPA) {
@@ -896,7 +954,7 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
     if constexpr (SPREAD) {
       mbar_init(s.bar_sp, 1);
       asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-      mbar_arm(s.bar_sp, CLUSTER * SP_BYTES);
+      mbar_arm(s.bar_sp, CLUSTER * sp_bytes);
     }
     if constexpr (IPA) {
       mbar_init(s.bar_ip, 1);
@@ -924,6 +982,21 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
       to_sp_bar = map_rank(smem_u32(s.bar_sp), lane % CLUSTER);
     }
   }
+  // the next spread pod's entry and the run's counts of its column
+  // (spread build; loaded one pod ahead, see the header)
+  [[maybe_unused]] int q_next = -1;
+  [[maybe_unused]] float nxt[RUN];
+  [[maybe_unused]] auto fetch_counts = [&](int pn) {
+    if constexpr (SPREAD) {
+      q_next = pn < P ? __float_as_int(s.pods[(pn % POD_SLOTS) * POD_ROW + SP_Q]) : -1;
+      if (q_next >= sp.uq) __trap();   // not an entry of the ledger
+      if (q_next >= 0) {
+        const float* col = sp.podsel_t + (size_t)q_next * N;
+#pragma unroll
+        for (int j = 0; j < RUN; ++j) nxt[j] = g0 + j < N ? col[g0 + j] : 0.0f;
+      }
+    }
+  };
 
   // where warp 0's lane l sends this block's (min, max) of a counting pod:
   // block l's slot `rank` and mbarrier
@@ -975,6 +1048,7 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
   // barriers initialised and pod 0's row visible in every block before any
   // block sends
   cluster.sync();
+  if constexpr (SPREAD) fetch_counts(0);
 
   for (int p = 0; p < P; ++p) {
     cp_async_wait<STAGES - 3>();  // this thread's copies of pods p and p+1 landed
@@ -1032,79 +1106,88 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
     // ---- SelectorSpread of the run (spread build)
     [[maybe_unused]] float ss[RUN];
     if constexpr (SPREAD) {
-      const int q = __float_as_int(pr[SP_Q]);
-      if (q >= sp.uq) __trap();   // not an entry of the ledger
-      if (q < 0) {
+      if (q_next < 0) {   // pod p has no entry (fetched one pod ahead)
 #pragma unroll
         for (int j = 0; j < RUN; ++j) ss[j] = MAX_PRIORITY;
       } else {
-        const float* col = sp.podsel_t + (size_t)q * N;
-        float cnt[RUN];
+        // the warp's max feasible count, any zoned feasible node, and its
+        // zones' sums of the feasible counts, as integers
+        bool fe[RUN];
         int cmax = 0;
         bool zoned = false;
 #pragma unroll
         for (int j = 0; j < RUN; ++j) {
-          cnt[j] = g0 + j < N ? col[g0 + j] : 0.0f;
-          if (!(ms[j] > -INFINITY) || lr[j] < 0.0f) continue;   // infeasible
-          cmax = max(cmax, (int)cnt[j]);
-          if (dom[j] >= 0) {
-            zoned = true;
-            if (dom[j] < sp.nd && cnt[j] != 0.0f) atomicAdd(&s.zsum[dom[j]], cnt[j]);
-          }
+          fe[j] = ms[j] > -INFINITY && lr[j] >= 0.0f;
+          if (!fe[j]) continue;
+          cmax = max(cmax, (int)nxt[j]);
+          zoned = zoned || dom[j] >= 0;
         }
+        int* wsl = s.sp_w + warp * SP_WORDS;
+        auto zone_sum = [&](int d) {
+          int v = 0;
+#pragma unroll
+          for (int j = 0; j < RUN; ++j) v += (fe[j] && dom[j] == d) ? (int)nxt[j] : 0;
+          v = __reduce_add_sync(FULL, v);
+          if (lane == 0) wsl[1 + d] = v;
+        };
+        for (unsigned m = zlo; m != 0u; m &= m - 1u) zone_sum(__ffs((int)m) - 1);
+        for (unsigned m = zhi; m != 0u; m &= m - 1u) zone_sum(32 + __ffs((int)m) - 1);
         const int wmax = __reduce_max_sync(FULL, cmax);
         const unsigned wzoned = __ballot_sync(FULL, zoned);
-        if (lane == 0) s.wsp[warp] = make_int2(wmax, wzoned != 0u);
+        if (lane == 0) wsl[0] = wmax | (wzoned != 0u ? SP_ZONED : 0);
         __syncthreads();
         if (warp == 0) {   // the block's partial, into slot `rank` of every block
-          const int2 w = lane < WARPS ? s.wsp[lane] : make_int2(0, 0);
           int* out = reinterpret_cast<int*>(s.sp_out);
-          const int bmax = __reduce_max_sync(FULL, w.x);
-          const unsigned bzoned = __reduce_or_sync(FULL, (unsigned)w.y);
-          out[2 + lane] = __float_as_int(s.zsum[lane]);
-          out[2 + 32 + lane] = __float_as_int(s.zsum[32 + lane]);
-          s.zsum[lane] = 0.0f;
-          s.zsum[32 + lane] = 0.0f;
-          if (lane == 0) {
-            out[0] = bmax;
-            out[1] = (int)bzoned;
-            for (int k = SP_WORDS; k < 4 * SP_CHUNKS; ++k) out[k] = 0;
+          const int w0 = lane < WARPS ? s.sp_w[lane * SP_WORDS] : 0;
+          const int bmax = __reduce_max_sync(FULL, w0 & (SP_ZONED - 1));
+          const unsigned bzoned = __reduce_or_sync(FULL, (unsigned)(w0 & SP_ZONED));
+          for (int d = lane; d < sp.nz; d += 32) {
+            int z = 0;
+#pragma unroll
+            for (int w = 0; w < WARPS; ++w) z += s.sp_w[w * SP_WORDS + 1 + d];
+            out[1 + d] = z;
           }
+          if (lane == 0) out[0] = bmax | (int)bzoned;
           __syncwarp();
-          for (int k = lane / CLUSTER; k < SP_CHUNKS; k += 32 / CLUSTER)
+          for (int k = lane / CLUSTER; k < sp_chunks; k += 32 / CLUSTER)
             st_async_v4(to_sp_slot + k * 16, s.sp_out[k], to_sp_bar);
         }
         mbar_wait(s.bar_sp, sp_phase);
-        if (t == 0) mbar_arm(s.bar_sp, CLUSTER * SP_BYTES);   // next spread pod
+        if (t == 0) mbar_arm(s.bar_sp, CLUSTER * sp_bytes);   // next spread pod
         sp_phase ^= 1u;
-        if (warp < 2) {   // zone t: the cluster's sum, and the zone maximum
-          float zc = 0.0f;
+        // every warp: the cluster's max count, zoned, and zone sums (lane d
+        // zone d, and zone 32 + d in zhi_sum)
+        const int b0 = lane < CLUSTER ? sp_word(s, lane, 0) : 0;
+        const int max_c = __reduce_max_sync(FULL, b0 & (SP_ZONED - 1));
+        const unsigned any_z = __reduce_or_sync(FULL, (unsigned)(b0 & SP_ZONED));
+        int zlo_sum = 0, zhi_sum = 0;
+        if (lane < sp.nz) {
 #pragma unroll
-          for (int b = 0; b < CLUSTER; ++b)
-            zc = __fadd_rn(zc, __int_as_float(sp_word(s, b, 2 + t)));
-          s.zc[t] = zc;
-          // sums are >= 0: their bits order as the floats do
-          const int zmax = __reduce_max_sync(FULL, __float_as_int(zc));
-          if (lane == 0) s.sp_misc[2 + warp] = __int_as_float(zmax);
-          if (warp == 0) {
-            const int m = __reduce_max_sync(FULL, lane < CLUSTER ? sp_word(s, lane, 0) : 0);
-            const unsigned z = __reduce_or_sync(
-                FULL, lane < CLUSTER ? (unsigned)sp_word(s, lane, 1) : 0u);
-            if (lane == 0) {
-              s.sp_misc[0] = (float)m;
-              s.sp_misc[1] = z ? 1.0f : 0.0f;
-            }
-          }
+          for (int b = 0; b < CLUSTER; ++b) zlo_sum += sp_word(s, b, 1 + lane);
         }
-        __syncthreads();
-        const float max_node = s.sp_misc[0];
-        const bool have_zones = s.sp_misc[1] != 0.0f;
-        const float max_zone = fmaxf(s.sp_misc[2], s.sp_misc[3]);
+        if (lane + 32 < sp.nz) {
+#pragma unroll
+          for (int b = 0; b < CLUSTER; ++b) zhi_sum += sp_word(s, b, 33 + lane);
+        }
+        const float max_node = (float)max_c;
+        const float max_zone = (float)__reduce_max_sync(FULL, max(zlo_sum, zhi_sum));
+        const bool have_zones = any_z != 0u;
+        const double r_node = __drcp_rn((double)fmaxf(max_node, 1.0f));
+        const double r_zone = __drcp_rn((double)fmaxf(max_zone, 1.0f));
 #pragma unroll
         for (int j = 0; j < RUN; ++j) {
-          const bool summed = dom[j] >= 0 && dom[j] < sp.nd;
-          ss[j] = spread_score(cnt[j], summed ? s.zc[dom[j]] : 0.0f, dom[j] >= 0,
-                               max_node, max_zone, have_zones);
+          const int d = dom[j];
+          int zc = __shfl_sync(FULL, zlo_sum, d & 31);
+          if (sp.nz > 32) {
+            const int zc_hi = __shfl_sync(FULL, zhi_sum, d & 31);
+            if (d >= 32) zc = zc_hi;
+          }
+          const bool summed = d >= 0 && d < sp.nz;
+          // a node without a zone scores its node part alone
+          const float zone_s =
+              d >= 0 ? spread_part(max_zone, summed ? (float)zc : 0.0f, r_zone) : 0.0f;
+          ss[j] = spread_score(spread_part(max_node, nxt[j], r_node), zone_s, d >= 0,
+                               have_zones);
         }
       }
     }
@@ -1245,6 +1328,8 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
     // start pod p+3's copies while the triples travel: its row slot held
     // row p-1 and its pod slot pod p-5, both read before this barrier
     issue_row(p + STAGES - 1);
+    // and load pod p+1's counts, whose slot this barrier published
+    if constexpr (SPREAD) fetch_counts(p + 1);
     mbar_wait(&s.bar[par], (p >> 1) & 1);
     if (t == 0) mbar_arm(&s.bar[par], CLUSTER * TRIPLE_BYTES);   // for pod p+2
 
@@ -1266,7 +1351,7 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
         if (woff <= k && k < woff + wmine) {    // and this warp
           const int tties = key == tot.key ? nt : 0;
           const int excl = woff + exclusive_sum_small<RUN>(tties, lane);
-          [[maybe_unused]] int won = -1;        // the chosen node (interpod build)
+          [[maybe_unused]] int won = -1;        // the chosen node (spread, interpod)
           if (tties > 0 && excl <= k && k < excl + tties) {
             unsigned m = tied;
             for (int r = k - excl; r > 0; --r) m &= m - 1u;
@@ -1297,18 +1382,31 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
             s.z_cpu[c] = __fadd_rn(s.z_cpu[c], pod.nz_cpu);
             s.z_mem[c] = __fadd_rn(s.z_mem[c], pod.nz_mem);
             node_terms(s, pod, c, &s.t_lr[c], &s.t_ba[c]);
-            if constexpr (SPREAD) {   // the pod's match row into its counts
-              for (int u = 0; u < sp.uq; ++u) {
-                const float v = pr[SP_M + u];
-                if (v != 0.0f) {
-                  float* cell = sp.podsel_t + (size_t)u * N + g;
-                  *cell = __fadd_rn(*cell, v);
-                }
+            if constexpr (SPREAD) {
+              // pod p+1's counts were loaded before this placement: add
+              // its entry of the match row to the chosen node's copy
+              if (q_next >= 0) {
+                const float v = pr[SP_M + q_next];
+#pragma unroll
+                for (int i = 0; i < RUN; ++i)
+                  if (i == j && v != 0.0f) nxt[i] = __fadd_rn(nxt[i], v);
               }
+              won = g;
             }
             if constexpr (IPA) won = g;
             assignments[p] = g;
             scores[p] = best;
+          }
+          if constexpr (SPREAD) {
+            // the owner's warp: the pod's match row into the node's counts,
+            // a column a lane, after every lane's loads of pod p+1's counts;
+            // a reduction whose result is not used waits for no load
+            const int gw = __reduce_max_sync(FULL, won);
+            __syncwarp();
+            for (int u = lane; u < sp.uq; u += 32) {
+              const float v = pr[SP_M + u];
+              if (v != 0.0f) atomicAdd(sp.podsel_t + (size_t)u * N + gw, v);
+            }
           }
           if constexpr (IPA) {
             // the owner's warp: the pod's match and carried-term rows into
@@ -1459,21 +1557,22 @@ extern "C" int ktpu_assign_scan(
 // The spread build: the operands of ktpu_assign_scan, and podsel_t
 // [uq, N] (the pod-selector counts, transposed; updated in place),
 // spread_q [P] (-1 or an entry below uq), pod_matches [P, uq], zone [N]
-// (the GetZoneKey domain id, -1 = none; ids below nd are summed),
-// 1 <= nd <= 64, 0 <= uq <= 64, and the SelectorSpread weight w_ss.
+// (the GetZoneKey domain id: -1 = none, below nz a zone in use, at least
+// nd outside the universe; an id in [nz, nd) traps), 0 <= nz <= nd <= 64,
+// 0 <= uq <= 64, and the SelectorSpread weight w_ss.
 extern "C" int ktpu_assign_scan_spread(
     const float* masked_static, const float* requests,
     const float* nonzero_requests, const float* allocatable, float* requested,
     float* nonzero, int* assignments, float* scores, int* feasible_counts,
     long long* rr_io, int P, int N, int run, float w_lr, float w_ba,
     float* podsel_t, const int* spread_q, const float* pod_matches,
-    const int* zone, int uq, int nd, float w_ss, cudaStream_t stream) {
-  if (uq < 0 || uq > MAX_UQ || nd < 1 || nd > MAX_DOMAINS)
+    const int* zone, int uq, int nz, int nd, float w_ss, cudaStream_t stream) {
+  if (uq < 0 || uq > MAX_UQ || nz < 0 || nz > nd || nd > MAX_DOMAINS)
     return (int)cudaErrorInvalidValue;
   const Operands o{masked_static, requests, nonzero_requests, allocatable,
                    requested, nonzero, assignments, scores, feasible_counts,
                    rr_io, P, N, w_lr, w_ba};
-  const SpreadArgs sp{podsel_t, spread_q, pod_matches, zone, uq, nd, w_ss};
+  const SpreadArgs sp{podsel_t, spread_q, pod_matches, zone, uq, nz, nd, w_ss};
   return launch_run<true>(o, run, sp, stream);
 }
 

@@ -80,9 +80,14 @@ class SpreadInputs:
     """What the spread build reads beyond the main scan's operands: the
     SelectorSpread weight, each pod's union entry (spread_q i32[P], -1 =
     none) and match row (pod_matches_q f32[P, UQ]), the batch-start
-    pod-selector ledger (podsel_count f32[N, UQ], not modified) and the
+    pod-selector ledger (podsel_count f32[N, UQ], not modified), the
     nodes' topology (i32[N, K], -1 = no domain), whose GetZoneKey slot
-    (TOPO_SPREAD_ZONE) holds ids below `domain_universe`."""
+    (TOPO_SPREAD_ZONE) holds ids below `domain_universe`, and `zones`, the
+    zone ids in use: no node's id lies in [zones, domain_universe) (the
+    host's count of interned spread zones, `NodeTable.spread_zones`). The
+    plain version sums over the whole universe; the kernel sums and
+    exchanges the zones in use only, and traps on an id it was not told
+    of."""
 
     w_ss: float
     spread_q: torch.Tensor
@@ -90,6 +95,7 @@ class SpreadInputs:
     podsel_count: torch.Tensor
     topology: torch.Tensor
     domain_universe: int
+    zones: int
 
 
 @dataclass
@@ -390,7 +396,7 @@ assign_scan.launches = 0
 MAX_DOMAINS = 64
 MAX_UQ = 64
 _SPREAD_ARGTYPES = (_ARGTYPES[:-1] + [ctypes.c_void_p] * 4
-                    + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_void_p])
+                    + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p])
 
 
 def assign_scan_spread(masked_static, requests, nonzero_requests, allocatable,
@@ -418,13 +424,16 @@ def assign_scan_spread(masked_static, requests, nonzero_requests, allocatable,
         raise ValueError(
             f"assign_scan_spread: {uq} pod selectors (at most {MAX_UQ}) and "
             f"{spread.domain_universe} zone domains (at most {MAX_DOMAINS})")
+    if not 0 <= spread.zones <= spread.domain_universe:
+        raise ValueError(f"assign_scan_spread: {spread.zones} zones in use, "
+                         f"universe {spread.domain_universe}")
     podsel_t = spread.podsel_count.t().contiguous()
     zone = spread.topology[:, TOPO_SPREAD_ZONE].contiguous()
     out = _launch("ktpu_assign_scan_spread", _SPREAD_ARGTYPES, *args,
                   rr_start, w_lr, w_ba,
                   (podsel_t.data_ptr(), spread.spread_q.data_ptr(),
                    spread.pod_matches_q.data_ptr(), zone.data_ptr(), uq,
-                   spread.domain_universe, float(spread.w_ss)))
+                   spread.zones, spread.domain_universe, float(spread.w_ss)))
     assign_scan_spread.launches += 1
     return ScanResult(*out, podsel_t.t().contiguous())
 

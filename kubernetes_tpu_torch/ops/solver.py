@@ -294,8 +294,8 @@ def gang_member_mask(gang_id: torch.Tensor, gang_min: torch.Tensor,
             (opened & ~failed).sum(), (opened & failed).sum())
 
 
-def _solve(state, batch, rr_start, policy, flags, caps, mask_fn, scan_fn,
-           spread_fn, interpod_fn, gang_fn):
+def _solve(state, batch, rr_start, policy, flags, caps, spread_zones, mask_fn,
+           scan_fn, spread_fn, interpod_fn, gang_fn):
     if flags is None:
         flags = batch_flags(state, batch)
     g = check_supported(policy, flags)
@@ -307,11 +307,13 @@ def _solve(state, batch, rr_start, policy, flags, caps, mask_fn, scan_fn,
         scan = interpod_fn(*args, interpod_inputs(
             state, batch, g, (caps or Capacities()).domain_universe))
     elif g.w_ss:
+        universe = (caps or Capacities()).domain_universe
         scan = spread_fn(*args, SpreadInputs(
             w_ss=float(g.w_ss), spread_q=batch.spread_q.contiguous(),
             pod_matches_q=batch.pod_matches_q.contiguous(),
             podsel_count=state.podsel_count, topology=state.topology,
-            domain_universe=(caps or Capacities()).domain_universe))
+            domain_universe=universe,
+            zones=universe if spread_zones is None else spread_zones))
     elif flags.gang:
         scan = gang_fn(*args, GangInputs(gang_id=batch.gang_id.contiguous(),
                                          gang_min=batch.gang_min.contiguous()))
@@ -333,7 +335,8 @@ def _solve(state, batch, rr_start, policy, flags, caps, mask_fn, scan_fn,
 def schedule_batch(state: ClusterState, batch: PodBatch, rr_start,
                    policy: Policy = DEFAULT_POLICY,
                    flags: BatchFlags | None = None,
-                   caps: Capacities | None = None) -> SolverResult:
+                   caps: Capacities | None = None,
+                   spread_zones: int | None = None) -> SolverResult:
     """Schedule a whole pending batch against the accounted state.
 
     All tensors live on one device: CUDA tensors run the kernels, CPU
@@ -342,11 +345,13 @@ def schedule_batch(state: ClusterState, batch: PodBatch, rr_start,
     gates read from the batch (state.pod_batch.batch_flags); `caps` gives
     the zone-domain universe SelectorSpread sums over (default
     Capacities()), and the domain universe of the topology slots
-    inter-pod affinity aggregates over. Returns per-pod assignments plus
+    inter-pod affinity aggregates over; `spread_zones`, the zone ids in use
+    (`NodeTable.spread_zones`, default the whole universe), bounds what the
+    spread build sums and exchanges. Returns per-pod assignments plus
     the post-batch ledgers (assume semantics)."""
-    return _solve(state, batch, rr_start, policy, flags, caps, static_mask,
-                  assign_scan, assign_scan_spread, assign_scan_interpod,
-                  assign_scan_gang)
+    return _solve(state, batch, rr_start, policy, flags, caps, spread_zones,
+                  static_mask, assign_scan, assign_scan_spread,
+                  assign_scan_interpod, assign_scan_gang)
 
 
 def schedule_batch_plain(state: ClusterState, batch: PodBatch, rr_start,
@@ -354,8 +359,9 @@ def schedule_batch_plain(state: ClusterState, batch: PodBatch, rr_start,
                          flags: BatchFlags | None = None,
                          caps: Capacities | None = None) -> SolverResult:
     """`schedule_batch` through the kernels' plain versions on any device:
-    the reference a card run holds the kernel path against."""
-    return _solve(state, batch, rr_start, policy, flags, caps,
+    the reference a card run holds the kernel path against (it sums
+    SelectorSpread's zones over the whole universe)."""
+    return _solve(state, batch, rr_start, policy, flags, caps, None,
                   static_mask_plain, assign_scan_plain,
                   assign_scan_spread_plain, assign_scan_interpod_plain,
                   assign_scan_gang_plain)

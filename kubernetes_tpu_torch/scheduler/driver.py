@@ -267,7 +267,7 @@ class Scheduler:
         batch = unpack_batch(*upload_blobs(*self._blobs, self.device), self.caps)
         t1 = time.perf_counter()
         result = schedule_batch(state, batch, self.rr, self.policy, flags,
-                                self.caps)
+                                self.caps, spread_zones=table.spread_zones)
         assignments = result.assignments.cpu().numpy()
         t2 = time.perf_counter()
         name_of = self.statedb.table.name_of

@@ -368,6 +368,13 @@ class NodeTable:
         self.taints[key] = tid
         return tid
 
+    @property
+    def spread_zones(self) -> int:
+        """Zone ids interned in the GetZoneKey slot so far: every node's
+        id there is below it (or -1). Ids are never released, so it only
+        grows, and it is at most the domain universe."""
+        return len(self.domains[TOPO_SPREAD_ZONE])
+
     def intern_domain(self, key_idx: int, value) -> int:
         table = self.domains[key_idx]
         did = table.get(value)

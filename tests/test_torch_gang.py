@@ -396,8 +396,8 @@ def _record_batches(monkeypatch):
     seen = []
     solve = driver.schedule_batch
 
-    def recording(state, batch, rr, policy, flags, caps):
-        result = solve(state, batch, rr, policy, flags, caps)
+    def recording(state, batch, rr, policy, flags, caps, **kw):
+        result = solve(state, batch, rr, policy, flags, caps, **kw)
         seen.append((batch, flags, result))
         return result
 

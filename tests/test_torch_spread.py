@@ -38,7 +38,7 @@ from kubernetes_tpu_torch.api import objects as obj  # noqa: E402
 from kubernetes_tpu_torch.ops.interpod import AffinityLedger  # noqa: E402
 from kubernetes_tpu_torch.ops.solver import schedule_batch  # noqa: E402
 from kubernetes_tpu_torch.ops.spread import selector_spread  # noqa: E402
-from kubernetes_tpu_torch.scheduler import Scheduler  # noqa: E402
+from kubernetes_tpu_torch.scheduler import Scheduler, driver  # noqa: E402
 from kubernetes_tpu_torch.state import Capacities, encode_cluster  # noqa: E402
 from kubernetes_tpu_torch.state.context import EncodeContext  # noqa: E402
 from kubernetes_tpu_torch.state.convert import (  # noqa: E402
@@ -569,3 +569,196 @@ def test_a_batch_without_spread_keeps_the_device_ledger_in_step(monkeypatch):
     host = sched.statedb.host.podsel_count
     np.testing.assert_array_equal(host, np.asarray(ref.db.host.podsel_count))
     np.testing.assert_array_equal(sched.statedb.flush().podsel_count.numpy(), host)
+
+
+# ---- (h) the spread build's reduction, and the zones in use ----
+#
+# The CUDA spread build (csrc/assign_scan.cu) sums the feasible counts of
+# each zone in integers: one sum per zone in use in each warp, the warps'
+# sums in each block, the 16 blocks' partials in every warp, over the Z
+# zones the host has interned only; a node reads its zone's sum from the
+# lane that holds it (zone d on lane d % 32, the upper 32 zones in a second
+# register). It divides by the pod's max count and max zone sum as a
+# product with their reciprocals in double. The model below is that
+# arithmetic in numpy, held against JAX `selector_spread`.
+
+CLUSTER, WARP = 16, 32
+
+
+def _kernel_model(zone, counts, feasible, zones, run, threads, rng):
+    """f32[N] SelectorSpread of one pod as the spread build computes it:
+    zone i32[N] (the GetZoneKey ids), counts f32[N] (the pod's count
+    column), feasible bool[N], `zones` in use (ids at or past it are not
+    summed), `run` nodes a thread and `threads` a block."""
+    n = zone.shape[0]
+    nb = threads * run
+    assert n <= CLUSTER * nb
+    c = counts.astype(np.int64)
+    assert np.array_equal(c, counts), "counts are integers"
+    pad = CLUSTER * nb - n
+    zone_p = np.r_[zone, np.full(pad, -1)].astype(np.int64)
+    c_p = np.r_[c, np.zeros(pad, np.int64)]
+    fe_p = np.r_[feasible, np.zeros(pad, bool)]
+    # node g: block g // nb, warp (g % nb) // (WARP * run)
+    warp_of = (np.arange(CLUSTER * nb) % nb) // (WARP * run)
+    block_of = np.arange(CLUSTER * nb) // nb
+    summed = fe_p & (zone_p >= 0) & (zone_p < zones)
+    block_parts = []
+    for b in range(CLUSTER):
+        part = np.zeros(2 + zones, np.int64)       # max, zoned, zone sums
+        for w in range(threads // WARP):
+            mine = (block_of == b) & (warp_of == w)
+            f = mine & fe_p
+            wsum = np.zeros(zones, np.int64)
+            # one sum per zone in use among the warp's nodes (any order)
+            for d in rng.permutation(np.unique(zone_p[mine & (zone_p >= 0)
+                                                      & (zone_p < zones)])):
+                wsum[d] = c_p[mine & summed & (zone_p == d)].sum()
+            part[0] = max(part[0], c_p[f].max(initial=0))
+            part[1] |= bool((f & (zone_p >= 0)).any())
+            part[2:] += wsum
+        block_parts.append(part)
+    # every warp sums the 16 partials, in any order
+    lo = np.zeros(WARP, np.int64)
+    hi = np.zeros(WARP, np.int64)
+    max_c, any_z = 0, 0
+    for b in rng.permutation(CLUSTER):
+        part = block_parts[b]
+        max_c, any_z = max(max_c, part[0]), any_z | part[1]
+        sums = np.r_[part[2:], np.zeros(2 * WARP - zones, np.int64)]
+        lo += sums[:WARP]
+        hi += sums[WARP:]
+    f32 = np.float32
+    max_node = f32(max_c)
+    max_zone = f32(max(lo.max(), hi.max()))
+
+    def part_of(m, x):        # spread_part: MAX_PRIORITY * (m - x) / max(m, 1)
+        if not m > 0:
+            return f32(10.0)
+        num = f32(10.0) * (m - x)
+        return f32(np.float64(num) * (1.0 / np.float64(max(m, f32(1.0)))))
+
+    out = np.zeros(n, np.float32)
+    for g in range(n):
+        d = int(zone[g])
+        zc = (hi if d >= WARP else lo)[d & (WARP - 1)] if 0 <= d < zones else 0
+        node_s = part_of(max_node, f32(counts[g]))
+        zone_s = part_of(max_zone, f32(zc))
+        blended = (node_s * f32(1.0 - 2.0 / 3.0) + f32(2.0 / 3.0) * zone_s
+                   if any_z and d >= 0 else node_s)
+        out[g] = np.trunc(blended + f32(1e-6))
+    return out
+
+
+def _reduction_inputs(rng, n, zones, past):
+    """Zone ids (a fifth -1, the rest below `zones`, a share past `past`
+    when given), counts up to 110, and a feasible mask."""
+    zone = rng.randint(0, zones, n) if zones else np.full(n, -1)
+    zone[rng.rand(n) < 0.2] = -1
+    if past is not None:
+        beyond = rng.rand(n) < 0.1
+        zone[beyond] = rng.randint(past, past + 8, int(beyond.sum()))
+    counts = rng.randint(0, 111, n).astype(np.float32)
+    counts[rng.rand(n) < 0.3] = 0.0
+    return zone.astype(np.int32), counts, rng.rand(n) < 0.7
+
+
+@pytest.mark.parametrize("zones", [1, 2, 3, 31, 32, 33, 64])
+@pytest.mark.parametrize("run", [1, 8])
+def test_kernel_zone_reduction_model_matches_reference(zones, run):
+    """Integer warp, block and cluster partials over the zones in use, in
+    permuted orders, equal JAX's one-hot matmul over the whole universe
+    (ids past it, and -1, sum into no zone), for counts up to 110; and
+    against a universe of just the zones in use, ids from there up are
+    left out alike."""
+    rng = np.random.RandomState(900 + zones + run)
+    n = 300
+    for universe, past in ((D, D), (zones, zones)):
+        zone, counts, feasible = _reduction_inputs(rng, n, zones, past)
+        topo = np.full((n, CAPS.topology_slots), -1, np.int32)
+        topo[:, TOPO_SPREAD_ZONE] = zone
+        want = np.asarray(jspread.selector_spread(
+            SimpleNamespace(topology=jnp.asarray(topo)), jnp.int32(0),
+            jinterpod.AffinityLedger(podsel_count=jnp.asarray(counts[:, None]),
+                                     total_q=jnp.asarray(counts.sum()[None])),
+            jnp.asarray(feasible), universe))
+        got = _kernel_model(zone, counts, feasible, zones, run, 64, rng)
+        np.testing.assert_array_equal(got, want, err_msg=f"universe {universe}")
+
+
+def _zoned_nodes(names, zone_of):
+    return [{"metadata": {"name": name, "labels": {
+                 "kubernetes.io/hostname": name,
+                 **({"failure-domain.beta.kubernetes.io/zone": zone_of[name],
+                     "failure-domain.beta.kubernetes.io/region": "r1"}
+                    if zone_of.get(name) else {})}},
+             "spec": {},
+             "status": {"allocatable": {"cpu": "4", "memory": "8Gi", "pods": "110"},
+                        "conditions": [{"type": "Ready", "status": "True"}]}}
+            for name in names]
+
+
+def test_spread_zones_is_the_interned_zone_count(monkeypatch):
+    """NodeTable.spread_zones counts the GetZoneKey ids interned, as JAX's
+    table does, across add_nodes and remove_node: ids are never released,
+    every live node's id is below it, and the driver hands it to the
+    solver."""
+    monkeypatch.delenv("KTPU_PALLAS", raising=False)
+    zone_of = {f"n{i}": f"z{i % 3}" for i in range(12) if i % 4}
+    sched = Scheduler(CAPS, device="cpu")
+    ref = JStateDB(JCAPS)
+    table = sched.statedb.table
+
+    def check():
+        assert table.spread_zones == len(ref.table.domains[TOPO_SPREAD_ZONE])
+        ids = sched.statedb.host.topology[:, TOPO_SPREAD_ZONE]
+        live = [table.row_of[name] for name in table.row_of]
+        assert (ids[live] < table.spread_zones).all()
+        np.testing.assert_array_equal(ids, np.asarray(ref.host.topology)[:, TOPO_SPREAD_ZONE])
+
+    assert table.spread_zones == 0
+    first = _zoned_nodes([f"n{i}" for i in range(8)], zone_of)
+    sched.add_nodes([obj.Node.from_dict(d) for d in first])
+    for d in first:
+        ref.upsert_node(jobj.Node.from_dict(d))
+    check()
+    assert table.spread_zones == 3
+    for name in ("n1", "n2", "n5"):
+        sched.remove_node(name)
+        ref.remove_node(name)
+    check()
+    assert table.spread_zones == 3          # ids are never released
+    later = _zoned_nodes(["n9", "n10", "x0"], {**zone_of, "x0": "z9"})
+    sched.add_nodes([obj.Node.from_dict(d) for d in later])
+    for d in later:
+        ref.upsert_node(jobj.Node.from_dict(d))
+    check()
+    assert table.spread_zones == 4
+    seen = []
+    solve = driver.schedule_batch
+
+    def recording(state, batch, rr, policy, flags, caps, **kw):
+        seen.append(kw.get("spread_zones"))
+        return solve(state, batch, rr, policy, flags, caps, **kw)
+
+    monkeypatch.setattr(driver, "schedule_batch", recording)
+    pod = {"metadata": {"name": "p0", "labels": {"app": "a0"}},
+           "spec": {"containers": [{"name": "c"}]}}
+    assert sched.schedule([obj.Pod.from_dict(pod)])["default/p0"] is not None
+    assert seen == [4]
+
+
+def test_double_reciprocal_division_equals_f32_division():
+    """The spread build's division: (float)((double)n * (1 / (double)y))
+    equals the correctly rounded f32 n / y for n = 10 (y - x), 0 <= x <= y,
+    every y up to 2,048 and samples of y up to 2^24 - 1 (the counts' range)."""
+    rng = np.random.RandomState(950)
+    ys = np.r_[np.arange(1, 2049), rng.randint(2049, 2**24, 4000)]
+    for y in ys:
+        xs = (np.arange(y + 1) if y <= 2048
+              else np.r_[0, y, rng.randint(0, y + 1, 2000)])
+        yf = np.float32(y)
+        num = np.float32(10.0) * (yf - xs.astype(np.float32))
+        want = num / yf                                  # f32, rounded once
+        got = (num.astype(np.float64) * (1.0 / np.float64(yf))).astype(np.float32)
+        np.testing.assert_array_equal(got, want, err_msg=f"y={y}")
