@@ -30,7 +30,14 @@ fails; nothing is caught and skipped:
    hazards at every build (spread_hazards): consecutive pods of one
    selector landing on one thread's nodes with counts up to 110, runs of
    pods without an entry between spread pods, and 0, 1, 3 and 64 zones
-   in use;
+   in use; then the interpod build's hazards at every build
+   (interpod_hazards), with 5, 8 and 16 topology slots: runs of pods
+   placed on one node and on one thread's nodes whose next pods read the
+   counts those placements added, totals moved off 0 inside the batch
+   (the first-pod escape, an empty-key and a poisoned anti term first
+   carried mid-batch), domain ids -1 and past the universe at the placed
+   nodes, and zero-row and quiet pods between broadcasting and counting
+   ones;
 4. packed_batch: the main path's first batch encoded through the
    EncodeCache into page-locked blobs, uploaded and unpacked on the card,
    must equal the fresh encoding (encode_pods, batch_from_numpy) field for
@@ -633,6 +640,127 @@ def interpod_inputs(torch, rng, dev, n, p, uq=32, ue=32, k=8, poisoned=False):
         podsel_count=t(podsel), term_count=t(term), topology=t(topo),
         term_q=t(term_q), term_tkey=t(tkey), term_kind=t(kind),
         term_weight=t(weight), term_poison=t(poison), domain_universe=64)
+
+
+def interpod_hazard_inputs(torch, rng, dev, n, p, k, pool):
+    """A batch that drives the interpod build's per-pod order, p pods on n
+    nodes with k topology slots. `pool` picks the statically feasible
+    nodes: "one_node" (every pod on one node), "one_thread" (the nodes of
+    two neighbouring threads and one other node, so the scan's owners see
+    their own nodes' counts pod after pod) or "wide" (four fifths of the
+    nodes). Topology ids of slots 1..k-1 include -1 and ids past the
+    universe. Pods come in runs: "quiet" runs match only columns that no
+    weighted term reads and have no preferred terms (their priority does
+    not count), some with zero rows (nothing broadcast), between "loud"
+    runs that count. Among the carried terms: a required anti term on the
+    hostname and one on the zone whose carriers arrive in the batch, one
+    with an empty key and one poisoned, each first carried by a pod late in
+    the batch; the pods' own terms: hostname anti-affinity against the
+    hostname group, and zone affinity to a selector no pod matches at
+    batch start, which the first such pod matches itself (the first-pod
+    escape); preferred terms on every key, the default-domain union
+    included. Returns (the scan's arguments, InterpodInputs)."""
+    from kubernetes_tpu_torch.ops.assign_scan import InterpodInputs, node_run
+
+    uq = ue = 16
+    nd = 64
+    topo = np.full((n, k), -1, np.int32)
+    topo[:, 0] = np.arange(n)
+    for slot, hi in ((1, 3), (2, 2), (3, 6), (4, 12)) + tuple(
+            (s, 10) for s in range(5, k)):
+        if slot >= k:
+            break
+        ids = rng.integers(0, hi, n)
+        ids[rng.random(n) < 0.2] = -1
+        past = rng.random(n) < 0.05
+        ids[past] = rng.integers(nd, nd + 8, int(past.sum()))
+        topo[:, slot] = ids
+    podsel = np.zeros((n, uq), np.float32)
+    podsel[:, :8] = rng.integers(0, 3, (n, 8)) * (rng.random((n, 8)) < 0.2)
+    term = np.zeros((n, ue), np.float32)
+    # columns 0-7 are read by weighted terms, 8-15 by required ones only
+    term_q = np.array([8, 12, 9, 10, 0, 1, 2, 3, 4, 5, 6, 7, 0, 1, -1, -1], np.int32)
+    kind = np.array([0, 0, 0, 0, 1, 2, 3, 2, 3, 2, 2, 3, 2, 3, 2, 2], np.int32)
+    last = k - 1
+    tkey = np.array([-1, 0, 0, 1, 0, 1, 0, -2, last, 2, -2, 1, last, 2, 0, 0],
+                    np.int32)
+    weight = np.array([0, 0, 0, 0, 0, 7, -5, 11, -3, 2, 4, -9, 6, -1, 0, 0],
+                      np.float32)
+    poison = np.zeros(ue, bool)
+    poison[1] = True
+    term[:, 4:14] = rng.integers(0, 2, (n, 10)) * (rng.random((n, 10)) < 0.1)
+    run = node_run(n)
+    if pool == "one_node":
+        feasible = np.array([int(rng.integers(0, n))])
+    elif pool == "one_thread":
+        first = 2 * run * int(rng.integers(0, n // (2 * run)))
+        feasible = np.r_[np.arange(first, min(first + 2 * run, n)),
+                         rng.integers(0, n, 1)]
+    else:
+        feasible = np.flatnonzero(rng.random(n) < 0.8)
+    ms = np.full((p, n), -np.inf, np.float32)
+    ms[:, feasible] = np.where(rng.random((p, feasible.size)) < 0.1, 20.0, 100020.0)
+    alloc = np.zeros((n, 6), np.float32)
+    alloc[:, 0], alloc[:, 1], alloc[:, 2] = 400, 64000, 262144
+    requested = np.zeros((n, 6), np.float32)
+    nonzero = np.full((n, 2), 100.0, np.float32)
+    reqs = np.zeros((p, 6), np.float32)
+    reqs[:, 0], reqs[:, 1], reqs[:, 2] = 1, 100, 128
+    nz_reqs = np.tile(np.float32([100, 128]), (p, 1))
+
+    runs = np.cumsum(rng.random(p) < 0.4)
+    loud = (rng.random(runs[-1] + 1) < 0.5)[runs]
+    zero = ~loud & (rng.random(runs[-1] + 1) < 0.5)[runs]
+    match = np.zeros((p, uq), np.float32)
+    carry = np.zeros((p, ue), np.float32)
+    match[:, 8:] = rng.random((p, 8)) < 0.3
+    match[loud, :8] = rng.random((int(loud.sum()), 8)) < 0.4
+    carry[:, 4:14] = (rng.random((p, 10)) < 0.1) & loud[:, None]
+    hostname_group = rng.random(p) < 0.4     # match q9 and carry e2
+    match[hostname_group, 9] = 1.0
+    carry[hostname_group, 2] = 1.0
+    carry[rng.random(p) < 0.1, 3] = 1.0      # the zone anti term's carriers
+    match[zero] = 0.0
+    carry[zero] = 0.0
+    carry[int(0.6 * p), 0] = 1.0             # the empty-key anti term's carrier
+    carry[int(0.85 * p), 1] = 1.0            # the poisoned term's carrier
+    slots = 4
+    paff_q = np.full((p, slots), -1, np.int32)
+    paff_tkey = np.zeros((p, slots), np.int32)
+    panti_q = np.full((p, slots), -1, np.int32)
+    panti_tkey = np.zeros((p, slots), np.int32)
+    ppref_q = np.full((p, slots), -1, np.int32)
+    ppref_tkey = np.zeros((p, slots), np.int32)
+    ppref_w = np.zeros((p, slots), np.float32)
+    # zone affinity to selector 11 (matched by no node at batch start): the
+    # first such pod matches it itself and escapes, the others follow it
+    escape = np.flatnonzero(rng.random(p) < 0.15)
+    paff_q[escape, 0], paff_tkey[escape, 0] = 11, 1
+    match[:, 11] = 0.0
+    match[escape[:1], 11] = 1.0
+    anti = np.flatnonzero(rng.random(p) < 0.2)
+    panti_q[anti, 1], panti_tkey[anti, 1] = 9, 0
+    keys = np.array([0, 1, 2, -2, last])
+    for s_ in range(slots):
+        on = loud & (rng.random(p) < 0.5)
+        ppref_q[on, s_] = rng.integers(0, 8, int(on.sum()))
+        ppref_tkey[on, s_] = rng.choice(keys, int(on.sum()))
+        ppref_w[on, s_] = (rng.integers(1, 50, int(on.sum()))
+                           * rng.choice([-1, 1], int(on.sum())))
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    args = (t(ms), t(reqs), t(nz_reqs), t(alloc), t(requested), t(nonzero), 2**32 - 7)
+    return args, InterpodInputs(
+        use_ipa=True, w_ip=1.0, hard_w=1.0, pod_matches_q=t(match),
+        pod_carries_e=t(carry), paff_q=t(paff_q), paff_tkey=t(paff_tkey),
+        panti_q=t(panti_q), panti_tkey=t(panti_tkey), ppref_q=t(ppref_q),
+        ppref_tkey=t(ppref_tkey), ppref_w=t(ppref_w),
+        ipaff_fail=t(np.zeros(p, bool)), podsel_count=t(podsel),
+        term_count=t(term), topology=t(topo), term_q=t(term_q),
+        term_tkey=t(tkey), term_kind=t(kind), term_weight=t(weight),
+        term_poison=t(poison), domain_universe=nd)
 
 
 def interpod_entries(torch, ip):
@@ -1396,6 +1524,24 @@ def main() -> int:
     emit({"phase": "spread_hazards", "shapes": [list(x) for x in hz_shapes],
           "runs": hz_runs, "cases": ["one_thread", "no_entry_runs_3_zones",
                                      "0_zones", "1_zone", "64_zones"],
+          "kernel_equals_plain": True})
+
+    # ---- 3d: the interpod build's hazards at every RUN: runs of pods
+    # placed on one node and on one thread's nodes (the owner's reductions
+    # read back by the next pod), the totals moved by pods of the batch
+    # (the first-pod escape, an empty-key and a poisoned anti term carried
+    # from mid-batch) before the next pod's count list, domain ids -1 and
+    # past the universe in the placed node's message, 5 and 16 topology
+    # slots (2 and 4 message chunks), zero-row pods between broadcasting
+    # ones and quiet pods between counting ones (both mbarriers' phases)
+    ih_cases = (("one_node", 8), ("one_thread", 5), ("wide", 16))
+    for p_, n_ in hz_shapes:
+        for pool, k_ in ih_cases:
+            hargs, ip = interpod_hazard_inputs(torch, rng, dev, n_, p_, k_, pool)
+            compare_interpod(torch, assign_scan_interpod(*hargs, 1.0, 1.0, ip),
+                             assign_scan_interpod_plain(*hargs, 1.0, 1.0, ip))
+    emit({"phase": "interpod_hazards", "shapes": [list(x) for x in hz_shapes],
+          "runs": hz_runs, "cases": [f"{pool}_k{k_}" for pool, k_ in ih_cases],
           "kernel_equals_plain": True})
 
     # ---- 4: the first batch through the cache and the blobs ----

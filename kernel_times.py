@@ -2,7 +2,7 @@
 """Time the port's CUDA kernels at the headline shape, for comparing two
 trees of the repository on one card.
 
-    python3 kernel_times.py [--root DIR] [--sass-out DIR]
+    python3 kernel_times.py [--root DIR] [--sass-out DIR] [--parts LIST]
 
 Imports `kubernetes_tpu_torch` from DIR (default: this file's directory),
 so `--root` can point at an unpacked older commit: its kernels are built
@@ -24,7 +24,8 @@ nodes per thread, its instruction count and two digests of its SASS
 (cuobjdump; exact, and with register numbers normalized), so two trees'
 builds can be compared instruction for instruction (`--sass-out` also
 writes each build's register-normalized SASS there, one file a build and
-RUN, for `diff`). Where the tree has the spread build, it is also timed
+RUN, for `diff`), and ptxas's registers and spills of each
+(`scan_ptxas`). Where the tree has the spread build, it is also timed
 with parts of its per-pod chain switched off by its inputs:
 `spread_no_entry_ms` with every pod's entry -1 (no spread work, no
 exchange), `spread_no_adds_ms` with an all-zero ledger and zero match rows
@@ -36,8 +37,16 @@ zeroed (no winner broadcast, no replica update), `interpod_no_score_ms`
 with the priority's weight 0 (no count exchange), and
 `interpod_list_only_ms` with both and the predicate off (the count list's
 barrier alone), beside the main build on the same batch
-(`interpod_batch_main_ms`); the placements differ between them, so they
-price the chain, not a result. Exits non-zero without a CUDA device.
+(`interpod_batch_main_ms`), each also as the kernel's device time alone
+(`*_kernel_us`, torch.profiler); the placements differ between them, so
+they price the chain, not a result. The interpod call is also profiled
+(`interpod_device_us`): the build's kernel time per launch, and the
+device time per call of everything the call runs (`per_call`: the
+kernel and the wrapper's set-up kernels); with the host time until the
+call returns (`interpod_enqueue_ms`), that splits the call's time into
+the kernel's, the set-up's on the card and the host's. `--parts` picks
+what to time, a comma list of mask, scan, spread, interpod, gang and
+sass (all by default). Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -49,21 +58,28 @@ import importlib.util
 import json
 import os
 import re
+import statistics
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
 
 HERE = Path(__file__).resolve().parent
 REPS = 5
+PARTS = ("mask", "scan", "spread", "interpod", "gang", "sass")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", type=Path, default=HERE)
     ap.add_argument("--sass-out", type=Path, default=None)
+    ap.add_argument("--parts", default=",".join(PARTS))
     opts = ap.parse_args()
+    parts = set(opts.parts.split(","))
+    if not parts <= set(PARTS):
+        ap.error(f"--parts: {sorted(parts - set(PARTS))} not in {PARTS}")
     import torch
 
     if not torch.cuda.is_available():
@@ -73,7 +89,8 @@ def main() -> int:
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
     sys.path.insert(0, str(opts.root.resolve()))
-    from kubernetes_tpu_torch.native.build import build, library_path, nvcc_path
+    from kubernetes_tpu_torch.native.build import (build, build_log, library_path,
+                                                   nvcc_path)
     from kubernetes_tpu_torch.ops import assign_scan as scan_module
     from kubernetes_tpu_torch.ops.assign_scan import assign_scan
     from kubernetes_tpu_torch.ops.static_mask import static_mask
@@ -86,18 +103,22 @@ def main() -> int:
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     build()
     out = {"root": str(opts.root), "nvidia_smi": smi.splitlines()[0]}
-    args = smoke.static_mask_inputs(torch, rng, dev)
-    out.update(smoke.timed(torch, lambda: static_mask(*args), 4 * REPS,
-                           "static_mask_ms"))
-    scan_args = smoke.first_batch(torch, dev)[-1]
-    het = smoke.scan_inputs(torch, rng, dev)
-    miss = smoke.scan_inputs(torch, rng, dev, all_miss=True)
-    for key, a in (("assign_scan_ms", scan_args), ("heterogeneous_ms", het),
-                   ("all_miss_ms", miss)):
-        out.update(smoke.timed(torch, lambda a=a: assign_scan(*a), REPS, key))
-    out["device_us_per_launch"] = device_times(
-        torch, lambda: static_mask(*args), lambda: assign_scan(*scan_args))
-    if hasattr(scan_module, "assign_scan_spread"):
+    if "mask" in parts:
+        args = smoke.static_mask_inputs(torch, rng, dev)
+        out.update(smoke.timed(torch, lambda: static_mask(*args), 4 * REPS,
+                               "static_mask_ms"))
+    if "scan" in parts:
+        scan_args = smoke.first_batch(torch, dev)[-1]
+        het = smoke.scan_inputs(torch, rng, dev)
+        miss = smoke.scan_inputs(torch, rng, dev, all_miss=True)
+        for key, a in (("assign_scan_ms", scan_args), ("heterogeneous_ms", het),
+                       ("all_miss_ms", miss)):
+            out.update(smoke.timed(torch, lambda a=a: assign_scan(*a), REPS, key))
+    if {"mask", "scan"} <= parts:
+        out["device_us_per_launch"] = device_times(
+            torch, ((lambda: static_mask(*args), 10),
+                    (lambda: assign_scan(*scan_args), 3)))["per_launch"]
+    if "spread" in parts and hasattr(scan_module, "assign_scan_spread"):
         spread_scan = scan_module.assign_scan_spread
         _c, _n, _p, _s, state, batch, flags, zones = smoke.spread_first_batch(torch, dev)
         fields = {f.name for f in dataclasses.fields(scan_module.SpreadInputs)}
@@ -116,7 +137,7 @@ def main() -> int:
         for key, v in variants:
             out.update(smoke.timed(torch, lambda v=v: spread_scan(*sargs, v), REPS,
                                    key))
-    if hasattr(scan_module, "assign_scan_interpod"):
+    if "interpod" in parts and hasattr(scan_module, "assign_scan_interpod"):
         interpod_scan = scan_module.assign_scan_interpod
         _c, iargs, ip = smoke.interpod_first_batch(torch, dev)
         no_rows = dataclasses.replace(
@@ -132,7 +153,16 @@ def main() -> int:
         for key, v in variants:
             out.update(smoke.timed(torch, lambda v=v: interpod_scan(*iargs, v),
                                    REPS, key))
-    if hasattr(scan_module, "assign_scan_gang"):
+            # the build's own device time on this variant, in us
+            out[f"{key[:-3]}_kernel_us"] = kernel_us(device_times(
+                torch, ((lambda v=v: interpod_scan(*iargs, v), REPS),)))
+        out["interpod_batch_main_kernel_us"] = kernel_us(device_times(
+            torch, ((lambda: assign_scan(*iargs), REPS),)))
+        out["interpod_device_us"] = device_times(
+            torch, ((lambda: interpod_scan(*iargs, ip), REPS),))
+        out["interpod_enqueue_ms"] = enqueue_ms(
+            torch, lambda: interpod_scan(*iargs, ip))
+    if "gang" in parts and hasattr(scan_module, "assign_scan_gang"):
         gang_scan = scan_module.assign_scan_gang
         _c, _n, _p, mask_args, gargs, gang = smoke.gang_first_batch(torch, dev)
         out.update(smoke.timed(torch, lambda: static_mask(*mask_args), 4 * REPS,
@@ -141,9 +171,11 @@ def main() -> int:
                                "gang_ms"))
         out.update(smoke.timed(torch, lambda: assign_scan(*gargs), REPS,
                                "gang_batch_main_ms"))
-    cuobjdump = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
-    out["scan_sass"] = sass_digests(cuobjdump, library_path("assign_scan"),
-                                    opts.sass_out)
+    if "sass" in parts:
+        cuobjdump = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
+        out["scan_sass"] = sass_digests(cuobjdump, library_path("assign_scan"),
+                                        opts.sass_out)
+        out["scan_ptxas"] = smoke.ptxas_report(build_log("assign_scan"))
     print(json.dumps(out), flush=True)
     return 0
 
@@ -187,29 +219,54 @@ def sass_digests(cuobjdump: str, library: Path, sass_out: Path | None = None) ->
     return out
 
 
-def device_times(torch, mask_call, scan_call, mask_calls=10, scan_calls=3) -> dict:
-    """{kernel name: device us per launch} over a profiled window of
-    mask and scan calls (main-path batch), after one warm-up call each."""
+def kernel_us(times: dict) -> float:
+    """The scan kernel's device us per launch in a device_times result."""
+    return next(us for name, us in times["per_launch"].items()
+                if name.startswith("assign_scan_kernel"))
+
+
+def enqueue_ms(torch, call, reps=REPS) -> float:
+    """Median host time of `call` until it returns, the card idle before
+    each: for a wrapper that launches its kernel last, the host's set-up."""
+    times = []
+    for _ in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        call()
+        times.append(1e3 * (time.perf_counter() - t0))
+    torch.cuda.synchronize()
+    return statistics.median(times[1:])
+
+
+def device_times(torch, calls) -> dict:
+    """Device time over a profiled window of `calls`, (call, count) pairs
+    each run once to warm up first: {"per_launch": {name: device us per
+    launch, of each kernel and of each op that issued kernels},
+    "per_call": us of every kernel and copy the window ran on the card,
+    divided by the number of calls}."""
     from torch.profiler import ProfilerActivity, profile
 
-    mask_call()
-    scan_call()
+    for call, _count in calls:
+        call()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(mask_calls):
-            mask_call()
-        for _ in range(scan_calls):
-            scan_call()
+        for call, count in calls:
+            for _ in range(count):
+                call()
         torch.cuda.synchronize()
-    times = {}
+    times, total = {}, 0.0
     for evt in prof.key_averages():
-        total = getattr(evt, "self_device_time_total", None)
-        if total is None:
-            total = evt.self_cuda_time_total
-        if total > 0 and "Memcpy" not in evt.key and "Memset" not in evt.key:
+        dev_total = getattr(evt, "self_device_time_total", None)
+        if dev_total is None:
+            dev_total = evt.self_cuda_time_total
+        if dev_total <= 0:
+            continue
+        if str(getattr(evt, "device_type", "")).endswith("CUDA"):
+            total += dev_total   # kernels and copies, not the ops that issued them
+        if "Memcpy" not in evt.key and "Memset" not in evt.key:
             name = evt.key.replace("(anonymous namespace)::", "").replace("void ", "")
-            times[name.split("(")[0]] = total / evt.count
-    return times
+            times[name.split("(")[0]] = dev_total / evt.count
+    return {"per_launch": times, "per_call": total / sum(c for _f, c in calls)}
 
 
 if __name__ == "__main__":

@@ -193,59 +193,88 @@
 // State it keeps:
 //   - node-level counts: a transposed [UQ+UE, N] copy of the pod-selector
 //     and carried-term ledgers (the wrapper makes it, and returns it as
-//     [N, UQ] and [N, UE]), read and written by each node's owner only,
-//     as the main ledger;
+//     [N, UQ] and [N, UE]); column u of node g is added to only by lane
+//     u % 32 of g's owner warp and read only by g's owner thread;
 //   - domain aggregates dom[K, D, UQ+UE] (the pods matching selector q, or
 //     carrying term e, in domain d of topology slot k): one replica per
 //     block in block-private device memory ([CLUSTER, K, D, UQ+UE], 2 MiB
-//     at K = 8, D = 64, UQ = UE = 32; it does not fit beside the node
-//     columns in shared memory), read by every thread of the block;
+//     at K = 8, D = 64, UQ = UE = 32; one is 128 KiB there and up to 512
+//     KiB at the build's limits, more than a block's shared memory), which
+//     the block copies from the batch-start aggregates at its start and
+//     then reads and writes alone;
 //   - the totals total_q / total_e and the term attributes in shared
-//     memory (the totals replicated per block, the attributes loaded once).
+//     memory (the totals replicated per block and touched by warp 0 only,
+//     the attributes loaded once).
 // Per pod, after the main build's fit and terms:
-//   1. if the previous pod was placed and its match or carried-term row is
-//      not zero, the block waits for its node index (below), reads that
-//      node's domain ids and adds the row into its replica (every thread a
-//      (slot, column) cell) and into the totals; every block knows the row
-//      and whether the pod was placed, so every block waits alike;
-//   2. warp 0 turns the pod row (it rides the pod ring: the required and
-//      preferred term slots, ipaff_fail, the match and carried-term rows)
-//      and the term attributes into a list of count entries, each a
-//      (column, topology code, role, weight): the active carried required
-//      anti terms (role: their counts summed must be 0), the carried terms
-//      that weigh the pod symmetrically (match x (weight + hard_w for
-//      required affinity)), the pod's own required anti (count 0) and
-//      affinity terms (count > 0, unless none exists anywhere and the pod
-//      matches its own term: then the term holds everywhere), and its
-//      preferred terms (ppref_w); a carried poisoned anti term with a
-//      carrier, an active carried anti term with TKEY_INVALID and a
-//      carrier, and ipaff_fail reject every node; one block barrier;
-//   3. each thread evaluates the list on its feasible nodes: a count at
+//   1. two things at once, then one block barrier that publishes both.
+//      Warp 0 adds the previous pod's match and carried-term rows to the
+//      totals when that pod was placed, then turns the pod row (it rides
+//      the pod ring: the required and preferred term slots, ipaff_fail,
+//      the match and carried-term rows) and the term attributes into a
+//      list of count entries, each a (column, topology code, role,
+//      weight): the active carried required anti terms (role: their counts
+//      summed must be 0), the carried terms that weigh the pod
+//      symmetrically (match x (weight + hard_w for required affinity)),
+//      the pod's own required anti (count 0) and affinity terms (count >
+//      0, unless none exists anywhere and the pod matches its own term:
+//      then the term holds everywhere), and its preferred terms (ppref_w);
+//      a carried poisoned anti term with a carrier, an active carried anti
+//      term with TKEY_INVALID and a carrier, and ipaff_fail reject every
+//      node. Meanwhile, when the previous pod was placed and its rows are
+//      not zero, warps 1-15 wait for the placed node's index (below), read
+//      its domain ids and add the rows into the block's replica (a (slot,
+//      column) cell a thread, slots 1..k-1);
+//   2. each thread evaluates the list on its feasible nodes: a count at
 //      topology code k reads the node-level column for slot 0 (hostname),
 //      the replica at the node's domain for slots 1..K-1, the inclusion-
 //      exclusion union for TKEY_DEFAULT_UNION, and 0 for TKEY_INVALID;
-//   4. when the list has a weighted entry (else every node's score is 0
-//      and nothing is exchanged; every block reads the same list), the
-//      min and max count over the feasible nodes, clamped through 0, are
-//      reduced over the warp, the block and the cluster (st.async onto
-//      a fourth mbarrier, its phase the parity of the counting pods seen);
-//      each node adds w_ip * trunc(10 (c - min) / max(max - min, 1) + eps)
-//      (0 when max == min) before `best`.
+//   3. when the list has a weighted entry (else every node's score is 0
+//      and nothing is exchanged; every block reads the same list head, so
+//      all skip alike), the min and max count over the feasible nodes,
+//      clamped through 0, are reduced over the warp, the block and the
+//      cluster (st.async onto a fourth mbarrier, its phase the parity of
+//      the counting pods seen); each node adds
+//      w_ip * trunc(10 (c - min) / max(max - min, 1) + eps) (0 when max ==
+//      min) before `best`.
 // After the choice, when the pod's match or carried-term row is not zero,
-// the owner's warp adds the rows to the node's counts (a column a lane;
-// the columns of a node are read by its owner only, in later pods, after
-// the barriers between) and sends the node index to every block (a block
-// a lane, st.async onto a fifth mbarrier), whose phase the next pod's
-// step 1 waits for. A block reads the index before it sends its next triple and
-// the winner sends the next index only after every block's triple of that
-// pod, so one slot suffices; the replica is written in step 1 and read
-// after step 2's barrier, and every thread has passed the previous pod's
-// barriers before step 1. The 8-node build keeps STAGES = 3 to fit.
+// the owner's warp first sends the node's index to every block (a block a
+// lane, st.async onto a fifth mbarrier), then adds the rows to the node's
+// counts, a column a lane, as reductions whose result is not used
+// (red.global.add.f32): no lane waits for a cell's old value, and no block
+// waits for the owner's L2 round trip before its index arrives.
+//
+// Ordering. The totals depend only on the previous pods' rows, which
+// every block holds in its pod ring, and on whether each was placed,
+// which every block reads off the triple exchange (ntie > 0); so warp 0
+// needs nothing that the index gates, and it builds pod p+1's list while
+// pod p's index travels and the other warps update the replica. Warp 0
+// alone reads and writes the totals (a __syncwarp orders its lanes' adds
+// before the list reads them). The list and the replica are read only
+// after step 1's barrier; the previous pod's list was last read before
+// that pod's triple barrier, which warp 0 passed before it rewrites the
+// list. A block reads the index before step 1's barrier, and the winner
+// of the next broadcasting pod sends only after every block's triple of
+// that pod, which follows that barrier, so one slot suffices; thread 32
+// re-arms the index's mbarrier after its wait, and the next index can
+// only arrive after every warp of the block has passed that barrier, so
+// no warp misses a phase. A reduction by a lane of the owner's warp at
+// pod p is followed, in that lane's program order, by pod p+1's step-1
+// block barrier, which the owner thread passes before it reads the column: __syncthreads makes
+// every global memory access made before it, reductions included,
+// visible to the block's threads after it, so the owner thread's
+// ordinary load returns the sum. (An L1-bypassing ld.global.cg of the
+// column, the other way to see a reduction made at L2, cost ~0.3 ms a
+// batch on bench[interpod]: the owner re-reads its columns pod after
+// pod, and an ordinary load finds them in L1.) chip_smoke.py holds runs
+// of consecutive pods placed on one node and on one thread's nodes. The
+// 8-node build keeps STAGES = 3 to fit.
 //
 // Exactness. Every count and weight is an integer-valued f32 far below
 // 2^24 (weights are integers: int(weight) and hardPodAffinityWeight), so
-// the counts, their weighted sums and their min and max (reduced as ints)
-// equal the JAX package's einsums in any order; the score is written with
+// the counts, their weighted sums, the reductions into the node-level
+// counts (in any order) and their min and max (reduced as ints) equal the
+// JAX package's einsums; an integer count is never subnormal, so the
+// reductions' flush-to-zero changes nothing. The score is written with
 // the _rn intrinsics in interpod.py:246-250's order.
 //
 // Bound of the interpod build: masked_static read once, the node-level
@@ -404,7 +433,8 @@ using SpreadParam = typename std::conditional<SPREAD, SpreadArgs, NoSpread>::typ
 // What the interpod build reads beyond the main operands.
 struct IpaArgs {
   float* node_t;              // [uq + ue, N] node-level counts, updated in place
-  float* dom;                 // [CLUSTER, k, nd, uq + ue] replicas, updated in place
+  const float* dom0;          // [k, nd, uq + ue] batch-start domain aggregates
+  float* dom;                 // [CLUSTER, k, nd, uq + ue] replicas (scratch)
   const float* totals;        // [uq + ue] batch-start total_q, total_e
   const int* pod_ip;          // [P, IPW_ROWS + uq + ue] per-pod words
   const int* topology;        // [N, k] domain ids, -1 = none
@@ -895,7 +925,9 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
   }
   [[maybe_unused]] float* dom_b = nullptr;   // this block's replica (interpod build)
   if constexpr (IPA) {
-    dom_b = ip.dom + (size_t)rank * ip.k * ip.nd * (ip.uq + ip.ue);
+    const int cells = ip.k * ip.nd * (ip.uq + ip.ue);
+    dom_b = ip.dom + (size_t)rank * cells;
+    for (int i = t; i < cells; i += THREADS) dom_b[i] = ip.dom0[i];   // the block's replica
     for (int i = t; i < 5 * IP_MAX_UE; i += THREADS) {
       const int a = i / IP_MAX_UE, e = i - a * IP_MAX_UE;
       s.t_attr[i] = e < ip.ue ? ip.term_attr[a * ip.ue + e] : 0;
@@ -1197,36 +1229,43 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
     [[maybe_unused]] bool ipok[RUN];    // InterPodAffinityMatches
     [[maybe_unused]] int4 head = make_int4(0, 0, 0, 0);
     if constexpr (IPA) {
-      // 1. the previous pod's placement into the replica and the totals
-      if (win_pending) {
+      // 1. warp 0: the previous pod's rows into the totals (when it was
+      // placed) and the pod's count entries; the other warps: the previous
+      // pod's node index, and its rows into the replica at the node's
+      // domains
+      const int U = ip.uq + ip.ue;
+      if (warp == 0) {
+        if (win_pending) {
+          const float* row = s.pods + ((p - 1) % POD_SLOTS) * POD_ROW + POD_ROW_MAIN
+                             + IPW_ROWS;
+          for (int u = lane; u < U; u += 32) s.totals[u] = __fadd_rn(s.totals[u], row[u]);
+          __syncwarp();
+        }
+        ip_build_list(s, ip, pr, lane);
+      } else if (win_pending) {
         mbar_wait(s.bar_win, win_phase);
-        if (t == 0) mbar_arm(s.bar_win, IP_BYTES);   // for the next one
-        win_phase ^= 1u;
-        const int gw = s.win_slot->x;
+        if (t == 32) mbar_arm(s.bar_win, IP_BYTES);   // for the next one
+        const int* ids = ip.topology + (size_t)s.win_slot->x * ip.k;   // the node's
         const float* row = s.pods + ((p - 1) % POD_SLOTS) * POD_ROW + POD_ROW_MAIN
                            + IPW_ROWS;
-        const int U = ip.uq + ip.ue;
-        for (int i = t; i < ip.k * U; i += THREADS) {
+        // cells (k, u) of slots 1..k-1 (hostname: node-level counts)
+        for (int i = U + t - 32; i < ip.k * U; i += THREADS - 32) {
           const int k = i / U;
           const int u = i - k * U;
           const float v = row[u];
-          if (k == 0 || v == 0.0f) continue;   // hostname: node-level counts
-          const int d = __ldg(ip.topology + (size_t)gw * ip.k + k);
+          if (v == 0.0f) continue;
+          const int d = __ldg(ids + k);
           if (d >= 0 && d < ip.nd) {
             float* cell = dom_b + ((size_t)k * ip.nd + d) * U + u;
             *cell = __fadd_rn(*cell, v);
           }
         }
-        if (warp == 0) {
-          for (int u = lane; u < U; u += 32) s.totals[u] = __fadd_rn(s.totals[u], row[u]);
-          __syncwarp();
-        }
       }
-      // 2. the pod's count entries
-      if (warp == 0) ip_build_list(s, ip, pr, lane);
+      if (win_pending) win_phase ^= 1u;
+      // one barrier publishes the entries and the replica
       __syncthreads();
       head = *s.ip_head;
-      // 3. feasibility and counts of the run's feasible nodes
+      // 2. feasibility and counts of the run's feasible nodes
       float cnt[RUN];
       int lo = 0, hi = 0;   // min and max count, clamped through 0
 #pragma unroll
@@ -1251,7 +1290,7 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
           hi = max(hi, (int)c);
         }
       }
-      // 4. the cluster's min and max, and the scores
+      // 3. the cluster's min and max, and the scores
       if (head.z != 0) {
         const int wlo = __reduce_min_sync(FULL, lo);
         const int whi = __reduce_max_sync(FULL, hi);
@@ -1409,22 +1448,20 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
             }
           }
           if constexpr (IPA) {
-            // the owner's warp: the pod's match and carried-term rows into
-            // the node's counts (a column a lane), and the node to every
-            // block, whose replica waits for it
+            // the owner's warp: first the node to every block, whose
+            // replica waits for it, then the pod's match and carried-term
+            // rows into the node's counts, a column a lane, as reductions
+            // whose result is not used
             if (head.w != 0) {
               const int gw = __reduce_max_sync(FULL, won);
-              const float* row = pr + POD_ROW_MAIN + IPW_ROWS;
-              for (int u = lane; u < ip.uq + ip.ue; u += 32) {
-                const float v = row[u];
-                if (v != 0.0f) {
-                  float* cell = ip.node_t + (size_t)u * N + gw;
-                  *cell = __fadd_rn(*cell, v);
-                }
-              }
               if (lane < CLUSTER)
                 st_async_v4(map_rank(smem_u32(s.win_slot), lane), make_int4(gw, p, 0, 0),
                             map_rank(smem_u32(s.bar_win), lane));
+              const float* row = pr + POD_ROW_MAIN + IPW_ROWS;
+              for (int u = lane; u < ip.uq + ip.ue; u += 32) {
+                const float v = row[u];
+                if (v != 0.0f) atomicAdd(ip.node_t + (size_t)u * N + gw, v);
+              }
             }
           }
         }
@@ -1578,11 +1615,12 @@ extern "C" int ktpu_assign_scan_spread(
 
 // The interpod build: the operands of ktpu_assign_scan, and node_t
 // [uq + ue, N] (the pod-selector then carried-term counts, transposed;
-// updated in place), dom [16, k, nd, uq + ue] (the domain aggregates, one
-// replica per block; updated in place), totals [uq + ue] (their sums over
-// the nodes), pod_ip [P, 29 + uq + ue] (per pod: ipaff_fail, paff_q,
-// paff_tkey, panti_q, panti_tkey, ppref_q, ppref_tkey, ppref_w as f32
-// bits, 4 slots each, then the match and carried-term rows as f32 bits),
+// updated in place), dom0 [k, nd, uq + ue] (the domain aggregates), dom
+// [16, k, nd, uq + ue] (scratch: each block copies dom0 into its replica
+// and updates it), totals [uq + ue] (their sums over the nodes), pod_ip
+// [P, 29 + uq + ue] (per pod: ipaff_fail, paff_q, paff_tkey, panti_q,
+// panti_tkey, ppref_q, ppref_tkey, ppref_w as f32 bits, 4 slots each,
+// then the match and carried-term rows as f32 bits),
 // topology [N, k], term_attr [5, ue] (term_q, term_tkey, term_kind,
 // term_weight as f32 bits, term_poison), 0 <= uq, ue <= 64, 5 <= k <= 16,
 // 1 <= nd <= 64, and use_ipa (MatchInterPodAffinity), the
@@ -1592,17 +1630,18 @@ extern "C" int ktpu_assign_scan_interpod(
     const float* nonzero_requests, const float* allocatable, float* requested,
     float* nonzero, int* assignments, float* scores, int* feasible_counts,
     long long* rr_io, int P, int N, int run, float w_lr, float w_ba,
-    float* node_t, float* dom, const float* totals, const int* pod_ip,
-    const int* topology, const int* term_attr, int uq, int ue, int k, int nd,
-    int use_ipa, float w_ip, float hard_w, cudaStream_t stream) {
+    float* node_t, const float* dom0, float* dom, const float* totals,
+    const int* pod_ip, const int* topology, const int* term_attr, int uq,
+    int ue, int k, int nd, int use_ipa, float w_ip, float hard_w,
+    cudaStream_t stream) {
   if (uq < 0 || uq > IP_MAX_UQ || ue < 0 || ue > IP_MAX_UE || k < 5
       || k > IP_MAX_K || nd < 1 || nd > IP_MAX_D)
     return (int)cudaErrorInvalidValue;
   const Operands o{masked_static, requests, nonzero_requests, allocatable,
                    requested, nonzero, assignments, scores, feasible_counts,
                    rr_io, P, N, w_lr, w_ba};
-  const IpaArgs ip{node_t, dom, totals, pod_ip, topology, term_attr, uq, ue, k,
-                   nd, use_ipa, w_ip, hard_w};
+  const IpaArgs ip{node_t, dom0, dom, totals, pod_ip, topology, term_attr, uq, ue,
+                   k, nd, use_ipa, w_ip, hard_w};
   return launch_run<false, true>(o, run, NoSpread{}, stream, ip);
 }
 

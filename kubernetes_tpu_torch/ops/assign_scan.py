@@ -40,6 +40,7 @@ from types import SimpleNamespace
 import torch
 
 from kubernetes_tpu_torch.ops.interpod import (
+    domain_aggregates,
     interpod_counts,
     interpod_feasible,
     interpod_score,
@@ -446,7 +447,7 @@ IP_MAX_UQ = IP_MAX_UE = 64
 IP_SLOTS = 4
 IP_MAX_K = 16
 IP_MAX_D = 64
-_INTERPOD_ARGTYPES = (_ARGTYPES[:-1] + [ctypes.c_void_p] * 6
+_INTERPOD_ARGTYPES = (_ARGTYPES[:-1] + [ctypes.c_void_p] * 7
                       + [ctypes.c_int] * 5 + [ctypes.c_float] * 2
                       + [ctypes.c_void_p])
 
@@ -485,8 +486,9 @@ def assign_scan_interpod(masked_static, requests, nonzero_requests,
     the operands of `assign_scan`, and `interpod` (InterpodInputs). On a
     card the wrapper hands the kernel a transposed [UQ + UE, N] copy of the
     node-level ledgers, which the kernel updates in place and the wrapper
-    returns as new_podsel [N, UQ] and new_term [N, UE], and one replica per
-    block of the domain aggregates, which the kernel updates and drops."""
+    returns as new_podsel [N, UQ] and new_term [N, UE], the batch-start
+    domain aggregates, and room for one replica of them per block, which
+    each block fills, updates and drops."""
     args = (masked_static, requests, nonzero_requests, allocatable,
             requested, nonzero)
     dev = _check_operands("assign_scan_interpod", *args)
@@ -527,11 +529,9 @@ def assign_scan_interpod(masked_static, requests, nonzero_requests,
             f"{ip.domain_universe} domains (1 to {IP_MAX_D})")
     counts = torch.cat([ip.podsel_count, ip.term_count], 1)
     node_t = counts.t().contiguous()
-    ledger = make_ledger(ip.podsel_count, ip.term_count, ip.topology,
-                         ip.domain_universe)
-    dom = torch.cat([ledger.dom_podsel, ledger.dom_term], 2)
-    dom = dom[None].expand(CLUSTER, *dom.shape).contiguous()
-    totals = torch.cat([ledger.total_q, ledger.total_e]).contiguous()
+    dom0 = domain_aggregates(ip.topology, counts, ip.domain_universe).contiguous()
+    dom = torch.empty((CLUSTER, *dom0.shape), dtype=f32, device=dev)
+    totals = counts.sum(0)
     words = _pod_words(ip)
     attrs = torch.stack([ip.term_q, ip.term_tkey, ip.term_kind,
                          ip.term_weight.contiguous().view(i32),
@@ -539,7 +539,8 @@ def assign_scan_interpod(masked_static, requests, nonzero_requests,
     topology = ip.topology.contiguous()
     out = _launch("ktpu_assign_scan_interpod", _INTERPOD_ARGTYPES, *args,
                   rr_start, w_lr, w_ba,
-                  (node_t.data_ptr(), dom.data_ptr(), totals.data_ptr(),
+                  (node_t.data_ptr(), dom0.data_ptr(), dom.data_ptr(),
+                   totals.data_ptr(),
                    words.data_ptr(), topology.data_ptr(), attrs.data_ptr(),
                    uq, ue, k, ip.domain_universe, int(bool(ip.use_ipa)),
                    float(ip.w_ip), float(ip.hard_w)))

@@ -504,6 +504,268 @@ def test_interpod_ops_match_reference(case, seed):
     assert len(np.unique(want_c)) > 1
 
 
+# ---- (c2) the interpod build's per-pod order and its (min, max) exchange,
+# as numpy models of csrc/assign_scan.cu, against the reference ----
+
+ROLE_SCORE, ROLE_CARRIED_ANTI, ROLE_ANTI, ROLE_AFF = range(4)
+F32 = np.float32
+
+
+def _kernel_list(state, pod, totals, hard_w=1.0):
+    """The interpod build's count list for one pod (ip_build_list): entries
+    (column, topology code, role, weight), reject every node, a weighted
+    entry exists, the match or carried-term row is not zero. Reads the pod
+    row, the term attributes and the totals, not the placed node."""
+    entries, reject, counting = [], False, False
+    for e in range(UE):
+        q, tk = int(state["term_q"][e]), int(state["term_tkey"][e])
+        kind = int(state["term_kind"][e])
+        m = pod["pod_matches_q"][q] if q >= 0 else F32(0)
+        carried = totals[UQ + e] > 0
+        if kind == TermKind.ANTI_REQ:
+            if state["term_poison"][e] and carried:
+                reject = True
+            if m > 0:
+                if tk == TKEY_INVALID:
+                    reject = reject or carried
+                else:
+                    entries.append((UQ + e, tk, ROLE_CARRIED_ANTI, F32(0)))
+        eff = F32(state["term_weight"][e]) + F32(hard_w) * F32(kind == TermKind.AFF_REQ)
+        wgt = F32(m) * eff
+        if wgt != 0 and tk != TKEY_INVALID:
+            entries.append((UQ + e, tk, ROLE_SCORE, wgt))
+            counting = True
+    for t in range(IA):
+        q = int(pod["paff_q"][t])
+        if q >= 0 and not (not totals[q] > 0 and pod["pod_matches_q"][q] > 0):
+            entries.append((q, int(pod["paff_tkey"][t]), ROLE_AFF, F32(0)))
+        q = int(pod["panti_q"][t])
+        if q >= 0:
+            entries.append((q, int(pod["panti_tkey"][t]), ROLE_ANTI, F32(0)))
+        q, tk, w = int(pod["ppref_q"][t]), int(pod["ppref_tkey"][t]), F32(pod["ppref_w"][t])
+        if q >= 0 and w != 0 and tk != TKEY_INVALID:
+            entries.append((q, tk, ROLE_SCORE, w))
+            counting = True
+    reject = reject or bool(pod["ipaff_fail"])
+    row_nz = bool(pod["pod_matches_q"].any() or pod["pod_carries_e"].any())
+    return entries, reject, counting, row_nz
+
+
+def _kernel_count(node, replica, topo, u, tk, g):
+    """ip_count: column u at topology code tk for node g, from the
+    node-level counts and the block's replica of the domain aggregates."""
+    def at(k, d):
+        return replica[k, d, u] if 0 <= d < D else F32(0)
+    if tk == 0:
+        return node[g, u]
+    if 0 < tk < K:
+        return at(tk, topo[g, tk])
+    if tk == TKEY_DEFAULT_UNION:
+        z, r = topo[g, 1], topo[g, 2]
+        host = node[g, u] if z < 0 and r < 0 else F32(0)
+        return host + at(1, z) + at(2, r) - at(3, topo[g, 3])
+    return F32(0)
+
+
+def _sequence_pods(rng, n_pods, state, podsel, term):
+    """Pods for the sequence: random rows and terms, a first pod whose own
+    zone affinity selects what no node holds yet while it matches itself
+    (the first-pod escape), a second one like it, which escapes only while
+    the first is unplaced, a pod with zero rows, and a late pod that first
+    carries a poisoned anti term (every pod after it is rejected)."""
+    free = int(np.flatnonzero(podsel.sum(0) == 0)[0]) if (podsel.sum(0) == 0).any() else 0
+    podsel[:, free] = 0.0
+    pods = []
+    for i in range(n_pods):
+        pod = dict(
+            pod_matches_q=(rng.rand(UQ) < 0.4).astype(np.float32),
+            pod_carries_e=(rng.rand(UE) < 0.3).astype(np.float32),
+            paff_q=np.full(IA, -1, np.int32), paff_tkey=np.zeros(IA, np.int32),
+            panti_q=np.full(IA, -1, np.int32), panti_tkey=np.zeros(IA, np.int32),
+            ppref_q=np.full(IA, -1, np.int32), ppref_tkey=np.zeros(IA, np.int32),
+            ppref_w=np.zeros(IA, np.float32), ipaff_fail=np.bool_(False))
+        if rng.rand() < 0.3:
+            pod["paff_q"][0], pod["paff_tkey"][0] = rng.randint(UQ), rng.choice([0, 1, 5])
+        if rng.rand() < 0.3:
+            pod["panti_q"][1], pod["panti_tkey"][1] = rng.randint(UQ), rng.choice([0, 1, 2])
+        used = rng.rand(IA) < 0.5
+        pod["ppref_q"][used] = rng.randint(0, UQ, int(used.sum()))
+        pod["ppref_tkey"][used] = rng.choice([0, 1, 2, 5, TKEY_DEFAULT_UNION], int(used.sum()))
+        pod["ppref_w"][used] = rng.randint(-50, 50, int(used.sum()))
+        pods.append(pod)
+    for pod in pods:
+        pod["pod_matches_q"][free] = 0.0
+    for pod in pods[:2]:
+        pod["paff_q"][0], pod["paff_tkey"][0] = free, 1
+        pod["pod_matches_q"][free] = 1.0
+    poison = UE - 2
+    state["term_kind"][poison], state["term_poison"][poison] = TermKind.ANTI_REQ, True
+    term[:, poison] = 0.0
+    pods[n_pods - 3]["pod_carries_e"][poison] = 1.0
+    zero = pods[n_pods // 2]
+    zero["pod_matches_q"][:] = 0.0
+    zero["pod_carries_e"][:] = 0.0
+    return pods
+
+
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("seed", range(2))
+def test_kernel_pod_order_model_matches_reference(case, seed):
+    """The interpod build's per-pod order: the totals updated and the pod's
+    count list built from the previous pod's rows and placed flag alone,
+    before the placed node is known; then the replica updated at the
+    domain ids of the node the previous pod's message names; then the
+    counts. At every pod the model's predicate, counts and score equal JAX
+    `interpod_feasible`, `interpod_counts` and `interpod_score` on the
+    ledger JAX `ledger_add` carries, and the model's ledgers equal JAX's
+    at the end."""
+    rng = np.random.RandomState(1700 + seed)
+    state, _pod, podsel, term, feasible = _ops_inputs(rng, case)
+    topo = state["topology"]
+    n = topo.shape[0]
+    pods = _sequence_pods(rng, 10, state, podsel, term)
+    js = SimpleNamespace(**{k: jnp.asarray(v) for k, v in state.items()})
+    jtopo = jnp.asarray(topo)
+    jled = jinterpod.AffinityLedger(
+        podsel_count=jnp.asarray(podsel), total_q=jnp.asarray(podsel.sum(0)),
+        term_count=jnp.asarray(term),
+        dom_podsel=jinterpod.domain_aggregates(jtopo, jnp.asarray(podsel), D),
+        dom_term=jinterpod.domain_aggregates(jtopo, jnp.asarray(term), D),
+        total_e=jnp.asarray(term.sum(0)))
+    onehot = jinterpod.topology_onehot(jtopo, D)
+    # the kernel's state: node-level counts, one block's replica, totals
+    node = np.concatenate([podsel, term], 1)
+    replica = np.concatenate([np.asarray(jled.dom_podsel), np.asarray(jled.dom_term)], 2)
+    totals = node.sum(0)
+    message = None   # the previous pod's (rows, domain ids), when broadcast
+    placed_rows = None
+    escapes = zero_rows = 0
+    for i, pod in enumerate(pods):
+        # warp 0: the totals, then the list, before the node is known
+        if placed_rows is not None:
+            totals = totals + placed_rows
+        entries, reject, counting, row_nz = _kernel_list(state, pod, totals)
+        # the other warps: the replica, at the placed node's domain ids
+        if message is not None:
+            rows, ids = message
+            for k in range(1, K):
+                if 0 <= ids[k] < D:
+                    replica[k, ids[k]] += rows
+        ok = np.zeros(n, bool)
+        counts = np.zeros(n, np.float32)
+        for g in range(n):
+            c, viol, good = F32(0), F32(0), not reject
+            for u, tk, role, w in entries:
+                v = _kernel_count(node, replica, topo, u, tk, g)
+                if role == ROLE_SCORE:
+                    c = F32(c + F32(w * v))
+                elif role == ROLE_CARRIED_ANTI:
+                    viol = F32(viol + v)
+                elif role == ROLE_ANTI:
+                    good = good and v == 0
+                else:
+                    good = good and v > 0
+            ok[g] = good and viol == 0
+            counts[g] = c
+        jp = SimpleNamespace(**{k: jnp.asarray(v) for k, v in pod.items()})
+        want_ok = np.asarray(jinterpod.interpod_feasible(js, jp, jled, onehot))
+        want_c = np.asarray(jinterpod.interpod_counts(js, jp, jled, 1.0, onehot))
+        np.testing.assert_array_equal(ok, want_ok, err_msg=f"pod {i}")
+        np.testing.assert_array_equal(_bits(counts), _bits(want_c), err_msg=f"pod {i}")
+        feas = feasible & ok
+        want_s = np.asarray(jinterpod.interpod_score(jnp.asarray(want_c),
+                                                     jnp.asarray(feas)))
+        if counting:
+            lo = min(0, int(counts[feas].min())) if feas.any() else 0
+            hi = max(0, int(counts[feas].max())) if feas.any() else 0
+            got_s = _kernel_score(counts, F32(lo), F32(hi))
+        else:   # no weighted entry: every count is 0, and so is the score
+            assert not counts.any()
+            got_s = np.zeros(n, np.float32)
+        np.testing.assert_array_equal(_bits(np.where(feas, got_s, 0)),
+                                      _bits(np.where(feas, want_s, 0)), err_msg=f"pod {i}")
+        # the first pod's own zone affinity took the escape: no entry
+        escapes += int(i == 0 and not any(e[2] == ROLE_AFF for e in entries))
+        zero_rows += int(not row_nz)
+        # the choice, then the owner's reductions and the message
+        choice = np.flatnonzero(feas)
+        placed = choice.size > 0
+        g = int(rng.choice(choice)) if placed else 0
+        rows = np.concatenate([pod["pod_matches_q"], pod["pod_carries_e"]])
+        jp.pod_carries_e = jnp.asarray(pod["pod_carries_e"])
+        jled = jinterpod.ledger_add(jled, js, jp, g, jnp.float32(placed))
+        placed_rows = rows if placed and row_nz else None
+        message = (rows, topo[g]) if placed and row_nz else None
+        if message is not None:
+            node[g] += rows
+    assert escapes == 1 and zero_rows >= 1
+    # the replica the next pod would read, and the ledgers, equal JAX's
+    if message is not None:
+        rows, ids = message
+        for k in range(1, K):
+            if 0 <= ids[k] < D:
+                replica[k, ids[k]] += rows
+        totals = totals + placed_rows
+    np.testing.assert_array_equal(node[:, :UQ], np.asarray(jled.podsel_count))
+    np.testing.assert_array_equal(node[:, UQ:], np.asarray(jled.term_count))
+    np.testing.assert_array_equal(replica[..., :UQ], np.asarray(jled.dom_podsel))
+    np.testing.assert_array_equal(replica[..., UQ:], np.asarray(jled.dom_term))
+    np.testing.assert_array_equal(totals[:UQ], np.asarray(jled.total_q))
+    np.testing.assert_array_equal(totals[UQ:], np.asarray(jled.total_e))
+
+
+def _kernel_score(counts, min_c, max_c):
+    """InterPodAffinityPriority from the reduced (min, max), in the
+    kernel's f32 order."""
+    spread = F32(max_c - min_c)
+    if not spread > 0:
+        return np.zeros_like(counts)
+    return np.trunc((F32(10) * (counts - min_c)) / max(spread, F32(1)) + F32(1e-6))
+
+
+CLUSTER_BLOCKS, BLOCK_WARPS, THREADS = 16, 16, 512
+
+
+@pytest.mark.parametrize("n, run", [(48, 1), (3000, 1), (12000, 2), (30000, 4),
+                                    (65536, 8)])
+@pytest.mark.parametrize("case", ["mixed", "negative", "no_feasible", "one_node"])
+def test_kernel_warp_pair_minmax_matches_reference(n, run, case):
+    """The interpod build's (min, max): each of the 256 warps of the
+    cluster reduces its nodes' feasible counts, clamped through 0, and the
+    256 pairs are reduced further (the kernel: warp 0 a block's 16, then
+    every warp the 16 blocks'), in whatever order they land. In a
+    permuted order the score equals JAX `interpod_score` over the
+    feasible nodes."""
+    rng = np.random.RandomState(1900 + n + run)
+    counts = rng.randint(-60, 90, n).astype(np.float32)
+    feasible = rng.rand(n) < 0.6
+    if case == "negative":
+        counts = -np.abs(counts) - 1
+    elif case == "no_feasible":
+        feasible[:] = False
+    elif case == "one_node":
+        feasible[:] = False
+        feasible[rng.randint(n)] = True
+    nodes = CLUSTER_BLOCKS * THREADS * run
+    padded = np.zeros(nodes, np.int64)
+    live = np.zeros(nodes, bool)
+    padded[:n], live[:n] = counts, feasible
+    # node g = (block, thread, j): warp w of block b holds 32 * run
+    # consecutive nodes
+    per_warp = padded.reshape(CLUSTER_BLOCKS * BLOCK_WARPS, 32 * run)
+    live_w = live.reshape(CLUSTER_BLOCKS * BLOCK_WARPS, 32 * run)
+    lo = np.minimum(0, np.where(live_w, per_warp, 0).min(1))
+    hi = np.maximum(0, np.where(live_w, per_warp, 0).max(1))
+    order = rng.permutation(lo.size)
+    min_c, max_c = F32(lo[order].min()), F32(hi[order].max())
+    want = np.asarray(jinterpod.interpod_score(jnp.asarray(counts), jnp.asarray(feasible)))
+    got = _kernel_score(counts, min_c, max_c)
+    np.testing.assert_array_equal(_bits(np.where(feasible, got, 0)),
+                                  _bits(np.where(feasible, want, 0)))
+    if case == "no_feasible":
+        assert not want.any()
+
+
 # ---- (d) schedule_batch with the ipa gate ----
 
 _JAX_SOLVE = {}
