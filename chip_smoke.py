@@ -37,7 +37,13 @@ fails; nothing is caught and skipped:
    (the first-pod escape, an empty-key and a poisoned anti term first
    carried mid-batch), domain ids -1 and past the universe at the placed
    nodes, and zero-row and quiet pods between broadcasting and counting
-   ones;
+   ones; then the 8-node hazards of every build (run8_hazards): node
+   counts with N % 4 = 1, 2 and 3 (rows that start unaligned, and the
+   row tail's 4-byte copies), one that leaves the last blocks without a
+   node, pod counts that are not a multiple of the row ring's stages, an
+   all-miss batch at N = 65,536, and revert-heavy gang batches, among them
+   groups reverted after 7 members on one node between pods that hit the
+   term cache;
 4. packed_batch: the main path's first batch encoded through the
    EncodeCache into page-locked blobs, uploaded and unpacked on the card,
    must equal the fresh encoding (encode_pods, batch_from_numpy) field for
@@ -140,6 +146,13 @@ IP_OPS_PER_ENTRY = 4
 IP_SCORE_OPS = 7
 # bench[gang] (bench.py:343-366): nodes, pods and the group size
 GANG_NODES, GANG_PODS, GANG_SIZE = 50000, 24576, 8
+# the 8-node build's hazards: (pods, nodes, all-miss) through every build,
+# N % 4 = 1, 2, 3 and 0 (40,000 leaves blocks 10-15 empty), P % 4 != 0;
+# and (pods, nodes, kind) of revert-heavy gang batches
+RUN8_SHAPES = ((50, 40001, False), (50, 50002, False), (37, 65535, False),
+               (50, 40000, False), (66, 65536, True))
+RUN8_REVERTS = ((203, 40001, "heavy"), (201, 65535, "heavy"),
+                (122, 65536, "one_node"), (122, 50002, "one_node"))
 
 
 def emit(obj) -> None:
@@ -1017,6 +1030,89 @@ def revert_heavy_inputs(torch, rng, dev, n, p):
             GangInputs(gang_id=t(gid), gang_min=t(gmin)))
 
 
+def revert_one_node_inputs(torch, rng, dev, n, p):
+    """A seeded kernel-2 batch of p pods on n nodes in blocks of 12 rows
+    with one set of requests each (so the scan's term cache hits): a group
+    of 8 at quorum 8 whose first 7 members fit one roomy node only and
+    whose last fits nowhere (reverted after 7 members on one node), then 4
+    non-gang pods that can take that node too. Returns (scan arguments,
+    GangInputs)."""
+    from kubernetes_tpu_torch.ops.assign_scan import GangInputs
+
+    ms, reqs, nz, alloc, requested, nonzero, rr = scan_inputs(torch, rng, dev, p, n)
+    gid = np.zeros(p, np.int32)
+    gmin = np.zeros(p, np.int32)
+    for k, b in enumerate(range(0, p - 11, 12)):
+        roomy = int(rng.integers(0, n))
+        alloc[roomy, :3] = torch.tensor([64.0, 64000.0, 262144.0], device=dev)
+        ms[b:b + 8] = float("-inf")
+        ms[b:b + 7, roomy] = 100020.0
+        ms[b + 8:b + 12, roomy] = 100020.0
+        reqs[b + 1:b + 12] = reqs[b]
+        nz[b + 1:b + 12] = nz[b]
+        gid[b:b + 8], gmin[b:b + 8] = k + 1, 8
+
+    def t(a):
+        return torch.from_numpy(a).to(dev)
+
+    return ((ms, reqs, nz, alloc, requested, nonzero, rr),
+            GangInputs(gang_id=t(gid), gang_min=t(gmin)))
+
+
+def run8_phase(torch, rng, dev) -> dict:
+    """The 8-node build's hazards (every build of the scan at 8 nodes a
+    thread against its plain version): node counts with N % 4 = 1, 2 and 3
+    (rows that start unaligned, and the row tail's 4-byte copies), one whose
+    last blocks hold no node (40,000: blocks 10-15), pod counts that are not
+    a multiple of the row ring's stages, an all-miss batch (the packed terms
+    recomputed every pod), and revert-heavy gang batches, among them
+    reverts after 7 members on one node with the term cache hitting around
+    them. Returns the phase line."""
+    from kubernetes_tpu_torch.ops import solver
+    from kubernetes_tpu_torch.ops.assign_scan import (
+        assign_scan,
+        assign_scan_gang,
+        assign_scan_gang_plain,
+        assign_scan_interpod,
+        assign_scan_interpod_plain,
+        assign_scan_plain,
+        assign_scan_spread,
+        assign_scan_spread_plain,
+        node_run,
+    )
+
+    cases = []
+    for p_, n_, miss in RUN8_SHAPES:
+        sargs = scan_inputs(torch, rng, dev, p_, n_, all_miss=miss)
+        compare_scan(torch, assign_scan(*sargs), assign_scan_plain(*sargs))
+        gang = random_gang(torch, rng, dev, p_)
+        compare_scan(torch, assign_scan_gang(*sargs, 1.0, 1.0, gang),
+                     assign_scan_gang_plain(*sargs, 1.0, 1.0, gang))
+        spread = spread_inputs(torch, rng, dev, n_, p_)
+        compare_spread(torch, assign_scan_spread(*sargs, 1.0, 1.0, spread),
+                       assign_scan_spread_plain(*sargs, 1.0, 1.0, spread))
+        ip = interpod_inputs(torch, rng, dev, n_, p_)
+        compare_interpod(torch, assign_scan_interpod(*sargs, 1.0, 1.0, ip),
+                         assign_scan_interpod_plain(*sargs, 1.0, 1.0, ip))
+        cases.append([p_, n_, "all_miss" if miss else "mixed"])
+    reverted = []
+    for p_, n_, make in RUN8_REVERTS:
+        gargs, gang = (revert_one_node_inputs if make == "one_node"
+                       else revert_heavy_inputs)(torch, rng, dev, n_, p_)
+        want = assign_scan_gang_plain(*gargs, 1.0, 1.0, gang)
+        compare_scan(torch, assign_scan_gang(*gargs, 1.0, 1.0, gang), want)
+        _a, _s, n_placed, n_reverted = solver.gang_member_mask(
+            gang.gang_id, gang.gang_min, want.assignments, want.scores)
+        if int(n_reverted) == 0:
+            raise AssertionError(f"run8_hazards: no group reverted at P={p_} N={n_}")
+        reverted.append([p_, n_, make, int(n_placed), int(n_reverted)])
+    runs = {node_run(n_) for _, n_, _ in RUN8_SHAPES + RUN8_REVERTS}
+    if runs != {8}:
+        raise AssertionError(f"run8_hazards: node runs {sorted(runs)}, want 8")
+    return {"phase": "run8_hazards", "cases": cases,
+            "reverts_placed_reverted": reverted, "kernels_equal_plain": True}
+
+
 def gang_bound(scan_args, gang, placed_members: int) -> tuple[float, str]:
     """scan_bound plus the group ids and quorums read once and one undo-log
     entry (32 bytes; 48 with gpu or storage columns) written per placed
@@ -1032,7 +1128,7 @@ def gang_first_batch(torch, dev):
     """bench[gang]'s cluster and its first batch as the driver builds it
     (its groups whole, the gang columns written after encoding) on the
     flushed state: (caps, nodes, pods, static-mask arguments, the scan
-    arguments, GangInputs)."""
+    arguments, GangInputs, the state, the batch)."""
     from kubernetes_tpu_torch.ops import solver
     from kubernetes_tpu_torch.ops.assign_scan import GangInputs
     from kubernetes_tpu_torch.ops.static_mask import node_bits
@@ -1066,7 +1162,7 @@ def gang_first_batch(torch, dev):
             float(g.w_ba))
     gang = GangInputs(gang_id=batch.gang_id.contiguous(),
                       gang_min=batch.gang_min.contiguous())
-    return caps, nodes, pods, mask_args, args, gang
+    return caps, nodes, pods, mask_args, args, gang, state, batch
 
 
 def gang_phase(torch, dev, kernels) -> tuple[dict, dict]:
@@ -1085,7 +1181,7 @@ def gang_phase(torch, dev, kernels) -> tuple[dict, dict]:
     from kubernetes_tpu_torch.perf.harness import measure, warm
     from kubernetes_tpu_torch.scheduler import Scheduler, driver
 
-    caps, nodes, pods, mask_args, args, gang = gang_first_batch(torch, dev)
+    caps, nodes, pods, mask_args, args, gang, _state, _batch = gang_first_batch(torch, dev)
     mask = static_mask(*mask_args)
     if not torch.equal(mask, static_mask_plain(*mask_args)):
         raise AssertionError("gang: static_mask kernel != plain at N=65536")
@@ -1543,6 +1639,10 @@ def main() -> int:
     emit({"phase": "interpod_hazards", "shapes": [list(x) for x in hz_shapes],
           "runs": hz_runs, "cases": [f"{pool}_k{k_}" for pool, k_ in ih_cases],
           "kernel_equals_plain": True})
+
+    # ---- 3e: the 8-node build's hazards: unaligned rows, empty blocks,
+    # the ring wrapping mid-batch, all-miss pods and reverts on one node
+    emit(run8_phase(torch, rng, dev))
 
     # ---- 4: the first batch through the cache and the blobs ----
     emit(packed_batch_phase(torch, caps, nodes, pods, dev))

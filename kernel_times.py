@@ -13,7 +13,17 @@ heterogeneous batch and the all-miss batch of the scan, where the tree
 has the scan's spread build, bench[spread]'s first batch, where it has
 the interpod build, bench[interpod]'s first batch, and where it has the
 gang build, bench[gang]'s first batch (P=4096, N=65536), on which the
-main build and kernel 1 are timed too. Prints one
+main build and kernel 1 are timed too, and the main build on the batch's
+first 16,384 nodes (`gang_batch_run2_ms`: 2 nodes a thread against the
+gang batch's 8), each scan also as the kernel's device time alone
+(`gang_kernel_us`, `gang_batch_main_kernel_us`,
+`gang_batch_run2_kernel_us`); and the spread and interpod builds at 8
+nodes a thread on seeded inputs (P=1024, N=65536; `spread_run8_ms`,
+`interpod_run8_ms` and their `*_kernel_us`); and Phase A traced
+(`phase_a_gang`, `phase_a_one_class`: one solve of bench[gang]'s first
+batch and of the one-class first batch, `masked_static_scores` and, on the
+gang batch, `gang_member_mask`, each as its device ms a call and its ops'
+own device ms, torch.profiler). Prints one
 JSON line: the card (nvidia-smi name and power limit), the root, and each
 time as median, min and max of CUDA-event timed calls (20 of the mask,
 5 of each scan batch), in ms (a call's time includes its wrapper's host
@@ -45,8 +55,8 @@ device time per call of everything the call runs (`per_call`: the
 kernel and the wrapper's set-up kernels); with the host time until the
 call returns (`interpod_enqueue_ms`), that splits the call's time into
 the kernel's, the set-up's on the card and the host's. `--parts` picks
-what to time, a comma list of mask, scan, spread, interpod, gang and
-sass (all by default). Exits non-zero without a CUDA device.
+what to time, a comma list of mask, scan, spread, interpod, gang, run8,
+phase_a and sass (all by default). Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -68,7 +78,11 @@ import numpy as np
 
 HERE = Path(__file__).resolve().parent
 REPS = 5
-PARTS = ("mask", "scan", "spread", "interpod", "gang", "sass")
+PARTS = ("mask", "scan", "spread", "interpod", "gang", "run8", "phase_a", "sass")
+# the gang batch's columns timed at 2 nodes a thread, and the shape of the
+# spread and interpod builds' 8-node timing
+RUN2_COLUMNS = 16384
+RUN8_PODS, RUN8_NODES = 1024, 65536
 
 
 def main() -> int:
@@ -162,15 +176,59 @@ def main() -> int:
             torch, ((lambda: interpod_scan(*iargs, ip), REPS),))
         out["interpod_enqueue_ms"] = enqueue_ms(
             torch, lambda: interpod_scan(*iargs, ip))
+    if {"gang", "phase_a"} & parts and hasattr(scan_module, "assign_scan_gang"):
+        _c, _n, _p, mask_args, gargs, gang, gstate, gbatch = smoke.gang_first_batch(
+            torch, dev)
     if "gang" in parts and hasattr(scan_module, "assign_scan_gang"):
         gang_scan = scan_module.assign_scan_gang
-        _c, _n, _p, mask_args, gargs, gang = smoke.gang_first_batch(torch, dev)
         out.update(smoke.timed(torch, lambda: static_mask(*mask_args), 4 * REPS,
                                "gang_batch_static_mask_ms"))
         out.update(smoke.timed(torch, lambda: gang_scan(*gargs, gang), REPS,
                                "gang_ms"))
         out.update(smoke.timed(torch, lambda: assign_scan(*gargs), REPS,
                                "gang_batch_main_ms"))
+        # the same batch's first RUN2_COLUMNS nodes: the main build at 2
+        # nodes a thread, so the chain's growth with the run is one number
+        run2 = (gargs[0][:, :RUN2_COLUMNS].contiguous(), *gargs[1:3],
+                *(a[:RUN2_COLUMNS].contiguous() for a in gargs[3:6]), *gargs[6:])
+        out.update(smoke.timed(torch, lambda: assign_scan(*run2), REPS,
+                               "gang_batch_run2_ms"))
+        for key, call in (("gang", lambda: gang_scan(*gargs, gang)),
+                          ("gang_batch_main", lambda: assign_scan(*gargs)),
+                          ("gang_batch_run2", lambda: assign_scan(*run2))):
+            out[f"{key}_kernel_us"] = kernel_us(device_times(torch, ((call, REPS),)))
+    if "phase_a" in parts and hasattr(scan_module, "assign_scan_gang"):
+        # Phase A traced, ops by their device time: one solve of bench[gang]'s
+        # first batch and one of the one-class main path's
+        from kubernetes_tpu_torch.ops import solver
+
+        one = smoke.first_batch(torch, dev)
+        for key, state, batch in (("gang", gstate, gbatch), ("one_class", one[4], one[5])):
+            gates = solver.check_supported(solver.DEFAULT_POLICY,
+                                           solver.batch_flags(state, batch))
+            calls = {"solve": lambda: solver.schedule_batch(state, batch, 0),
+                     "masked_static_scores": lambda: solver.masked_static_scores(
+                         state, batch, solver.DEFAULT_POLICY, gates)}
+            if key == "gang":
+                got = solver.schedule_batch(state, batch, 0)
+                calls["gang_member_mask"] = lambda: solver.gang_member_mask(
+                    batch.gang_id, batch.gang_min, got.assignments, got.scores)
+            out[f"phase_a_{key}"] = {name: op_table(torch, call)
+                                     for name, call in calls.items()}
+    if "run8" in parts:
+        # the spread and interpod builds at 8 nodes a thread, on seeded
+        # inputs of their own
+        rng8 = np.random.default_rng(smoke.SEED + 8)
+        sargs = smoke.scan_inputs(torch, rng8, dev, RUN8_PODS, RUN8_NODES)
+        spread = smoke.spread_inputs(torch, rng8, dev, RUN8_NODES, RUN8_PODS)
+        ip = smoke.interpod_inputs(torch, rng8, dev, RUN8_NODES, RUN8_PODS)
+        for key, call in (
+                ("spread_run8", lambda: scan_module.assign_scan_spread(
+                    *sargs, 1.0, 1.0, spread)),
+                ("interpod_run8", lambda: scan_module.assign_scan_interpod(
+                    *sargs, 1.0, 1.0, ip))):
+            out.update(smoke.timed(torch, call, REPS, f"{key}_ms"))
+            out[f"{key}_kernel_us"] = kernel_us(device_times(torch, ((call, REPS),)))
     if "sass" in parts:
         cuobjdump = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
         out["scan_sass"] = sass_digests(cuobjdump, library_path("assign_scan"),
@@ -217,6 +275,37 @@ def sass_digests(cuobjdump: str, library: Path, sass_out: Path | None = None) ->
             sass_out.mkdir(parents=True, exist_ok=True)
             (sass_out / f"{build}-{m.group(1)}.sass").write_text(renamed + "\n")
     return out
+
+
+def op_table(torch, call, reps=REPS) -> dict:
+    """One profiled window of `call` (run once first): {"device_ms": the
+    card's time per call, kernels and copies, "ops": {op: the device ms a
+    call of the kernels it launched itself}, "kernels": {kernel or copy:
+    its device ms a call}}, largest first."""
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+    ops, kernels = {}, {}
+    for evt in prof.key_averages():
+        dev_self = getattr(evt, "self_device_time_total", None)
+        if dev_self is None:
+            dev_self = evt.self_cuda_time_total
+        if dev_self > 0:
+            on_card = str(getattr(evt, "device_type", "")).endswith("CUDA")
+            table = kernels if on_card else ops
+            key = evt.key[:80]
+            table[key] = table.get(key, 0.0) + dev_self / reps / 1e3
+
+    def largest(d):
+        return dict(sorted(d.items(), key=lambda kv: -kv[1]))
+
+    return {"device_ms": sum(kernels.values()), "ops": largest(ops),
+            "kernels": largest(kernels)}
 
 
 def kernel_us(times: dict) -> float:

@@ -34,15 +34,36 @@
 //   adds a nonzero request to them in device memory (x + 0 == x, so the
 //   main path's zero requests cost no load on the scan's critical path).
 // - Rows prefetched asynchronously. masked_static and the pods' requests do
-//   not depend on the scan, so each thread keeps its RUN entries of the
-//   next rows of masked_static in flight with cp.async into a ring of
-//   STAGES shared-memory slots, read in place from the [P, N] layout, and
-//   eight threads copy each pod's requests into a ring of pod slots in the
-//   same groups. Pod p+3's copies are issued while pod p's triples travel
-//   between the blocks, where the threads would otherwise wait. A thread
-//   reads back only the row entries it copied, so cp.async.wait_group
-//   orders the row ring; the pod slots are waited for one pod early and
-//   published to the block by that pod's __syncthreads().
+//   not depend on the scan, so the next rows of masked_static are kept in
+//   flight with cp.async in a ring of STAGES shared-memory slots, and eight
+//   threads copy each pod's requests into a ring of pod slots in the same
+//   groups. Pod p+3's copies are issued while pod p's triples travel
+//   between the blocks, where the threads would otherwise wait; a slot is
+//   refilled with row p+3 after pod p's block barrier, and every thread
+//   read its old row p-1 before pod p-1's. The pod slots are waited for
+//   one pod early and published to the block by that pod's
+//   __syncthreads(). At 1, 2 and 4 nodes a thread, each thread copies its
+//   own RUN entries, 4 bytes a copy, into the slot's [P, N] layout, and
+//   reads back only what it copied, so cp.async.wait_group orders the row.
+//   At 8 nodes a thread those copies were eight a thread a pod, each warp
+//   instruction 32 sectors for 128 bytes; instead the block's segment of
+//   the row is copied coalesced: its 16-byte chunks (every chunk when the
+//   segment starts 16-byte aligned, less a tail of N % 4; none when it
+//   does not, as when N % 4 != 0 puts row p at an odd offset) as 16-byte
+//   copies, chunk t and t + 512 by thread t, and the rest as 4-byte copies,
+//   entry i by thread i % 512. A thread then reads entries other threads
+//   copied, so the row, like the pod slot, is published one pod early:
+//   the wait at the top of pod p covers the thread's copies of row p+1,
+//   and pod p's block barrier makes them visible before pod p+1 reads them
+//   (pod 0's row: the wait and the cluster barrier before the loop). A
+//   block wholly past N copies nothing and keeps the -inf written at the
+//   start. The slot is swizzled: 16-byte chunk c sits at c ^ ((c >> 3) & 1)
+//   (slot_at), so when each thread reads its run's two chunks, the eight
+//   lanes of a quarter warp hit 32 different banks; unswizzled, thread t's
+//   chunks lie 32 bytes from its neighbour's and each read conflicts
+//   2-way. One bulk copy of the segment a block a pod (cp.async.bulk onto
+//   an mbarrier) was measured against these copies on the H100 and was
+//   slower (PERF.md).
 // - Per pod: each thread scores its run (best, a bit mask of the run
 //   positions tied at it, feasible count). The warp reduces (best key,
 //   ties at best, feasible) with three redux.sync, the scores mapped to
@@ -57,7 +78,11 @@
 //   that holds the k-th tie continues: its warp offsets come from the warp
 //   slots, lane offsets from one ballot per bit of the thread's tie count,
 //   and the owning thread reads the node off its tie mask, updates its
-//   ledger row and recomputes that node's terms.
+//   ledger row and recomputes that node's terms. At 8 nodes a thread the
+//   run's best and ties are taken as a tree (every position's score, -inf
+//   where infeasible, three levels of fmaxf, then one compare each), not
+//   the eight dependent steps of the loop; the interpod build keeps the
+//   loop, whose registers it needs.
 // - Slots and mbarriers are double-buffered by pod parity. A block sends
 //   its triple of pod p+2 only after it has received every block's triple
 //   of pod p+1, and every block sends that only after its own
@@ -76,7 +101,25 @@
 // ledger update. A reused term is the value the same arithmetic produced on
 // the same inputs, so the score is bit-identical to computing it afresh.
 // With the node axis over 16 SMs, a pod whose requests differ recomputes
-// 1/16 of the nodes on each SM.
+// 1/16 of the nodes on each SM. At 1, 2 and 4 nodes a thread the terms are
+// two shared columns; at 8 nodes a thread they are packed in registers,
+// since only their owner thread reads and writes them: byte j % 4 of
+// lr1[j / 4] holds run position j's LeastRequested + 1, of bab[j / 4] its
+// BalancedAllocation. Range: every request and ledger entry is finite and
+// non-negative, so with the fit applied LeastRequested is -1 or
+// floorf((u_cpu + u_mem) / 2 + eps) with each unused score u =
+// floorf((c - r) * 10 / c + eps) in 0..10 (0 when c == 0 or r > c), hence
+// 0..10; BalancedAllocation is 0, or truncf((1 - |cf - mf|) * 10 + eps)
+// with both fractions in [0, 1), hence 0..10. Exactness: for an integer k
+// in 0..255, 2^23 + k is an exact f32 whose low eight bits are k, so
+// __fadd_rn(v, 2^23 + 1) and __fadd_rn(v, 2^23) give the bytes, and the
+// f32 with the bits 0x4B0000kk (one byte_perm) less the same bias gives v
+// back exactly (both operands and the difference are exact). The owner
+// rewrites byte j at a run-time shift, which stays in registers where an
+// f32 array indexed by a run-time j would go to local memory. A term
+// cache hit then reads no shared memory for its terms (four of the six
+// 16-byte reads a pod), and the 8-node carve drops the two columns (32 KiB
+// a block), which gives every build four row stages at 8 nodes a thread.
 //
 // Rounding. Every operation that the reference rounds separately is
 // written with a round-to-nearest intrinsic (__fadd_rn, __fmul_rn,
@@ -154,8 +197,7 @@
 // received every triple, so one slot buffer and one mbarrier suffice; a
 // wait that never completes traps as the triples' does. A zone id the
 // caller did not count (at least Z, below the universe) traps at the
-// start. The 8-node build keeps STAGES = 3 row slots (not 4) to fit the
-// spread build's shared memory under the block limit.
+// start.
 //
 // Exactness. The counts are integers far below 2^24 (a node holds at most
 // its pods' capacity, and a zone's sum is at most the pods placed in it),
@@ -267,7 +309,7 @@
 // batch on bench[interpod]: the owner re-reads its columns pod after
 // pod, and an ordinary load finds them in L1.) chip_smoke.py holds runs
 // of consecutive pods placed on one node and on one thread's nodes. The
-// 8-node build keeps STAGES = 3 to fit.
+// 8-node build keeps the per-node loop for the run's best (its registers).
 //
 // Exactness. Every count and weight is an integer-valued f32 far below
 // 2^24 (weights are integers: int(weight) and hardPodAffinityWeight), so
@@ -315,13 +357,17 @@
 // oldest value, and the ownership rule holds: no barrier after. rr returns
 // to the group's entry value (a reverted member's round-robin bump does
 // not survive, as in `_live_ledger`), and the request-keyed term cache is
-// dropped, since its terms belong to a ledger that no longer exists. The
+// dropped, since its terms belong to a ledger that no longer exists (at 8
+// nodes a thread the packed terms are recomputed at the next pod). The
 // group still open after the last pod is settled the same way before the
 // ledger is written back, so the written ledger and rr_end are final.
 // Assignments and scores are written as the scan makes them; masking the
 // members of a reverted group (solver.py:837-853) is a tensor op after the
-// launch. Reverts are rare (a group that does not fit), so the per-pod
-// cost is a compare of two registers. The 8-node build keeps STAGES = 4.
+// launch. Reverts are rare (a group that does not fit), but the carry is
+// not free at 8 nodes a thread on bench[gang]: the group check and the
+// undo-log append cost ~0.3 ms a 4,096-pod batch each (PERF.md);
+// reading the next pod's group during the exchange, loading the pod's row
+// before the check, and appending after the owner's terms did not pay.
 //
 // Bound of the gang build: that of the main build, masked_static read once
 // (1.07 GB at P = 4,096, N = 65,536: 0.32 ms at 3.35 TB/s) plus the
@@ -359,6 +405,11 @@ constexpr unsigned TRIPLE_BYTES = 16;            // one st.async.v4 per block
 constexpr long long WAIT_LIMIT = 1LL << 33;      // cycles (seconds): a lost triple
 
 static_assert(WARPS <= 32 && CLUSTER <= 32, "one warp reduces the slots");
+
+// ---- the 8-node build's terms
+constexpr float LR_BIAS = 8388609.0f;   // 2^23 + 1: LeastRequested + 1 in a byte
+constexpr float BA_BIAS = 8388608.0f;   // 2^23: BalancedAllocation in a byte
+constexpr unsigned BIAS_BITS = 0x4B000000u;   // the bits of 2^23
 static_assert(POD_SLOTS > STAGES && R + 2 == POD_ROW, "pod ring");
 
 // ---- the spread build's layout
@@ -409,7 +460,9 @@ static_assert(GW_MIN < GANG_POD_ROW && GANG_POD_ROW % 4 == 0, "gang layout");
 // Row-ring slots and pod-slot width of one build.
 template <int RUN, bool SPREAD, bool IPA, bool GANG>
 struct Build {
-  static constexpr int STAGES = ((SPREAD || IPA) && RUN == 8) ? 3 : STAGES_MAIN;
+  static constexpr int STAGES = STAGES_MAIN;
+  // no term columns: the terms are packed in registers (8 nodes a thread)
+  static constexpr bool PACKED = RUN == 8;
   static constexpr int POD_ROW = SPREAD ? SP_POD_ROW
                                  : IPA ? IP_POD_ROW
                                  : GANG ? GANG_POD_ROW : POD_ROW_MAIN;
@@ -485,7 +538,7 @@ struct Smem {
   float* a_pods; float* a_cpu; float* a_mem;     // allocatable
   float* r_pods; float* r_cpu; float* r_mem;     // requested
   float* z_cpu; float* z_mem;                    // nonzero
-  float* t_lr; float* t_ba;                      // cached terms
+  float* t_lr; float* t_ba;                      // cached terms (not 8 nodes a thread)
   float* ring;                                   // [STAGES][NB]
   uint64_t* bar;                                 // [2] mbarriers
   int4* cslot;                                   // [2][CLUSTER] block triples
@@ -507,9 +560,10 @@ struct Smem {
   uint64_t* bar_win;                             // the placed node's mbarrier
 };
 
-template <bool SPREAD, bool IPA = false>
+template <bool SPREAD, bool IPA = false, bool PACKED = false>
 constexpr size_t smem_bytes(int nb, int STAGES, int POD_ROW) {
-  return (size_t)(COLUMNS + STAGES) * nb * sizeof(float) + 2 * sizeof(uint64_t)
+  return (size_t)(COLUMNS - (PACKED ? 2 : 0) + STAGES) * nb * sizeof(float)
+         + 2 * sizeof(uint64_t)
          + (size_t)2 * CLUSTER * sizeof(int4)
          + (size_t)POD_SLOTS * POD_ROW * sizeof(float)
          + (size_t)2 * WARPS * sizeof(Triple)
@@ -564,6 +618,23 @@ __device__ Smem carve(float* base, int nb) {
   return s;
 }
 
+// The 8-node carve: carve's layout without the two term columns, the ring
+// and all after it two columns lower.
+template <bool SPREAD, int STAGES, int POD_ROW, bool IPA = false>
+__device__ Smem carve_packed(float* base, int nb) {
+  Smem s = carve<SPREAD, STAGES, POD_ROW, IPA>(base - 2 * nb, nb);
+  s.a_pods = base;
+  s.a_cpu = base + nb;
+  s.a_mem = base + 2 * nb;
+  s.r_pods = base + 3 * nb;
+  s.r_cpu = base + 4 * nb;
+  s.r_mem = base + 5 * nb;
+  s.z_cpu = base + 6 * nb;
+  s.z_mem = base + 7 * nb;
+  s.t_lr = s.t_ba = nullptr;
+  return s;
+}
+
 // ---- PTX: cp.async, mbarriers and st.async to another block of the cluster
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
@@ -572,6 +643,12 @@ __device__ __forceinline__ unsigned smem_u32(const void* p) {
 
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)),
                "l"(src)
                : "memory");
 }
@@ -683,6 +760,29 @@ __device__ __forceinline__ void node_terms(const Smem& s, const Pod& pod, int c,
   *ba_out = (cf >= 1.0f || mf >= 1.0f || a_cpu == 0.0f || a_mem == 0.0f)
                 ? 0.0f : ba;
 }
+
+// An integer-valued term v, v + bias in [2^23, 2^23 + 255], as a byte: the
+// low bits of the f32 2^23 + k are k.
+__device__ __forceinline__ unsigned term_byte(float v, float bias) {
+  return __float_as_uint(__fadd_rn(v, bias)) & 0xffu;
+}
+
+// Byte k (0..3) of w back to the term: 2^23 + byte as f32 bits, less the
+// bias.
+__device__ __forceinline__ float byte_term(unsigned w, int k, float bias) {
+  return __fsub_rn(__uint_as_float(__byte_perm(w, BIAS_BITS, 0x7650 + k)), bias);
+}
+
+// w with its byte k (a run-time 0..3) replaced by b.
+__device__ __forceinline__ unsigned put_byte(unsigned w, unsigned b, int k) {
+  const unsigned sh = 8u * (unsigned)k;
+  return (w & ~(0xffu << sh)) | (b << sh);
+}
+
+// Where entry i of a block's row segment sits in its ring slot at 8 nodes a
+// thread: 16-byte chunk c at c ^ ((c >> 3) & 1), so the first chunks of a
+// quarter warp's eight runs fall on 32 different banks.
+__device__ __forceinline__ int slot_at(int i) { return i ^ (((i >> 5) & 1) << 2); }
 
 // RUN consecutive floats from shared memory, as vector loads.
 template <int RUN>
@@ -871,7 +971,9 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
   constexpr int POD_ROW = Build<RUN, SPREAD, IPA, GANG>::POD_ROW;
   extern __shared__ __align__(16) float smem_base[];
   cg::cluster_group cluster = cg::this_cluster();
-  const Smem s = carve<SPREAD, STAGES, POD_ROW, IPA>(smem_base, NB);
+  constexpr bool PACKED = Build<RUN, SPREAD, IPA, GANG>::PACKED;
+  const Smem s = PACKED ? carve_packed<SPREAD, STAGES, POD_ROW, IPA>(smem_base, NB)
+                        : carve<SPREAD, STAGES, POD_ROW, IPA>(smem_base, NB);
   const int rank = (int)cluster.block_rank();
   const int t = threadIdx.x;
   const int lane = t % 32;
@@ -894,7 +996,7 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
     s.z_cpu[c] = in ? nonzero[(size_t)g * 2] : 0.0f;
     s.z_mem[c] = in ? nonzero[(size_t)g * 2 + 1] : 0.0f;
     for (int k = 0; k < STAGES; ++k)
-      if (!in) s.ring[k * NB + c] = -INFINITY;
+      if (!in) s.ring[k * NB + (RUN == 8 ? slot_at(c) : c)] = -INFINITY;
   }
   [[maybe_unused]] int dom[RUN];     // the run's zone ids (spread build)
   // the zones in use among the warp's nodes: bit d of zlo (zone d) and of
@@ -938,9 +1040,34 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
     if (p < P) {
       float* slot = s.ring + (p % STAGES) * NB;
       const float* row = masked_static + (size_t)p * N;
+      if constexpr (RUN == 8) {
+        // the block's segment of the row, `len` entries from node `lo`: its
+        // 16-byte chunks (all but a tail of N % 4 when the segment starts
+        // 16-byte aligned, none when it does not) as 16-byte copies, chunk
+        // t and t + THREADS by thread t, the rest as 4-byte copies, entry
+        // i by thread i % THREADS; coalesced, and published to the block
+        // one pod early (see the header)
+        const int lo = rank * NB;
+        const int len = max(min(N - lo, NB), 0);
+        const bool aligned = (reinterpret_cast<uintptr_t>(row + lo) & 15u) == 0u;
+        const int n16 = aligned ? (len & ~3) : 0;
 #pragma unroll
-      for (int j = 0; j < RUN; ++j)
-        if (g0 + j < N) cp_async4(slot + c0 + j, row + g0 + j);
+        for (int k = 0; k < RUN / 4; ++k) {
+          const int i = 4 * (t + k * THREADS);
+          if (i < n16) cp_async16(slot + slot_at(i), row + lo + i);
+        }
+        if (n16 < len) {
+#pragma unroll
+          for (int k = 0; k < RUN; ++k) {
+            const int i = t + k * THREADS;
+            if (i >= n16 && i < len) cp_async4(slot + slot_at(i), row + lo + i);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < RUN; ++j)
+          if (g0 + j < N) cp_async4(slot + c0 + j, row + g0 + j);
+      }
       if constexpr (SPREAD) {   // + spread_q and the match row
         if (t < SP_M + sp.uq)
           cp_async4(s.pods + (p % POD_SLOTS) * POD_ROW + t,
@@ -1045,6 +1172,9 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
   // requests of the pod the cached terms belong to (none yet)
   unsigned key_cpu = 0u, key_mem = 0u, key_nzc = 0u, key_nzm = 0u;
   bool key_zero = false, have_terms = false;
+  // the cached terms at 8 nodes a thread: byte j % 4 of lr1[j / 4] is run
+  // position j's LeastRequested + 1, of bab[j / 4] its BalancedAllocation
+  [[maybe_unused]] unsigned lr1[2] = {0u, 0u}, bab[2] = {0u, 0u};
   // the open group (gang build): its id (0 = none), members placed, quorum,
   // rr at its first member, and this block's undo-log entries
   [[maybe_unused]] int gang_cur = 0, gang_placed = 0, gang_min_cur = 0, undo_n = 0;
@@ -1123,16 +1253,40 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
 
     // ---- score the run
     float ms[RUN], lr[RUN], ba[RUN];
-    load_run<RUN>(s.ring + (p % STAGES) * NB + c0, ms);
+    if constexpr (RUN == 8) {
+      // the slot's swizzle puts the run's first chunk 4 entries on in lanes
+      // 4-7 of each eight (see slot_at)
+      const float* at = s.ring + (p % STAGES) * NB + c0;
+      const int sw = ((lane >> 2) & 1) << 2;
+      const float4 a = *reinterpret_cast<const float4*>(at + sw);
+      const float4 b = *reinterpret_cast<const float4*>(at + (4 - sw));
+      ms[0] = a.x; ms[1] = a.y; ms[2] = a.z; ms[3] = a.w;
+      ms[4] = b.x; ms[5] = b.y; ms[6] = b.z; ms[7] = b.w;
+    } else {
+      load_run<RUN>(s.ring + (p % STAGES) * NB + c0, ms);
+    }
     if (reuse) {
-      load_run<RUN>(s.t_lr + c0, lr);
-      load_run<RUN>(s.t_ba + c0, ba);
+      if constexpr (PACKED) {
+#pragma unroll
+        for (int j = 0; j < RUN; ++j) {
+          lr[j] = byte_term(lr1[j / 4], j % 4, LR_BIAS);
+          ba[j] = byte_term(bab[j / 4], j % 4, BA_BIAS);
+        }
+      } else {
+        load_run<RUN>(s.t_lr + c0, lr);
+        load_run<RUN>(s.t_ba + c0, ba);
+      }
     } else {
 #pragma unroll
       for (int j = 0; j < RUN; ++j) {
         node_terms(s, pod, c0 + j, &lr[j], &ba[j]);
-        s.t_lr[c0 + j] = lr[j];
-        s.t_ba[c0 + j] = ba[j];
+        if constexpr (PACKED) {
+          lr1[j / 4] = put_byte(lr1[j / 4], term_byte(lr[j], LR_BIAS), j % 4);
+          bab[j / 4] = put_byte(bab[j / 4], term_byte(ba[j], BA_BIAS), j % 4);
+        } else {
+          s.t_lr[c0 + j] = lr[j];
+          s.t_ba[c0 + j] = ba[j];
+        }
       }
     }
     // ---- SelectorSpread of the run (spread build)
@@ -1324,30 +1478,56 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
     float best = -INFINITY;
     unsigned tied = 0u;     // bit j: run position j ties at `best`
     int feas = 0;
+    if constexpr (RUN == 8 && !IPA) {
+      // every position's score, -inf where infeasible; their maximum as a
+      // tree and the ties at it: three dependent steps where the loop below
+      // takes eight (+ 0 turns a -0 score into +0, so equal scores have
+      // equal keys)
+      float sc[RUN];
+      unsigned fm = 0u;     // bit j: run position j is feasible
 #pragma unroll
-    for (int j = 0; j < RUN; ++j) {
-      if (!(ms[j] > -INFINITY) || lr[j] < 0.0f) continue;
-      if constexpr (IPA)
-        if (!ipok[j]) continue;
-      // + 0 turns a -0 score into +0, so equal scores have equal keys
-      float sc;
-      if constexpr (SPREAD)
-        sc = __fadd_rn(__fadd_rn(__fadd_rn(__fadd_rn(ms[j], __fmul_rn(w_lr, lr[j])),
-                                           __fmul_rn(w_ba, ba[j])),
-                                 __fmul_rn(sp.w_ss, ss[j])), 0.0f);
-      else if constexpr (IPA)
-        sc = __fadd_rn(__fadd_rn(__fadd_rn(__fadd_rn(ms[j], __fmul_rn(w_lr, lr[j])),
-                                           __fmul_rn(w_ba, ba[j])),
-                                 __fmul_rn(ip.w_ip, ipsc[j])), 0.0f);
-      else
-        sc = __fadd_rn(__fadd_rn(__fadd_rn(ms[j], __fmul_rn(w_lr, lr[j])),
-                                 __fmul_rn(w_ba, ba[j])), 0.0f);
-      ++feas;
-      if (sc > best) {
-        best = sc;
-        tied = 1u << j;
-      } else if (sc == best) {
-        tied |= 1u << j;
+      for (int j = 0; j < RUN; ++j) {
+        const bool ok = ms[j] > -INFINITY && lr[j] >= 0.0f;
+        float v = __fadd_rn(ms[j], __fmul_rn(w_lr, lr[j]));
+        if constexpr (SPREAD)
+          v = __fadd_rn(__fadd_rn(v, __fmul_rn(w_ba, ba[j])), __fmul_rn(sp.w_ss, ss[j]));
+        else
+          v = __fadd_rn(v, __fmul_rn(w_ba, ba[j]));
+        sc[j] = ok ? __fadd_rn(v, 0.0f) : -INFINITY;
+        fm |= ok ? 1u << j : 0u;
+      }
+      best = fmaxf(fmaxf(fmaxf(sc[0], sc[1]), fmaxf(sc[2], sc[3])),
+                   fmaxf(fmaxf(sc[4], sc[5]), fmaxf(sc[6], sc[7])));
+#pragma unroll
+      for (int j = 0; j < RUN; ++j) tied |= sc[j] == best ? 1u << j : 0u;
+      tied &= fm;
+      feas = __popc(fm);
+    } else {
+#pragma unroll
+      for (int j = 0; j < RUN; ++j) {
+        if (!(ms[j] > -INFINITY) || lr[j] < 0.0f) continue;
+        if constexpr (IPA)
+          if (!ipok[j]) continue;
+        // + 0 turns a -0 score into +0, so equal scores have equal keys
+        float sc;
+        if constexpr (SPREAD)
+          sc = __fadd_rn(__fadd_rn(__fadd_rn(__fadd_rn(ms[j], __fmul_rn(w_lr, lr[j])),
+                                             __fmul_rn(w_ba, ba[j])),
+                                   __fmul_rn(sp.w_ss, ss[j])), 0.0f);
+        else if constexpr (IPA)
+          sc = __fadd_rn(__fadd_rn(__fadd_rn(__fadd_rn(ms[j], __fmul_rn(w_lr, lr[j])),
+                                             __fmul_rn(w_ba, ba[j])),
+                                   __fmul_rn(ip.w_ip, ipsc[j])), 0.0f);
+        else
+          sc = __fadd_rn(__fadd_rn(__fadd_rn(ms[j], __fmul_rn(w_lr, lr[j])),
+                                   __fmul_rn(w_ba, ba[j])), 0.0f);
+        ++feas;
+        if (sc > best) {
+          best = sc;
+          tied = 1u << j;
+        } else if (sc == best) {
+          tied |= 1u << j;
+        }
       }
     }
 
@@ -1420,7 +1600,20 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
                     __fadd_rn(requested[(size_t)g * R + f], rq[f]);
             s.z_cpu[c] = __fadd_rn(s.z_cpu[c], pod.nz_cpu);
             s.z_mem[c] = __fadd_rn(s.z_mem[c], pod.nz_mem);
-            node_terms(s, pod, c, &s.t_lr[c], &s.t_ba[c]);
+            if constexpr (PACKED) {   // into byte j of the packed terms
+              float l, b;
+              node_terms(s, pod, c, &l, &b);
+              const unsigned kl = term_byte(l, LR_BIAS), kb = term_byte(b, BA_BIAS);
+              if (j < 4) {
+                lr1[0] = put_byte(lr1[0], kl, j);
+                bab[0] = put_byte(bab[0], kb, j);
+              } else {
+                lr1[1] = put_byte(lr1[1], kl, j - 4);
+                bab[1] = put_byte(bab[1], kb, j - 4);
+              }
+            } else {
+              node_terms(s, pod, c, &s.t_lr[c], &s.t_ba[c]);
+            }
             if constexpr (SPREAD) {
               // pod p+1's counts were loaded before this placement: add
               // its entry of the match row to the chosen node's copy
@@ -1519,9 +1712,8 @@ template <int RUN, bool SPREAD, bool IPA, bool GANG>
 int launch(const Operands& o, SpreadParam<SPREAD> sp, IpaParam<IPA> ip,
            GangParam<GANG> gg, cudaStream_t stream) {
   auto kernel = assign_scan_kernel<RUN, SPREAD, IPA, GANG>;
-  const size_t smem = smem_bytes<SPREAD, IPA>(THREADS * RUN,
-                                              Build<RUN, SPREAD, IPA, GANG>::STAGES,
-                                              Build<RUN, SPREAD, IPA, GANG>::POD_ROW);
+  using B = Build<RUN, SPREAD, IPA, GANG>;
+  const size_t smem = smem_bytes<SPREAD, IPA, B::PACKED>(THREADS * RUN, B::STAGES, B::POD_ROW);
   if (smem > (size_t)MAX_SMEM) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
