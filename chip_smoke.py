@@ -37,7 +37,13 @@ fails; nothing is caught and skipped:
    (the first-pod escape, an empty-key and a poisoned anti term first
    carried mid-batch), domain ids -1 and past the universe at the placed
    nodes, and zero-row and quiet pods between broadcasting and counting
-   ones; then the 8-node hazards of every build (run8_hazards): node
+   ones; then the spread+interpod build's hazards at every build
+   (spread_interpod_hazards): the interpod hazards' batches with
+   SelectorSpread over the same ledger, pods raising both gates, one of
+   them or neither, 0, 1 and 3 zones, and a required anti term that
+   rejects the node SelectorSpread scores highest and the one holding the
+   most counts; the edge shapes and the 8-node hazards hold it too; then
+   the 8-node hazards of every build (run8_hazards): node
    counts with N % 4 = 1, 2 and 3 (rows that start unaligned, and the
    row tail's 4-byte copies), one that leaves the last blocks without a
    node, pod counts that are not a multiple of the row ring's stages, an
@@ -83,6 +89,16 @@ fails; nothing is caught and skipped:
    the first batch against its plain version (the edge shapes of phase 3
    hold it at every build, with carried anti terms, a custom topology key
    and the default-domain union);
+9b. spread_interpod: bench[spread]'s cluster, pods and Services with
+   bench[interpod]'s terms (every 16th pod with required hostname
+   anti-affinity to its group, every 2nd a weight-10 preferred zone
+   affinity) through Scheduler(device="cuda"); every pod must be placed
+   within allocatable, no node that holds an anti-affinity pod may hold
+   another pod of its group, the spread+interpod build must have launched
+   once per batch (and no other build of the scan), and the first and the
+   last batch must equal schedule_batch_plain on the state and batch the
+   driver solved them on, every ledger included; spread_interpod_build
+   times the build on the first batch against the plain path's time;
 10. gang: the reference bench's bench[gang] (50,000 nodes in 3 zones,
    N = 65,536, 24,576 pods in 3,072 all-or-nothing groups of 8, 6 batches
    of 4,096) through Scheduler(device="cuda"); every group must settle
@@ -144,6 +160,12 @@ INTERPOD_CHECKED = (0, 5)
 # divide, add and truncate (7)
 IP_OPS_PER_ENTRY = 4
 IP_SCORE_OPS = 7
+# the spread_interpod cell: bench[spread]'s cluster, pods and Services
+# (bench.py:327-338) with bench[interpod]'s terms (bench.py:313-319)
+SI_MIX = {"app_groups": SPREAD_GROUPS, "anti_affinity_every": 16,
+          "pref_affinity_every": 2}
+# its batches held against the plain path (of 8: the first and the last)
+SI_CHECKED = (0, 7)
 # bench[gang] (bench.py:343-366): nodes, pods and the group size
 GANG_NODES, GANG_PODS, GANG_SIZE = 50000, 24576, 8
 # the 8-node build's hazards: (pods, nodes, all-miss) through every build,
@@ -524,7 +546,8 @@ def spread_phase(torch, caps, dev, kernels) -> tuple[dict, dict]:
     if result.scheduled != HEADLINE_PODS:
         raise AssertionError(f"spread: placed {result.scheduled}/{HEADLINE_PODS}")
     if launches != {"static_mask": result.batches, "assign_scan": 0,
-                    "assign_scan_spread": result.batches}:
+                    "assign_scan_spread": result.batches,
+                    "assign_scan_spread_interpod": 0}:
         raise AssertionError(f"spread: launches {launches} over "
                              f"{result.batches} batches")
     load = check_load(pods, result.placements, nodes)
@@ -579,12 +602,12 @@ def spread_phase(torch, caps, dev, kernels) -> tuple[dict, dict]:
     return line, entry
 
 
-def compare_interpod(torch, got, want) -> float:
+def compare_interpod(torch, got, want, kernel="assign_scan_interpod") -> float:
     """compare_scan plus the pod-selector and carried-term ledgers."""
     err = compare_scan(torch, got, want)
     for name in ("new_podsel", "new_term"):
         if not torch.equal(getattr(got, name), getattr(want, name)):
-            raise AssertionError(f"assign_scan_interpod kernel != plain on {name}")
+            raise AssertionError(f"{kernel} kernel != plain on {name}")
     return max(err, max_abs_err(torch, [(got.new_podsel, want.new_podsel),
                                         (got.new_term, want.new_term)]))
 
@@ -882,7 +905,8 @@ def interpod_phase(torch, caps, dev, kernels) -> tuple[dict, dict]:
         raise AssertionError(f"interpod: placed {result.scheduled}/{INTERPOD_PODS}")
     if launches != {"static_mask": result.batches, "assign_scan": 0,
                     "assign_scan_spread": 0,
-                    "assign_scan_interpod": result.batches}:
+                    "assign_scan_interpod": result.batches,
+                    "assign_scan_spread_interpod": 0}:
         raise AssertionError(f"interpod: launches {launches} over "
                              f"{result.batches} batches")
     load = check_load(pods, result.placements, nodes)
@@ -950,6 +974,247 @@ def interpod_phase(torch, caps, dev, kernels) -> tuple[dict, dict]:
             "first_batch_counting_pods": int(counting.sum()),
             "launches": launches,
             "checked_batches_equal_plain": list(INTERPOD_CHECKED)}
+    return line, entry
+
+
+def with_spread(torch, rng, ip, zones, no_entry=0.33):
+    """SelectorSpread over an InterpodInputs' ledger: the GetZoneKey slot
+    (TOPO_SPREAD_ZONE) holds `zones` zones (ids below it; a fifth of the
+    nodes without one and a twentieth past the universe), and pods take
+    spread entries in runs, a share `no_entry` of the runs none (-1), so
+    pods raise both gates, one of them or neither. Returns (SpreadInputs,
+    InterpodInputs) that share the ledger, topology and match rows."""
+    from kubernetes_tpu_torch.ops.assign_scan import SpreadInputs
+    from kubernetes_tpu_torch.state.layout import TOPO_SPREAD_ZONE
+
+    n, uq = ip.podsel_count.shape
+    p = ip.pod_matches_q.shape[0]
+    nd = ip.domain_universe
+    zone = rng.integers(0, zones, n) if zones else np.full(n, -1)
+    zone[rng.random(n) < 0.2] = -1
+    past = rng.random(n) < 0.05
+    zone[past] = rng.integers(nd, nd + 8, int(past.sum()))
+    topo = ip.topology.clone()
+    topo[:, TOPO_SPREAD_ZONE] = torch.from_numpy(zone.astype(np.int32)).to(topo.device)
+    runs = np.cumsum(rng.random(p) < 0.3)
+    q = rng.integers(0, uq, runs[-1] + 1)[runs].astype(np.int32)
+    q[(rng.random(runs[-1] + 1) < no_entry)[runs]] = -1
+    ip = dataclasses.replace(ip, topology=topo)
+    return SpreadInputs(w_ss=1.0, spread_q=torch.from_numpy(q).to(topo.device),
+                        pod_matches_q=ip.pod_matches_q, podsel_count=ip.podsel_count,
+                        topology=topo, domain_universe=nd, zones=zones), ip
+
+
+def spread_interpod_hazard_inputs(torch, rng, dev, n, p, k, pool, zones,
+                                  reject=False):
+    """interpod_hazard_inputs' batch (`pool`, k topology slots) with
+    SelectorSpread over the same ledger (`with_spread`, `zones` zones).
+    With `reject` (pool "wide"), every pod with an entry takes entry 14,
+    and the pods' required hostname anti-affinity (selector 15, which no
+    pod matches) rejects two statically feasible nodes: one without a
+    count of entry 14, which SelectorSpread scores highest and which every
+    pod's static score puts at the top, and one that holds the most, which
+    would set the maximum count if SelectorSpread counted before the
+    predicate. Returns (the scan's arguments, SpreadInputs,
+    InterpodInputs)."""
+    args, ip = interpod_hazard_inputs(torch, rng, dev, n, p, k, pool)
+    spread, ip = with_spread(torch, rng, ip, zones)
+    if reject:
+        q = spread.spread_q.cpu().numpy()
+        q[q >= 0] = 14
+        ms = args[0].cpu().numpy()
+        feasible = np.flatnonzero(np.isfinite(ms[0]))
+        x, y = rng.choice(feasible, 2, replace=False)
+        ms[:, x] = 100020.0
+        podsel = ip.podsel_count.cpu().numpy()
+        podsel[feasible, 14] = rng.integers(1, 6, feasible.size)
+        podsel[x, 14], podsel[y, 14] = 0.0, 50.0
+        podsel[:, 15] = 0.0
+        podsel[[x, y], 15] = 1.0
+        match = ip.pod_matches_q.cpu().numpy()
+        match[:, 15] = 0.0
+        match[q >= 0, 14] = 1.0
+        panti_q, panti_tkey = ip.panti_q.cpu().numpy(), ip.panti_tkey.cpu().numpy()
+        panti_q[:, 2], panti_tkey[:, 2] = 15, 0
+
+        def t(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+        args = (t(ms), *args[1:])
+        ip = dataclasses.replace(ip, podsel_count=t(podsel), pod_matches_q=t(match),
+                                 panti_q=t(panti_q), panti_tkey=t(panti_tkey))
+        spread = dataclasses.replace(spread, spread_q=t(q), podsel_count=ip.podsel_count,
+                                     pod_matches_q=ip.pod_matches_q)
+    return args, spread, ip
+
+
+def spread_interpod_bound(torch, scan_args, spread, ip) -> tuple[float, str]:
+    """interpod_bound's bytes (the [UQ + UE, N] ledger read and written
+    once, the per-pod rows, topology, term attributes and domain
+    aggregates read once) plus the spread entries and the zone column read
+    once; its operations plus SPREAD_OPS_PER_PAIR per statically feasible
+    pair of a pod with an entry."""
+    t_ip, _ = interpod_bound(torch, scan_args, ip)
+    feasible = scan_args[0] > float("-inf")
+    entries, counting = interpod_entries(torch, ip)
+    per_pod = feasible.sum(1).double()
+    ops = (SCAN_OPS_PER_PAIR * float(per_pod.sum())
+           + IP_OPS_PER_ENTRY * float((per_pod * entries.double()).sum())
+           + IP_SCORE_OPS * float(per_pod[counting].sum())
+           + SPREAD_OPS_PER_PAIR * float(per_pod[spread.spread_q >= 0].sum()))
+    nbytes = (t_ip * 1e-3 * H100_BYTES_PER_S + spread.spread_q.numel() * 4
+              + scan_args[0].shape[1] * 4)
+    return bound(nbytes, ops)
+
+
+def spread_interpod_first_batch(torch, dev):
+    """The spread_interpod cell's first batch, encoded through a
+    Scheduler's table and encode context on its flushed state, and the
+    scan's arguments for it: (caps, the scan arguments, SpreadInputs,
+    InterpodInputs), the two sharing the ledger and match rows."""
+    from kubernetes_tpu_torch.ops import solver
+    from kubernetes_tpu_torch.perf.fixtures import make_nodes, make_pods, make_services
+    from kubernetes_tpu_torch.perf.harness import default_caps
+    from kubernetes_tpu_torch.scheduler import Scheduler
+    from kubernetes_tpu_torch.state.convert import batch_from_numpy
+    from kubernetes_tpu_torch.state.pod_batch import encode_pods
+
+    caps = default_caps(HEADLINE_NODES, HEADLINE_PODS)
+    sched = Scheduler(caps, device=dev)
+    sched.add_nodes(make_nodes(HEADLINE_NODES, zones=3))
+    for svc in make_services(SPREAD_GROUPS):
+        sched.add_service(svc)
+    pods = make_pods(HEADLINE_PODS, **SI_MIX)[:caps.batch_pods]
+    host = encode_pods(pods, caps, sched.statedb.table, ctx=sched.encode_cache.ctx)
+    state = sched.statedb.flush()
+    batch = batch_from_numpy(host, dev)
+    g = solver.check_supported(solver.DEFAULT_POLICY, solver.batch_flags(state, batch))
+    masked = solver.masked_static_scores(state, batch, solver.DEFAULT_POLICY, g)
+    args = (masked, batch.requests, batch.nonzero_requests, state.allocatable,
+            state.requested, state.nonzero_requested, 0, float(g.w_lr),
+            float(g.w_ba))
+    return (caps, args, *solver.spread_interpod_inputs(
+        state, batch, g, caps.domain_universe, sched.statedb.table.spread_zones))
+
+
+def spread_interpod_phase(torch, caps, dev, kernels) -> tuple[dict, dict]:
+    """The spread_interpod cell (bench[spread]'s 15,000 nodes in 3 zones,
+    30,000 pods in 16 app groups and 16 Services, with bench[interpod]'s
+    terms) through Scheduler(device="cuda"); every pod must be placed
+    within allocatable, no node that holds an anti-affinity pod may hold
+    another pod of its group, the spread+interpod build must have launched
+    once per batch (and no other build of the scan), and the first and the
+    last batch must equal schedule_batch_plain on the state and batch the
+    driver solved them on, every ledger included; the build is timed on
+    the first batch, against the plain path's time on that batch. Returns
+    (the phase line, the kernels-line entry)."""
+    from kubernetes_tpu_torch.ops import solver
+    from kubernetes_tpu_torch.ops.assign_scan import assign_scan_spread_interpod
+    from kubernetes_tpu_torch.perf.fixtures import make_nodes, make_pods, make_services
+    from kubernetes_tpu_torch.perf.harness import measure, warm
+    from kubernetes_tpu_torch.scheduler import Scheduler, driver
+
+    nodes = make_nodes(HEADLINE_NODES, zones=3)
+    pods = make_pods(HEADLINE_PODS, **SI_MIX)
+    services = make_services(SPREAD_GROUPS)
+    warm(caps, solver.DEFAULT_POLICY, dev, n_services=SPREAD_GROUPS, pod_kwargs=SI_MIX)
+    sched = Scheduler(caps, device=dev)
+    sched.add_nodes(nodes)
+    for svc in services:
+        sched.add_service(svc)
+    seen = []
+    solve = record_solves(torch, driver, SI_CHECKED, seen)
+    for k in kernels:
+        k.launches = 0
+    try:
+        result = measure(sched, pods)
+    finally:
+        driver.schedule_batch = solve
+    launches = {k.__name__: k.launches for k in kernels}
+    if result.scheduled != HEADLINE_PODS:
+        raise AssertionError(f"spread_interpod: placed {result.scheduled}/{HEADLINE_PODS}")
+    want = {name: 0 for name in launches}
+    want.update(static_mask=result.batches, assign_scan_spread_interpod=result.batches)
+    if launches != want or result.batches != len(seen):
+        raise AssertionError(f"spread_interpod: launches {launches} over "
+                             f"{result.batches} batches")
+    load = check_load(pods, result.placements, nodes)
+    # required hostname anti-affinity against the pod's own group
+    group_on: dict = {}
+    anti_nodes = set()
+    for i, p in enumerate(pods):
+        key = (result.placements[p.key], p.metadata.labels["app"])
+        group_on[key] = group_on.get(key, 0) + 1
+        if i % SI_MIX["anti_affinity_every"] == 0:
+            anti_nodes.add(key)
+    crowded = [key for key in anti_nodes if group_on[key] != 1]
+    if crowded:
+        raise AssertionError(f"spread_interpod: anti-affinity broken on {crowded[:5]}")
+    names = sched.statedb.table.name_of
+    if [names[r] for r in seen[0][1].assignments.tolist()] != \
+            [result.placements[p.key] for p in pods[:caps.batch_pods]]:
+        raise AssertionError("spread_interpod: first batch placements != its result")
+    plains = {}
+    for k in SI_CHECKED:
+        (state, batch, rr, flags), got = seen[k]
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        plain = solver.schedule_batch_plain(state, batch, rr, solver.DEFAULT_POLICY,
+                                            flags, caps)
+        end.record()
+        end.synchronize()
+        compare_interpod(torch, got, plain, "spread_interpod")
+        plains[k] = (plain, start.elapsed_time(end))
+    # the build alone on the first batch, against the plain scan's result
+    state0, batch0, _rr, flags0 = seen[0][0]
+    g = solver.check_supported(solver.DEFAULT_POLICY, flags0)
+    masked = solver.masked_static_scores(state0, batch0, solver.DEFAULT_POLICY, g)
+    args = (masked, batch0.requests, batch0.nonzero_requests, state0.allocatable,
+            state0.requested, state0.nonzero_requested, 0, float(g.w_lr),
+            float(g.w_ba))
+    spread, ip = solver.spread_interpod_inputs(state0, batch0, g, caps.domain_universe,
+                                               sched.statedb.table.spread_zones)
+    if not (g.w_ss and g.use_terms) or _rr != 0:
+        raise AssertionError(f"spread_interpod: first batch gates {flags0}, rr {_rr}")
+    # the plain path's result on the first batch (rr 0)
+    plain, plain_ms = plains[0]
+    err = compare_interpod(torch, assign_scan_spread_interpod(*args, spread, ip), plain,
+                           "spread_interpod")
+    entries, counting = interpod_entries(torch, ip)
+    entry = {
+        "name": "assign_scan_spread_interpod", "route": "cuda",
+        "source": "kubernetes_tpu_torch/csrc/assign_scan.cu",
+        "replaces": "kubernetes_tpu/ops/solver.py:574",
+        "launches": launches["assign_scan_spread_interpod"], "max_abs_err": err,
+        **timed(torch, lambda: assign_scan_spread_interpod(*args, spread, ip), reps=5),
+        "plain_ms": plain_ms, "library_ms": None,
+    }
+    entry["bound_ms"], entry["bound_by"] = spread_interpod_bound(torch, args, spread, ip)
+    zone_of = {n.metadata.name: n.metadata.labels[
+        "failure-domain.beta.kubernetes.io/zone"] for n in nodes}
+    per_group: dict = {}
+    for p in pods:
+        key = (p.metadata.labels["app"], zone_of[result.placements[p.key]])
+        per_group[key] = per_group.get(key, 0) + 1
+    spread_of: dict = {}
+    for (app, _z), c in per_group.items():
+        spread_of.setdefault(app, []).append(c)
+    encode_ms = 1e3 * sum(sched.encode_seconds)
+    solve_ms = 1e3 * sum(sched.solve_seconds)
+    line = {"phase": "spread_interpod", "nodes": HEADLINE_NODES, "pods": HEADLINE_PODS,
+            "services": len(services), **SI_MIX,
+            "caps": [caps.num_nodes, caps.batch_pods], **run_fields(result),
+            "encode_ms": encode_ms, "solve_ms": solve_ms,
+            "remainder_ms": 1e3 * result.seconds - encode_ms - solve_ms,
+            "podsel_entries": len(sched.statedb.table.podsels),
+            "carried_terms": len(sched.statedb.table.terms),
+            "nodes_used": len(load), "anti_affinity_nodes": len(anti_nodes),
+            "max_zone_imbalance_per_group": max(max(v) - min(v)
+                                                for v in spread_of.values()),
+            "first_batch_entries_mean": float(entries.double().mean()),
+            "first_batch_counting_pods": int(counting.sum()),
+            "first_batch_spread_pods": int((spread.spread_q >= 0).sum()),
+            "launches": launches, "checked_batches_equal_plain": list(SI_CHECKED)}
     return line, entry
 
 
@@ -1077,6 +1342,8 @@ def run8_phase(torch, rng, dev) -> dict:
         assign_scan_interpod_plain,
         assign_scan_plain,
         assign_scan_spread,
+        assign_scan_spread_interpod,
+        assign_scan_spread_interpod_plain,
         assign_scan_spread_plain,
         node_run,
     )
@@ -1094,6 +1361,10 @@ def run8_phase(torch, rng, dev) -> dict:
         ip = interpod_inputs(torch, rng, dev, n_, p_)
         compare_interpod(torch, assign_scan_interpod(*sargs, 1.0, 1.0, ip),
                          assign_scan_interpod_plain(*sargs, 1.0, 1.0, ip))
+        sp_, ip_ = with_spread(torch, rng, ip, zones=3)
+        compare_interpod(torch, assign_scan_spread_interpod(*sargs, 1.0, 1.0, sp_, ip_),
+                         assign_scan_spread_interpod_plain(*sargs, 1.0, 1.0, sp_, ip_),
+                         "spread_interpod")
         cases.append([p_, n_, "all_miss" if miss else "mixed"])
     reverted = []
     for p_, n_, make in RUN8_REVERTS:
@@ -1207,6 +1478,7 @@ def gang_phase(torch, dev, kernels) -> tuple[dict, dict]:
                              f"{result.gang_groups} groups ({groups} expected)")
     if launches != {"static_mask": result.batches, "assign_scan": 0,
                     "assign_scan_spread": 0, "assign_scan_interpod": 0,
+                    "assign_scan_spread_interpod": 0,
                     "assign_scan_gang": result.batches} or result.batches != 6:
         raise AssertionError(f"gang: launches {launches} over {result.batches} batches")
     placed = {k: v for k, v in result.placements.items() if v is not None}
@@ -1481,6 +1753,8 @@ def main() -> int:
         assign_scan_interpod_plain,
         assign_scan_plain,
         assign_scan_spread,
+        assign_scan_spread_interpod,
+        assign_scan_spread_interpod_plain,
         assign_scan_spread_plain,
         node_run,
     )
@@ -1590,6 +1864,10 @@ def main() -> int:
         for v in variants:
             compare_interpod(torch, assign_scan_interpod(*sargs, 1.0, 1.0, v),
                              assign_scan_interpod_plain(*sargs, 1.0, 1.0, v))
+        sp_, ip_ = with_spread(torch, rng, ip, zones=3)
+        compare_interpod(torch, assign_scan_spread_interpod(*sargs, 1.0, 1.0, sp_, ip_),
+                         assign_scan_spread_interpod_plain(*sargs, 1.0, 1.0, sp_, ip_),
+                         "spread_interpod")
         gang = random_gang(torch, rng, dev, p_)
         compare_scan(torch, assign_scan_gang(*sargs, 1.0, 1.0, gang),
                      assign_scan_gang_plain(*sargs, 1.0, 1.0, gang))
@@ -1598,7 +1876,7 @@ def main() -> int:
         raise AssertionError(f"scan builds checked {runs}, built {RUNS}")
     emit({"phase": "edge_shapes", "shapes": [list(x[:2]) for x in shapes],
           "scan_runs": runs, "spread_runs": runs, "interpod_runs": runs,
-          "gang_runs": runs, "kernels_equal_plain": True})
+          "spread_interpod_runs": runs, "gang_runs": runs, "kernels_equal_plain": True})
 
     # ---- 3c: the spread build's hazards at every RUN: pods of one
     # selector landing on one thread's nodes pod after pod (the count
@@ -1638,6 +1916,29 @@ def main() -> int:
                              assign_scan_interpod_plain(*hargs, 1.0, 1.0, ip))
     emit({"phase": "interpod_hazards", "shapes": [list(x) for x in hz_shapes],
           "runs": hz_runs, "cases": [f"{pool}_k{k_}" for pool, k_ in ih_cases],
+          "kernel_equals_plain": True})
+
+    # ---- 3d': the spread+interpod build's hazards at every RUN: runs of
+    # pods placed on one node and on one thread's nodes (the match row
+    # added once, the count column patched a pod ahead), pods with both
+    # gates, one of them or neither (spread_q -1, no weighted entry: the
+    # message's size moves pod to pod), 0, 1 and 3 zones, domain ids -1 and
+    # past the universe, and a required anti term that rejects the node
+    # SelectorSpread scores highest and the one with the most counts
+    si_cases = (("one_node", 8, 3, False), ("one_thread", 5, 1, False),
+                ("wide", 16, 0, False), ("wide", 8, 3, True))
+    for p_, n_ in hz_shapes:
+        for pool, k_, zones_, reject in si_cases:
+            hargs, sp_, ip_ = spread_interpod_hazard_inputs(
+                torch, rng, dev, n_, p_, k_, pool, zones_, reject)
+            compare_interpod(
+                torch, assign_scan_spread_interpod(*hargs, 1.0, 1.0, sp_, ip_),
+                assign_scan_spread_interpod_plain(*hargs, 1.0, 1.0, sp_, ip_),
+                "spread_interpod")
+    emit({"phase": "spread_interpod_hazards", "shapes": [list(x) for x in hz_shapes],
+          "runs": hz_runs,
+          "cases": [f"{pool}_k{k_}_z{z_}" + ("_reject" if r_ else "")
+                    for pool, k_, z_, r_ in si_cases],
           "kernel_equals_plain": True})
 
     # ---- 3e: the 8-node build's hazards: unaligned rows, empty blocks,
@@ -1705,7 +2006,8 @@ def main() -> int:
 
     # ---- 8: bench[spread] ----
     line, k3 = spread_phase(torch, caps, dev,
-                            (static_mask, assign_scan, assign_scan_spread))
+                            (static_mask, assign_scan, assign_scan_spread,
+                             assign_scan_spread_interpod))
     emit(line)
     emit({"phase": "spread_build", "shape": [P, N], **k3})
 
@@ -1713,14 +2015,23 @@ def main() -> int:
     ip_caps = default_caps(INTERPOD_NODES, INTERPOD_PODS)
     line, k4 = interpod_phase(torch, ip_caps, dev,
                               (static_mask, assign_scan, assign_scan_spread,
-                               assign_scan_interpod))
+                               assign_scan_interpod, assign_scan_spread_interpod))
     emit(line)
     emit({"phase": "interpod_build",
           "shape": [ip_caps.batch_pods, ip_caps.num_nodes], **k4})
 
+    # ---- 9b: the spread_interpod cell ----
+    line, k6 = spread_interpod_phase(
+        torch, caps, dev, (static_mask, assign_scan, assign_scan_spread,
+                           assign_scan_interpod, assign_scan_spread_interpod,
+                           assign_scan_gang))
+    emit(line)
+    emit({"phase": "spread_interpod_build", "shape": [P, N], **k6})
+
     # ---- 10: bench[gang] ----
     line, k5 = gang_phase(torch, dev, (static_mask, assign_scan, assign_scan_spread,
-                                       assign_scan_interpod, assign_scan_gang))
+                                       assign_scan_interpod, assign_scan_spread_interpod,
+                                       assign_scan_gang))
     emit(line)
     emit({"phase": "gang_build_first_batch", "shape": list(k5.pop("shape")), **k5})
 
@@ -1748,7 +2059,7 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [{k: entry[k] for k in keys}
-                      for entry in (k1, k2, k3, k4, k5)]})
+                      for entry in (k1, k2, k3, k4, k6, k5)]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

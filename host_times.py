@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Time `Scheduler.schedule` end to end on the kinds of pending traffic a
 tree carries (two, three with SelectorSpread, four with inter-pod
-affinity, five with gang groups), for comparing two trees of the
-repository on one card.
+affinity, five with gang groups, six with SelectorSpread and inter-pod
+affinity in one batch), for comparing two trees of the repository on one
+card.
 
     python3 host_times.py [--root DIR] [--reps K]
 
@@ -25,7 +26,11 @@ from its own sources and its Scheduler places the same pods on the same
   its own 5,000 nodes in 3 zones (padded to N=8192, batches of P=1365);
 - gang, where the tree's `make_pods` takes `gang_size`: the reference
   bench's bench[gang], 24,576 pods in 3,072 all-or-nothing groups of 8, on
-  its own 50,000 nodes in 3 zones (padded to N=65536, batches of P=4096).
+  its own 50,000 nodes in 3 zones (padded to N=65536, batches of P=4096);
+- spread_interpod, where the tree's scan has the spread+interpod build:
+  bench[spread]'s 30,000 pods in 16 app groups with its 16 Services,
+  carrying bench[interpod]'s terms (hostname anti-affinity on every 16th
+  pod, zone affinity on every 2nd; chip_smoke.py `SI_MIX`).
 
 Each traffic runs K times (default 2), each on a fresh Scheduler after the
 kernels are built and warmed. The script collects garbage before each
@@ -91,6 +96,7 @@ def main() -> int:
     from kubernetes_tpu_torch.api.objects import Pod
     from kubernetes_tpu_torch.models.policy import DEFAULT_POLICY
     from kubernetes_tpu_torch.native.build import build
+    from kubernetes_tpu_torch.ops import assign_scan as scan_module
     from kubernetes_tpu_torch.perf import fixtures
     from kubernetes_tpu_torch.perf.fixtures import make_nodes, make_pods
     from kubernetes_tpu_torch.perf.harness import default_caps, warm
@@ -127,6 +133,12 @@ def main() -> int:
         traffic["gang"] = (gang_caps, make_nodes(smoke.GANG_NODES, zones=3),
                            make_pods(smoke.GANG_PODS, gang_size=smoke.GANG_SIZE), ())
         warm(gang_caps, DEFAULT_POLICY, dev, pod_kwargs={"gang_size": smoke.GANG_SIZE})
+    if hasattr(scan_module, "assign_scan_spread_interpod"):
+        traffic["spread_interpod"] = (caps, nodes,
+                                      make_pods(smoke.HEADLINE_PODS, **smoke.SI_MIX),
+                                      fixtures.make_services(smoke.SPREAD_GROUPS))
+        warm(caps, DEFAULT_POLICY, dev, n_services=smoke.SPREAD_GROUPS,
+             pod_kwargs=smoke.SI_MIX)
     out = {"nvidia_smi": smi.splitlines()[0], "root": str(opts.root.resolve())}
     for name, (caps_, nodes_, pods, services) in traffic.items():
         out[name] = []

@@ -3,6 +3,7 @@
 trees of the repository on one card.
 
     python3 kernel_times.py [--root DIR] [--sass-out DIR] [--parts LIST]
+                            [--sass-against DIR]
 
 Imports `kubernetes_tpu_torch` from DIR (default: this file's directory),
 so `--root` can point at an unpacked older commit: its kernels are built
@@ -54,9 +55,21 @@ they price the chain, not a result. The interpod call is also profiled
 device time per call of everything the call runs (`per_call`: the
 kernel and the wrapper's set-up kernels); with the host time until the
 call returns (`interpod_enqueue_ms`), that splits the call's time into
-the kernel's, the set-up's on the card and the host's. `--parts` picks
-what to time, a comma list of mask, scan, spread, interpod, gang, run8,
-phase_a and sass (all by default). Exits non-zero without a CUDA device.
+the kernel's, the set-up's on the card and the host's. Where the tree has
+the spread+interpod build, the spread_interpod cell's first batch (P=4096,
+N=16384) runs through the main build, the spread build on its spread
+gate, the interpod build on its ipa gate and the combined build on both
+(`spread_interpod_batch_main_ms`, `spread_interpod_batch_spread_ms`,
+`spread_interpod_batch_interpod_ms`, `spread_interpod_ms`), and the
+combined build with no spread entry (`spread_interpod_no_entry_ms`) and
+with the priority's weight 0 (`spread_interpod_no_score_ms`), each also
+as `*_kernel_us`; with `run8`, also at 8 nodes a thread
+(`spread_interpod_run8_*`). `--sass-against DIR` builds the scan of the
+tree at DIR in a process of its own and reports, build by build and RUN
+by RUN, whether this tree's SASS is byte-identical to it
+(`scan_sass_same_as_against`). `--parts` picks what to time, a comma list
+of mask, scan, spread, interpod, spread_interpod, gang, run8, phase_a and
+sass (all by default). Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -78,7 +91,8 @@ import numpy as np
 
 HERE = Path(__file__).resolve().parent
 REPS = 5
-PARTS = ("mask", "scan", "spread", "interpod", "gang", "run8", "phase_a", "sass")
+PARTS = ("mask", "scan", "spread", "interpod", "spread_interpod", "gang", "run8",
+         "phase_a", "sass")
 # the gang batch's columns timed at 2 nodes a thread, and the shape of the
 # spread and interpod builds' 8-node timing
 RUN2_COLUMNS = 16384
@@ -90,6 +104,7 @@ def main() -> int:
     ap.add_argument("--root", type=Path, default=HERE)
     ap.add_argument("--sass-out", type=Path, default=None)
     ap.add_argument("--parts", default=",".join(PARTS))
+    ap.add_argument("--sass-against", type=Path, default=None)
     opts = ap.parse_args()
     parts = set(opts.parts.split(","))
     if not parts <= set(PARTS):
@@ -176,6 +191,28 @@ def main() -> int:
             torch, ((lambda: interpod_scan(*iargs, ip), REPS),))
         out["interpod_enqueue_ms"] = enqueue_ms(
             torch, lambda: interpod_scan(*iargs, ip))
+    if "spread_interpod" in parts and hasattr(scan_module,
+                                              "assign_scan_spread_interpod"):
+        # the spread_interpod cell's first batch through the main build and
+        # through each build on the gates it carries: the price of each half
+        _c, siargs, sp, ip = smoke.spread_interpod_first_batch(torch, dev)
+        si_scan = scan_module.assign_scan_spread_interpod
+        # the combined build with one half's work switched off by its inputs:
+        # no spread entry (no spread partial), and the priority's weight 0
+        # (no (min, max)); the placements differ, so they price the chain
+        no_entry = dataclasses.replace(sp, spread_q=torch.full_like(sp.spread_q, -1))
+        no_score = dataclasses.replace(ip, w_ip=0.0)
+        for key, call in (
+                ("spread_interpod_batch_main", lambda: assign_scan(*siargs)),
+                ("spread_interpod_batch_spread",
+                 lambda: scan_module.assign_scan_spread(*siargs, sp)),
+                ("spread_interpod_batch_interpod",
+                 lambda: scan_module.assign_scan_interpod(*siargs, ip)),
+                ("spread_interpod", lambda: si_scan(*siargs, sp, ip)),
+                ("spread_interpod_no_entry", lambda: si_scan(*siargs, no_entry, ip)),
+                ("spread_interpod_no_score", lambda: si_scan(*siargs, sp, no_score))):
+            out.update(smoke.timed(torch, call, REPS, f"{key}_ms"))
+            out[f"{key}_kernel_us"] = kernel_us(device_times(torch, ((call, REPS),)))
     if {"gang", "phase_a"} & parts and hasattr(scan_module, "assign_scan_gang"):
         _c, _n, _p, mask_args, gargs, gang, gstate, gbatch = smoke.gang_first_batch(
             torch, dev)
@@ -222,11 +259,16 @@ def main() -> int:
         sargs = smoke.scan_inputs(torch, rng8, dev, RUN8_PODS, RUN8_NODES)
         spread = smoke.spread_inputs(torch, rng8, dev, RUN8_NODES, RUN8_PODS)
         ip = smoke.interpod_inputs(torch, rng8, dev, RUN8_NODES, RUN8_PODS)
-        for key, call in (
-                ("spread_run8", lambda: scan_module.assign_scan_spread(
-                    *sargs, 1.0, 1.0, spread)),
-                ("interpod_run8", lambda: scan_module.assign_scan_interpod(
-                    *sargs, 1.0, 1.0, ip))):
+        calls = [("spread_run8", lambda: scan_module.assign_scan_spread(
+                      *sargs, 1.0, 1.0, spread)),
+                 ("interpod_run8", lambda: scan_module.assign_scan_interpod(
+                      *sargs, 1.0, 1.0, ip))]
+        if hasattr(scan_module, "assign_scan_spread_interpod"):
+            sp8, ip8 = smoke.with_spread(torch, rng8, ip, zones=3)
+            calls.append(("spread_interpod_run8",
+                          lambda: scan_module.assign_scan_spread_interpod(
+                              *sargs, 1.0, 1.0, sp8, ip8)))
+        for key, call in calls:
             out.update(smoke.timed(torch, call, REPS, f"{key}_ms"))
             out[f"{key}_kernel_us"] = kernel_us(device_times(torch, ((call, REPS),)))
     if "sass" in parts:
@@ -234,6 +276,18 @@ def main() -> int:
         out["scan_sass"] = sass_digests(cuobjdump, library_path("assign_scan"),
                                         opts.sass_out)
         out["scan_ptxas"] = smoke.ptxas_report(build_log("assign_scan"))
+        if opts.sass_against is not None:
+            # the other tree's scan, built by its own build module in a
+            # process of its own, build for build and RUN for RUN
+            other = subprocess.run(
+                [sys.executable, "-c", _BUILD_OTHER, str(opts.sass_against.resolve())],
+                capture_output=True, text=True, timeout=900, check=True)
+            theirs = sass_digests(cuobjdump, Path(other.stdout.split()[-1]))
+            mine = out["scan_sass"]
+            out["scan_sass_same_as_against"] = {
+                build: {run: mine.get(build, {}).get(run, {}).get("exact") == d["exact"]
+                        for run, d in runs.items()}
+                for build, runs in theirs.items()}
     print(json.dumps(out), flush=True)
     return 0
 
@@ -241,7 +295,11 @@ def main() -> int:
 # the scan's builds by their template flags after RUN: (SPREAD[, IPA[, GANG]])
 BUILDS = {"": "main", "0": "main", "00": "main", "000": "main", "1": "spread",
           "10": "spread", "100": "spread", "01": "interpod", "010": "interpod",
-          "001": "gang"}
+          "001": "gang", "11": "spread_interpod", "110": "spread_interpod"}
+# builds the scan library of the tree at argv[1] and prints its path
+_BUILD_OTHER = ("import sys; sys.path.insert(0, sys.argv[1]); "
+                "from kubernetes_tpu_torch.native.build import build, library_path; "
+                "build(); print(library_path('assign_scan'))")
 
 
 def sass_digests(cuobjdump: str, library: Path, sass_out: Path | None = None) -> dict:

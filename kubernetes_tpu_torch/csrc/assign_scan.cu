@@ -230,9 +230,9 @@
 // `ledger_add` (kubernetes_tpu/ops/solver.py:549-551,574-577,783-784;
 // ops/interpod.py:152,208,241,253). Like the spread build it sits behind
 // `if constexpr (IPA)` with its arguments in one trailing struct, so the
-// main and spread builds keep their instructions. A batch raises either
-// gate, not both: the solver refuses a batch that needs both builds.
-// State it keeps:
+// main and spread builds keep their instructions. (A batch that needs both
+// SelectorSpread and inter-pod affinity runs the spread+interpod build,
+// below.) State it keeps:
 //   - node-level counts: a transposed [UQ+UE, N] copy of the pod-selector
 //     and carried-term ledgers (the wrapper makes it, and returns it as
 //     [N, UQ] and [N, UE]); column u of node g is added to only by lane
@@ -369,6 +369,53 @@
 // reading the next pod's group during the exchange, loading the pod's row
 // before the check, and appending after the owner's terms did not pay.
 //
+// The spread+interpod build (SPREAD = IPA = true, entry
+// ktpu_assign_scan_spread_interpod) runs both in one scan over one ledger,
+// as the JAX step does (solver.py:548-551,574-581,783-785): the predicate
+// first, then InterPodAffinityPriority and SelectorSpread, each over the
+// nodes the predicate leaves. It is the interpod build's chain with the
+// spread build's count column, partial and score added, and it changes no
+// other build's instructions (every addition behind `if constexpr`). Where
+// the two meet:
+//   - the pod slot is the interpod build's, with spread_q in its last word
+//     (SI_Q); its match row is the one SelectorSpread's owner patch reads;
+//   - one ledger: the spread count column a pod ahead is row spread_q(p+1)
+//     of the first UQ rows of the [UQ+UE, N] node-level copy, and the
+//     owner's warp adds the match and carried-term rows once, after a
+//     __syncwarp that orders its lanes' loads of that column, and after it
+//     sends the index (the interpod build's order); the owner patches its
+//     register copy of the count column as in the spread build;
+//   - feasibility first: SelectorSpread counts, maxes and sums over the
+//     nodes that pass the predicate (step 2's list), not over the fit alone;
+//   - one exchange: after step 2, the spread partial (1 + Z words, when
+//     spread_q >= 0) and the (min, max) chunk (when a weighted entry
+//     exists) go out as one message, warp 0's lane l sending chunks l / 16,
+//     l / 16 + 2, ... to block l % 16, the (min, max) chunk to its own slot,
+//     all on the spread mbarrier, after one block barrier; a pod that needs
+//     neither sends nothing, and every block decides from the same pod row.
+//     Because the message's size depends on the pod, thread 0 arms the
+//     mbarrier for this pod's bytes at the exchange, not after the previous
+//     wait: a peer's bytes may land before the arm (the mbarrier's tx-count
+//     goes below zero, and the phase cannot complete before the arrival
+//     that the arm makes), and no peer sends a pod's message before it has
+//     every block's triple of the pod before it, so no phase is skipped;
+//   - the score: w_ip * priority, then w_ss * SelectorSpread, each added
+//     with __fadd_rn in that order; both divisions keep their builds'
+//     schemes (the double reciprocals, __fdiv_rn);
+//   - the trap on a zone id in [Z, universe) stays.
+// It keeps the per-node loop for the run's best at 8 nodes a thread, as the
+// interpod build does (its registers). The spread half's partial, its
+// reduction and its score are written out again inside the combined
+// exchange rather than shared with the spread build's code, which keeps
+// that build's instructions as they were. Priced on the spread_interpod
+// cell's first batch (PERF.md, section 6), the spread half costs ~1.5 us a pod
+// even without an exchange of its own: the partial before the exchange
+// and the reduction and score after it take about half each.
+//
+// Bound of the spread+interpod build: masked_static read once, the
+// node-level counts read once and written once, the per-pod rows and the
+// domain aggregates read once, at 3.35 TB/s.
+//
 // Bound of the gang build: that of the main build, masked_static read once
 // (1.07 GB at P = 4,096, N = 65,536: 0.32 ms at 3.35 TB/s) plus the
 // ledger; bench[gang] (50,000 nodes, 24,576 pods in groups of 8) launches
@@ -450,6 +497,12 @@ constexpr unsigned IP_BYTES = 16;    // one block's (min, max), one st.async.v4
 static_assert(POD_ROW_MAIN + IPW_ROWS + IP_MAX_U <= IP_POD_ROW
               && IP_POD_ROW % 4 == 0 && IP_POD_ROW <= THREADS, "interpod layout");
 
+// ---- the spread+interpod build's layout: the interpod pod slot (its match
+// row serves SelectorSpread too), spread_q in its last word
+constexpr int SI_Q = IP_POD_ROW - 1;
+static_assert(POD_ROW_MAIN + IPW_ROWS + IP_MAX_U <= SI_Q && MAX_UQ == IP_MAX_UQ,
+              "spread+interpod layout");
+
 // ---- the gang build's layout
 constexpr int GW_ID = POD_ROW_MAIN;       // pod-slot word: the group id
 constexpr int GW_MIN = POD_ROW_MAIN + 1;  // and the group's quorum
@@ -463,9 +516,14 @@ struct Build {
   static constexpr int STAGES = STAGES_MAIN;
   // no term columns: the terms are packed in registers (8 nodes a thread)
   static constexpr bool PACKED = RUN == 8;
-  static constexpr int POD_ROW = SPREAD ? SP_POD_ROW
-                                 : IPA ? IP_POD_ROW
+  static constexpr int POD_ROW = IPA ? IP_POD_ROW
+                                 : SPREAD ? SP_POD_ROW
                                  : GANG ? GANG_POD_ROW : POD_ROW_MAIN;
+  // the pod-slot words of spread_q and of the match row (spread builds;
+  // named at their uses: kernel-local copies moved the spread build's
+  // register allocation at 1, 2 and 4 nodes a thread)
+  [[maybe_unused]] static constexpr int SPQ = IPA ? SI_Q : SP_Q;
+  [[maybe_unused]] static constexpr int SPM = IPA ? POD_ROW_MAIN + IPW_ROWS : SP_M;
 };
 
 // What the spread build reads beyond the main operands.
@@ -605,7 +663,10 @@ __device__ Smem carve(float* base, int nb) {
     s.bar_sp = reinterpret_cast<uint64_t*>(s.sp_w + WARPS * SP_WORDS);
   }
   if constexpr (IPA) {   // every size below is a multiple of 16 bytes
-    s.ip_list = reinterpret_cast<int4*>(s.wslot + 2 * WARPS);
+    if constexpr (SPREAD)   // after the spread build's regions
+      s.ip_list = reinterpret_cast<int4*>(s.bar_sp + 2);
+    else
+      s.ip_list = reinterpret_cast<int4*>(s.wslot + 2 * WARPS);
     s.ip_head = s.ip_list + IP_MAX_ENTRIES;
     s.t_attr = reinterpret_cast<int*>(s.ip_head + 1);
     s.totals = reinterpret_cast<float*>(s.t_attr + 5 * IP_MAX_UE);
@@ -1068,7 +1129,7 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
         for (int j = 0; j < RUN; ++j)
           if (g0 + j < N) cp_async4(slot + c0 + j, row + g0 + j);
       }
-      if constexpr (SPREAD) {   // + spread_q and the match row
+      if constexpr (SPREAD && !IPA) {   // + spread_q and the match row
         if (t < SP_M + sp.uq)
           cp_async4(s.pods + (p % POD_SLOTS) * POD_ROW + t,
                     t < R ? requests + (size_t)p * R + t
@@ -1083,6 +1144,10 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
                     : t < POD_ROW_MAIN ? nonzero_requests + (size_t)p * 2 + (t - R)
                     : reinterpret_cast<const float*>(
                           ip.pod_ip + (size_t)p * ipw + (t - POD_ROW_MAIN)));
+        if constexpr (SPREAD)   // + spread_q, in the slot's last word
+          if (t == SI_Q)
+            cp_async4(s.pods + (p % POD_SLOTS) * POD_ROW + SI_Q,
+                      reinterpret_cast<const float*>(sp.spread_q + p));
       } else if constexpr (GANG) {   // + the group id and quorum
         if (t <= GW_MIN)
           cp_async4(s.pods + (p % POD_SLOTS) * POD_ROW + t,
@@ -1113,13 +1178,14 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
     if constexpr (SPREAD) {
       mbar_init(s.bar_sp, 1);
       asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-      mbar_arm(s.bar_sp, CLUSTER * sp_bytes);
+      // the spread+interpod build arms it at each exchange, for its size
+      if constexpr (!IPA) mbar_arm(s.bar_sp, CLUSTER * sp_bytes);
     }
     if constexpr (IPA) {
       mbar_init(s.bar_ip, 1);
       mbar_init(s.bar_win, 1);
       asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-      mbar_arm(s.bar_ip, CLUSTER * IP_BYTES);
+      if constexpr (!SPREAD) mbar_arm(s.bar_ip, CLUSTER * IP_BYTES);
       mbar_arm(s.bar_win, IP_BYTES);
     }
   }
@@ -1147,7 +1213,9 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
   [[maybe_unused]] float nxt[RUN];
   [[maybe_unused]] auto fetch_counts = [&](int pn) {
     if constexpr (SPREAD) {
-      q_next = pn < P ? __float_as_int(s.pods[(pn % POD_SLOTS) * POD_ROW + SP_Q]) : -1;
+      q_next = pn < P ? __float_as_int(s.pods[(pn % POD_SLOTS) * POD_ROW
+                                              + Build<RUN, SPREAD, IPA, GANG>::SPQ])
+                      : -1;
       if (q_next >= sp.uq) __trap();   // not an entry of the ledger
       if (q_next >= 0) {
         const float* col = sp.podsel_t + (size_t)q_next * N;
@@ -1161,7 +1229,9 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
   // block l's slot `rank` and mbarrier
   unsigned to_ip_slot = 0u, to_ip_bar = 0u, ip_phase = 0u, win_phase = 0u;
   [[maybe_unused]] bool win_pending = false;   // the last pod's node is on its way
-  if constexpr (IPA) {
+  if constexpr (IPA && SPREAD) {   // lane l: block l % 16, on the spread mbarrier
+    if (warp == 0) to_ip_slot = map_rank(smem_u32(&s.ip_slot[rank]), lane % CLUSTER);
+  } else if constexpr (IPA) {
     if (warp == 0 && lane < CLUSTER) {
       to_ip_slot = map_rank(smem_u32(&s.ip_slot[rank]), lane);
       to_ip_bar = map_rank(smem_u32(s.bar_ip), lane);
@@ -1291,7 +1361,7 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
     }
     // ---- SelectorSpread of the run (spread build)
     [[maybe_unused]] float ss[RUN];
-    if constexpr (SPREAD) {
+    if constexpr (SPREAD && !IPA) {
       if (q_next < 0) {   // pod p has no entry (fetched one pod ahead)
 #pragma unroll
         for (int j = 0; j < RUN; ++j) ss[j] = MAX_PRIORITY;
@@ -1445,32 +1515,153 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
         }
       }
       // 3. the cluster's min and max, and the scores
-      if (head.z != 0) {
-        const int wlo = __reduce_min_sync(FULL, lo);
-        const int whi = __reduce_max_sync(FULL, hi);
-        if (lane == 0) s.ip_w[warp] = make_int2(wlo, whi);
-        __syncthreads();
-        if (warp == 0) {   // the block's (min, max), into slot `rank` of every block
-          const int2 v = lane < WARPS ? s.ip_w[lane] : make_int2(0, 0);
-          const int blo = __reduce_min_sync(FULL, v.x);
-          const int bhi = __reduce_max_sync(FULL, v.y);
-          if (lane < CLUSTER) st_async_v4(to_ip_slot, make_int4(blo, bhi, 0, 0), to_ip_bar);
-        }
-        mbar_wait(s.bar_ip, ip_phase);
-        if (t == 0) mbar_arm(s.bar_ip, CLUSTER * IP_BYTES);   // next counting pod
-        ip_phase ^= 1u;
-        const int4 b4 = s.ip_slot[lane < CLUSTER ? lane : 0];
-        const float min_c = (float)__reduce_min_sync(FULL, lane < CLUSTER ? b4.x : 0);
-        const float max_c = (float)__reduce_max_sync(FULL, lane < CLUSTER ? b4.y : 0);
-        const float spread_c = __fsub_rn(max_c, min_c);
-        if (spread_c > 0.0f) {
+      if constexpr (SPREAD) {
+        // the spread+interpod build: SelectorSpread's partial over the
+        // nodes left by the predicate and the (min, max), each when the pod
+        // needs it, in one message on the spread mbarrier (see the header)
+        const bool sp_on = q_next >= 0;   // pod p's entry (fetched one pod ahead)
+        const bool ip_on = head.z != 0;
 #pragma unroll
-          for (int j = 0; j < RUN; ++j)
-            if (ipok[j])
-              ipsc[j] = truncf(__fadd_rn(
-                  __fdiv_rn(__fmul_rn(MAX_PRIORITY, __fsub_rn(cnt[j], min_c)),
-                            fmaxf(spread_c, 1.0f)),
-                  FLOOR_EPS));
+        for (int j = 0; j < RUN; ++j) ss[j] = MAX_PRIORITY;
+        if (sp_on || ip_on) {
+          if (sp_on) {   // the warp's max count, any zoned node, zone sums
+            int cmax = 0;
+            bool zoned = false;
+#pragma unroll
+            for (int j = 0; j < RUN; ++j) {
+              if (!ipok[j]) continue;
+              cmax = max(cmax, (int)nxt[j]);
+              zoned = zoned || dom[j] >= 0;
+            }
+            int* wsl = s.sp_w + warp * SP_WORDS;
+            auto zone_sum = [&](int d) {
+              int v = 0;
+#pragma unroll
+              for (int j = 0; j < RUN; ++j) v += (ipok[j] && dom[j] == d) ? (int)nxt[j] : 0;
+              v = __reduce_add_sync(FULL, v);
+              if (lane == 0) wsl[1 + d] = v;
+            };
+            for (unsigned m = zlo; m != 0u; m &= m - 1u) zone_sum(__ffs((int)m) - 1);
+            for (unsigned m = zhi; m != 0u; m &= m - 1u) zone_sum(32 + __ffs((int)m) - 1);
+            const int wmax = __reduce_max_sync(FULL, cmax);
+            const unsigned wzoned = __ballot_sync(FULL, zoned);
+            if (lane == 0) wsl[0] = wmax | (wzoned != 0u ? SP_ZONED : 0);
+          }
+          if (ip_on) {
+            const int wlo = __reduce_min_sync(FULL, lo);
+            const int whi = __reduce_max_sync(FULL, hi);
+            if (lane == 0) s.ip_w[warp] = make_int2(wlo, whi);
+          }
+          __syncthreads();
+          if (warp == 0) {   // the block's message, into slot `rank` of every block
+            const int chunks = (sp_on ? sp_chunks : 0) + (ip_on ? 1 : 0);
+            if (lane == 0) mbar_arm(s.bar_sp, CLUSTER * 16u * (unsigned)chunks);
+            if (sp_on) {
+              int* out = reinterpret_cast<int*>(s.sp_out);
+              const int w0 = lane < WARPS ? s.sp_w[lane * SP_WORDS] : 0;
+              const int bmax = __reduce_max_sync(FULL, w0 & (SP_ZONED - 1));
+              const unsigned bzoned = __reduce_or_sync(FULL, (unsigned)(w0 & SP_ZONED));
+              for (int d = lane; d < sp.nz; d += 32) {
+                int z = 0;
+#pragma unroll
+                for (int w = 0; w < WARPS; ++w) z += s.sp_w[w * SP_WORDS + 1 + d];
+                out[1 + d] = z;
+              }
+              if (lane == 0) out[0] = bmax | (int)bzoned;
+            }
+            int4 mm = make_int4(0, 0, 0, 0);
+            if (ip_on) {
+              const int2 v = lane < WARPS ? s.ip_w[lane] : make_int2(0, 0);
+              mm.x = __reduce_min_sync(FULL, v.x);
+              mm.y = __reduce_max_sync(FULL, v.y);
+            }
+            __syncwarp();
+            for (int k = lane / CLUSTER; k < chunks; k += 32 / CLUSTER) {
+              if (sp_on && k < sp_chunks)
+                st_async_v4(to_sp_slot + k * 16, s.sp_out[k], to_sp_bar);
+              else
+                st_async_v4(to_ip_slot, mm, to_sp_bar);
+            }
+          }
+          mbar_wait(s.bar_sp, sp_phase);
+          sp_phase ^= 1u;
+          if (sp_on) {   // every warp: the cluster's max count, zoned, zone sums
+            const int b0 = lane < CLUSTER ? sp_word(s, lane, 0) : 0;
+            const int max_c = __reduce_max_sync(FULL, b0 & (SP_ZONED - 1));
+            const unsigned any_z = __reduce_or_sync(FULL, (unsigned)(b0 & SP_ZONED));
+            int zlo_sum = 0, zhi_sum = 0;
+            if (lane < sp.nz) {
+#pragma unroll
+              for (int b = 0; b < CLUSTER; ++b) zlo_sum += sp_word(s, b, 1 + lane);
+            }
+            if (lane + 32 < sp.nz) {
+#pragma unroll
+              for (int b = 0; b < CLUSTER; ++b) zhi_sum += sp_word(s, b, 33 + lane);
+            }
+            const float max_node = (float)max_c;
+            const float max_zone = (float)__reduce_max_sync(FULL, max(zlo_sum, zhi_sum));
+            const bool have_zones = any_z != 0u;
+            const double r_node = __drcp_rn((double)fmaxf(max_node, 1.0f));
+            const double r_zone = __drcp_rn((double)fmaxf(max_zone, 1.0f));
+#pragma unroll
+            for (int j = 0; j < RUN; ++j) {
+              const int d = dom[j];
+              int zc = __shfl_sync(FULL, zlo_sum, d & 31);
+              if (sp.nz > 32) {
+                const int zc_hi = __shfl_sync(FULL, zhi_sum, d & 31);
+                if (d >= 32) zc = zc_hi;
+              }
+              const bool summed = d >= 0 && d < sp.nz;
+              const float zone_s =
+                  d >= 0 ? spread_part(max_zone, summed ? (float)zc : 0.0f, r_zone) : 0.0f;
+              ss[j] = spread_score(spread_part(max_node, nxt[j], r_node), zone_s, d >= 0,
+                                   have_zones);
+            }
+          }
+          if (ip_on) {   // every warp: the cluster's (min, max), the priority
+            const int4 b4 = s.ip_slot[lane < CLUSTER ? lane : 0];
+            const float min_c = (float)__reduce_min_sync(FULL, lane < CLUSTER ? b4.x : 0);
+            const float max_c = (float)__reduce_max_sync(FULL, lane < CLUSTER ? b4.y : 0);
+            const float spread_c = __fsub_rn(max_c, min_c);
+            if (spread_c > 0.0f) {
+#pragma unroll
+              for (int j = 0; j < RUN; ++j)
+                if (ipok[j])
+                  ipsc[j] = truncf(__fadd_rn(
+                      __fdiv_rn(__fmul_rn(MAX_PRIORITY, __fsub_rn(cnt[j], min_c)),
+                                fmaxf(spread_c, 1.0f)),
+                      FLOOR_EPS));
+            }
+          }
+        }
+      } else {
+        if (head.z != 0) {
+          const int wlo = __reduce_min_sync(FULL, lo);
+          const int whi = __reduce_max_sync(FULL, hi);
+          if (lane == 0) s.ip_w[warp] = make_int2(wlo, whi);
+          __syncthreads();
+          if (warp == 0) {   // the block's (min, max), into slot `rank` of every block
+            const int2 v = lane < WARPS ? s.ip_w[lane] : make_int2(0, 0);
+            const int blo = __reduce_min_sync(FULL, v.x);
+            const int bhi = __reduce_max_sync(FULL, v.y);
+            if (lane < CLUSTER) st_async_v4(to_ip_slot, make_int4(blo, bhi, 0, 0), to_ip_bar);
+          }
+          mbar_wait(s.bar_ip, ip_phase);
+          if (t == 0) mbar_arm(s.bar_ip, CLUSTER * IP_BYTES);   // next counting pod
+          ip_phase ^= 1u;
+          const int4 b4 = s.ip_slot[lane < CLUSTER ? lane : 0];
+          const float min_c = (float)__reduce_min_sync(FULL, lane < CLUSTER ? b4.x : 0);
+          const float max_c = (float)__reduce_max_sync(FULL, lane < CLUSTER ? b4.y : 0);
+          const float spread_c = __fsub_rn(max_c, min_c);
+          if (spread_c > 0.0f) {
+  #pragma unroll
+            for (int j = 0; j < RUN; ++j)
+              if (ipok[j])
+                ipsc[j] = truncf(__fadd_rn(
+                    __fdiv_rn(__fmul_rn(MAX_PRIORITY, __fsub_rn(cnt[j], min_c)),
+                              fmaxf(spread_c, 1.0f)),
+                    FLOOR_EPS));
+          }
         }
       }
     }
@@ -1510,7 +1701,12 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
           if (!ipok[j]) continue;
         // + 0 turns a -0 score into +0, so equal scores have equal keys
         float sc;
-        if constexpr (SPREAD)
+        if constexpr (SPREAD && IPA)
+          sc = __fadd_rn(__fadd_rn(__fadd_rn(__fadd_rn(__fadd_rn(ms[j], __fmul_rn(w_lr, lr[j])),
+                                                       __fmul_rn(w_ba, ba[j])),
+                                             __fmul_rn(ip.w_ip, ipsc[j])),
+                                   __fmul_rn(sp.w_ss, ss[j])), 0.0f);
+        else if constexpr (SPREAD)
           sc = __fadd_rn(__fadd_rn(__fadd_rn(__fadd_rn(ms[j], __fmul_rn(w_lr, lr[j])),
                                              __fmul_rn(w_ba, ba[j])),
                                    __fmul_rn(sp.w_ss, ss[j])), 0.0f);
@@ -1618,7 +1814,7 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
               // pod p+1's counts were loaded before this placement: add
               // its entry of the match row to the chosen node's copy
               if (q_next >= 0) {
-                const float v = pr[SP_M + q_next];
+                const float v = pr[Build<RUN, SPREAD, IPA, GANG>::SPM + q_next];
 #pragma unroll
                 for (int i = 0; i < RUN; ++i)
                   if (i == j && v != 0.0f) nxt[i] = __fadd_rn(nxt[i], v);
@@ -1629,7 +1825,7 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
             assignments[p] = g;
             scores[p] = best;
           }
-          if constexpr (SPREAD) {
+          if constexpr (SPREAD && !IPA) {
             // the owner's warp: the pod's match row into the node's counts,
             // a column a lane, after every lane's loads of pod p+1's counts;
             // a reduction whose result is not used waits for no load
@@ -1647,6 +1843,10 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
             // whose result is not used
             if (head.w != 0) {
               const int gw = __reduce_max_sync(FULL, won);
+              // (spread+interpod: after every lane's loads of pod p+1's
+              // counts, as in the spread build; these adds cover its match
+              // row)
+              if constexpr (SPREAD) __syncwarp();
               if (lane < CLUSTER)
                 st_async_v4(map_rank(smem_u32(s.win_slot), lane), make_int4(gw, p, 0, 0),
                             map_rank(smem_u32(s.bar_win), lane));
@@ -1835,6 +2035,35 @@ extern "C" int ktpu_assign_scan_interpod(
   const IpaArgs ip{node_t, dom0, dom, totals, pod_ip, topology, term_attr, uq, ue,
                    k, nd, use_ipa, w_ip, hard_w};
   return launch_run<false, true>(o, run, NoSpread{}, stream, ip);
+}
+
+// The spread+interpod build: the operands of ktpu_assign_scan_interpod,
+// then spread_q [P] (-1 or an entry below uq), zone [N] (the GetZoneKey
+// domain id: -1 = none, below nz a zone in use, at least nd outside the
+// universe; an id in [nz, nd) traps), 0 <= nz <= nd, and the SelectorSpread
+// weight w_ss. The SelectorSpread counts are node_t's first uq rows, and
+// each pod's match row is the one in pod_ip.
+extern "C" int ktpu_assign_scan_spread_interpod(
+    const float* masked_static, const float* requests,
+    const float* nonzero_requests, const float* allocatable, float* requested,
+    float* nonzero, int* assignments, float* scores, int* feasible_counts,
+    long long* rr_io, int P, int N, int run, float w_lr, float w_ba,
+    float* node_t, const float* dom0, float* dom, const float* totals,
+    const int* pod_ip, const int* topology, const int* term_attr, int uq,
+    int ue, int k, int nd, int use_ipa, float w_ip, float hard_w,
+    const int* spread_q, const int* zone, int nz, float w_ss,
+    cudaStream_t stream) {
+  if (uq < 0 || uq > IP_MAX_UQ || ue < 0 || ue > IP_MAX_UE || k < 5
+      || k > IP_MAX_K || nd < 1 || nd > IP_MAX_D || nd > MAX_DOMAINS || nz < 0
+      || nz > nd)
+    return (int)cudaErrorInvalidValue;
+  const Operands o{masked_static, requests, nonzero_requests, allocatable,
+                   requested, nonzero, assignments, scores, feasible_counts,
+                   rr_io, P, N, w_lr, w_ba};
+  const SpreadArgs sp{node_t, spread_q, nullptr, zone, uq, nz, nd, w_ss};
+  const IpaArgs ip{node_t, dom0, dom, totals, pod_ip, topology, term_attr, uq, ue,
+                   k, nd, use_ipa, w_ip, hard_w};
+  return launch_run<true, true>(o, run, sp, stream, ip);
 }
 
 // The gang build: the operands of ktpu_assign_scan, and gang_id [P] (the

@@ -6,7 +6,7 @@ Pallas source: in eager PyTorch each pod would cost about fifteen launches,
 so the whole scan is one CUDA launch of one thread-block cluster
 (csrc/assign_scan.cu; its header gives the design and the bound).
 
-Four builds of the kernel, chosen at compile time:
+Five builds of the kernel, chosen at compile time:
 - `assign_scan`, the main path's scan (resource fit, LeastRequested and
   BalancedAllocation, the round-robin tie-break, the resource ledger);
 - `assign_scan_spread`, the same scan plus SelectorSpread over the
@@ -17,6 +17,11 @@ Four builds of the kernel, chosen at compile time:
   pod-selector, carried-term and domain ledgers it reads (the JAX step's
   `interpod_feasible`, `interpod_counts`, `interpod_score` and
   `ledger_add` with terms, solver.py:549-551,574-577,783-784);
+- `assign_scan_spread_interpod`, the main scan plus both of the above over
+  one pod-selector ledger: the inter-pod predicate first, then the
+  priority and SelectorSpread, each over the nodes feasible after it, in
+  the JAX step's order (solver.py:548-551,574-581), and each placed pod's
+  match and carried-term rows added once (solver.py:783-785);
 - `assign_scan_gang`, the main scan plus the gang carry (solver.py:738-764,
   795-798 and the close-out of :825-836): where a pod's group id differs
   from the previous pod's, the group being left is settled first (below
@@ -66,7 +71,7 @@ class ScanResult:
     new_nonzero: torch.Tensor      # f32[N, 2]
     rr_end: torch.Tensor           # i64 scalar in [0, 2^32)
     new_podsel: torch.Tensor | None = None  # f32[N, UQ], spread and interpod builds
-    new_term: torch.Tensor | None = None    # f32[N, UE], interpod build only
+    new_term: torch.Tensor | None = None    # f32[N, UE], builds with the interpod half
 
 
 def _rr_tensor(rr_start, device) -> torch.Tensor:
@@ -189,6 +194,25 @@ def assign_scan_interpod_plain(masked_static, requests, nonzero_requests,
                        interpod)
 
 
+def assign_scan_spread_interpod_plain(masked_static, requests,
+                                      nonzero_requests, allocatable,
+                                      requested, nonzero, rr_start,
+                                      w_lr: float, w_ba: float,
+                                      spread: SpreadInputs,
+                                      interpod: InterpodInputs) -> ScanResult:
+    """`assign_scan_plain` with inter-pod (anti-)affinity and SelectorSpread
+    over one ledger: for each pod, InterPodAffinityMatches (when `use_ipa`)
+    ANDed into the feasible nodes, then `w_ip` times InterPodAffinityPriority
+    and `w_ss` times SelectorSpread, both over those nodes, added to the
+    score in that order, and the pod's match and carried-term rows added
+    once to the ledgers and domain aggregates at the chosen node
+    (`new_podsel`, `new_term`). `spread` and `interpod` carry the same
+    pod-selector ledger, topology and match rows."""
+    return _scan_plain(masked_static, requests, nonzero_requests, allocatable,
+                       requested, nonzero, rr_start, w_lr, w_ba, spread,
+                       interpod)
+
+
 def assign_scan_gang_plain(masked_static, requests, nonzero_requests,
                            allocatable, requested, nonzero, rr_start,
                            w_lr: float, w_ba: float,
@@ -216,7 +240,7 @@ def _scan_plain(masked_static, requests, nonzero_requests, allocatable,
     scores = torch.empty((p_count,), dtype=torch.float32, device=dev)
     counts = torch.empty((p_count,), dtype=torch.int32, device=dev)
     neg_inf = torch.tensor(float("-inf"), device=dev)
-    if spread is not None:
+    if spread is not None and interpod is None:
         ledger = make_ledger(spread.podsel_count)
         onehot = topology_onehot(spread.topology, spread.domain_universe)
     ip = interpod
@@ -281,9 +305,9 @@ def _scan_plain(masked_static, requests, nonzero_requests, allocatable,
         add = assigned.to(torch.float32)
         req[node] += add * requests[p]
         nz[node] += add * nonzero_requests[p]
-        if spread is not None:
+        if spread is not None and ip is None:
             ledger_add(ledger, spread.pod_matches_q[p], node, add)
-        if ip is not None:
+        if ip is not None:   # the pod-selector half serves SelectorSpread too
             ledger_add(ledger, ip.pod_matches_q[p], node, add,
                        ip.pod_carries_e[p], ip.topology)
         rr = (rr + assigned.to(torch.int64)) % RR_MOD
@@ -400,6 +424,29 @@ _SPREAD_ARGTYPES = (_ARGTYPES[:-1] + [ctypes.c_void_p] * 4
                     + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p])
 
 
+def _check_spread(spread: SpreadInputs, p: int, n: int, dev) -> int:
+    """Check the SpreadInputs tensors of a p-pod, n-node batch; returns UQ."""
+    uq = spread.podsel_count.shape[1]
+    for check in (("spread_q", spread.spread_q, torch.int32, (p,)),
+                  ("pod_matches_q", spread.pod_matches_q, torch.float32, (p, uq)),
+                  ("podsel_count", spread.podsel_count, torch.float32, (n, uq)),
+                  ("topology", spread.topology, torch.int32,
+                   (n, spread.topology.shape[1]))):
+        check_tensor(*check, dev)
+    return uq
+
+
+def _spread_limits(name: str, spread: SpreadInputs, uq: int) -> None:
+    """Raise unless the spread half fits the kernel's slots."""
+    if uq > MAX_UQ or spread.domain_universe > MAX_DOMAINS:
+        raise ValueError(
+            f"{name}: {uq} pod selectors (at most {MAX_UQ}) and "
+            f"{spread.domain_universe} zone domains (at most {MAX_DOMAINS})")
+    if not 0 <= spread.zones <= spread.domain_universe:
+        raise ValueError(f"{name}: {spread.zones} zones in use, "
+                         f"universe {spread.domain_universe}")
+
+
 def assign_scan_spread(masked_static, requests, nonzero_requests, allocatable,
                        requested, nonzero, rr_start, w_lr: float,
                        w_ba: float, spread: SpreadInputs) -> ScanResult:
@@ -411,23 +458,10 @@ def assign_scan_spread(masked_static, requests, nonzero_requests, allocatable,
     args = (masked_static, requests, nonzero_requests, allocatable,
             requested, nonzero)
     dev = _check_operands("assign_scan_spread", *args)
-    p, n = masked_static.shape
-    uq = spread.podsel_count.shape[1]
-    for check in (("spread_q", spread.spread_q, torch.int32, (p,)),
-                  ("pod_matches_q", spread.pod_matches_q, torch.float32, (p, uq)),
-                  ("podsel_count", spread.podsel_count, torch.float32, (n, uq)),
-                  ("topology", spread.topology, torch.int32,
-                   (n, spread.topology.shape[1]))):
-        check_tensor(*check, dev)
+    uq = _check_spread(spread, *masked_static.shape, dev)
     if dev.type == "cpu":
         return assign_scan_spread_plain(*args, rr_start, w_lr, w_ba, spread)
-    if uq > MAX_UQ or spread.domain_universe > MAX_DOMAINS:
-        raise ValueError(
-            f"assign_scan_spread: {uq} pod selectors (at most {MAX_UQ}) and "
-            f"{spread.domain_universe} zone domains (at most {MAX_DOMAINS})")
-    if not 0 <= spread.zones <= spread.domain_universe:
-        raise ValueError(f"assign_scan_spread: {spread.zones} zones in use, "
-                         f"universe {spread.domain_universe}")
+    _spread_limits("assign_scan_spread", spread, uq)
     podsel_t = spread.podsel_count.t().contiguous()
     zone = spread.topology[:, TOPO_SPREAD_ZONE].contiguous()
     out = _launch("ktpu_assign_scan_spread", _SPREAD_ARGTYPES, *args,
@@ -492,8 +526,24 @@ def assign_scan_interpod(masked_static, requests, nonzero_requests,
     args = (masked_static, requests, nonzero_requests, allocatable,
             requested, nonzero)
     dev = _check_operands("assign_scan_interpod", *args)
-    p, n = masked_static.shape
-    ip = interpod
+    _check_interpod(interpod, *masked_static.shape, dev)
+    if dev.type == "cpu":
+        return assign_scan_interpod_plain(*args, rr_start, w_lr, w_ba, interpod)
+    _interpod_limits("assign_scan_interpod", interpod)
+    node_t, _held, extra = _interpod_operands(interpod)
+    out = _launch("ktpu_assign_scan_interpod", _INTERPOD_ARGTYPES, *args,
+                  rr_start, w_lr, w_ba, extra)
+    assign_scan_interpod.launches += 1
+    uq = interpod.podsel_count.shape[1]
+    return ScanResult(*out, node_t[:uq].t().contiguous(),
+                      node_t[uq:].t().contiguous())
+
+
+assign_scan_interpod.launches = 0
+
+
+def _check_interpod(ip: InterpodInputs, p: int, n: int, dev) -> None:
+    """Check the InterpodInputs tensors of a p-pod, n-node batch."""
     uq, ue = ip.podsel_count.shape[1], ip.term_count.shape[1]
     ia, ipp = ip.paff_q.shape[1], ip.ppref_q.shape[1]
     k = ip.topology.shape[1]
@@ -517,39 +567,102 @@ def assign_scan_interpod(masked_static, requests, nonzero_requests,
                   ("term_weight", ip.term_weight, f32, (ue,)),
                   ("term_poison", ip.term_poison, torch.bool, (ue,))):
         check_tensor(*check, dev)
-    if dev.type == "cpu":
-        return assign_scan_interpod_plain(*args, rr_start, w_lr, w_ba, ip)
+
+
+def _interpod_limits(name: str, ip: InterpodInputs) -> None:
+    """Raise unless the interpod half fits the kernel's slots."""
+    uq, ue = ip.podsel_count.shape[1], ip.term_count.shape[1]
+    ia, ipp = ip.paff_q.shape[1], ip.ppref_q.shape[1]
+    k = ip.topology.shape[1]
     if (uq > IP_MAX_UQ or ue > IP_MAX_UE or ia > IP_SLOTS or ipp > IP_SLOTS
             or not 5 <= k <= IP_MAX_K
             or not 1 <= ip.domain_universe <= IP_MAX_D):
         raise ValueError(
-            f"assign_scan_interpod: {uq} pod selectors, {ue} carried terms "
+            f"{name}: {uq} pod selectors, {ue} carried terms "
             f"(at most {IP_MAX_UQ} each), {ia} and {ipp} term slots (at most "
             f"{IP_SLOTS}), {k} topology slots (5 to {IP_MAX_K}) and "
             f"{ip.domain_universe} domains (1 to {IP_MAX_D})")
+
+
+def _interpod_operands(ip: InterpodInputs):
+    """The interpod half's device operands: (the transposed [UQ + UE, N]
+    node-level ledger the kernel updates in place, the other tensors the
+    pointers point into, which the caller holds until the launch is
+    enqueued, and the launch's pointers and scalars after the main
+    operands: the ledger, the batch-start domain aggregates, room for a
+    replica a block, the totals, the per-pod words, the topology, the term
+    attributes, then UQ, UE, K, the domain universe, use_ipa, w_ip and
+    hard_w)."""
+    i32 = torch.int32
+    uq, ue = ip.podsel_count.shape[1], ip.term_count.shape[1]
     counts = torch.cat([ip.podsel_count, ip.term_count], 1)
     node_t = counts.t().contiguous()
     dom0 = domain_aggregates(ip.topology, counts, ip.domain_universe).contiguous()
-    dom = torch.empty((CLUSTER, *dom0.shape), dtype=f32, device=dev)
+    dom = torch.empty((CLUSTER, *dom0.shape), dtype=torch.float32,
+                      device=counts.device)
     totals = counts.sum(0)
     words = _pod_words(ip)
     attrs = torch.stack([ip.term_q, ip.term_tkey, ip.term_kind,
                          ip.term_weight.contiguous().view(i32),
                          ip.term_poison.to(i32)]).contiguous()
     topology = ip.topology.contiguous()
-    out = _launch("ktpu_assign_scan_interpod", _INTERPOD_ARGTYPES, *args,
-                  rr_start, w_lr, w_ba,
-                  (node_t.data_ptr(), dom0.data_ptr(), dom.data_ptr(),
-                   totals.data_ptr(),
-                   words.data_ptr(), topology.data_ptr(), attrs.data_ptr(),
-                   uq, ue, k, ip.domain_universe, int(bool(ip.use_ipa)),
-                   float(ip.w_ip), float(ip.hard_w)))
-    assign_scan_interpod.launches += 1
+    return node_t, (dom0, dom, totals, words, attrs, topology), (
+        node_t.data_ptr(), dom0.data_ptr(), dom.data_ptr(), totals.data_ptr(),
+        words.data_ptr(), topology.data_ptr(), attrs.data_ptr(),
+        uq, ue, ip.topology.shape[1], ip.domain_universe,
+        int(bool(ip.use_ipa)), float(ip.w_ip), float(ip.hard_w))
+
+
+_SPREAD_INTERPOD_ARGTYPES = (_INTERPOD_ARGTYPES[:-1] + [ctypes.c_void_p] * 2
+                             + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+
+
+def _same(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a is b or (a.shape == b.shape and bool(torch.equal(a, b)))
+
+
+def assign_scan_spread_interpod(masked_static, requests, nonzero_requests,
+                                allocatable, requested, nonzero, rr_start,
+                                w_lr: float, w_ba: float,
+                                spread: SpreadInputs,
+                                interpod: InterpodInputs) -> ScanResult:
+    """Phase B with inter-pod (anti-)affinity and SelectorSpread over one
+    ledger (`assign_scan_spread_interpod_plain`): the operands of
+    `assign_scan`, `spread` (SpreadInputs) and `interpod` (InterpodInputs),
+    which carry the same pod-selector ledger, topology, match rows and
+    domain universe. On a card the wrapper hands the kernel the interpod
+    build's operands, whose transposed [UQ + UE, N] node-level ledger the
+    SelectorSpread count columns are read from (its first UQ rows), and
+    the spread build's entries and zone column; it returns new_podsel
+    [N, UQ] and new_term [N, UE]. Limits: those of both builds."""
+    name = "assign_scan_spread_interpod"
+    args = (masked_static, requests, nonzero_requests, allocatable,
+            requested, nonzero)
+    dev = _check_operands(name, *args)
+    uq = _check_spread(spread, *masked_static.shape, dev)
+    _check_interpod(interpod, *masked_static.shape, dev)
+    if spread.domain_universe != interpod.domain_universe or not all(
+            _same(getattr(spread, f), getattr(interpod, f))
+            for f in ("podsel_count", "topology", "pod_matches_q")):
+        raise ValueError(f"{name}: spread and interpod carry different "
+                         f"ledgers, topology, match rows or universes")
+    if dev.type == "cpu":
+        return assign_scan_spread_interpod_plain(*args, rr_start, w_lr, w_ba,
+                                                 spread, interpod)
+    _spread_limits(name, spread, uq)
+    _interpod_limits(name, interpod)
+    node_t, _held, extra = _interpod_operands(interpod)
+    zone = spread.topology[:, TOPO_SPREAD_ZONE].contiguous()
+    out = _launch("ktpu_assign_scan_spread_interpod", _SPREAD_INTERPOD_ARGTYPES,
+                  *args, rr_start, w_lr, w_ba,
+                  (*extra, spread.spread_q.data_ptr(), zone.data_ptr(),
+                   spread.zones, float(spread.w_ss)))
+    assign_scan_spread_interpod.launches += 1
     return ScanResult(*out, node_t[:uq].t().contiguous(),
                       node_t[uq:].t().contiguous())
 
 
-assign_scan_interpod.launches = 0
+assign_scan_spread_interpod.launches = 0
 
 
 _GANG_ARGTYPES = _ARGTYPES[:-1] + [ctypes.c_void_p] * 3 + [ctypes.c_void_p]

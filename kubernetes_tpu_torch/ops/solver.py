@@ -24,7 +24,10 @@ the next. This solver reproduces that decision for decision:
   weighs InterPodAffinityPriority, the scan's interpod build applies the
   predicate, scores the priority over each pod's feasible nodes and
   carries the pod-selector, carried-term and domain ledgers. When the
-  batch raises the gang gate (a row with a group id), the scan's gang
+  batch needs both, the scan's spread+interpod build applies the
+  predicate, then scores the priority and SelectorSpread over the nodes
+  it leaves, over one pod-selector ledger. When the batch raises the
+  gang gate (a row with a group id), the scan's gang
   build settles each all-or-nothing group as the scan leaves it: a group
   below its quorum of placed members gives back its ledger charges and
   round-robin bumps. After the scan, every member of such a group is
@@ -32,7 +35,7 @@ the next. This solver reproduces that decision for decision:
 
 This package carries the main path and the spread, ipa and gang gates: a
 batch whose content raises any other BatchFlags gate, a batch that needs
-two of the spread, interpod and gang builds, a policy that weighs
+the gang build with the spread or the interpod build, a policy that weighs
 ServiceSpreadingPriority on a spread batch, or a policy outside the fused
 static mask or with argument-carrying registrations, raises
 NotImplementedError naming what is missing. It never computes an answer
@@ -41,7 +44,7 @@ for a program it does not implement.
 
 from __future__ import annotations
 
-from dataclasses import dataclass, fields
+from dataclasses import dataclass, fields, replace
 
 import torch
 
@@ -66,6 +69,8 @@ from kubernetes_tpu_torch.ops.assign_scan import (
     assign_scan_interpod_plain,
     assign_scan_plain,
     assign_scan_spread,
+    assign_scan_spread_interpod,
+    assign_scan_spread_interpod_plain,
     assign_scan_spread_plain,
 )
 from kubernetes_tpu_torch.ops.static_mask import node_bits, static_mask, static_mask_plain
@@ -189,11 +194,11 @@ def check_supported(policy: Policy, flags: BatchFlags) -> PolicyGates:
     builds = [gate for gate, needed in (("spread", bool(g.w_ss)),
                                         ("ipa", g.use_terms),
                                         ("gang", flags.gang)) if needed]
-    if len(builds) > 1:
+    if "gang" in builds and len(builds) > 1:
         raise NotImplementedError(
             f"batch raises the {' and the '.join(map(repr, builds))} gates: "
-            f"the scan builds SelectorSpread, inter-pod affinity and gang "
-            f"groups apart, not together")
+            f"the scan builds gang groups apart from SelectorSpread and "
+            f"inter-pod affinity, not together")
     return g
 
 
@@ -294,8 +299,29 @@ def gang_member_mask(gang_id: torch.Tensor, gang_min: torch.Tensor,
             (opened & ~failed).sum(), (opened & failed).sum())
 
 
+def spread_inputs(state: ClusterState, batch: PodBatch, g: PolicyGates,
+                  domain_universe: int, spread_zones: int | None) -> SpreadInputs:
+    """The spread build's operands of one batch (`spread_zones` None: the
+    whole universe)."""
+    return SpreadInputs(
+        w_ss=float(g.w_ss), spread_q=batch.spread_q.contiguous(),
+        pod_matches_q=batch.pod_matches_q.contiguous(),
+        podsel_count=state.podsel_count, topology=state.topology,
+        domain_universe=domain_universe,
+        zones=domain_universe if spread_zones is None else spread_zones)
+
+
+def spread_interpod_inputs(state: ClusterState, batch: PodBatch, g: PolicyGates,
+                           domain_universe: int, spread_zones: int | None):
+    """The spread+interpod build's operands of one batch: (SpreadInputs,
+    InterpodInputs), the first holding the second's match rows."""
+    ip = interpod_inputs(state, batch, g, domain_universe)
+    return replace(spread_inputs(state, batch, g, domain_universe, spread_zones),
+                   pod_matches_q=ip.pod_matches_q), ip
+
+
 def _solve(state, batch, rr_start, policy, flags, caps, spread_zones, mask_fn,
-           scan_fn, spread_fn, interpod_fn, gang_fn):
+           scan_fn, spread_fn, interpod_fn, gang_fn, spread_interpod_fn):
     if flags is None:
         flags = batch_flags(state, batch)
     g = check_supported(policy, flags)
@@ -303,17 +329,15 @@ def _solve(state, batch, rr_start, policy, flags, caps, spread_zones, mask_fn,
     args = (masked, batch.requests, batch.nonzero_requests, state.allocatable,
             state.requested, state.nonzero_requested, rr_start,
             float(g.w_lr), float(g.w_ba))
-    if g.use_terms:
-        scan = interpod_fn(*args, interpod_inputs(
-            state, batch, g, (caps or Capacities()).domain_universe))
+    universe = (caps or Capacities()).domain_universe
+    if g.use_terms and g.w_ss:
+        scan = spread_interpod_fn(*args, *spread_interpod_inputs(
+            state, batch, g, universe, spread_zones))
+    elif g.use_terms:
+        scan = interpod_fn(*args, interpod_inputs(state, batch, g, universe))
     elif g.w_ss:
-        universe = (caps or Capacities()).domain_universe
-        scan = spread_fn(*args, SpreadInputs(
-            w_ss=float(g.w_ss), spread_q=batch.spread_q.contiguous(),
-            pod_matches_q=batch.pod_matches_q.contiguous(),
-            podsel_count=state.podsel_count, topology=state.topology,
-            domain_universe=universe,
-            zones=universe if spread_zones is None else spread_zones))
+        scan = spread_fn(*args, spread_inputs(state, batch, g, universe,
+                                              spread_zones))
     elif flags.gang:
         scan = gang_fn(*args, GangInputs(gang_id=batch.gang_id.contiguous(),
                                          gang_min=batch.gang_min.contiguous()))
@@ -351,7 +375,8 @@ def schedule_batch(state: ClusterState, batch: PodBatch, rr_start,
     the post-batch ledgers (assume semantics)."""
     return _solve(state, batch, rr_start, policy, flags, caps, spread_zones,
                   static_mask, assign_scan, assign_scan_spread,
-                  assign_scan_interpod, assign_scan_gang)
+                  assign_scan_interpod, assign_scan_gang,
+                  assign_scan_spread_interpod)
 
 
 def schedule_batch_plain(state: ClusterState, batch: PodBatch, rr_start,
@@ -364,4 +389,4 @@ def schedule_batch_plain(state: ClusterState, batch: PodBatch, rr_start,
     return _solve(state, batch, rr_start, policy, flags, caps, None,
                   static_mask_plain, assign_scan_plain,
                   assign_scan_spread_plain, assign_scan_interpod_plain,
-                  assign_scan_gang_plain)
+                  assign_scan_gang_plain, assign_scan_spread_interpod_plain)

@@ -13,7 +13,11 @@
   3}, pod_kwargs={"app_groups": 16}, n_services=16)`. Pods with
   pod-affinity terms raise the ipa gate: `bench[interpod]` is
   `run_throughput(5000, 8192, node_kwargs={"zones": 3},
-  pod_kwargs=INTERPOD_PODS)`. Gang-annotated pods raise the gang gate:
+  pod_kwargs=INTERPOD_PODS)`. Both at once, Services over pods that carry
+  terms, run the spread+interpod build: the `spread_interpod` traffic is
+  `run_throughput(15000, 30000, node_kwargs={"zones": 3},
+  pod_kwargs=SPREAD_INTERPOD_PODS, n_services=16)`. Gang-annotated pods
+  raise the gang gate:
   `bench[gang]` is `run_throughput(50000, 24576, node_kwargs={"zones":
   3}, pod_kwargs={"gang_size": 8})`, and a run whose groups do not all
   settle (placed or reverted) fails, as the reference bench's does.
@@ -50,6 +54,9 @@ from kubernetes_tpu_torch.utils.device import resolve_device
 # on every 16th pod, weight-10 preferred zone affinity on every 2nd
 INTERPOD_PODS = {"app_groups": 8, "anti_affinity_every": 16,
                  "pref_affinity_every": 2}
+# the spread_interpod traffic's pod mix: bench[spread]'s 16 app groups (each
+# selected by a Service) with bench[interpod]'s terms
+SPREAD_INTERPOD_PODS = {**INTERPOD_PODS, "app_groups": 16}
 
 
 def default_caps(n_nodes: int, n_pods: int) -> Capacities:
@@ -69,9 +76,10 @@ def warm(caps: Capacities, policy: Policy, device: torch.device,
     """Build the kernels and run one batch at these shapes on a throwaway
     one-node cluster (with a Service when `n_services`, so the spread
     build loads too; with one pod of `pod_kwargs`, so a pod-affinity mix
-    loads the interpod build, or one group of a gang mix, the gang build),
-    so library handles and kernel loads are set up before any timed
-    region."""
+    loads the interpod build, both the spread+interpod build, or one group
+    of a gang mix, the gang build), so library handles and kernel loads
+    are set up before any timed region. The pod is pod 0 of the mix: the
+    first of its app group, and with the mix's terms where it has any."""
     if device.type == "cuda":
         from kubernetes_tpu_torch.native.build import build
 

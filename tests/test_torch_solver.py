@@ -157,8 +157,7 @@ def test_scheduler_chains_batches_like_the_reference(seed, monkeypatch):
 
 
 @pytest.mark.parametrize("gate", ["tt", "gpu", "storage", "na", "ports",
-                                  "spread+ipa", "vol", "gang+spread",
-                                  "gang+ipa", "preempt"])
+                                  "vol", "gang+spread", "gang+ipa", "preempt"])
 def test_gates_outside_the_main_path_raise(gate):
     rng = np.random.RandomState(5)
     nodes, pods = random_cluster(rng, 24, BATCH, gated=gate in ("tt", "gpu",
@@ -166,9 +165,6 @@ def test_gates_outside_the_main_path_raise(gate):
     (state, batch, _), _ = encode_both(nodes, pods)
     if gate == "ports":
         batch.port_onehot[0, 0] = 1.0
-    elif gate == "spread+ipa":   # the spread and interpod builds apart only
-        batch.spread_q[0] = 0
-        batch.paff_q[1, 0] = 0
     elif gate == "vol":
         batch.vol_want_rw[0, 0] = 1.0
     elif gate.startswith("gang"):   # the gang build apart from the others
