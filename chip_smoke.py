@@ -113,7 +113,24 @@ fails; nothing is caught and skipped:
    on the last row, a node that takes two members of a group that
    reverts, and gpu and storage requests in reverting groups; the gang
    build must equal its plain version exactly, rr_end included;
-12. the kernels line, the nvidia-smi line, and last the result line.
+12. tt_na: the tt_na cell (bench[headline]'s 15,000 nodes with
+   dedicated=batch:PreferNoSchedule on every 8th, 30,000 pods in 16 app
+   groups, the even ones tolerating the taint, each preferring a zone and
+   the odd ones a label value too) through Scheduler(device="cuda"); every
+   pod must be placed within allocatable, the main build must have
+   launched once a batch, always with the normalization flag (and no
+   other build), and the first and last batch must equal
+   schedule_batch_plain on the state and batch the driver solved them on;
+   tt_na_build times the flag's main build on the first batch against its
+   plain version and the main build without the flag; norm_cells runs the
+   first batch of the spread, gang, interpod and spread_interpod cells
+   with one PreferNoSchedule taint added through their builds with the
+   flag (once each), held against the plain versions (the interpod builds
+   on the first 256 pods) and timed; and phase 3 ends with norm_build:
+   every build with the flag against its plain version at every RUN, with
+   zero maxima, the largest counts on infeasible nodes, ties, padding
+   nodes and odd N;
+13. the kernels line, the nvidia-smi line, and last the result line.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
@@ -175,6 +192,27 @@ RUN8_SHAPES = ((50, 40001, False), (50, 50002, False), (37, 65535, False),
                (50, 40000, False), (66, 65536, True))
 RUN8_REVERTS = ((203, 40001, "heavy"), (201, 65535, "heavy"),
                 (122, 65536, "one_node"), (122, 50002, "one_node"))
+# the tt_na cell (perf/harness.py TT_NA_NODES, TT_NA_PODS): bench[headline]'s
+# cluster with dedicated=batch:PreferNoSchedule on every 8th node, 16 app
+# groups with tolerations and preferred terms; its batches held against the
+# plain path (of 8: the first and the last)
+TT_NA_CHECKED = (0, 7)
+# operations of the normalization flag per (pod, statically feasible
+# node), counted for each score where the pod's count can be nonzero with
+# its weight set (the kernel skips the other): TaintToleration, the
+# count's and and popcount 2, packing 1, its maximum 1, (1 - c / M) * 10 +
+# eps and trunc 5, its weight and add 2; NodeAffinity, four terms' and,
+# compare, select and add 16, packing 1, its maximum 1, c * 10 / M + eps
+# and trunc 4, its weight and add 2
+NORM_TT_OPS, NORM_NA_OPS = 11, 24
+# the norm_build phase's (pods, nodes): odd N at every build of the scan
+# (1, 2, 4 and 8 nodes a thread), and N = 40,000 with its last blocks empty
+NORM_SHAPES = ((120, 999), (120, 12001), (100, 30001), (80, 65535), (60, 40000))
+# pods of a cell's first batch on which the interpod and spread+interpod
+# builds with the flag are held against, and timed beside, the plain path
+# (whose loops take 14-16 ms a pod on the card); their kernels-line entries
+# say so in `scope`
+NORM_PREFIX = 256
 
 
 def emit(obj) -> None:
@@ -204,7 +242,12 @@ def timed(torch, fn, reps: int, key: str = "ms") -> dict:
     return {key: med, f"{key}_min": lo, f"{key}_max": hi}
 
 
+# every bound() call's (bytes, operations), newest last (norm_bound reads them)
+BOUND_PARTS: list = []
+
+
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
+    BOUND_PARTS.append((nbytes, ops))
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     t_ops = ops / H100_F32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -213,7 +256,7 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
 def ptxas_report(log: str) -> dict:
     """{kernel: "spill bytes, registers"} from nvcc's -Xptxas=-v report; a
     template kernel is named with its template arguments (the scan's
-    `<RUN, SPREAD, IPA, GANG>` as e.g. "assign_scan_kernel<8,0,0,1>")."""
+    `<RUN, SPREAD, IPA, GANG, NORM>` as e.g. "assign_scan_kernel<8,0,0,1,0>")."""
     out, name = {}, None
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(_Z\w+)'", ln)
@@ -332,6 +375,59 @@ def compare_scan(torch, got, want) -> float:
         if not torch.equal(getattr(got, name), getattr(want, name)):
             raise AssertionError(f"assign_scan kernel != plain on {name}")
     return max_abs_err(torch, [(getattr(got, n), getattr(want, n)) for n in names])
+
+
+def norm_test_inputs(torch, rng, dev, masked, w_tt=1.0, w_na=1.0):
+    """Seeded NormInputs for a kernel-2 batch `masked` [P, N], and the
+    batch's masked_static with its hazards: nodes carry taint bits 0, 1, 2,
+    5 and 63 (the sign bit) and requirement bits 0-11 and 63; pods are
+    untolerant of some of those and of bit 7, which no node carries (so a
+    pod untolerant of it alone has a zero maximum, with an exchange),
+    prefer up to 4 terms of 1-3 requirement bits (bit 40, which no node
+    meets, in some: a zero NodeAffinity maximum) with weights from 1 to
+    100, 0 and -2 (never scoring); every 7th pod's highest-count node (all
+    taint bits, all requirement bits) is statically infeasible to it; a
+    few distinct bits make many nodes tie on both counts."""
+    p, n = masked.shape
+    one = np.uint64(1)
+
+    def word(bits, prob, size):
+        w = np.zeros(size, np.uint64)
+        for b in bits:
+            w |= np.where(rng.random(size) < prob, one << np.uint64(b), np.uint64(0))
+        return w
+
+    taint_bits, req_bits = (0, 1, 2, 5, 63), tuple(range(12)) + (63,)
+    node_taint = word(taint_bits, 0.15, n)
+    node_req = word(req_bits, 0.5, n)
+    untol = word(taint_bits + (7,), 0.4, p)
+    untol[rng.random(p) < 0.1] = 0
+    untol[rng.random(p) < 0.05] = one << np.uint64(7)
+    terms = np.zeros((p, 4), np.uint64)
+    for k in range(4):
+        for _ in range(3):
+            pick = np.array(req_bits + (40,))[rng.integers(0, len(req_bits) + 1, p)]
+            terms[:, k] |= np.where(rng.random(p) < 0.6, one << pick.astype(np.uint64),
+                                    np.uint64(0))
+    weights = rng.choice([0.0, 1.0, 5.0, 10.0, 100.0, -2.0], (p, 4)).astype(np.float32)
+    weights[rng.random(p) < 0.1] = 0.0
+    ms = masked.clone()
+    hot = np.flatnonzero(np.arange(p) % 7 == 3)
+    if hot.size:
+        node = rng.integers(0, n, hot.size)
+        node_taint[node] = np.bitwise_or.reduce([one << np.uint64(b) for b in taint_bits])
+        node_req[node] = ~np.uint64(0)
+        ms[torch.from_numpy(hot).to(dev), torch.from_numpy(node).to(dev)] = float("-inf")
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.int64)).to(dev)
+
+    from kubernetes_tpu_torch.ops.assign_scan import NormInputs
+
+    return ms, NormInputs(
+        w_tt=w_tt, w_na=w_na, node_taint=t(node_taint), node_req=t(node_req),
+        pod_untol=t(untol), pod_terms=t(terms),
+        pod_weights=torch.from_numpy(weights).to(dev))
 
 
 def compare_spread(torch, got, want) -> float:
@@ -1534,6 +1630,322 @@ def gang_phase(torch, dev, kernels) -> tuple[dict, dict]:
     return line, entry
 
 
+def tt_na_first_batch(torch, dev):
+    """The tt_na cell's first batch, encoded through a Scheduler on the
+    cell's cluster and flushed: (caps, state, batch, flags)."""
+    from kubernetes_tpu_torch.ops import solver
+    from kubernetes_tpu_torch.perf.fixtures import make_nodes, make_pods
+    from kubernetes_tpu_torch.perf.harness import TT_NA_NODES, TT_NA_PODS, default_caps
+    from kubernetes_tpu_torch.scheduler import Scheduler
+    from kubernetes_tpu_torch.state.convert import batch_from_numpy
+    from kubernetes_tpu_torch.state.pod_batch import encode_pods
+
+    caps = default_caps(HEADLINE_NODES, HEADLINE_PODS)
+    ref = Scheduler(caps, device=dev)
+    ref.add_nodes(make_nodes(HEADLINE_NODES, **TT_NA_NODES))
+    host = encode_pods(make_pods(caps.batch_pods, **TT_NA_PODS), caps,
+                       ref.statedb.table, ctx=ref.encode_cache.ctx)
+    state = ref.statedb.flush()
+    batch = batch_from_numpy(host, dev)
+    return caps, state, batch, solver.batch_flags(state, batch)
+
+
+def one_taint_norm(torch, dev, p: int, n: int):
+    """NormInputs of one PreferNoSchedule taint on node 0 that no pod of a
+    p-pod batch tolerates, no preferred term: TaintToleration alone."""
+    from kubernetes_tpu_torch.ops.assign_scan import NORM_SLOTS, NormInputs
+
+    node_taint = torch.zeros((n,), dtype=torch.int64, device=dev)
+    node_taint[0] = 1
+    return NormInputs(
+        w_tt=1.0, w_na=0.0, node_taint=node_taint, node_req=torch.zeros_like(node_taint),
+        pod_untol=torch.ones((p,), dtype=torch.int64, device=dev),
+        pod_terms=torch.zeros((p, NORM_SLOTS), dtype=torch.int64, device=dev),
+        pod_weights=torch.zeros((p, NORM_SLOTS), dtype=torch.float32, device=dev))
+
+
+def norm_bound(base, masked, norm) -> tuple[float, str]:
+    """A build's bound with the normalization flag: the bytes and
+    operations its own bound counts (`base()` calls its *_bound
+    function), plus the words read once (N * 16 + P * 64 bytes),
+    NORM_TT_OPS per statically feasible pair of a pod with an untolerated
+    taint and w_tt set, and NORM_NA_OPS per such pair of a pod with a
+    weighted term and w_na set."""
+    base()
+    nbytes, ops = BOUND_PARTS[-1]
+    p, n = masked.shape
+    feasible = (masked > float("-inf")).sum(1).double()
+    tt = (norm.pod_untol != 0) & bool(norm.w_tt)
+    na = (norm.pod_weights > 0).any(1) & bool(norm.w_na)
+    ops += float(NORM_TT_OPS * feasible[tt].sum() + NORM_NA_OPS * feasible[na].sum())
+    return bound(nbytes + 16 * n + 64 * p, ops)
+
+
+def scan_call(torch, state, batch, flags, caps, zones=None):
+    """The scan build the solver dispatches for one batch, with its
+    operands as the solver makes them (rr 0): (its wrapper's name, the
+    wrapper, its plain version, the arguments before the flag, the flag's
+    NormInputs or None, the comparison of two results, and its bound
+    without the flag as a function of the plain result)."""
+    from kubernetes_tpu_torch.ops import assign_scan as scan
+    from kubernetes_tpu_torch.ops import solver
+
+    policy = solver.DEFAULT_POLICY
+    g = solver.check_supported(policy, flags)
+    masked = solver.masked_static_scores(state, batch, policy, g)
+    args = (masked, batch.requests, batch.nonzero_requests, state.allocatable,
+            state.requested, state.nonzero_requested, 0, float(g.w_lr),
+            float(g.w_ba))
+    norm = solver.scan_norm_inputs(state, batch, g)
+    u = caps.domain_universe
+    if g.use_terms and g.w_ss:
+        sp, ip = solver.spread_interpod_inputs(state, batch, g, u, zones)
+        return ("assign_scan_spread_interpod", scan.assign_scan_spread_interpod,
+                scan.assign_scan_spread_interpod_plain, (*args, sp, ip), norm,
+                lambda t, a, b: compare_interpod(t, a, b, "spread_interpod"),
+                lambda _res: spread_interpod_bound(torch, args, sp, ip))
+    if g.use_terms:
+        ip = solver.interpod_inputs(state, batch, g, u)
+        return ("assign_scan_interpod", scan.assign_scan_interpod,
+                scan.assign_scan_interpod_plain, (*args, ip), norm, compare_interpod,
+                lambda _res: interpod_bound(torch, args, ip))
+    if g.w_ss:
+        sp = solver.spread_inputs(state, batch, g, u, zones)
+        return ("assign_scan_spread", scan.assign_scan_spread,
+                scan.assign_scan_spread_plain, (*args, sp), norm, compare_spread,
+                lambda _res: spread_bound(args, sp))
+    if flags.gang:
+        gang = scan.GangInputs(gang_id=batch.gang_id.contiguous(),
+                               gang_min=batch.gang_min.contiguous())
+        return ("assign_scan_gang", scan.assign_scan_gang, scan.assign_scan_gang_plain,
+                (*args, gang), norm, compare_scan,
+                lambda res: gang_bound(args, gang, int(
+                    ((res.assignments >= 0) & (gang.gang_id > 0)).sum())))
+    return ("assign_scan", scan.assign_scan, scan.assign_scan_plain, args, norm,
+            compare_scan, lambda _res: scan_bound(*args[:6]))
+
+
+def norm_entry(torch, call, launches: int, reps: int = 5) -> dict:
+    """The kernels-line entry of a build with the normalization flag on one
+    batch (`scan_call`): the build held against its plain version, timed
+    beside it (the plain version's one call that is compared), and its
+    bound from the batch."""
+    name, kern, plain, args, norm, compare, base = call
+    got = kern(*args, norm)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = plain(*args, norm)
+    end.record()
+    end.synchronize()
+    entry = {"name": f"{name}+norm", "route": "cuda",
+             "source": "kubernetes_tpu_torch/csrc/assign_scan.cu",
+             "replaces": "kubernetes_tpu/ops/solver.py:568", "launches": launches,
+             "max_abs_err": compare(torch, got, want),
+             **timed(torch, lambda: kern(*args, norm), reps),
+             "plain_ms": start.elapsed_time(end), "library_ms": None,
+             "shape": list(args[0].shape)}
+    entry["bound_ms"], entry["bound_by"] = norm_bound(lambda: base(want), args[0], norm)
+    return entry
+
+
+def norm_build_phase(torch, rng, dev) -> dict:
+    """Every build of the scan with the normalization flag against its
+    plain version at every RUN (NORM_SHAPES) on norm_test_inputs' hazards:
+    a zero maximum with an exchange, the largest counts on a statically
+    infeasible node, ties, padding nodes and odd N (the spread build's pods
+    in runs, some without an entry: the flag's maxima sent alone); at the
+    first shape also
+    TaintToleration alone (w_na = 0) and NodeAffinity alone (w_tt = 0) at
+    other weights. Returns the phase line."""
+    from kubernetes_tpu_torch.ops import assign_scan as scan
+
+    errs: dict = {}
+    for p_, n_ in NORM_SHAPES:
+        sargs = list(scan_inputs(torch, rng, dev, p_, n_))
+        sargs[0], norm = norm_test_inputs(torch, rng, dev, sargs[0])
+        ip = interpod_inputs(torch, rng, dev, n_, p_)
+        sp_, ip_ = with_spread(torch, rng, ip, zones=3)
+        builds = (
+            ("assign_scan", scan.assign_scan, scan.assign_scan_plain, (), compare_scan),
+            ("assign_scan_spread", scan.assign_scan_spread, scan.assign_scan_spread_plain,
+             (spread_inputs(torch, rng, dev, n_, p_, no_entry=0.3),), compare_spread),
+            ("assign_scan_interpod", scan.assign_scan_interpod,
+             scan.assign_scan_interpod_plain, (ip,), compare_interpod),
+            ("assign_scan_spread_interpod", scan.assign_scan_spread_interpod,
+             scan.assign_scan_spread_interpod_plain, (sp_, ip_),
+             lambda t, a, b: compare_interpod(t, a, b, "spread_interpod")),
+            ("assign_scan_gang", scan.assign_scan_gang, scan.assign_scan_gang_plain,
+             (random_gang(torch, rng, dev, p_),), compare_scan))
+        variants = [norm] + ([dataclasses.replace(norm, w_tt=2.0, w_na=0.0),
+                              dataclasses.replace(norm, w_tt=0.0, w_na=3.0)]
+                             if (p_, n_) == NORM_SHAPES[0] else [])
+        for name, kern, plain, extra, compare in builds:
+            for v in variants:
+                err = compare(torch, kern(*sargs, 1.0, 1.0, *extra, v),
+                              plain(*sargs, 1.0, 1.0, *extra, v))
+                errs[name] = max(errs.get(name, 0.0), err)
+    runs = sorted({scan.node_run(n_) for _, n_ in NORM_SHAPES})
+    if runs != list(scan.RUNS):
+        raise AssertionError(f"norm_build checked {runs}, built {scan.RUNS}")
+    return {"phase": "norm_build", "shapes": [list(x) for x in NORM_SHAPES],
+            "runs": runs, "max_abs_err": errs, "kernel_equals_plain": True}
+
+
+def _count_launches(kernels, reset: bool = False) -> tuple[dict, dict]:
+    """Each wrapper's launches, and the scan wrappers' launches with the
+    normalization flag (set to 0 first with `reset`)."""
+    scans = [k for k in kernels if hasattr(k, "norm_launches")]
+    if reset:
+        for k in kernels:
+            k.launches = 0
+        for k in scans:
+            k.norm_launches = 0
+    return ({k.__name__: k.launches for k in kernels},
+            {k.__name__: k.norm_launches for k in scans})
+
+
+def tt_na_phase(torch, caps, dev, kernels) -> tuple[dict, dict]:
+    """The tt_na cell through Scheduler(device="cuda"): every pod placed
+    within allocatable, the main build launched once a batch, always with
+    the normalization flag (and no other build), and the first and last
+    batch equal to the plain path on the state and batch the driver solved
+    them on; the flag's main build timed on the first batch against its
+    plain version, and the main build on it without the flag. Returns
+    (the phase line, the kernels-line entry)."""
+    from kubernetes_tpu_torch.ops import solver
+    from kubernetes_tpu_torch.ops.assign_scan import assign_scan
+    from kubernetes_tpu_torch.perf.fixtures import make_nodes, make_pods
+    from kubernetes_tpu_torch.perf.harness import TT_NA_NODES, TT_NA_PODS, measure, warm
+    from kubernetes_tpu_torch.scheduler import Scheduler, driver
+
+    nodes = make_nodes(HEADLINE_NODES, **TT_NA_NODES)
+    pods = make_pods(HEADLINE_PODS, **TT_NA_PODS)
+    warm(caps, solver.DEFAULT_POLICY, dev, pod_kwargs=TT_NA_PODS)
+    sched = Scheduler(caps, device=dev)
+    sched.add_nodes(nodes)
+    seen = []
+    solve = record_solves(torch, driver, TT_NA_CHECKED, seen)
+    _count_launches(kernels, reset=True)
+    try:
+        result = measure(sched, pods)
+    finally:
+        driver.schedule_batch = solve
+    launches, norm_launches = _count_launches(kernels)
+    if result.scheduled != HEADLINE_PODS:
+        raise AssertionError(f"tt_na: placed {result.scheduled}/{HEADLINE_PODS}")
+    want = {name: 0 for name in launches}
+    want.update(static_mask=result.batches, assign_scan=result.batches)
+    if launches != want or norm_launches["assign_scan"] != result.batches:
+        raise AssertionError(f"tt_na: launches {launches}, with the flag "
+                             f"{norm_launches}, over {result.batches} batches")
+    load = check_load(pods, result.placements, nodes)
+    for k in TT_NA_CHECKED:
+        (state, batch, rr, flags), got = seen[k]
+        if not (flags.tt and flags.na):
+            raise AssertionError(f"tt_na: batch {k} raises {flags}")
+        compare_scan(torch, got, solver.schedule_batch_plain(
+            state, batch, rr, solver.DEFAULT_POLICY, flags, caps))
+    # where the pods went: the odd groups do not tolerate the taint, and
+    # every group prefers zone-{g % 3}
+    tainted = {n.metadata.name for n in nodes if n.spec.taints}
+    zone_of = {n.metadata.name: n.metadata.labels[
+        "failure-domain.beta.kubernetes.io/zone"] for n in nodes}
+    group = {p.key: int(p.metadata.labels["app"].split("-")[1]) for p in pods}
+    untolerating = sum(group[p.key] % 2 == 1 and result.placements[p.key] in tainted
+                       for p in pods)
+    tolerating = sum(group[p.key] % 2 == 0 and result.placements[p.key] in tainted
+                     for p in pods)
+    preferred = sum(zone_of[result.placements[p.key]] == f"zone-{group[p.key] % 3}"
+                    for p in pods)
+    (state, batch, _rr, flags), _got = seen[0]
+    call = scan_call(torch, state, batch, flags, caps)
+    if call[0] != "assign_scan" or call[4] is None:
+        raise AssertionError(f"tt_na: the first batch runs {call[0]}")
+    entry = norm_entry(torch, call, norm_launches["assign_scan"])
+    args = call[3]
+    line = {"phase": "tt_na", "nodes": HEADLINE_NODES, "pods": HEADLINE_PODS,
+            "tainted_nodes": len(tainted), **run_fields(result),
+            "nodes_used": len(load), "launches": launches,
+            "norm_launches": norm_launches,
+            "untolerating_pods_on_tainted_nodes": untolerating,
+            "tolerating_pods_on_tainted_nodes": tolerating,
+            "pods_in_preferred_zone": preferred,
+            "checked_batches_equal_plain": list(TT_NA_CHECKED),
+            "first_batch_norm_ms": entry["ms"],
+            **timed(torch, lambda: assign_scan(*args), 5, "first_batch_flag_off_ms")}
+    return line, entry
+
+
+def norm_cells_phase(torch, dev, kernels) -> tuple[dict, list]:
+    """The first batch of the spread, gang, interpod and spread_interpod
+    cells with one PreferNoSchedule taint added (on node 0, which no pod
+    tolerates), through Scheduler(device="cuda"): each runs its cell's
+    build, once, with the normalization flag (TaintToleration on every
+    pod). The spread and gang builds with the flag are held against their
+    plain versions and timed on the whole batch, the interpod and
+    spread+interpod builds on its first NORM_PREFIX pods. Returns (the
+    phase line, the kernels-line entries)."""
+    from kubernetes_tpu_torch.ops import solver
+    from kubernetes_tpu_torch.perf.fixtures import make_nodes, make_pods, make_services
+    from kubernetes_tpu_torch.perf.harness import default_caps, measure, warm
+    from kubernetes_tpu_torch.scheduler import Scheduler, driver
+
+    cells = (("spread", HEADLINE_NODES, HEADLINE_PODS, {"app_groups": SPREAD_GROUPS},
+              SPREAD_GROUPS, "assign_scan_spread", None),
+             ("gang", GANG_NODES, GANG_PODS, {"gang_size": GANG_SIZE}, 0,
+              "assign_scan_gang", None),
+             ("interpod", INTERPOD_NODES, INTERPOD_PODS, INTERPOD_MIX, 0,
+              "assign_scan_interpod", NORM_PREFIX),
+             ("spread_interpod", HEADLINE_NODES, HEADLINE_PODS, SI_MIX, SPREAD_GROUPS,
+              "assign_scan_spread_interpod", NORM_PREFIX))
+    line: dict = {"phase": "norm_cells"}
+    entries = []
+    for cell, n_nodes, n_pods, mix, n_svc, build, prefix in cells:
+        caps = default_caps(n_nodes, n_pods)
+        nodes = make_nodes(n_nodes, zones=3, prefer_taint_every=n_nodes)
+        pods = make_pods(caps.batch_pods, **mix)
+        warm(caps, solver.DEFAULT_POLICY, dev, n_svc, mix)
+        sched = Scheduler(caps, device=dev)
+        sched.add_nodes(nodes)
+        for svc in make_services(n_svc):
+            sched.add_service(svc)
+        seen = []
+        solve = record_solves(torch, driver, (0,), seen)
+        _count_launches(kernels, reset=True)
+        try:
+            result = measure(sched, pods)
+        finally:
+            driver.schedule_batch = solve
+        launches, norm_launches = _count_launches(kernels)
+        want = {name: 0 for name in launches}
+        want.update({"static_mask": 1, build: 1})
+        if launches != want or norm_launches[build] != 1:
+            raise AssertionError(f"norm_cells {cell}: launches {launches}, with the "
+                                 f"flag {norm_launches}")
+        (state, batch, _rr, flags), _got = seen[0]
+        if not flags.tt or flags.na:
+            raise AssertionError(f"norm_cells {cell}: the batch raises {flags}")
+        if prefix:
+            batch = dataclasses.replace(batch, **{
+                f.name: getattr(batch, f.name)[:prefix]
+                for f in dataclasses.fields(batch)})
+        call = scan_call(torch, state, batch, flags, caps,
+                         getattr(sched.statedb.table, "spread_zones", None))
+        if call[0] != build or call[4] is None:
+            raise AssertionError(f"norm_cells {cell}: the batch runs {call[0]}")
+        entry = norm_entry(torch, call, norm_launches[build])
+        if prefix:
+            entry["scope"] = (f"ms, plain_ms, bound_ms and max_abs_err on the batch's "
+                              f"first {prefix} pods; launches on the whole batch")
+        entries.append(entry)
+        line[cell] = {"caps": [caps.num_nodes, caps.batch_pods], "placed": result.scheduled,
+                      "launches": launches, "norm_launches": norm_launches,
+                      "held_shape": entry["shape"], "ms": entry["ms"],
+                      "plain_ms": entry["plain_ms"], "kernel_equals_plain": True}
+        del sched, seen, state, batch, call
+    return line, entries
+
+
 def many_class_pod_dicts(n: int) -> list[dict]:
     """n pending pods, each its own equivalence class: make_pods' spec with
     memory requests 250Mi + k KiB (k < n)."""
@@ -1945,6 +2357,10 @@ def main() -> int:
     # the ring wrapping mid-batch, all-miss pods and reverts on one node
     emit(run8_phase(torch, rng, dev))
 
+    # ---- 3f: every build with the normalization flag at every RUN: zero
+    # maxima, the largest counts on infeasible nodes, ties, padding, odd N
+    emit(norm_build_phase(torch, rng, dev))
+
     # ---- 4: the first batch through the cache and the blobs ----
     emit(packed_batch_phase(torch, caps, nodes, pods, dev))
 
@@ -2055,11 +2471,23 @@ def main() -> int:
           "runs": gb_runs, "groups_placed_reverted": reverted,
           "kernel_equals_plain": True})
 
-    # ---- 12: kernels line, card line, result line ----
+    # ---- 12: the tt_na cell (the main build with the normalization flag)
+    # and the flag in the other cells' builds ----
+    scans = (static_mask, assign_scan, assign_scan_spread, assign_scan_interpod,
+             assign_scan_spread_interpod, assign_scan_gang)
+    line, k7 = tt_na_phase(torch, caps, dev, scans)
+    emit(line)
+    emit({"phase": "tt_na_build", **k7})
+    line, k8 = norm_cells_phase(torch, dev, scans)
+    emit(line)
+
+    # ---- 13: kernels line, card line, result line ----
+    # (and `scope`, where an entry's figures are not all of the same inputs)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    emit({"kernels": [{k: entry[k] for k in keys}
-                      for entry in (k1, k2, k3, k4, k6, k5)]})
+    emit({"kernels": [{**{k: entry[k] for k in keys},
+                       **{k: entry[k] for k in ("scope",) if k in entry}}
+                      for entry in (k1, k2, k3, k4, k6, k5, k7, *k8)]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

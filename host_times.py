@@ -2,8 +2,8 @@
 """Time `Scheduler.schedule` end to end on the kinds of pending traffic a
 tree carries (two, three with SelectorSpread, four with inter-pod
 affinity, five with gang groups, six with SelectorSpread and inter-pod
-affinity in one batch), for comparing two trees of the repository on one
-card.
+affinity in one batch, seven with TaintToleration and NodeAffinity), for
+comparing two trees of the repository on one card.
 
     python3 host_times.py [--root DIR] [--reps K]
 
@@ -30,7 +30,12 @@ from its own sources and its Scheduler places the same pods on the same
 - spread_interpod, where the tree's scan has the spread+interpod build:
   bench[spread]'s 30,000 pods in 16 app groups with its 16 Services,
   carrying bench[interpod]'s terms (hostname anti-affinity on every 16th
-  pod, zone affinity on every 2nd; chip_smoke.py `SI_MIX`).
+  pod, zone affinity on every 2nd; chip_smoke.py `SI_MIX`);
+- tt_na, where the tree's harness has `TT_NA_PODS`: the 15,000 nodes with
+  one filler label and dedicated=batch:PreferNoSchedule on every 8th,
+  30,000 pods in 16 app groups, the even ones tolerating the taint, each
+  preferring a zone and the odd ones a label value too (perf/harness.py
+  `TT_NA_NODES`, `TT_NA_PODS`).
 
 Each traffic runs K times (default 2), each on a fresh Scheduler after the
 kernels are built and warmed. The script collects garbage before each
@@ -97,7 +102,7 @@ def main() -> int:
     from kubernetes_tpu_torch.models.policy import DEFAULT_POLICY
     from kubernetes_tpu_torch.native.build import build
     from kubernetes_tpu_torch.ops import assign_scan as scan_module
-    from kubernetes_tpu_torch.perf import fixtures
+    from kubernetes_tpu_torch.perf import fixtures, harness
     from kubernetes_tpu_torch.perf.fixtures import make_nodes, make_pods
     from kubernetes_tpu_torch.perf.harness import default_caps, warm
     from kubernetes_tpu_torch.scheduler import Scheduler
@@ -139,6 +144,10 @@ def main() -> int:
                                       fixtures.make_services(smoke.SPREAD_GROUPS))
         warm(caps, DEFAULT_POLICY, dev, n_services=smoke.SPREAD_GROUPS,
              pod_kwargs=smoke.SI_MIX)
+    if hasattr(harness, "TT_NA_PODS"):
+        traffic["tt_na"] = (caps, make_nodes(smoke.HEADLINE_NODES, **harness.TT_NA_NODES),
+                            make_pods(smoke.HEADLINE_PODS, **harness.TT_NA_PODS), ())
+        warm(caps, DEFAULT_POLICY, dev, pod_kwargs=harness.TT_NA_PODS)
     out = {"nvidia_smi": smi.splitlines()[0], "root": str(opts.root.resolve())}
     for name, (caps_, nodes_, pods, services) in traffic.items():
         out[name] = []

@@ -67,9 +67,15 @@ as `*_kernel_us`; with `run8`, also at 8 nodes a thread
 (`spread_interpod_run8_*`). `--sass-against DIR` builds the scan of the
 tree at DIR in a process of its own and reports, build by build and RUN
 by RUN, whether this tree's SASS is byte-identical to it
-(`scan_sass_same_as_against`). `--parts` picks what to time, a comma list
-of mask, scan, spread, interpod, spread_interpod, gang, run8, phase_a and
-sass (all by default). Exits non-zero without a CUDA device.
+(`scan_sass_same_as_against`). Where the tree has the normalization flag (`NormInputs`),
+`norm` times the main build on the tt_na cell's first batch with the flag
+(`tt_na_norm_ms`) and without it (`tt_na_flag_off_ms`), and each other
+build on the first batch it is timed on above with the flag of one
+PreferNoSchedule taint on node 0 that no pod tolerates (`*_norm_ms`,
+beside the same build's flag-off time of its part), each also as
+`*_kernel_us`. `--parts` picks what to time, a comma list of mask, scan,
+spread, interpod, spread_interpod, gang, run8, phase_a, norm and sass (all
+by default). Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -92,7 +98,7 @@ import numpy as np
 HERE = Path(__file__).resolve().parent
 REPS = 5
 PARTS = ("mask", "scan", "spread", "interpod", "spread_interpod", "gang", "run8",
-         "phase_a", "sass")
+         "phase_a", "norm", "sass")
 # the gang batch's columns timed at 2 nodes a thread, and the shape of the
 # spread and interpod builds' 8-node timing
 RUN2_COLUMNS = 16384
@@ -271,6 +277,32 @@ def main() -> int:
         for key, call in calls:
             out.update(smoke.timed(torch, call, REPS, f"{key}_ms"))
             out[f"{key}_kernel_us"] = kernel_us(device_times(torch, ((call, REPS),)))
+    if "norm" in parts and hasattr(scan_module, "NormInputs"):
+        # the flag's price in each build: the tt_na cell's first batch
+        # through the main build with and without it, and each other build
+        # on its cell's first batch with one untolerated taint
+        caps_t, state, batch, flags = smoke.tt_na_first_batch(torch, dev)
+        _name, _k, _p, targs, tnorm, _c, _b = smoke.scan_call(torch, state, batch,
+                                                               flags, caps_t)
+        calls = [("tt_na_norm", lambda: assign_scan(*targs, tnorm)),
+                 ("tt_na_flag_off", lambda: assign_scan(*targs))]
+        _c, _n, _p, _s, sstate, sbatch, sflags, zones = smoke.spread_first_batch(torch, dev)
+        sargs, spread = smoke.spread_scan_args(torch, sstate, sbatch, _c, sflags, zones)
+        _c, iargs, ip = smoke.interpod_first_batch(torch, dev)
+        _c, siargs, sp, sip = smoke.spread_interpod_first_batch(torch, dev)
+        _c, _n, _p, _m, gargs, gang, _gs, _gb = smoke.gang_first_batch(torch, dev)
+        for key, fn, a, extra in (
+                ("spread", scan_module.assign_scan_spread, sargs, (spread,)),
+                ("interpod", scan_module.assign_scan_interpod, iargs, (ip,)),
+                ("spread_interpod", scan_module.assign_scan_spread_interpod, siargs,
+                 (sp, sip)),
+                ("gang", scan_module.assign_scan_gang, gargs, (gang,))):
+            one = smoke.one_taint_norm(torch, dev, *a[0].shape)
+            calls.append((f"{key}_norm", lambda fn=fn, a=a, extra=extra, one=one:
+                          fn(*a, *extra, one)))
+        for key, call in calls:
+            out.update(smoke.timed(torch, call, REPS, f"{key}_ms"))
+            out[f"{key}_kernel_us"] = kernel_us(device_times(torch, ((call, REPS),)))
     if "sass" in parts:
         cuobjdump = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
         out["scan_sass"] = sass_digests(cuobjdump, library_path("assign_scan"),
@@ -292,10 +324,20 @@ def main() -> int:
     return 0
 
 
-# the scan's builds by their template flags after RUN: (SPREAD[, IPA[, GANG]])
+# the scan's builds by their template flags after RUN: (SPREAD[, IPA[, GANG]]);
+# a fourth flag, NORM, names the build with the normalization flag
+# `<build>+norm`, and without it the build itself
 BUILDS = {"": "main", "0": "main", "00": "main", "000": "main", "1": "spread",
           "10": "spread", "100": "spread", "01": "interpod", "010": "interpod",
           "001": "gang", "11": "spread_interpod", "110": "spread_interpod"}
+
+
+def build_name(flags: str) -> str:
+    """A scan build's name from its template flags after RUN."""
+    if len(flags) == 4:
+        return BUILDS[flags[:3]] + ("+norm" if flags[3] == "1" else "")
+    return BUILDS[flags]
+
 # builds the scan library of the tree at argv[1] and prints its path
 _BUILD_OTHER = ("import sys; sys.path.insert(0, sys.argv[1]); "
                 "from kubernetes_tpu_torch.native.build import build, library_path; "
@@ -305,7 +347,7 @@ _BUILD_OTHER = ("import sys; sys.path.insert(0, sys.argv[1]); "
 def sass_digests(cuobjdump: str, library: Path, sass_out: Path | None = None) -> dict:
     """{build: {nodes per thread: {instructions, exact, registers_renamed}}}
     of the scan's builds in a built library (the kernel
-    `assign_scan_kernel<RUN[, SPREAD[, IPA[, GANG]]]>`): the instruction count, a
+    `assign_scan_kernel<RUN[, SPREAD[, IPA[, GANG[, NORM]]]]>`): the instruction count, a
     sha1 of the instruction text, and one with the register numbers
     replaced by R and the operand-reuse hints (`.reuse`, which follow the
     register allocation) dropped, so two builds that differ only in
@@ -317,10 +359,10 @@ def sass_digests(cuobjdump: str, library: Path, sass_out: Path | None = None) ->
     out: dict = {}
     for chunk in sass.split("Function : ")[1:]:
         name, _, body = chunk.partition("\n")
-        m = re.search(r"assign_scan_kernelILi(\d)E((?:Lb[01]E)*)E", name)
+        m = re.search(r"assign_scan_kernelILi(\d)E((?:Lb[01]E)*)[EJ]", name)
         if m is None:
             continue
-        build = BUILDS[re.sub(r"[^01]", "", m.group(2))]
+        build = build_name(re.sub(r"[^01]", "", m.group(2)))
         lines = [re.sub(r"/\*[^*]*\*/", "", ln).strip()
                  for ln in body.splitlines() if "/*" in ln and ";" in ln]
         text = "\n".join(lines)

@@ -420,6 +420,62 @@
 // (1.07 GB at P = 4,096, N = 65,536: 0.32 ms at 3.35 TB/s) plus the
 // ledger; bench[gang] (50,000 nodes, 24,576 pods in groups of 8) launches
 // it 6 times, once a 4,096-pod batch.
+//
+// The normalization flag (every build; the template argument NORM, its
+// instance launched when the NormArgs pod words are given) adds
+// TaintToleration and NodeAffinity, the JAX step's
+// `taint_toleration_from_counts` and `normalized_from_counts` over the
+// pod's feasible nodes (kubernetes_tpu/ops/solver.py:568-573, counts of
+// :699-705; ops/priorities.py:75,101,112, ops/predicates.py:197). Its
+// operands trail the kernel's as a pack of one NormArgs (none without the
+// flag), every addition sits behind `if constexpr (NORM)`, and the kernel's
+// scope gains no variable, so each build without the flag keeps its PTX and
+// its SASS (`kernel_times.py --sass-against`); the 20 instances become 40.
+// The counts come from 64-bit words, not from two [P, N] count rows (256 MB
+// each at P = 4,096, N = 16,384): a node's PreferNoSchedule membership and
+// its satisfied requirements ([N] u64 pairs, read through L1), and per pod
+// its untolerated taints (masked by the wrapper to the taints some node
+// carries) and up to four preferred terms with their weights (a 64-byte
+// row riding the pod ring as the pod rows do, copied by the block's last
+// four threads, 16 bytes each). For node g and pod p:
+//   - the TaintToleration count is __popcll(taint(g) & untol(p)): the
+//     membership rows are 0/1, so JAX's matmul counts the same bits;
+//   - the NodeAffinity count is the sum of the weights of the terms t with
+//     (req(g) & t) == t: JAX counts the term's satisfied requirements
+//     against pref_count, the number of its distinct requirement ids, which
+//     is the term word's popcount; a slot of weight 0 (unused, invalid or
+//     non-positive) never scores, as there.
+// Per pod, when its counts can be nonzero (an untolerated word and w_tt, a
+// weighted term and w_na; every block reads the same row, so all decide
+// alike): each thread packs its feasible nodes' counts (taints in bits 0-7,
+// at most 64; the weight sum above, weights are integers up to 65,535 and
+// any other traps) and takes their maxima, the warp reduces them with
+// redux.sync.max.u32, and the block's two maxima cross the cluster before
+// the score: in the main and gang builds on an exchange of their own (one
+// block barrier, then one 16-byte st.async a block onto a sixth mbarrier,
+// single-buffered as the interpod build's (min, max) is: a block reads it
+// before its triple barrier, and no block sends the next pod's before it
+// has every block's triple of this one); in the spread build as one more
+// chunk of the spread partial's message (sent whenever the flag is on, so
+// the message's size stays the launch's, and the exchange runs for a pod
+// that needs either); in the interpod and spread+interpod builds in the
+// free words of the (min, max) chunk. Feasible means after the ledger fit
+// and, in the interpod builds, after the predicate, as in JAX. Each node
+// then adds w_tt * trunc((1 - c / M) * 10 + eps) (10 when M = 0) and w_na *
+// trunc(c * 10 / M + eps) (0 when M = 0) in JAX's order, --fmad=false,
+// dividing by multiplying with the double reciprocal of M as the spread
+// build does (exact: norm_score). A pod whose counts are all 0 scores 10 and
+// 0 without an exchange. Every term of the score is an integer-valued f32
+// far below 2^24 (weights are integers, every normalized term is in 0..10),
+// so the score's f32 sum is exact in any order: one block a pod adds the
+// run's flag terms to its masked static scores (-inf stays -inf), before
+// LeastRequested and the other terms rather than at JAX's place between
+// BalancedAllocation and InterPodAffinityPriority, and the score loops are
+// those of the builds without the flag.
+//
+// Bound of the flag: its build's bytes plus the words, N * 16 + P * 64
+// bytes (0.26 MB at N = 16,384 and 4,096 pods), negligible beside the
+// [P, N] row.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -510,6 +566,19 @@ constexpr int GANG_POD_ROW = 12;          // floats of a gang pod slot
 constexpr int UNDO_WORDS = 3;             // float4s of an undo-log entry
 static_assert(GW_MIN < GANG_POD_ROW && GANG_POD_ROW % 4 == 0, "gang layout");
 
+// ---- the normalization flag's layout: a pod's row of ints, the untolerated
+// word, NM_SLOTS term words (u64, little-endian int pairs), their weights
+// (f32 bits), padding
+constexpr int NM_SLOTS = 4;
+constexpr int NM_W = 2 + 2 * NM_SLOTS;     // the weights' first int
+constexpr int NM_ROW = 16;                 // ints of a pod's row, 64 bytes
+constexpr int NM_COPIERS = NM_ROW / 4;     // threads copying it, 16 bytes each
+constexpr float NM_MAX_WEIGHT = 65535.0f;  // weight sums stay below 2^24
+constexpr size_t NM_SMEM = (size_t)POD_SLOTS * NM_ROW * sizeof(int)
+                           + (size_t)CLUSTER * sizeof(int4)
+                           + (size_t)WARPS * sizeof(int2) + 2 * sizeof(uint64_t);
+static_assert(NM_W + NM_SLOTS <= NM_ROW && NM_SMEM % 16 == 0, "norm layout");
+
 // Row-ring slots and pod-slot width of one build.
 template <int RUN, bool SPREAD, bool IPA, bool GANG>
 struct Build {
@@ -573,6 +642,29 @@ struct NoGang {};
 template <bool GANG>
 using GangParam = typename std::conditional<GANG, GangArgs, NoGang>::type;
 
+// What the normalization flag reads (every build with NORM).
+struct NormArgs {
+  const ulonglong2* node_w;   // [N] (PreferNoSchedule taints, satisfied requirements)
+  const int* pod_w;           // [P, NM_ROW] per-pod words (see the layout)
+  float w_tt;                 // TaintTolerationPriority's weight
+  float w_na;                 // NodeAffinityPriority's weight
+};
+// The kernel takes them as a pack of one NormArgs, or of none without the
+// flag: an empty struct operand, as the other builds take, moved the spread
+// build's instructions at 1, 2 and 4 nodes a thread (so did three more
+// variables of the kernel's scope; the flag keeps none).
+__device__ __forceinline__ const NormArgs& norm_of(const NormArgs& nm) { return nm; }
+
+// One pod's words: its untolerated taints, its terms and their integer
+// weights (0: the slot never scores), and whether each count can be
+// nonzero with its weight set.
+struct NormPod {
+  unsigned long long untol;
+  unsigned long long term[NM_SLOTS];
+  unsigned wt[NM_SLOTS];
+  bool tt, na;
+};
+
 struct Triple {      // a partial reduction: best score's key, ties at it, feasible
   int key;
   int ties;
@@ -616,9 +708,14 @@ struct Smem {
   int4* win_slot;                                // the placed node's index
   uint64_t* bar_ip;                              // the (min, max) mbarrier
   uint64_t* bar_win;                             // the placed node's mbarrier
+  // the normalization flag's regions follow every build's own
+  int* nm_pods;                                  // [POD_SLOTS][NM_ROW] pod words
+  int4* nm_slot;                                 // [CLUSTER] block maxima (main, gang)
+  int2* nm_w;                                    // [WARPS] warp maxima
+  uint64_t* bar_nm;                              // the maxima's mbarrier (main, gang)
 };
 
-template <bool SPREAD, bool IPA = false, bool PACKED = false>
+template <bool SPREAD, bool IPA = false, bool PACKED = false, bool NORM = false>
 constexpr size_t smem_bytes(int nb, int STAGES, int POD_ROW) {
   return (size_t)(COLUMNS - (PACKED ? 2 : 0) + STAGES) * nb * sizeof(float)
          + 2 * sizeof(uint64_t)
@@ -634,7 +731,8 @@ constexpr size_t smem_bytes(int nb, int STAGES, int POD_ROW) {
                       + (size_t)IP_MAX_U * sizeof(float)
                       + (size_t)(CLUSTER + 1) * sizeof(int4)
                       + (size_t)WARPS * sizeof(int2) + 2 * sizeof(uint64_t)
-                : 0);
+                : 0)
+         + (NORM ? NM_SMEM : 0);
 }
 
 template <bool SPREAD, int STAGES, int POD_ROW, bool IPA = false>
@@ -676,6 +774,16 @@ __device__ Smem carve(float* base, int nb) {
     s.bar_ip = reinterpret_cast<uint64_t*>(s.ip_w + WARPS);
     s.bar_win = s.bar_ip + 1;
   }
+  // after the build's last region (16-byte aligned, as above)
+  if constexpr (IPA)
+    s.nm_pods = reinterpret_cast<int*>(s.bar_win + 1);
+  else if constexpr (SPREAD)
+    s.nm_pods = reinterpret_cast<int*>(s.bar_sp + 2);
+  else
+    s.nm_pods = reinterpret_cast<int*>(s.wslot + 2 * WARPS);
+  s.nm_slot = reinterpret_cast<int4*>(s.nm_pods + POD_SLOTS * NM_ROW);
+  s.nm_w = reinterpret_cast<int2*>(s.nm_slot + CLUSTER);
+  s.bar_nm = reinterpret_cast<uint64_t*>(s.nm_w + WARPS);
   return s;
 }
 
@@ -884,6 +992,93 @@ __device__ __forceinline__ int exclusive_sum_small(int v, int lane) {
   return sum;
 }
 
+// A pod's words from its row in the ring; traps on a weight that is not an
+// integer up to NM_MAX_WEIGHT (the packed counts' range).
+__device__ __forceinline__ NormPod norm_pod(const NormArgs& nm, const int* row) {
+  NormPod q;
+  const unsigned long long* w = reinterpret_cast<const unsigned long long*>(row);
+  q.untol = w[0];
+  bool weighted = false;
+#pragma unroll
+  for (int k = 0; k < NM_SLOTS; ++k) {
+    q.term[k] = w[1 + k];
+    const float f = __int_as_float(row[NM_W + k]);
+    q.wt[k] = 0u;
+    if (f > 0.0f) {
+      if (f != truncf(f) || f > NM_MAX_WEIGHT) __trap();
+      q.wt[k] = (unsigned)f;
+      weighted = true;
+    }
+  }
+  q.tt = nm.w_tt != 0.0f && q.untol != 0ull;
+  q.na = nm.w_na != 0.0f && weighted;
+  return q;
+}
+
+// The run's counts, packed (untolerated PreferNoSchedule taints in bits
+// 0-7, the weights of the terms the node meets from bit 8), at its feasible
+// positions; *mt and *mn, their maxima there.
+template <int RUN>
+__device__ __forceinline__ void norm_counts(const NormArgs& nm, const NormPod& q,
+                                            int g0, const bool (&fe)[RUN],
+                                            unsigned (&nc)[RUN], unsigned* mt,
+                                            unsigned* mn) {
+  unsigned a = 0u, b = 0u;
+#pragma unroll
+  for (int j = 0; j < RUN; ++j) {
+    nc[j] = 0u;
+    if (!fe[j]) continue;   // feasible: a node below N
+    const ulonglong2 w = nm.node_w[g0 + j];
+    const unsigned ct = q.tt ? (unsigned)__popcll(w.x & q.untol) : 0u;
+    unsigned cn = 0u;
+    if (q.na) {
+#pragma unroll
+      for (int k = 0; k < NM_SLOTS; ++k)
+        cn += (w.y & q.term[k]) == q.term[k] ? q.wt[k] : 0u;
+    }
+    nc[j] = ct | (cn << 8);
+    a = max(a, ct);
+    b = max(b, cn);
+  }
+  *mt = a;
+  *mn = b;
+}
+
+// The cluster's maxima from each lane's block maxima (lanes past the
+// cluster pass 0).
+__device__ __forceinline__ void norm_maxima(unsigned bt, unsigned bn, float* m_tt,
+                                            float* m_na) {
+  *m_tt = (float)__reduce_max_sync(FULL, bt);
+  *m_na = (float)__reduce_max_sync(FULL, bn);
+}
+
+// w_tt * TaintToleration + w_na * NodeAffinity of a node with packed counts
+// c, against the feasible maxima m_tt and m_na (priorities.py:75-87,
+// 112-122), whose double reciprocals r_tt and r_na (__drcp_rn, taken once a
+// pod) divide as the spread build's do: c / m_tt and 10 c / m_na are
+// integer-valued f32 over integers below 2^24 with quotients in [0, 10] on
+// a feasible node, so (float)((double)n * r) is the f32 quotient itself
+// (the header's Exactness of the spread build).
+__device__ __forceinline__ float norm_score(const NormArgs& nm, unsigned c, float m_tt,
+                                            float m_na, double r_tt, double r_na) {
+  const float ct = (float)(c & 0xffu);
+  const float cn = (float)(c >> 8);
+  const float tt =
+      m_tt > 0.0f
+          ? truncf(__fadd_rn(
+                __fmul_rn(__fsub_rn(1.0f, __double2float_rn(__dmul_rn((double)ct, r_tt))),
+                          MAX_PRIORITY),
+                FLOOR_EPS))
+          : MAX_PRIORITY;
+  const float na =
+      m_na > 0.0f
+          ? truncf(__fadd_rn(
+                __double2float_rn(__dmul_rn((double)__fmul_rn(cn, MAX_PRIORITY), r_na)),
+                FLOOR_EPS))
+          : 0.0f;
+  return __fadd_rn(__fmul_rn(nm.w_tt, tt), __fmul_rn(nm.w_na, na));
+}
+
 // One half of SelectorSpread (spread.py:50-58): MAX_PRIORITY * (m - x) /
 // max(m, 1), or MAX_PRIORITY when the maximum m is 0, for integer-valued
 // 0 <= x <= m < 2^24; rm is the double reciprocal of max(m, 1),
@@ -1018,7 +1213,7 @@ __device__ void ip_build_list(const Smem& s, const IpaArgs& ip, const float* pr,
   if (lane == 0) *s.ip_head = make_int4(n, reject, counting, row_nz);
 }
 
-template <int RUN, bool SPREAD, bool IPA, bool GANG>
+template <int RUN, bool SPREAD, bool IPA, bool GANG, bool NORM, typename... Norm>
 __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
     const float* __restrict__ masked_static, const float* __restrict__ requests,
     const float* __restrict__ nonzero_requests,
@@ -1026,7 +1221,8 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
     float* __restrict__ nonzero, int* __restrict__ assignments,
     float* __restrict__ scores, int* __restrict__ feasible_counts,
     long long* __restrict__ rr_io, int P, int N, float w_lr, float w_ba,
-    SpreadParam<SPREAD> sp, IpaParam<IPA> ip, GangParam<GANG> gg) {
+    SpreadParam<SPREAD> sp, IpaParam<IPA> ip, GangParam<GANG> gg, Norm... nm) {
+  static_assert(sizeof...(Norm) == (NORM ? 1 : 0), "the flag's NormArgs, or none");
   constexpr int NB = THREADS * RUN;
   constexpr int STAGES = Build<RUN, SPREAD, IPA, GANG>::STAGES;
   constexpr int POD_ROW = Build<RUN, SPREAD, IPA, GANG>::POD_ROW;
@@ -1084,7 +1280,8 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
   [[maybe_unused]] unsigned sp_bytes = 0u;
   if constexpr (SPREAD) {
     sp_chunks = (1 + sp.nz + 3) / 4;
-    sp_bytes = 16u * (unsigned)sp_chunks;
+    // (the spread build: + the flag's maxima, one chunk, whenever it is on)
+    sp_bytes = 16u * (unsigned)(sp_chunks + (!IPA && NORM ? 1 : 0));
   }
   [[maybe_unused]] float* dom_b = nullptr;   // this block's replica (interpod build)
   if constexpr (IPA) {
@@ -1161,6 +1358,13 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
                     t < R ? requests + (size_t)p * R + t
                           : nonzero_requests + (size_t)p * 2 + (t - R));
       }
+      if constexpr (NORM) {   // + the flag's pod words
+        if (t >= THREADS - NM_COPIERS) {
+          const int k = 4 * (t - (THREADS - NM_COPIERS));
+          cp_async16(reinterpret_cast<float*>(s.nm_pods + (p % POD_SLOTS) * NM_ROW + k),
+                     reinterpret_cast<const float*>(norm_of(nm...).pod_w + (size_t)p * NM_ROW + k));
+        }
+      }
     }
     cp_async_commit();    // one group per pod, empty past the last
   };
@@ -1188,6 +1392,11 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
       if constexpr (!SPREAD) mbar_arm(s.bar_ip, CLUSTER * IP_BYTES);
       mbar_arm(s.bar_win, IP_BYTES);
     }
+    if constexpr (!SPREAD && !IPA && NORM) {   // the flag's maxima (main, gang)
+      mbar_init(s.bar_nm, 1);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      mbar_arm(s.bar_nm, CLUSTER * 16u);
+    }
   }
   // where warp 0's lane l sends this block's triples: block l's slot
   // `rank` and mbarrier, of each parity
@@ -1211,6 +1420,10 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
   // (spread build; loaded one pod ahead, see the header)
   [[maybe_unused]] int q_next = -1;
   [[maybe_unused]] float nxt[RUN];
+  if constexpr (SPREAD && NORM) {   // a pod with maxima alone reads them
+#pragma unroll
+    for (int j = 0; j < RUN; ++j) nxt[j] = 0.0f;
+  }
   [[maybe_unused]] auto fetch_counts = [&](int pn) {
     if constexpr (SPREAD) {
       q_next = pn < P ? __float_as_int(s.pods[(pn % POD_SLOTS) * POD_ROW
@@ -1359,10 +1572,56 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
         }
       }
     }
+    // ---- the flag's counts of the run and the warp's maxima (the interpod
+    // builds count after their predicate, below)
+    [[maybe_unused]] unsigned nc[RUN] = {};   // packed counts (norm_counts)
+    float m_tt = 0.0f, m_na = 0.0f;   // the cluster's maxima over the feasible nodes
+    bool nm_x = false;                // the pod's counts can be nonzero: exchanged
+    if constexpr (!IPA) {
+      if constexpr (NORM) {
+        const NormPod nq = norm_pod(norm_of(nm...), s.nm_pods + (p % POD_SLOTS) * NM_ROW);
+        nm_x = nq.tt || nq.na;
+        if (nm_x) {
+          bool fe[RUN];
+#pragma unroll
+          for (int j = 0; j < RUN; ++j) fe[j] = ms[j] > -INFINITY && lr[j] >= 0.0f;
+          unsigned mt, mn;
+          norm_counts<RUN>(norm_of(nm...), nq, g0, fe, nc, &mt, &mn);
+          mt = __reduce_max_sync(FULL, mt);
+          mn = __reduce_max_sync(FULL, mn);
+          if (lane == 0) s.nm_w[warp] = make_int2((int)mt, (int)mn);
+          if constexpr (!SPREAD) {   // main, gang: an exchange of their own
+            __syncthreads();
+            if (warp == 0) {   // the block's maxima, into slot `rank` of every block
+              const int2 v = lane < WARPS ? s.nm_w[lane] : make_int2(0, 0);
+              const unsigned bt = __reduce_max_sync(FULL, (unsigned)v.x);
+              const unsigned bn = __reduce_max_sync(FULL, (unsigned)v.y);
+              if (lane < CLUSTER)   // block l's slot `rank`, on its mbarrier
+                st_async_v4(map_rank(smem_u32(&s.nm_slot[rank]), lane),
+                            make_int4((int)bt, (int)bn, 0, 0),
+                            map_rank(smem_u32(s.bar_nm), lane));
+            }
+            // (sp_phase: the parity of the flag's exchange in the builds
+            // without the spread one)
+            mbar_wait(s.bar_nm, sp_phase);
+            if (t == 0) mbar_arm(s.bar_nm, CLUSTER * 16u);   // next exchanging pod
+            sp_phase ^= 1u;
+            const int4 b4 = s.nm_slot[lane < CLUSTER ? lane : 0];
+            norm_maxima(lane < CLUSTER ? (unsigned)b4.x : 0u,
+                        lane < CLUSTER ? (unsigned)b4.y : 0u, &m_tt, &m_na);
+          }
+        }
+      }
+    }
     // ---- SelectorSpread of the run (spread build)
     [[maybe_unused]] float ss[RUN];
     if constexpr (SPREAD && !IPA) {
-      if (q_next < 0) {   // pod p has no entry (fetched one pod ahead)
+      // pod p has no entry (fetched one pod ahead), and with the flag no
+      // maxima to send; a pod with maxima alone runs the partial on the
+      // counts loaded last (scored 10 after the exchange)
+      bool quiet = q_next < 0;
+      if constexpr (NORM) quiet = quiet && !nm_x;
+      if (quiet) {
 #pragma unroll
         for (int j = 0; j < RUN; ++j) ss[j] = MAX_PRIORITY;
       } else {
@@ -1404,12 +1663,20 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
             out[1 + d] = z;
           }
           if (lane == 0) out[0] = bmax | (int)bzoned;
+          if constexpr (NORM) {   // + the flag's maxima, one chunk, whenever it is on
+            const int2 v = lane < WARPS && nm_x ? s.nm_w[lane] : make_int2(0, 0);
+            const unsigned bt = __reduce_max_sync(FULL, (unsigned)v.x);
+            const unsigned bn = __reduce_max_sync(FULL, (unsigned)v.y);
+            if (lane < CLUSTER)   // block l's slot `rank`, on the partial's mbarrier
+              st_async_v4(map_rank(smem_u32(&s.nm_slot[rank]), lane),
+                          make_int4((int)bt, (int)bn, 0, 0), to_sp_bar);
+          }
           __syncwarp();
           for (int k = lane / CLUSTER; k < sp_chunks; k += 32 / CLUSTER)
             st_async_v4(to_sp_slot + k * 16, s.sp_out[k], to_sp_bar);
         }
         mbar_wait(s.bar_sp, sp_phase);
-        if (t == 0) mbar_arm(s.bar_sp, CLUSTER * sp_bytes);   // next spread pod
+        if (t == 0) mbar_arm(s.bar_sp, CLUSTER * sp_bytes);   // next exchanging pod
         sp_phase ^= 1u;
         // every warp: the cluster's max count, zoned, and zone sums (lane d
         // zone d, and zone 32 + d in zhi_sum)
@@ -1444,6 +1711,17 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
               d >= 0 ? spread_part(max_zone, summed ? (float)zc : 0.0f, r_zone) : 0.0f;
           ss[j] = spread_score(spread_part(max_node, nxt[j], r_node), zone_s, d >= 0,
                                have_zones);
+        }
+        if constexpr (NORM) {
+          if (q_next < 0) {   // maxima alone: no SelectorSpread
+#pragma unroll
+            for (int j = 0; j < RUN; ++j) ss[j] = MAX_PRIORITY;
+          }
+          if (nm_x) {   // every warp: the flag's maxima
+            const int4 b4 = s.nm_slot[lane < CLUSTER ? lane : 0];
+            norm_maxima(lane < CLUSTER ? (unsigned)b4.x : 0u,
+                        lane < CLUSTER ? (unsigned)b4.y : 0u, &m_tt, &m_na);
+          }
         }
       }
     }
@@ -1514,6 +1792,19 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
           hi = max(hi, (int)c);
         }
       }
+      // the flag's counts over the nodes the predicate leaves, and the
+      // warp's maxima (they ride the (min, max) chunk)
+      if constexpr (NORM) {
+        const NormPod nq = norm_pod(norm_of(nm...), s.nm_pods + (p % POD_SLOTS) * NM_ROW);
+        nm_x = nq.tt || nq.na;
+        if (nm_x) {
+          unsigned mt, mn;
+          norm_counts<RUN>(norm_of(nm...), nq, g0, ipok, nc, &mt, &mn);
+          mt = __reduce_max_sync(FULL, mt);
+          mn = __reduce_max_sync(FULL, mn);
+          if (lane == 0) s.nm_w[warp] = make_int2((int)mt, (int)mn);
+        }
+      }
       // 3. the cluster's min and max, and the scores
       if constexpr (SPREAD) {
         // the spread+interpod build: SelectorSpread's partial over the
@@ -1523,7 +1814,7 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
         const bool ip_on = head.z != 0;
 #pragma unroll
         for (int j = 0; j < RUN; ++j) ss[j] = MAX_PRIORITY;
-        if (sp_on || ip_on) {
+        if (sp_on || ip_on || nm_x) {
           if (sp_on) {   // the warp's max count, any zoned node, zone sums
             int cmax = 0;
             bool zoned = false;
@@ -1554,7 +1845,8 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
           }
           __syncthreads();
           if (warp == 0) {   // the block's message, into slot `rank` of every block
-            const int chunks = (sp_on ? sp_chunks : 0) + (ip_on ? 1 : 0);
+            // (the (min, max) chunk also carries the flag's maxima)
+            const int chunks = (sp_on ? sp_chunks : 0) + (ip_on || nm_x ? 1 : 0);
             if (lane == 0) mbar_arm(s.bar_sp, CLUSTER * 16u * (unsigned)chunks);
             if (sp_on) {
               int* out = reinterpret_cast<int*>(s.sp_out);
@@ -1574,6 +1866,11 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
               const int2 v = lane < WARPS ? s.ip_w[lane] : make_int2(0, 0);
               mm.x = __reduce_min_sync(FULL, v.x);
               mm.y = __reduce_max_sync(FULL, v.y);
+            }
+            if (nm_x) {
+              const int2 v = lane < WARPS ? s.nm_w[lane] : make_int2(0, 0);
+              mm.z = (int)__reduce_max_sync(FULL, (unsigned)v.x);
+              mm.w = (int)__reduce_max_sync(FULL, (unsigned)v.y);
             }
             __syncwarp();
             for (int k = lane / CLUSTER; k < chunks; k += 32 / CLUSTER) {
@@ -1633,37 +1930,69 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
                       FLOOR_EPS));
             }
           }
+          if (nm_x) {   // every warp: the flag's maxima
+            const int4 b4 = s.ip_slot[lane < CLUSTER ? lane : 0];
+            norm_maxima(lane < CLUSTER ? (unsigned)b4.z : 0u,
+                        lane < CLUSTER ? (unsigned)b4.w : 0u, &m_tt, &m_na);
+          }
         }
       } else {
-        if (head.z != 0) {
-          const int wlo = __reduce_min_sync(FULL, lo);
-          const int whi = __reduce_max_sync(FULL, hi);
-          if (lane == 0) s.ip_w[warp] = make_int2(wlo, whi);
+        // (the (min, max) chunk also carries the flag's maxima)
+        if (head.z != 0 || nm_x) {
+          if (head.z != 0) {
+            const int wlo = __reduce_min_sync(FULL, lo);
+            const int whi = __reduce_max_sync(FULL, hi);
+            if (lane == 0) s.ip_w[warp] = make_int2(wlo, whi);
+          }
           __syncthreads();
           if (warp == 0) {   // the block's (min, max), into slot `rank` of every block
-            const int2 v = lane < WARPS ? s.ip_w[lane] : make_int2(0, 0);
-            const int blo = __reduce_min_sync(FULL, v.x);
-            const int bhi = __reduce_max_sync(FULL, v.y);
-            if (lane < CLUSTER) st_async_v4(to_ip_slot, make_int4(blo, bhi, 0, 0), to_ip_bar);
+            int4 mm = make_int4(0, 0, 0, 0);
+            if (head.z != 0) {
+              const int2 v = lane < WARPS ? s.ip_w[lane] : make_int2(0, 0);
+              mm.x = __reduce_min_sync(FULL, v.x);
+              mm.y = __reduce_max_sync(FULL, v.y);
+            }
+            if (nm_x) {
+              const int2 v = lane < WARPS ? s.nm_w[lane] : make_int2(0, 0);
+              mm.z = (int)__reduce_max_sync(FULL, (unsigned)v.x);
+              mm.w = (int)__reduce_max_sync(FULL, (unsigned)v.y);
+            }
+            if (lane < CLUSTER) st_async_v4(to_ip_slot, mm, to_ip_bar);
           }
           mbar_wait(s.bar_ip, ip_phase);
-          if (t == 0) mbar_arm(s.bar_ip, CLUSTER * IP_BYTES);   // next counting pod
+          if (t == 0) mbar_arm(s.bar_ip, CLUSTER * IP_BYTES);   // next exchanging pod
           ip_phase ^= 1u;
           const int4 b4 = s.ip_slot[lane < CLUSTER ? lane : 0];
-          const float min_c = (float)__reduce_min_sync(FULL, lane < CLUSTER ? b4.x : 0);
-          const float max_c = (float)__reduce_max_sync(FULL, lane < CLUSTER ? b4.y : 0);
-          const float spread_c = __fsub_rn(max_c, min_c);
-          if (spread_c > 0.0f) {
-  #pragma unroll
-            for (int j = 0; j < RUN; ++j)
-              if (ipok[j])
-                ipsc[j] = truncf(__fadd_rn(
-                    __fdiv_rn(__fmul_rn(MAX_PRIORITY, __fsub_rn(cnt[j], min_c)),
-                              fmaxf(spread_c, 1.0f)),
-                    FLOOR_EPS));
+          if (head.z != 0) {
+            const float min_c = (float)__reduce_min_sync(FULL, lane < CLUSTER ? b4.x : 0);
+            const float max_c = (float)__reduce_max_sync(FULL, lane < CLUSTER ? b4.y : 0);
+            const float spread_c = __fsub_rn(max_c, min_c);
+            if (spread_c > 0.0f) {
+#pragma unroll
+              for (int j = 0; j < RUN; ++j)
+                if (ipok[j])
+                  ipsc[j] = truncf(__fadd_rn(
+                      __fdiv_rn(__fmul_rn(MAX_PRIORITY, __fsub_rn(cnt[j], min_c)),
+                                fmaxf(spread_c, 1.0f)),
+                      FLOOR_EPS));
+            }
           }
+          if (nm_x)   // every warp: the flag's maxima
+            norm_maxima(lane < CLUSTER ? (unsigned)b4.z : 0u,
+                        lane < CLUSTER ? (unsigned)b4.w : 0u, &m_tt, &m_na);
         }
       }
+    }
+
+    // ---- the flag's terms, added to the run's static scores (every term is
+    // an integer, so the sum is exact in any order; -inf stays -inf): the
+    // score loops below stay those of the builds without the flag
+    if constexpr (NORM) {
+      const double r_tt = __drcp_rn((double)fmaxf(m_tt, 1.0f));
+      const double r_na = __drcp_rn((double)fmaxf(m_na, 1.0f));
+#pragma unroll
+      for (int j = 0; j < RUN; ++j)
+        ms[j] = __fadd_rn(ms[j], norm_score(norm_of(nm...), nc[j], m_tt, m_na, r_tt, r_na));
     }
 
     float best = -INFINITY;
@@ -1906,14 +2235,18 @@ struct Operands {
   int N;
   float w_lr;
   float w_ba;
+  NormArgs nm;    // the normalization flag (pod_w null: off)
 };
 
-template <int RUN, bool SPREAD, bool IPA, bool GANG>
+// One launch; `nm` is the flag's NormArgs, or nothing without the flag.
+template <int RUN, bool SPREAD, bool IPA, bool GANG, typename... Norm>
 int launch(const Operands& o, SpreadParam<SPREAD> sp, IpaParam<IPA> ip,
-           GangParam<GANG> gg, cudaStream_t stream) {
-  auto kernel = assign_scan_kernel<RUN, SPREAD, IPA, GANG>;
+           GangParam<GANG> gg, cudaStream_t stream, Norm... nm) {
+  constexpr bool NORM = sizeof...(Norm) == 1;
+  auto kernel = assign_scan_kernel<RUN, SPREAD, IPA, GANG, NORM, Norm...>;
   using B = Build<RUN, SPREAD, IPA, GANG>;
-  const size_t smem = smem_bytes<SPREAD, IPA, B::PACKED>(THREADS * RUN, B::STAGES, B::POD_ROW);
+  const size_t smem =
+      smem_bytes<SPREAD, IPA, B::PACKED, NORM>(THREADS * RUN, B::STAGES, B::POD_ROW);
   if (smem > (size_t)MAX_SMEM) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -1944,9 +2277,17 @@ int launch(const Operands& o, SpreadParam<SPREAD> sp, IpaParam<IPA> ip,
                            o.nonzero_requests, o.allocatable, o.requested,
                            o.nonzero, o.assignments, o.scores,
                            o.feasible_counts, o.rr_io, o.P, o.N, o.w_lr,
-                           o.w_ba, sp, ip, gg);
+                           o.w_ba, sp, ip, gg, nm...);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// The instance with the normalization flag when its pod words are given.
+template <int RUN, bool SPREAD, bool IPA, bool GANG>
+int launch_norm(const Operands& o, SpreadParam<SPREAD> sp, IpaParam<IPA> ip,
+                GangParam<GANG> gg, cudaStream_t stream) {
+  if (o.nm.pod_w != nullptr) return launch<RUN, SPREAD, IPA, GANG>(o, sp, ip, gg, stream, o.nm);
+  return launch<RUN, SPREAD, IPA, GANG>(o, sp, ip, gg, stream);
 }
 
 // The build for `run` nodes per thread (1, 2, 4 or 8), with
@@ -1957,10 +2298,10 @@ int launch_run(const Operands& o, int run, SpreadParam<SPREAD> sp,
   if (o.P <= 0) return (int)cudaSuccess;
   if (o.N <= 0 || o.N > CLUSTER * THREADS * run) return (int)cudaErrorInvalidValue;
   switch (run) {
-    case 1: return launch<1, SPREAD, IPA, GANG>(o, sp, ip, gg, stream);
-    case 2: return launch<2, SPREAD, IPA, GANG>(o, sp, ip, gg, stream);
-    case 4: return launch<4, SPREAD, IPA, GANG>(o, sp, ip, gg, stream);
-    case 8: return launch<8, SPREAD, IPA, GANG>(o, sp, ip, gg, stream);
+    case 1: return launch_norm<1, SPREAD, IPA, GANG>(o, sp, ip, gg, stream);
+    case 2: return launch_norm<2, SPREAD, IPA, GANG>(o, sp, ip, gg, stream);
+    case 4: return launch_norm<4, SPREAD, IPA, GANG>(o, sp, ip, gg, stream);
+    case 8: return launch_norm<8, SPREAD, IPA, GANG>(o, sp, ip, gg, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1970,16 +2311,24 @@ int launch_run(const Operands& o, int run, SpreadParam<SPREAD> sp,
 // masked_static [P, N], requests [P, 6], nonzero_requests [P, 2],
 // allocatable [N, 6]; requested [N, 6] and nonzero [N, 2] hold the
 // batch-start ledger and are updated in place. run = nodes per thread
-// (1, 2, 4 or 8), with N <= CLUSTER * 512 * run.
+// (1, 2, 4 or 8), with N <= CLUSTER * 512 * run. Every build ends with the
+// normalization flag's operands: node_w [N] u64 pairs (a node's
+// PreferNoSchedule taint word, its satisfied-requirement word; 16-byte
+// aligned), pod_w [P, 16] ints (the untolerated word, 4 term words, 4
+// weights as f32 bits, integers up to 65,535, 2 of padding; 16-byte
+// aligned rows) or null (the flag off), and the TaintToleration and
+// NodeAffinity weights w_tt and w_na.
 extern "C" int ktpu_assign_scan(
     const float* masked_static, const float* requests,
     const float* nonzero_requests, const float* allocatable, float* requested,
     float* nonzero, int* assignments, float* scores, int* feasible_counts,
     long long* rr_io, int P, int N, int run, float w_lr, float w_ba,
+    const void* node_w, const int* pod_w, float w_tt, float w_na,
     cudaStream_t stream) {
   const Operands o{masked_static, requests, nonzero_requests, allocatable,
                    requested, nonzero, assignments, scores, feasible_counts,
-                   rr_io, P, N, w_lr, w_ba};
+                   rr_io, P, N, w_lr, w_ba,
+                   NormArgs{static_cast<const ulonglong2*>(node_w), pod_w, w_tt, w_na}};
   return launch_run<false>(o, run, NoSpread{}, stream);
 }
 
@@ -1995,12 +2344,14 @@ extern "C" int ktpu_assign_scan_spread(
     float* nonzero, int* assignments, float* scores, int* feasible_counts,
     long long* rr_io, int P, int N, int run, float w_lr, float w_ba,
     float* podsel_t, const int* spread_q, const float* pod_matches,
-    const int* zone, int uq, int nz, int nd, float w_ss, cudaStream_t stream) {
+    const int* zone, int uq, int nz, int nd, float w_ss, const void* node_w,
+    const int* pod_w, float w_tt, float w_na, cudaStream_t stream) {
   if (uq < 0 || uq > MAX_UQ || nz < 0 || nz > nd || nd > MAX_DOMAINS)
     return (int)cudaErrorInvalidValue;
   const Operands o{masked_static, requests, nonzero_requests, allocatable,
                    requested, nonzero, assignments, scores, feasible_counts,
-                   rr_io, P, N, w_lr, w_ba};
+                   rr_io, P, N, w_lr, w_ba,
+                   NormArgs{static_cast<const ulonglong2*>(node_w), pod_w, w_tt, w_na}};
   const SpreadArgs sp{podsel_t, spread_q, pod_matches, zone, uq, nz, nd, w_ss};
   return launch_run<true>(o, run, sp, stream);
 }
@@ -2025,13 +2376,15 @@ extern "C" int ktpu_assign_scan_interpod(
     float* node_t, const float* dom0, float* dom, const float* totals,
     const int* pod_ip, const int* topology, const int* term_attr, int uq,
     int ue, int k, int nd, int use_ipa, float w_ip, float hard_w,
+    const void* node_w, const int* pod_w, float w_tt, float w_na,
     cudaStream_t stream) {
   if (uq < 0 || uq > IP_MAX_UQ || ue < 0 || ue > IP_MAX_UE || k < 5
       || k > IP_MAX_K || nd < 1 || nd > IP_MAX_D)
     return (int)cudaErrorInvalidValue;
   const Operands o{masked_static, requests, nonzero_requests, allocatable,
                    requested, nonzero, assignments, scores, feasible_counts,
-                   rr_io, P, N, w_lr, w_ba};
+                   rr_io, P, N, w_lr, w_ba,
+                   NormArgs{static_cast<const ulonglong2*>(node_w), pod_w, w_tt, w_na}};
   const IpaArgs ip{node_t, dom0, dom, totals, pod_ip, topology, term_attr, uq, ue,
                    k, nd, use_ipa, w_ip, hard_w};
   return launch_run<false, true>(o, run, NoSpread{}, stream, ip);
@@ -2052,6 +2405,7 @@ extern "C" int ktpu_assign_scan_spread_interpod(
     const int* pod_ip, const int* topology, const int* term_attr, int uq,
     int ue, int k, int nd, int use_ipa, float w_ip, float hard_w,
     const int* spread_q, const int* zone, int nz, float w_ss,
+    const void* node_w, const int* pod_w, float w_tt, float w_na,
     cudaStream_t stream) {
   if (uq < 0 || uq > IP_MAX_UQ || ue < 0 || ue > IP_MAX_UE || k < 5
       || k > IP_MAX_K || nd < 1 || nd > IP_MAX_D || nd > MAX_DOMAINS || nz < 0
@@ -2059,7 +2413,8 @@ extern "C" int ktpu_assign_scan_spread_interpod(
     return (int)cudaErrorInvalidValue;
   const Operands o{masked_static, requests, nonzero_requests, allocatable,
                    requested, nonzero, assignments, scores, feasible_counts,
-                   rr_io, P, N, w_lr, w_ba};
+                   rr_io, P, N, w_lr, w_ba,
+                   NormArgs{static_cast<const ulonglong2*>(node_w), pod_w, w_tt, w_na}};
   const SpreadArgs sp{node_t, spread_q, nullptr, zone, uq, nz, nd, w_ss};
   const IpaArgs ip{node_t, dom0, dom, totals, pod_ip, topology, term_attr, uq, ue,
                    k, nd, use_ipa, w_ip, hard_w};
@@ -2075,10 +2430,12 @@ extern "C" int ktpu_assign_scan_gang(
     const float* nonzero_requests, const float* allocatable, float* requested,
     float* nonzero, int* assignments, float* scores, int* feasible_counts,
     long long* rr_io, int P, int N, int run, float w_lr, float w_ba,
-    const int* gang_id, const int* gang_min, float* undo, cudaStream_t stream) {
+    const int* gang_id, const int* gang_min, float* undo, const void* node_w,
+    const int* pod_w, float w_tt, float w_na, cudaStream_t stream) {
   const Operands o{masked_static, requests, nonzero_requests, allocatable,
                    requested, nonzero, assignments, scores, feasible_counts,
-                   rr_io, P, N, w_lr, w_ba};
+                   rr_io, P, N, w_lr, w_ba,
+                   NormArgs{static_cast<const ulonglong2*>(node_w), pod_w, w_tt, w_na}};
   const GangArgs gg{gang_id, gang_min, reinterpret_cast<float4*>(undo)};
   return launch_run<false, false, true>(o, run, NoSpread{}, stream, NoIpa{}, gg);
 }

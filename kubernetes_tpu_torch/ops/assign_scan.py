@@ -31,8 +31,17 @@ Five builds of the kernel, chosen at compile time:
   Assignments and scores come back as the scan made them; the solver masks
   the members of reverted groups out afterwards (solver.py:837-853).
 
+Every build also takes the normalization flag at run time (`norm`,
+NormInputs, None = off): TaintToleration and NodeAffinity, each normalized
+over the pod's feasible nodes (after the inter-pod predicate where the
+build applies it), the JAX step's `taint_toleration_from_counts` and
+`normalized_from_counts` terms (solver.py:568-573), with counts taken from
+64-bit words: a node's PreferNoSchedule taints and satisfied requirements,
+a pod's untolerated taints and preferred terms (`norm_inputs`).
+
 Each wrapper launches its build on CUDA tensors (and counts the launch in
-`<wrapper>.launches`), runs its plain version, a Python loop of tensor
+`<wrapper>.launches`, and in `<wrapper>.norm_launches` when the flag is
+on), runs its plain version, a Python loop of tensor
 ops, on CPU tensors, and raises on any other device.
 """
 
@@ -54,7 +63,12 @@ from kubernetes_tpu_torch.ops.interpod import (
     topology_onehot,
 )
 from kubernetes_tpu_torch.ops.predicates import fits_resources_dyn
-from kubernetes_tpu_torch.ops.priorities import balanced_allocation, least_requested
+from kubernetes_tpu_torch.ops.priorities import (
+    balanced_allocation,
+    least_requested,
+    normalized_from_counts,
+    taint_toleration_from_counts,
+)
 from kubernetes_tpu_torch.ops.spread import selector_spread
 from kubernetes_tpu_torch.state.layout import TOPO_SPREAD_ZONE
 from kubernetes_tpu_torch.utils.device import check_tensor
@@ -153,6 +167,106 @@ class GangInputs:
     gang_min: torch.Tensor
 
 
+@dataclass
+class NormInputs:
+    """What the normalization flag adds to any build (`norm_inputs` makes
+    it): the TaintToleration and NodeAffinity weights (w_tt, w_na), each
+    node's PreferNoSchedule taint word and satisfied-requirement word
+    (node_taint, node_req i64[N]: bit u is taint / requirement u), each
+    pod's untolerated word (pod_untol i64[P], limited to the taints some
+    node carries) and its preferred terms' words (pod_terms i64[P, 4], bit
+    u: the term holds requirement u) with their weights (pod_weights
+    f32[P, 4]: integers up to 65,535, 0 for a slot that never scores)."""
+
+    w_tt: float
+    w_na: float
+    node_taint: torch.Tensor
+    node_req: torch.Tensor
+    pod_untol: torch.Tensor
+    pod_terms: torch.Tensor
+    pod_weights: torch.Tensor
+
+
+# bits of a word (the taint and requirement universes the flag takes) and
+# preferred-term slots a pod
+NORM_MAX_U = 64
+NORM_SLOTS = 4
+
+
+def pack_words(member: torch.Tensor) -> torch.Tensor:
+    """i64[...]: bit u set where member[..., u] != 0, for at most 64
+    columns, ORed together (bit 63 is the sign bit, so never summed)."""
+    u = member.shape[-1]
+    if u > NORM_MAX_U:
+        raise ValueError(f"pack_words: {u} columns > {NORM_MAX_U}")
+    bits = ((member != 0).to(torch.int64)
+            << torch.arange(u, dtype=torch.int64, device=member.device))
+    width = 1
+    while width < u:
+        width *= 2
+    if width > u:
+        bits = torch.cat([bits, bits.new_zeros((*bits.shape[:-1], width - u))], -1)
+    while width > 1:
+        width //= 2
+        bits = bits[..., :width] | bits[..., width:]
+    return bits[..., 0]
+
+
+def norm_inputs(w_tt: float, w_na: float, taint_prefer_member: torch.Tensor,
+                req_member: torch.Tensor, untolerated: torch.Tensor,
+                pref_onehot: torch.Tensor,
+                pref_weight: torch.Tensor) -> NormInputs:
+    """The flag's words from the JAX layout's columns: taint_prefer_member
+    f32[N, UT], req_member f32[N, UR], untolerated f32[P, UT] (1 = not
+    tolerated), pref_onehot f32[P, TP, UR] (a term's distinct requirement
+    ids) and pref_weight f32[P, TP]. ValueError past UT, UR = 64 or TP = 4."""
+    ut, ur, tp = untolerated.shape[1], req_member.shape[1], pref_onehot.shape[1]
+    if ut > NORM_MAX_U or ur > NORM_MAX_U or tp > NORM_SLOTS:
+        raise ValueError(
+            f"norm_inputs: {ut} taints and {ur} requirements (at most "
+            f"{NORM_MAX_U} each), {tp} preferred terms (at most {NORM_SLOTS})")
+    p = untolerated.shape[0]
+    pad = NORM_SLOTS - tp
+    terms = pack_words(pref_onehot)
+    weights = pref_weight.to(torch.float32)
+    if pad:
+        terms = torch.cat([terms, terms.new_zeros((p, pad))], 1)
+        weights = torch.cat([weights, weights.new_zeros((p, pad))], 1)
+    node_taint = pack_words(taint_prefer_member)
+    # a bit no node carries counts nowhere: the pod's word drops it, so a
+    # pod untolerant only of such taints needs no maxima
+    carried = pack_words(taint_prefer_member.any(0, keepdim=True))
+    return NormInputs(
+        w_tt=float(w_tt), w_na=float(w_na), node_taint=node_taint,
+        node_req=pack_words(req_member),
+        pod_untol=pack_words(untolerated) & carried,
+        pod_terms=terms.contiguous(), pod_weights=weights.contiguous())
+
+
+def popcount64(x: torch.Tensor) -> torch.Tensor:
+    """i64: the set bits of each i64 word (bit 63 included)."""
+    x = x - ((x >> 1) & 0x5555555555555555)
+    x = (x & 0x3333333333333333) + ((x >> 2) & 0x3333333333333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F0F0F0F0F
+    x = x + (x >> 8)
+    x = x + (x >> 16)
+    x = x + (x >> 32)
+    return x & 0x7F
+
+
+def norm_counts(norm: NormInputs, p: int):
+    """(TaintToleration counts, NodeAffinity counts), f32[N] each, of pod p
+    from the words, as the kernel takes them: the popcount of node_taint &
+    pod_untol, and the weights of the positively weighted terms t with
+    (node_req & t) == t, added in slot order."""
+    tt = popcount64(norm.node_taint & norm.pod_untol[p]).to(torch.float32)
+    na = torch.zeros_like(tt)
+    for k in range(NORM_SLOTS):
+        term, w = norm.pod_terms[p, k], norm.pod_weights[p, k]
+        na = na + torch.where(((norm.node_req & term) == term) & (w > 0), w, 0.0)
+    return tt, na
+
+
 # the InterpodInputs fields with a row a pod
 POD_ROW_FIELDS = ("pod_matches_q", "pod_carries_e", "paff_q", "paff_tkey",
                   "panti_q", "panti_tkey", "ppref_q", "ppref_tkey", "ppref_w",
@@ -161,29 +275,35 @@ POD_ROW_FIELDS = ("pod_matches_q", "pod_carries_e", "paff_q", "paff_tkey",
 
 def assign_scan_plain(masked_static, requests, nonzero_requests, allocatable,
                       requested, nonzero, rr_start, w_lr: float = 1.0,
-                      w_ba: float = 1.0) -> ScanResult:
+                      w_ba: float = 1.0, norm: NormInputs | None = None) -> ScanResult:
     """The scan as a loop over pods of N-wide tensor ops (the CPU path and
     the reference the kernel is held against on the card). Nothing leaves
-    the device inside the loop."""
+    the device inside the loop. With `norm`, each pod's score also takes
+    w_tt times TaintToleration and w_na times NodeAffinity over its
+    feasible nodes, from the counts `norm_counts` takes off the words."""
     return _scan_plain(masked_static, requests, nonzero_requests, allocatable,
-                       requested, nonzero, rr_start, w_lr, w_ba, None)
+                       requested, nonzero, rr_start, w_lr, w_ba, None,
+                       norm=norm)
 
 
 def assign_scan_spread_plain(masked_static, requests, nonzero_requests,
                              allocatable, requested, nonzero, rr_start,
                              w_lr: float, w_ba: float,
-                             spread: SpreadInputs) -> ScanResult:
+                             spread: SpreadInputs,
+                             norm: NormInputs | None = None) -> ScanResult:
     """`assign_scan_plain` plus, for each pod, `w_ss` times SelectorSpread
     over the nodes feasible after the dynamic fit, and the pod's match row
     added to the pod-selector ledger at the chosen node (`new_podsel`)."""
     return _scan_plain(masked_static, requests, nonzero_requests, allocatable,
-                       requested, nonzero, rr_start, w_lr, w_ba, spread)
+                       requested, nonzero, rr_start, w_lr, w_ba, spread,
+                       norm=norm)
 
 
 def assign_scan_interpod_plain(masked_static, requests, nonzero_requests,
                                allocatable, requested, nonzero, rr_start,
                                w_lr: float, w_ba: float,
-                               interpod: InterpodInputs) -> ScanResult:
+                               interpod: InterpodInputs,
+                               norm: NormInputs | None = None) -> ScanResult:
     """`assign_scan_plain` with inter-pod (anti-)affinity: for each pod,
     InterPodAffinityMatches (when `use_ipa`) ANDed into the feasible nodes,
     `w_ip` times InterPodAffinityPriority normalized over them added to the
@@ -191,7 +311,7 @@ def assign_scan_interpod_plain(masked_static, requests, nonzero_requests,
     and domain aggregates at the chosen node (`new_podsel`, `new_term`)."""
     return _scan_plain(masked_static, requests, nonzero_requests, allocatable,
                        requested, nonzero, rr_start, w_lr, w_ba, None,
-                       interpod)
+                       interpod, norm=norm)
 
 
 def assign_scan_spread_interpod_plain(masked_static, requests,
@@ -199,7 +319,8 @@ def assign_scan_spread_interpod_plain(masked_static, requests,
                                       requested, nonzero, rr_start,
                                       w_lr: float, w_ba: float,
                                       spread: SpreadInputs,
-                                      interpod: InterpodInputs) -> ScanResult:
+                                      interpod: InterpodInputs,
+                                      norm: NormInputs | None = None) -> ScanResult:
     """`assign_scan_plain` with inter-pod (anti-)affinity and SelectorSpread
     over one ledger: for each pod, InterPodAffinityMatches (when `use_ipa`)
     ANDed into the feasible nodes, then `w_ip` times InterPodAffinityPriority
@@ -210,27 +331,29 @@ def assign_scan_spread_interpod_plain(masked_static, requests,
     pod-selector ledger, topology and match rows."""
     return _scan_plain(masked_static, requests, nonzero_requests, allocatable,
                        requested, nonzero, rr_start, w_lr, w_ba, spread,
-                       interpod)
+                       interpod, norm=norm)
 
 
 def assign_scan_gang_plain(masked_static, requests, nonzero_requests,
                            allocatable, requested, nonzero, rr_start,
                            w_lr: float, w_ba: float,
-                           gang: GangInputs) -> ScanResult:
+                           gang: GangInputs,
+                           norm: NormInputs | None = None) -> ScanResult:
     """`assign_scan_plain` with the gang carry: at each group boundary the
     group being left is settled (below quorum, the ledger and rr return to
     their values at the group's first member), and after the last pod the
     group still open is settled the same way."""
     return _scan_plain(masked_static, requests, nonzero_requests, allocatable,
                        requested, nonzero, rr_start, w_lr, w_ba, None,
-                       gang=gang)
+                       gang=gang, norm=norm)
 
 
 def _scan_plain(masked_static, requests, nonzero_requests, allocatable,
                 requested, nonzero, rr_start, w_lr, w_ba,
                 spread: SpreadInputs | None,
                 interpod: InterpodInputs | None = None,
-                gang: GangInputs | None = None) -> ScanResult:
+                gang: GangInputs | None = None,
+                norm: NormInputs | None = None) -> ScanResult:
     p_count, n = masked_static.shape
     dev = masked_static.device
     req = requested.clone()
@@ -284,6 +407,15 @@ def _scan_plain(masked_static, requests, nonzero_requests, allocatable,
             pod = SimpleNamespace(**{f: getattr(ip, f)[p] for f in POD_ROW_FIELDS})
             if ip.use_ipa:
                 feasible = feasible & interpod_feasible(ip, pod, ledger, onehot)
+        if norm is not None:   # over the nodes the predicate leaves
+            tt_counts, na_counts = norm_counts(norm, p)
+            if norm.w_tt:
+                score = score + norm.w_tt * taint_toleration_from_counts(
+                    tt_counts, feasible)
+            if norm.w_na:
+                score = score + norm.w_na * normalized_from_counts(
+                    na_counts, feasible)
+        if ip is not None:
             if ip.w_ip:
                 score = score + ip.w_ip * interpod_score(
                     interpod_counts(ip, pod, ledger, ip.hard_w, onehot),
@@ -361,20 +493,57 @@ def _check_operands(name, masked_static, requests, nonzero_requests,
     return dev
 
 
+def _check_norm(norm: NormInputs | None, p: int, n: int, dev) -> None:
+    """Check the NormInputs tensors of a p-pod, n-node batch."""
+    if norm is None:
+        return
+    i64 = torch.int64
+    for check in (("node_taint", norm.node_taint, i64, (n,)),
+                  ("node_req", norm.node_req, i64, (n,)),
+                  ("pod_untol", norm.pod_untol, i64, (p,)),
+                  ("pod_terms", norm.pod_terms, i64, (p, NORM_SLOTS)),
+                  ("pod_weights", norm.pod_weights, torch.float32, (p, NORM_SLOTS))):
+        check_tensor(*check, dev)
+
+
+# the flag's operands after every build's own: node words, pod rows, w_tt, w_na
+_NORM_ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_float] * 2
+
+
+def _norm_operands(norm: NormInputs | None):
+    """The flag's device operands, (the tensors the pointers point into,
+    which the caller holds until the launch is enqueued, and the launch's
+    pointers and weights): i64[N, 2] node words and i32[P, 16] pod rows
+    (the untolerated word, 4 term words, 4 weights as f32 bits, 2 of
+    padding); null pointers with the flag off."""
+    if norm is None:
+        return (), (None, None, 0.0, 0.0)
+    p = norm.pod_untol.shape[0]
+    node_w = torch.stack([norm.node_taint, norm.node_req], 1).contiguous()
+    words = torch.cat([norm.pod_untol[:, None], norm.pod_terms], 1).contiguous()
+    pod_w = torch.cat([words.view(torch.int32),
+                       norm.pod_weights.contiguous().view(torch.int32),
+                       words.new_zeros((p, 2), dtype=torch.int32)], 1).contiguous()
+    return (node_w, pod_w), (node_w.data_ptr(), pod_w.data_ptr(),
+                             float(norm.w_tt), float(norm.w_na))
+
+
 def _launch(symbol, argtypes, masked_static, requests, nonzero_requests,
-            allocatable, requested, nonzero, rr_start, w_lr, w_ba, extra=()):
+            allocatable, requested, nonzero, rr_start, w_lr, w_ba, extra=(),
+            norm: NormInputs | None = None):
     """Launch one build on the current stream: the ledgers are cloned (the
-    kernel updates them in place) and `extra` (pointers and scalars after
-    the main operands) is passed through. Returns the ScanResult fields and
-    raises if the launch fails."""
+    kernel updates them in place), `extra` (pointers and scalars after
+    the main operands) is passed through, then the flag's operands. Returns
+    the ScanResult fields and raises if the launch fails."""
     from kubernetes_tpu_torch.native.build import load
 
     p, n = masked_static.shape
     run = node_run(n)
     dev = masked_static.device
     fn = getattr(load("assign_scan"), symbol)
-    fn.argtypes = argtypes
+    fn.argtypes = argtypes[:-1] + _NORM_ARGTYPES + argtypes[-1:]
     fn.restype = ctypes.c_int
+    _held, norm_args = _norm_operands(norm)
     req = requested.clone()
     nz = nonzero.clone()
     rr = _rr_tensor(rr_start, dev).reshape(1).clone()
@@ -387,7 +556,7 @@ def _launch(symbol, argtypes, masked_static, requests, nonzero_requests,
                  nonzero_requests.data_ptr(), allocatable.data_ptr(),
                  req.data_ptr(), nz.data_ptr(), assignments.data_ptr(),
                  scores.data_ptr(), counts.data_ptr(), rr.data_ptr(),
-                 p, n, run, float(w_lr), float(w_ba), *extra, stream)
+                 p, n, run, float(w_lr), float(w_ba), *extra, *norm_args, stream)
     if err != 0:
         raise RuntimeError(f"{symbol} kernel launch failed: CUDA error {err}")
     return assignments, scores, counts, req, nz, rr.reshape(())
@@ -395,7 +564,7 @@ def _launch(symbol, argtypes, masked_static, requests, nonzero_requests,
 
 def assign_scan(masked_static, requests, nonzero_requests, allocatable,
                 requested, nonzero, rr_start, w_lr: float = 1.0,
-                w_ba: float = 1.0) -> ScanResult:
+                w_ba: float = 1.0, norm: NormInputs | None = None) -> ScanResult:
     """Phase B over one batch.
 
     masked_static f32[P, N] (static score where statically feasible and the
@@ -403,18 +572,23 @@ def assign_scan(masked_static, requests, nonzero_requests, allocatable,
     allocatable f32[N, R], and the batch-start ledger requested f32[N, R] /
     nonzero f32[N, 2] (not modified). rr_start is an int or an i64 scalar
     tensor. Requests in the gpu and storage columns must be zero (the solver
-    hoists those compares into Phase A)."""
+    hoists those compares into Phase A). `norm` (NormInputs, None = off)
+    raises the normalization flag, which every build takes."""
     args = (masked_static, requests, nonzero_requests, allocatable,
             requested, nonzero)
     dev = _check_operands("assign_scan", *args)
+    _check_norm(norm, *masked_static.shape, dev)
     if dev.type == "cpu":
-        return assign_scan_plain(*args, rr_start, w_lr, w_ba)
-    out = _launch("ktpu_assign_scan", _ARGTYPES, *args, rr_start, w_lr, w_ba)
+        return assign_scan_plain(*args, rr_start, w_lr, w_ba, norm)
+    out = _launch("ktpu_assign_scan", _ARGTYPES, *args, rr_start, w_lr, w_ba,
+                  norm=norm)
     assign_scan.launches += 1
+    assign_scan.norm_launches += norm is not None
     return ScanResult(*out)
 
 
 assign_scan.launches = 0
+assign_scan.norm_launches = 0   # of them, with the normalization flag
 
 # the kernel's zone-sum slots (MAX_DOMAINS) and pod-slot match columns
 # (MAX_UQ)
@@ -449,7 +623,8 @@ def _spread_limits(name: str, spread: SpreadInputs, uq: int) -> None:
 
 def assign_scan_spread(masked_static, requests, nonzero_requests, allocatable,
                        requested, nonzero, rr_start, w_lr: float,
-                       w_ba: float, spread: SpreadInputs) -> ScanResult:
+                       w_ba: float, spread: SpreadInputs,
+                       norm: NormInputs | None = None) -> ScanResult:
     """Phase B with SelectorSpread (`assign_scan_spread_plain`): the
     operands of `assign_scan`, and `spread` (SpreadInputs). On a card the
     wrapper hands the kernel a transposed [UQ, N] copy of the pod-selector
@@ -459,8 +634,9 @@ def assign_scan_spread(masked_static, requests, nonzero_requests, allocatable,
             requested, nonzero)
     dev = _check_operands("assign_scan_spread", *args)
     uq = _check_spread(spread, *masked_static.shape, dev)
+    _check_norm(norm, *masked_static.shape, dev)
     if dev.type == "cpu":
-        return assign_scan_spread_plain(*args, rr_start, w_lr, w_ba, spread)
+        return assign_scan_spread_plain(*args, rr_start, w_lr, w_ba, spread, norm)
     _spread_limits("assign_scan_spread", spread, uq)
     podsel_t = spread.podsel_count.t().contiguous()
     zone = spread.topology[:, TOPO_SPREAD_ZONE].contiguous()
@@ -468,12 +644,15 @@ def assign_scan_spread(masked_static, requests, nonzero_requests, allocatable,
                   rr_start, w_lr, w_ba,
                   (podsel_t.data_ptr(), spread.spread_q.data_ptr(),
                    spread.pod_matches_q.data_ptr(), zone.data_ptr(), uq,
-                   spread.zones, spread.domain_universe, float(spread.w_ss)))
+                   spread.zones, spread.domain_universe, float(spread.w_ss)),
+                  norm)
     assign_scan_spread.launches += 1
+    assign_scan_spread.norm_launches += norm is not None
     return ScanResult(*out, podsel_t.t().contiguous())
 
 
 assign_scan_spread.launches = 0
+assign_scan_spread.norm_launches = 0   # of them, with the normalization flag
 
 # the interpod build's columns (IP_MAX_UQ, IP_MAX_UE), term slots per pod
 # (IP_SLOTS), topology slots (IP_MAX_K) and domains of a slot (IP_MAX_D)
@@ -515,7 +694,8 @@ def _pod_words(ip: InterpodInputs) -> torch.Tensor:
 def assign_scan_interpod(masked_static, requests, nonzero_requests,
                          allocatable, requested, nonzero, rr_start,
                          w_lr: float, w_ba: float,
-                         interpod: InterpodInputs) -> ScanResult:
+                         interpod: InterpodInputs,
+                         norm: NormInputs | None = None) -> ScanResult:
     """Phase B with inter-pod (anti-)affinity (`assign_scan_interpod_plain`):
     the operands of `assign_scan`, and `interpod` (InterpodInputs). On a
     card the wrapper hands the kernel a transposed [UQ + UE, N] copy of the
@@ -527,19 +707,23 @@ def assign_scan_interpod(masked_static, requests, nonzero_requests,
             requested, nonzero)
     dev = _check_operands("assign_scan_interpod", *args)
     _check_interpod(interpod, *masked_static.shape, dev)
+    _check_norm(norm, *masked_static.shape, dev)
     if dev.type == "cpu":
-        return assign_scan_interpod_plain(*args, rr_start, w_lr, w_ba, interpod)
+        return assign_scan_interpod_plain(*args, rr_start, w_lr, w_ba, interpod,
+                                          norm)
     _interpod_limits("assign_scan_interpod", interpod)
     node_t, _held, extra = _interpod_operands(interpod)
     out = _launch("ktpu_assign_scan_interpod", _INTERPOD_ARGTYPES, *args,
-                  rr_start, w_lr, w_ba, extra)
+                  rr_start, w_lr, w_ba, extra, norm)
     assign_scan_interpod.launches += 1
+    assign_scan_interpod.norm_launches += norm is not None
     uq = interpod.podsel_count.shape[1]
     return ScanResult(*out, node_t[:uq].t().contiguous(),
                       node_t[uq:].t().contiguous())
 
 
 assign_scan_interpod.launches = 0
+assign_scan_interpod.norm_launches = 0   # of them, with the normalization flag
 
 
 def _check_interpod(ip: InterpodInputs, p: int, n: int, dev) -> None:
@@ -625,7 +809,8 @@ def assign_scan_spread_interpod(masked_static, requests, nonzero_requests,
                                 allocatable, requested, nonzero, rr_start,
                                 w_lr: float, w_ba: float,
                                 spread: SpreadInputs,
-                                interpod: InterpodInputs) -> ScanResult:
+                                interpod: InterpodInputs,
+                                norm: NormInputs | None = None) -> ScanResult:
     """Phase B with inter-pod (anti-)affinity and SelectorSpread over one
     ledger (`assign_scan_spread_interpod_plain`): the operands of
     `assign_scan`, `spread` (SpreadInputs) and `interpod` (InterpodInputs),
@@ -641,6 +826,7 @@ def assign_scan_spread_interpod(masked_static, requests, nonzero_requests,
     dev = _check_operands(name, *args)
     uq = _check_spread(spread, *masked_static.shape, dev)
     _check_interpod(interpod, *masked_static.shape, dev)
+    _check_norm(norm, *masked_static.shape, dev)
     if spread.domain_universe != interpod.domain_universe or not all(
             _same(getattr(spread, f), getattr(interpod, f))
             for f in ("podsel_count", "topology", "pod_matches_q")):
@@ -648,7 +834,7 @@ def assign_scan_spread_interpod(masked_static, requests, nonzero_requests,
                          f"ledgers, topology, match rows or universes")
     if dev.type == "cpu":
         return assign_scan_spread_interpod_plain(*args, rr_start, w_lr, w_ba,
-                                                 spread, interpod)
+                                                 spread, interpod, norm)
     _spread_limits(name, spread, uq)
     _interpod_limits(name, interpod)
     node_t, _held, extra = _interpod_operands(interpod)
@@ -656,13 +842,15 @@ def assign_scan_spread_interpod(masked_static, requests, nonzero_requests,
     out = _launch("ktpu_assign_scan_spread_interpod", _SPREAD_INTERPOD_ARGTYPES,
                   *args, rr_start, w_lr, w_ba,
                   (*extra, spread.spread_q.data_ptr(), zone.data_ptr(),
-                   spread.zones, float(spread.w_ss)))
+                   spread.zones, float(spread.w_ss)), norm)
     assign_scan_spread_interpod.launches += 1
+    assign_scan_spread_interpod.norm_launches += norm is not None
     return ScanResult(*out, node_t[:uq].t().contiguous(),
                       node_t[uq:].t().contiguous())
 
 
 assign_scan_spread_interpod.launches = 0
+assign_scan_spread_interpod.norm_launches = 0   # of them, with the normalization flag
 
 
 _GANG_ARGTYPES = _ARGTYPES[:-1] + [ctypes.c_void_p] * 3 + [ctypes.c_void_p]
@@ -670,7 +858,7 @@ _GANG_ARGTYPES = _ARGTYPES[:-1] + [ctypes.c_void_p] * 3 + [ctypes.c_void_p]
 
 def assign_scan_gang(masked_static, requests, nonzero_requests, allocatable,
                      requested, nonzero, rr_start, w_lr: float, w_ba: float,
-                     gang: GangInputs) -> ScanResult:
+                     gang: GangInputs, norm: NormInputs | None = None) -> ScanResult:
     """Phase B with the gang carry (`assign_scan_gang_plain`): the operands
     of `assign_scan`, and `gang` (GangInputs). On a card the wrapper gives
     the kernel an undo log of 48 bytes a pod for each block of the cluster,
@@ -683,14 +871,17 @@ def assign_scan_gang(masked_static, requests, nonzero_requests, allocatable,
     for check in (("gang_id", gang.gang_id, torch.int32, (p,)),
                   ("gang_min", gang.gang_min, torch.int32, (p,))):
         check_tensor(*check, dev)
+    _check_norm(norm, p, masked_static.shape[1], dev)
     if dev.type == "cpu":
-        return assign_scan_gang_plain(*args, rr_start, w_lr, w_ba, gang)
+        return assign_scan_gang_plain(*args, rr_start, w_lr, w_ba, gang, norm)
     undo = torch.empty((CLUSTER, p, 3, 4), dtype=torch.float32, device=dev)
     out = _launch("ktpu_assign_scan_gang", _GANG_ARGTYPES, *args, rr_start,
                   w_lr, w_ba, (gang.gang_id.data_ptr(), gang.gang_min.data_ptr(),
-                               undo.data_ptr()))
+                               undo.data_ptr()), norm)
     assign_scan_gang.launches += 1
+    assign_scan_gang.norm_launches += norm is not None
     return ScanResult(*out)
 
 
 assign_scan_gang.launches = 0
+assign_scan_gang.norm_launches = 0   # of them, with the normalization flag

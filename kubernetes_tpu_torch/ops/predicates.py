@@ -163,6 +163,17 @@ def tolerates_node_taints(state: ClusterState, batch: PodBatch) -> torch.Tensor:
     return violations == 0.0
 
 
+def count_untolerated_prefer_taints(state: ClusterState,
+                                    batch: PodBatch) -> torch.Tensor:
+    """f32[P, N]: untolerated PreferNoSchedule taints per node, the map half
+    of the TaintToleration priority (priorities/taint_toleration.go:29).
+    The plain mirror of JAX's matmul: nothing on the scheduling path calls
+    it; the solver, the plain scan and the kernels count from the 64-bit
+    words (`ops.assign_scan.norm_counts`), which the tests hold against
+    it."""
+    return torch.matmul(untolerated(state, batch), state.taint_prefer_member.T)
+
+
 def _bits_clear(state: ClusterState, bits: int) -> torch.Tensor:
     return ((state.conditions & bits) == 0)[None, :]
 

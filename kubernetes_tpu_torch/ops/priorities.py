@@ -56,6 +56,49 @@ def balanced_allocation(allocatable: torch.Tensor, nonzero_requests: torch.Tenso
     return torch.where(bad, 0.0, score)
 
 
+def taint_toleration_from_counts(counts: torch.Tensor,
+                                 feasible: torch.Tensor) -> torch.Tensor:
+    """The reduce half of TaintToleration (taint_toleration.go:73-96) over
+    the last axis: (1 - count/max)*MaxPriority truncated, with the max over
+    the `feasible` nodes (the reference reduces over the filtered node
+    list); all MaxPriority when that max is 0."""
+    counts = torch.where(feasible, counts.to(torch.float32), 0.0)
+    max_count = counts.max(dim=-1, keepdim=True).values
+    return torch.where(
+        max_count > 0,
+        torch.trunc((1.0 - counts / torch.clamp(max_count, min=1.0)) * MAX_PRIORITY
+                    + FLOOR_EPS),
+        float(MAX_PRIORITY))
+
+
+def node_affinity_counts(state: ClusterState, batch: PodBatch) -> torch.Tensor:
+    """The map half of NodeAffinityPriority (node_affinity.go
+    CalculateNodeAffinityPriorityMap): f32[P, N], per node the total weight
+    of the pod's preferred terms whose every requirement the node meets,
+    `pref_onehot[P, TP, UR] @ req_member[N, UR].T >= pref_count`. The plain
+    mirror of JAX's matmul: nothing on the scheduling path calls it; the
+    solver, the plain scan and the kernels count from the 64-bit words
+    (`ops.assign_scan.norm_counts`), which the tests hold against it."""
+    term_sat = torch.matmul(batch.pref_onehot, state.req_member.T)   # [P, TP, N]
+    matches = ((term_sat >= batch.pref_count[:, :, None])
+               & (batch.pref_weight[:, :, None] > 0))
+    return torch.where(matches, batch.pref_weight[:, :, None], 0.0).sum(dim=1)
+
+
+def normalized_from_counts(counts: torch.Tensor,
+                           feasible: torch.Tensor) -> torch.Tensor:
+    """NormalizeReduce (node_affinity.go CalculateNodeAffinityPriorityReduce)
+    over the last axis: trunc(MaxPriority * count / max) with the max over
+    the `feasible` nodes; all 0 when that max is 0."""
+    counts = torch.where(feasible, counts.to(torch.float32), 0.0)
+    max_count = counts.max(dim=-1, keepdim=True).values
+    return torch.where(
+        max_count > 0,
+        torch.trunc(counts * MAX_PRIORITY / torch.clamp(max_count, min=1.0)
+                    + FLOOR_EPS),
+        0.0)
+
+
 def node_prefer_avoid(state: ClusterState, batch: PodBatch) -> torch.Tensor:
     """CalculateNodePreferAvoidPodsPriorityMap: 0 on nodes whose
     preferAvoidPods annotation names the pod's RC/RS controller,

@@ -31,10 +31,15 @@ the next. This solver reproduces that decision for decision:
   build settles each all-or-nothing group as the scan leaves it: a group
   below its quorum of placed members gives back its ledger charges and
   round-robin bumps. After the scan, every member of such a group is
-  masked out of the result (node -1, score 0).
+  masked out of the result (node -1, score 0). When the batch raises the
+  tt gate (a PreferNoSchedule taint interned) or the na gate (a preferred
+  node-affinity term) and the policy weighs TaintToleration or
+  NodeAffinity, whichever build runs takes the normalization flag: both
+  scores over each pod's feasible nodes, from 64-bit taint and
+  requirement words Phase A packs (`norm_inputs`).
 
-This package carries the main path and the spread, ipa and gang gates: a
-batch whose content raises any other BatchFlags gate, a batch that needs
+This package carries the main path and the spread, ipa, gang, tt and na
+gates: a batch whose content raises any other BatchFlags gate, a batch that needs
 the gang build with the spread or the interpod build, a policy that weighs
 ServiceSpreadingPriority on a spread batch, or a policy outside the fused
 static mask or with argument-carrying registrations, raises
@@ -61,6 +66,7 @@ from kubernetes_tpu_torch.ops.assign_scan import (
     POD_ROW_FIELDS,
     GangInputs,
     InterpodInputs,
+    NormInputs,
     SpreadInputs,
     assign_scan,
     assign_scan_gang,
@@ -72,6 +78,7 @@ from kubernetes_tpu_torch.ops.assign_scan import (
     assign_scan_spread_interpod,
     assign_scan_spread_interpod_plain,
     assign_scan_spread_plain,
+    norm_inputs,
 )
 from kubernetes_tpu_torch.ops.static_mask import node_bits, static_mask, static_mask_plain
 from kubernetes_tpu_torch.state.cluster_state import ClusterState
@@ -117,6 +124,8 @@ class PolicyGates:
     use_ipa: bool      # InterPodAffinityMatches: in the policy and ipa raised
     w_ip: float        # InterPodAffinityPriority, 0 unless the batch raises ipa
     hard_w: float      # hardPodAffinityWeight
+    w_tt: float        # TaintTolerationPriority, 0 unless the batch raises tt
+    w_na: float        # NodeAffinityPriority, 0 unless the batch raises na
     const_score: float
 
     @property
@@ -147,6 +156,8 @@ def policy_gates(policy: Policy, flags: BatchFlags) -> PolicyGates:
         use_ipa=policy.has_predicate("MatchInterPodAffinity") and flags.ipa,
         w_ip=policy.weight("InterPodAffinityPriority") if flags.ipa else 0,
         hard_w=float(policy.hard_pod_affinity_weight),
+        w_tt=policy.weight("TaintTolerationPriority") if flags.tt else 0,
+        w_na=policy.weight("NodeAffinityPriority") if flags.na else 0,
         const_score=const_score,
     )
 
@@ -163,15 +174,15 @@ _STATIC_PRIORITIES = ("EqualPriority", "ImageLocalityPriority",
 def check_supported(policy: Policy, flags: BatchFlags) -> PolicyGates:
     """The gates of a (policy, flags) pair this solver implements; raises
     NotImplementedError naming every gate or registration it does not."""
-    # spread, ipa and gang are carried; svcanti is neutral without a
-    # ServiceAntiAffinity registration, which the PolicyRows check below
+    # spread, ipa, gang, tt and na are carried; svcanti is neutral without
+    # a ServiceAntiAffinity registration, which the PolicyRows check below
     # refuses
     raised = [f.name for f in fields(BatchFlags) if getattr(flags, f.name)
-              and f.name not in ("spread", "svcanti", "ipa", "gang")]
+              and f.name not in ("spread", "svcanti", "ipa", "gang", "tt", "na")]
     if raised:
         raise NotImplementedError(
             f"batch raises solver gates {raised}: only the main path and "
-            f"the spread, ipa and gang gates are implemented")
+            f"the spread, ipa, gang, tt and na gates are implemented")
     if flags.spread and policy.weight("ServiceSpreadingPriority"):
         raise NotImplementedError(
             "ServiceSpreadingPriority with a weight is not implemented")
@@ -320,29 +331,43 @@ def spread_interpod_inputs(state: ClusterState, batch: PodBatch, g: PolicyGates,
                    pod_matches_q=ip.pod_matches_q), ip
 
 
+def scan_norm_inputs(state: ClusterState, batch: PodBatch,
+                     g: PolicyGates) -> NormInputs | None:
+    """The normalization flag's operands of one batch (TaintToleration and
+    NodeAffinity), or None when the gates leave both weights 0."""
+    if not (g.w_tt or g.w_na):
+        return None
+    return norm_inputs(g.w_tt, g.w_na, state.taint_prefer_member,
+                       state.req_member, preds.untolerated(state, batch),
+                       batch.pref_onehot, batch.pref_weight)
+
+
 def _solve(state, batch, rr_start, policy, flags, caps, spread_zones, mask_fn,
            scan_fn, spread_fn, interpod_fn, gang_fn, spread_interpod_fn):
     if flags is None:
         flags = batch_flags(state, batch)
     g = check_supported(policy, flags)
     masked = masked_static_scores(state, batch, policy, g, mask_fn)
+    norm = scan_norm_inputs(state, batch, g)
     args = (masked, batch.requests, batch.nonzero_requests, state.allocatable,
             state.requested, state.nonzero_requested, rr_start,
             float(g.w_lr), float(g.w_ba))
     universe = (caps or Capacities()).domain_universe
+    # every build takes the flag's operands last
     if g.use_terms and g.w_ss:
         scan = spread_interpod_fn(*args, *spread_interpod_inputs(
-            state, batch, g, universe, spread_zones))
+            state, batch, g, universe, spread_zones), norm)
     elif g.use_terms:
-        scan = interpod_fn(*args, interpod_inputs(state, batch, g, universe))
+        scan = interpod_fn(*args, interpod_inputs(state, batch, g, universe), norm)
     elif g.w_ss:
         scan = spread_fn(*args, spread_inputs(state, batch, g, universe,
-                                              spread_zones))
+                                              spread_zones), norm)
     elif flags.gang:
         scan = gang_fn(*args, GangInputs(gang_id=batch.gang_id.contiguous(),
-                                         gang_min=batch.gang_min.contiguous()))
+                                         gang_min=batch.gang_min.contiguous()),
+                       norm)
     else:
-        scan = scan_fn(*args)
+        scan = scan_fn(*args, norm)
     assignments, scores = scan.assignments, scan.scores
     placed = reverted = None
     if flags.gang:

@@ -1,7 +1,9 @@
 """Synthetic cluster fixtures (the scheduler_perf strategy analog): uniform
 fake nodes and templated pods at any scale, as v1 objects of this package.
 They build the same objects as the reference package's fixtures of the same
-name, for the options this package's solver carries."""
+name, for the options this package's solver carries; `prefer_taint_every`,
+`class_tolerations` and `class_preferred` are this package's own (the tt_na
+traffic, perf/harness.py)."""
 
 from __future__ import annotations
 
@@ -11,9 +13,10 @@ from kubernetes_tpu_torch.gang import GROUP_MIN_ANNOTATION, GROUP_NAME_ANNOTATIO
 
 def make_nodes(n: int, cpu: str = "4", memory: str = "8Gi", pods: str = "110",
                zones: int = 3, labels_per_node: int = 0,
-               taint_every: int = 0) -> list[Node]:
+               taint_every: int = 0, prefer_taint_every: int = 0) -> list[Node]:
     """Uniform ready nodes; optional zone spread, filler labels, periodic
-    NoSchedule taints."""
+    NoSchedule taints, and periodic `dedicated=batch:PreferNoSchedule`
+    taints (every `prefer_taint_every`-th node from node 0)."""
     out = []
     for i in range(n):
         labels = {
@@ -27,6 +30,9 @@ def make_nodes(n: int, cpu: str = "4", memory: str = "8Gi", pods: str = "110",
         if taint_every and i % taint_every == 0:
             taints = [{"key": "dedicated", "value": "special",
                        "effect": "NoSchedule"}]
+        if prefer_taint_every and i % prefer_taint_every == 0:
+            taints.append({"key": "dedicated", "value": "batch",
+                           "effect": "PreferNoSchedule"})
         out.append(Node.from_dict({
             "metadata": {"name": f"node-{i}", "labels": labels},
             "spec": {"taints": taints},
@@ -43,7 +49,9 @@ def make_pods(n: int, cpu: str = "100m", memory: str = "250Mi",
               tolerate: bool = False, namespace: str = "default",
               app_groups: int = 0, anti_affinity_every: int = 0,
               pref_affinity_every: int = 0, gang_size: int = 0,
-              gang_min: int | None = None) -> list[Pod]:
+              gang_min: int | None = None,
+              class_tolerations: tuple = (),
+              class_preferred: tuple = ()) -> list[Pod]:
     """Templated pending pods (the basic scheduler_perf pod spec: small cpu
     and memory requests); optional periodic nodeSelector, a toleration of
     the fixtures' NoSchedule taint, and labels app=app-{i % app_groups}
@@ -53,7 +61,10 @@ def make_pods(n: int, cpu: str = "100m", memory: str = "250Mi",
     preferred zone affinity toward it (the inter-pod-heavy shape).
     `gang_size` groups consecutive pods into all-or-nothing gangs of that
     size (quorum `gang_min`, default the full size); keep n divisible by
-    gang_size, or the trailing group is below its quorum."""
+    gang_size, or the trailing group is below its quorum. With app groups,
+    `class_tolerations[g]` and `class_preferred[g]` (lists of v1
+    tolerations and of preferred node-affinity terms, one a group) are
+    added to the pods of group g."""
     out = []
     for i in range(n):
         meta: dict = {"name": f"{name_prefix}-{i}", "namespace": namespace}
@@ -72,7 +83,14 @@ def make_pods(n: int, cpu: str = "100m", memory: str = "250Mi",
             spec["nodeSelector"] = {"label-0": f"value-{i % 7}"}
         if tolerate:
             spec["tolerations"] = [{"key": "dedicated", "operator": "Exists"}]
+        if class_tolerations and class_tolerations[i % app_groups]:
+            spec["tolerations"] = (spec.get("tolerations", [])
+                                   + list(class_tolerations[i % app_groups]))
         affinity: dict = {}
+        if class_preferred and class_preferred[i % app_groups]:
+            affinity["nodeAffinity"] = {
+                "preferredDuringSchedulingIgnoredDuringExecution":
+                    list(class_preferred[i % app_groups])}
         sel = {"matchLabels": {"app": f"app-{i % app_groups}"}} \
             if app_groups else None
         if anti_affinity_every and sel and i % anti_affinity_every == 0:

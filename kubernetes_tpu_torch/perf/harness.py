@@ -21,6 +21,10 @@
   `bench[gang]` is `run_throughput(50000, 24576, node_kwargs={"zones":
   3}, pod_kwargs={"gang_size": 8})`, and a run whose groups do not all
   settle (placed or reverted) fails, as the reference bench's does.
+  PreferNoSchedule taints and preferred node affinity raise the tt and
+  na gates, which every build takes as its normalization flag: the
+  `tt_na` traffic is `run_throughput(15000, 30000,
+  node_kwargs=TT_NA_NODES, pod_kwargs=TT_NA_PODS)`.
 
 Both build the CUDA kernels and warm the device before the clock starts,
 and run on `cuda` unless given another device.
@@ -57,6 +61,34 @@ INTERPOD_PODS = {"app_groups": 8, "anti_affinity_every": 16,
 # the spread_interpod traffic's pod mix: bench[spread]'s 16 app groups (each
 # selected by a Service) with bench[interpod]'s terms
 SPREAD_INTERPOD_PODS = {**INTERPOD_PODS, "app_groups": 16}
+
+
+def _tt_na_preferred(group: int) -> list:
+    """The tt_na traffic's preferred terms of app group g: its zone,
+    zone-{g % 3}, at weight 10 * (1 + g % 4), and for odd groups also
+    label-0 In value-{g % 7} at weight 1."""
+    terms = [{"weight": 10 * (1 + group % 4), "preference": {"matchExpressions": [
+        {"key": "failure-domain.beta.kubernetes.io/zone", "operator": "In",
+         "values": [f"zone-{group % 3}"]}]}}]
+    if group % 2:
+        terms.append({"weight": 1, "preference": {"matchExpressions": [
+            {"key": "label-0", "operator": "In", "values": [f"value-{group % 7}"]}]}})
+    return terms
+
+
+# the tt_na traffic: bench[headline]'s nodes (bench.py:260) with one filler
+# label and every 8th node tainted dedicated=batch:PreferNoSchedule; its
+# 30,000 pods in 16 app groups, the even groups tolerating the taint, each
+# group preferring a zone and the odd groups a label value too
+TT_NA_NODES = {"zones": 3, "labels_per_node": 1, "prefer_taint_every": 8}
+TT_NA_PODS = {
+    "app_groups": 16,
+    "class_tolerations": tuple(
+        [{"key": "dedicated", "operator": "Equal", "value": "batch",
+          "effect": "PreferNoSchedule"}] if g % 2 == 0 else []
+        for g in range(16)),
+    "class_preferred": tuple(_tt_na_preferred(g) for g in range(16)),
+}
 
 
 def default_caps(n_nodes: int, n_pods: int) -> Capacities:

@@ -3,7 +3,11 @@ the CPU: `schedule_batch` equals JAX `schedule_batch` (with and without the
 Pallas fused static mask) on assignments, scores, feasible counts, both
 ledgers and rr_end, exactly; `Scheduler.schedule` over three chained
 batches equals JAX `schedule_batch` chained by hand; and every gate,
-policy or pod outside the main path raises NotImplementedError."""
+policy or pod outside the main path raises NotImplementedError, but the
+tt and na gates, which the normalization flag carries and which equal
+JAX `schedule_batch` on a batch that raises them."""
+
+import dataclasses
 
 import jax
 import numpy as np
@@ -162,7 +166,19 @@ def test_gates_outside_the_main_path_raise(gate):
     rng = np.random.RandomState(5)
     nodes, pods = random_cluster(rng, 24, BATCH, gated=gate in ("tt", "gpu",
                                                                 "storage", "na"))
-    (state, batch, _), _ = encode_both(nodes, pods)
+    (state, batch, _), (jstate, jbatch, _) = encode_both(nodes, pods)
+    if gate in ("tt", "na"):
+        # carried since the normalization flag (the gated cluster's gpu and
+        # storage requests held off by the flags, on both sides)
+        jflags = dataclasses.replace(NO_GATES, **{gate: True})
+        want = jax.jit(lambda s, b, r: jsolver.schedule_batch(
+            s, b, r, J_POLICY, flags=jflags))(jstate, jbatch, np.uint32(0))
+        got = schedule_batch(state_from_numpy(state, "cpu"),
+                             batch_from_numpy(batch, "cpu"), 0,
+                             flags=dataclasses.replace(BatchFlags(*([False] * 12)),
+                                                       **{gate: True}))
+        assert_same(got, want, gate)
+        return
     if gate == "ports":
         batch.port_onehot[0, 0] = 1.0
     elif gate == "vol":
