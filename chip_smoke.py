@@ -40,9 +40,12 @@ fails; nothing is caught and skipped:
    ones; then the spread+interpod build's hazards at every build
    (spread_interpod_hazards): the interpod hazards' batches with
    SelectorSpread over the same ledger, pods raising both gates, one of
-   them or neither, 0, 1 and 3 zones, and a required anti term that
+   them or neither, 0, 1, 3, 4 and 64 zones, a required anti term that
    rejects the node SelectorSpread scores highest and the one holding the
-   most counts; the edge shapes and the 8-node hazards hold it too; then
+   most counts, pods cycling spread only, interpod only and both, and warp
+   totals of 65,535 and 65,536 (the bound of the packed zone sums), the
+   4- and 64-zone, cycling and bound batches also with the normalization
+   flag; the edge shapes and the 8-node hazards hold it too; then
    the 8-node hazards of every build (run8_hazards): node
    counts with N % 4 = 1, 2 and 3 (rows that start unaligned, and the
    row tail's 4-byte copies), one that leaves the last blocks without a
@@ -1101,21 +1104,37 @@ def with_spread(torch, rng, ip, zones, no_entry=0.33):
                         topology=topo, domain_universe=nd, zones=zones), ip
 
 
-def spread_interpod_hazard_inputs(torch, rng, dev, n, p, k, pool, zones,
-                                  reject=False):
+def spread_interpod_hazard_inputs(torch, rng, dev, n, p, k, pool, zones, mode=""):
     """interpod_hazard_inputs' batch (`pool`, k topology slots) with
     SelectorSpread over the same ledger (`with_spread`, `zones` zones).
-    With `reject` (pool "wide"), every pod with an entry takes entry 14,
-    and the pods' required hostname anti-affinity (selector 15, which no
-    pod matches) rejects two statically feasible nodes: one without a
-    count of entry 14, which SelectorSpread scores highest and which every
-    pod's static score puts at the top, and one that holds the most, which
-    would set the maximum count if SelectorSpread counted before the
-    predicate. Returns (the scan's arguments, SpreadInputs,
-    InterpodInputs)."""
+    `mode` adds a hazard:
+    - "reject" (pool "wide"): every pod with an entry takes entry 14, and
+      the pods' required hostname anti-affinity (selector 15, which no pod
+      matches) rejects two statically feasible nodes: one without a count
+      of entry 14, which SelectorSpread scores highest and which every
+      pod's static score puts at the top, and one that holds the most,
+      which would set the maximum count if SelectorSpread counted before
+      the predicate;
+    - "alternate": pods cycle spread only (an entry, no weighted count
+      entry), interpod only (no entry, a preferred zone term) and both, so
+      the combined message's size changes every pod;
+    - "bound" (4 zones or fewer): every pod takes entry 3, and the first
+      two warps of block 0 hold nodes of zone 0 that every pod may take,
+      each with 2^16 / (32 RUN) - 1 counts of entry 3, the largest max
+      count whose zone sums the build reduces in packed 16-bit fields (a
+      field of 2^16 - 32 RUN), one node of the second warp with one more,
+      which the build reduces zone by zone; placements add to both.
+    Returns (the scan's arguments, SpreadInputs, InterpodInputs)."""
+    from kubernetes_tpu_torch.ops.assign_scan import node_run
+    from kubernetes_tpu_torch.state.layout import TOPO_SPREAD_ZONE
+
     args, ip = interpod_hazard_inputs(torch, rng, dev, n, p, k, pool)
     spread, ip = with_spread(torch, rng, ip, zones)
-    if reject:
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    if mode == "reject":
         q = spread.spread_q.cpu().numpy()
         q[q >= 0] = 14
         ms = args[0].cpu().numpy()
@@ -1132,16 +1151,100 @@ def spread_interpod_hazard_inputs(torch, rng, dev, n, p, k, pool, zones,
         match[q >= 0, 14] = 1.0
         panti_q, panti_tkey = ip.panti_q.cpu().numpy(), ip.panti_tkey.cpu().numpy()
         panti_q[:, 2], panti_tkey[:, 2] = 15, 0
-
-        def t(a):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-
         args = (t(ms), *args[1:])
         ip = dataclasses.replace(ip, podsel_count=t(podsel), pod_matches_q=t(match),
                                  panti_q=t(panti_q), panti_tkey=t(panti_tkey))
         spread = dataclasses.replace(spread, spread_q=t(q), podsel_count=ip.podsel_count,
                                      pod_matches_q=ip.pod_matches_q)
+    elif mode == "alternate":
+        # the weighted terms read selectors 0-7: a pod that matches none of
+        # them and prefers nothing has no priority to count
+        kind = np.arange(p) % 3            # 0 spread only, 1 interpod only, 2 both
+        q = spread.spread_q.cpu().numpy()
+        q[kind == 1] = -1
+        q[kind != 1] = rng.integers(0, 8, int((kind != 1).sum()))
+        match = ip.pod_matches_q.cpu().numpy()
+        match[kind == 0, :8] = 0.0
+        ppref_q, ppref_tkey = ip.ppref_q.cpu().numpy(), ip.ppref_tkey.cpu().numpy()
+        ppref_w = ip.ppref_w.cpu().numpy()
+        ppref_q[kind == 0] = -1
+        counting = kind != 0
+        ppref_q[counting, 0] = rng.integers(0, 8, int(counting.sum()))
+        ppref_tkey[counting, 0] = 1
+        ppref_w[counting, 0] = 5.0
+        ip = dataclasses.replace(ip, pod_matches_q=t(match), ppref_q=t(ppref_q),
+                                 ppref_tkey=t(ppref_tkey), ppref_w=t(ppref_w))
+        spread = dataclasses.replace(spread, spread_q=t(q), pod_matches_q=ip.pod_matches_q)
+    elif mode == "bound":
+        if zones > 4:
+            raise ValueError("the packed zone sums take 4 zones or fewer")
+        warp = 32 * node_run(n)
+        top = (1 << 16) // warp - 1
+        q = np.full(p, 3, np.int32)
+        ms = args[0].cpu().numpy()
+        podsel = ip.podsel_count.cpu().numpy()
+        topo = ip.topology.cpu().numpy()
+        for w in (0, 1):
+            nodes = np.arange(w * warp, min((w + 1) * warp, n))
+            ms[:, nodes] = 100020.0
+            topo[nodes, TOPO_SPREAD_ZONE] = 0
+            podsel[nodes, 3] = top
+        podsel[min(2 * warp, n) - 1, 3] = top + 1
+        args = (t(ms), *args[1:])
+        ip = dataclasses.replace(ip, podsel_count=t(podsel), topology=t(topo))
+        spread = dataclasses.replace(spread, spread_q=t(q), podsel_count=ip.podsel_count,
+                                     topology=ip.topology)
+    elif mode:
+        raise ValueError(f"unknown hazard {mode!r}")
     return args, spread, ip
+
+
+def spread_interpod_hazards_phase(torch, rng, dev, shapes) -> dict:
+    """The spread+interpod build's hazards at each (pods, nodes) of
+    `shapes`: runs of pods placed on one node and on one thread's nodes
+    (the match row added once, the count column patched a pod ahead), pods
+    with both gates, one of them or neither (spread_q -1, no weighted
+    entry: the message's size moves pod to pod), 0, 1, 3, 4 and 64 zones
+    (the zone sums in packed fields up to 4, zone by zone past it), domain
+    ids -1 and past the universe, a required anti term that rejects the
+    node SelectorSpread scores highest and the one with the most counts,
+    pods cycling spread only, interpod only and both, and warp totals at
+    the packed fields' bound (spread_interpod_hazard_inputs); the 4- and
+    64-zone, cycling and bound batches also with the normalization flag
+    (norm_test_inputs). Returns the phase line."""
+    from kubernetes_tpu_torch.ops.assign_scan import (
+        assign_scan_spread_interpod,
+        assign_scan_spread_interpod_plain,
+        node_run,
+    )
+
+    cases = (("one_node", 8, 3, ""), ("one_thread", 5, 1, ""), ("wide", 16, 0, ""),
+             ("wide", 8, 3, "reject"), ("wide", 8, 4, ""), ("wide", 8, 64, ""),
+             ("wide", 8, 3, "alternate"), ("wide", 8, 4, "bound"))
+
+    def with_flag(zones, mode):
+        return mode in ("alternate", "bound") or zones in (4, 64)
+
+    for p_, n_ in shapes:
+        for pool, k_, zones_, mode in cases:
+            hargs, sp_, ip_ = spread_interpod_hazard_inputs(
+                torch, rng, dev, n_, p_, k_, pool, zones_, mode)
+            variants = [()]
+            if with_flag(zones_, mode):
+                ms_, norm_ = norm_test_inputs(torch, rng, dev, hargs[0])
+                hargs = (ms_, *hargs[1:])
+                variants.append((norm_,))
+            for v in variants:
+                compare_interpod(
+                    torch, assign_scan_spread_interpod(*hargs, 1.0, 1.0, sp_, ip_, *v),
+                    assign_scan_spread_interpod_plain(*hargs, 1.0, 1.0, sp_, ip_, *v),
+                    "spread_interpod")
+    return {"phase": "spread_interpod_hazards", "shapes": [list(x) for x in shapes],
+            "runs": sorted({node_run(n_) for _, n_ in shapes}),
+            "cases": [f"{pool}_k{k_}_z{z_}" + (f"_{m_}" if m_ else "")
+                      + ("_and_flag" if with_flag(z_, m_) else "")
+                      for pool, k_, z_, m_ in cases],
+            "kernel_equals_plain": True}
 
 
 def spread_interpod_bound(torch, scan_args, spread, ip) -> tuple[float, str]:
@@ -2330,28 +2433,8 @@ def main() -> int:
           "runs": hz_runs, "cases": [f"{pool}_k{k_}" for pool, k_ in ih_cases],
           "kernel_equals_plain": True})
 
-    # ---- 3d': the spread+interpod build's hazards at every RUN: runs of
-    # pods placed on one node and on one thread's nodes (the match row
-    # added once, the count column patched a pod ahead), pods with both
-    # gates, one of them or neither (spread_q -1, no weighted entry: the
-    # message's size moves pod to pod), 0, 1 and 3 zones, domain ids -1 and
-    # past the universe, and a required anti term that rejects the node
-    # SelectorSpread scores highest and the one with the most counts
-    si_cases = (("one_node", 8, 3, False), ("one_thread", 5, 1, False),
-                ("wide", 16, 0, False), ("wide", 8, 3, True))
-    for p_, n_ in hz_shapes:
-        for pool, k_, zones_, reject in si_cases:
-            hargs, sp_, ip_ = spread_interpod_hazard_inputs(
-                torch, rng, dev, n_, p_, k_, pool, zones_, reject)
-            compare_interpod(
-                torch, assign_scan_spread_interpod(*hargs, 1.0, 1.0, sp_, ip_),
-                assign_scan_spread_interpod_plain(*hargs, 1.0, 1.0, sp_, ip_),
-                "spread_interpod")
-    emit({"phase": "spread_interpod_hazards", "shapes": [list(x) for x in hz_shapes],
-          "runs": hz_runs,
-          "cases": [f"{pool}_k{k_}_z{z_}" + ("_reject" if r_ else "")
-                    for pool, k_, z_, r_ in si_cases],
-          "kernel_equals_plain": True})
+    # ---- 3d': the spread+interpod build's hazards at every RUN
+    emit(spread_interpod_hazards_phase(torch, rng, dev, hz_shapes))
 
     # ---- 3e: the 8-node build's hazards: unaligned rows, empty blocks,
     # the ring wrapping mid-batch, all-miss pods and reverts on one node

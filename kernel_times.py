@@ -62,8 +62,10 @@ gate, the interpod build on its ipa gate and the combined build on both
 (`spread_interpod_batch_main_ms`, `spread_interpod_batch_spread_ms`,
 `spread_interpod_batch_interpod_ms`, `spread_interpod_ms`), and the
 combined build with no spread entry (`spread_interpod_no_entry_ms`) and
-with the priority's weight 0 (`spread_interpod_no_score_ms`), each also
-as `*_kernel_us`; with `run8`, also at 8 nodes a thread
+with the priority's weight 0 (`spread_interpod_no_score_ms`), and with
+the normalization flag of one PreferNoSchedule taint on node 0 that no
+pod tolerates (`spread_interpod_flag_ms`), each also as `*_kernel_us`;
+with `run8`, also at 8 nodes a thread
 (`spread_interpod_run8_*`). `--sass-against DIR` builds the scan of the
 tree at DIR in a process of its own and reports, build by build and RUN
 by RUN, whether this tree's SASS is byte-identical to it
@@ -208,6 +210,7 @@ def main() -> int:
         # (no (min, max)); the placements differ, so they price the chain
         no_entry = dataclasses.replace(sp, spread_q=torch.full_like(sp.spread_q, -1))
         no_score = dataclasses.replace(ip, w_ip=0.0)
+        flag = (smoke.one_taint_norm(torch, dev, *siargs[0].shape),)
         for key, call in (
                 ("spread_interpod_batch_main", lambda: assign_scan(*siargs)),
                 ("spread_interpod_batch_spread",
@@ -216,7 +219,8 @@ def main() -> int:
                  lambda: scan_module.assign_scan_interpod(*siargs, ip)),
                 ("spread_interpod", lambda: si_scan(*siargs, sp, ip)),
                 ("spread_interpod_no_entry", lambda: si_scan(*siargs, no_entry, ip)),
-                ("spread_interpod_no_score", lambda: si_scan(*siargs, sp, no_score))):
+                ("spread_interpod_no_score", lambda: si_scan(*siargs, sp, no_score)),
+                ("spread_interpod_flag", lambda: si_scan(*siargs, sp, ip, *flag))):
             out.update(smoke.timed(torch, call, REPS, f"{key}_ms"))
             out[f"{key}_kernel_us"] = kernel_us(device_times(torch, ((call, REPS),)))
     if {"gang", "phase_a"} & parts and hasattr(scan_module, "assign_scan_gang"):

@@ -407,10 +407,84 @@
 // interpod build does (its registers). The spread half's partial, its
 // reduction and its score are written out again inside the combined
 // exchange rather than shared with the spread build's code, which keeps
-// that build's instructions as they were. Priced on the spread_interpod
-// cell's first batch (PERF.md, section 6), the spread half costs ~1.5 us a pod
-// even without an exchange of its own: the partial before the exchange
-// and the reduction and score after it take about half each.
+// that build's instructions as they were; so are the count loop and the
+// replica's update, beside the interpod build's.
+//
+// Its per-pod chain, redesigned for Hopper (each step priced on the
+// spread_interpod cell's first batch, P = 4,096, N = 16,384, 2 nodes a
+// thread; PERF.md, section 6):
+//   1. the block's domain ids live in shared memory as bytes, [IP_MAX_K]
+//      [NB], loaded once at the start (1, 2 and 4 nodes a thread; at 8 they
+//      stay in device memory, 64 KiB past the carve's room): an id in
+//      [0, nd) is itself, -1 is SI_NO_ID and an id at or past nd SI_PAST,
+//      which keeps the union's "no zone and no region" test; a count reads
+//      the node's id from shared memory, not from the topology in device
+//      memory, before it reads the replica;
+//   2. the block's replica holds slots 1..k-1 alone (slot 0 is the
+//      hostname, read from the node-level counts) and lives in shared
+//      memory after the ids where the block has room for it: (k - 1) * nd *
+//      (uq + ue) * 4 bytes, 114,688 at the cell's k = 8, nd = 64, uq = ue =
+//      32, beside 140,144 bytes of room at 2 nodes a thread; else it stays
+//      in device memory (dom_b points at slot 1 either way). A count is then
+//      two shared loads after its entry, and warps 1-15 add the placed
+//      node's rows in shared memory, not with an L2 round trip a cell;
+//   3. the count loop takes the entries outside and the run's nodes inside,
+//      so one entry's loads for the run's nodes are independent; each node
+//      still takes its entries in list order (the sums are exact anyway);
+//   4. the placed node's message carries its ids of slots 1..8 as bytes,
+//      read from the owner block's ids (k <= 9, 1-4 nodes a thread), so
+//      warps 1-15 update the replica without loading the node's topology row
+//      from device memory; it is still sent after the owner's ledger update
+//      and terms, which lie on the owner warp's way to the next pod;
+//   5. with at most SI_FAST_ZONES = 4 zones in use, a warp sums its zones
+//      in two words, zone 2i + h in bits 16h to 16h + 15 of word i: two
+//      redux.sync where the loop took one a zone. A field sums one zone's
+//      feasible counts over at most the warp's 32 RUN nodes, each at most
+//      the warp's max count wmax, so while wmax * 32 RUN < 2^16 no field
+//      reaches 2^16, none carries into the next and the high field stays
+//      below 2^32 (counts at or past 2^16 / (32 RUN), rare, take the loop of
+//      one redux.sync a zone). Lane 0 of each warp then adds its max count,
+//      zoned flag, zone sums, (min, max) and the flag's maxima into the
+//      block's words with shared atomics (max, or, add, min: every order
+//      gives the same integers), so after the barrier warp 0 reads the
+//      block's partial instead of reducing 16 warp slots, and sets the words
+//      back to 0 before the triple barrier (no warp adds again before the
+//      next pod's first barrier). After the exchange every warp reduces the
+//      16 block partials with lane b reading block b, one redux.sync a zone,
+//      where each lane summed its zone over the 16 blocks in turn. Past 4
+//      zones the spread build's scheme stays (one redux.sync a zone present
+//      in the warp, warp 0 summing the warp slots, a serial sum a lane);
+//   6. with at most 4 zones the SelectorSpread parts are taken once a lane:
+//      lane x the node part of count x (0-31), lane d the zone part of zone
+//      d and the other lanes that of a node whose zone is not summed; a node
+//      reads its two parts with __shfl_sync, the same arithmetic on the same
+//      values, so the same bits (a count past 31 takes its own).
+// The double reciprocals stay: their divisors are the cluster's maxima,
+// known only after the exchange; priced, an f32 reciprocal in their place
+// saved nothing measurable, and an __fdiv_rn a part cost ~1.9 ms a batch.
+// Priced and taken out: the index sent before the owner's ledger update
+// (+0.6 ms beside the ids in the message: the owner's warp is on the way to
+// the next pod's barrier); the next pod's list built by warp 0 while the
+// combined message travels, with the replica updated after the counts
+// where they read none of its changed cells (+2.9 ms: the list outlasts
+// the exchange); ballots for the zoned flags and the zone reductions
+// skipped past the zones in use (+0.56 ms); one pass over the carried
+// terms where there are at most 32 (+0.08 ms). Not built: each warp
+// sending its partial straight to the 16 blocks, which drops the barrier
+// before the message but sends 16 times the chunks (256 a block a pod,
+// 8 KiB at the cell's two) and leaves every warp 256 partials to reduce
+// where it reduces 16; per-warp pairs across the cluster were priced in
+// the interpod build's redesign, and did not pay.
+// Shared memory of a block, without / with the flag (bytes): the carve
+// 47,200 / 48,112 at 1 node a thread, 75,872 / 76,784 at 2, 133,216 /
+// 134,128 at 4, 215,136 / 216,048 at 8; then 48 of block words; the ids
+// 8,192, 16,384 and 32,768 at 1, 2 and 4 (none at 8); what is left of
+// 232,448 for the replica: 177,008 / 176,096, 140,144 / 139,232, 66,416 /
+// 65,504 and 17,264 / 16,352. ptxas (registers without / with the flag):
+// 128 / 128 at 1 node a thread, 127 / 126 at 2, 128 / 128 at 4, none
+// spilled; 128 / 128 at 8 with 124 / 132 bytes of spill stores and 112 of
+// spill loads (72 bytes of stack), where the build before this design used
+// 94, 128, 126 and 128 registers and spilled 72 bytes at 8.
 //
 // Bound of the spread+interpod build: masked_static read once, the
 // node-level counts read once and written once, the per-pod rows and the
@@ -558,6 +632,18 @@ static_assert(POD_ROW_MAIN + IPW_ROWS + IP_MAX_U <= IP_POD_ROW
 constexpr int SI_Q = IP_POD_ROW - 1;
 static_assert(POD_ROW_MAIN + IPW_ROWS + IP_MAX_U <= SI_Q && MAX_UQ == IP_MAX_UQ,
               "spread+interpod layout");
+// the block's domain ids as bytes, [IP_MAX_K][NB] at 1, 2 and 4 nodes a
+// thread: an id in [0, nd) itself, SI_NO_ID for none (-1), SI_PAST for one
+// at or past nd
+constexpr int SI_IDS_MAX_RUN = 4;
+constexpr unsigned SI_NO_ID = 0xffu, SI_PAST = 0xfeu;
+// zones whose warp sums ride packed lanes, two 16-bit fields a word
+constexpr int SI_FAST_ZONES = 4;
+constexpr unsigned SI_FIELD = 1u << 16;   // a field's bound (see the header)
+// topology slots 1..SI_MSG_SLOTS whose ids ride the placed node's message
+constexpr int SI_MSG_SLOTS = 8;
+static_assert(IP_MAX_D < (int)SI_PAST && SI_FAST_ZONES + 1 <= SP_SLOT,
+              "spread+interpod ids and packed zones");
 
 // ---- the gang build's layout
 constexpr int GW_ID = POD_ROW_MAIN;       // pod-slot word: the group id
@@ -716,7 +802,7 @@ struct Smem {
 };
 
 template <bool SPREAD, bool IPA = false, bool PACKED = false, bool NORM = false>
-constexpr size_t smem_bytes(int nb, int STAGES, int POD_ROW) {
+__host__ __device__ constexpr size_t smem_bytes(int nb, int STAGES, int POD_ROW) {
   return (size_t)(COLUMNS - (PACKED ? 2 : 0) + STAGES) * nb * sizeof(float)
          + 2 * sizeof(uint64_t)
          + (size_t)2 * CLUSTER * sizeof(int4)
@@ -802,6 +888,35 @@ __device__ Smem carve_packed(float* base, int nb) {
   s.z_mem = base + 7 * nb;
   s.t_lr = s.t_ba = nullptr;
   return s;
+}
+
+// The spread+interpod build's shared memory past its carve: the block's
+// partial words, then the block's domain ids as bytes (at most
+// SI_IDS_MAX_RUN nodes a thread), then, where it fits, the block's replica
+// of topology slots 1..k-1. The words, every one 0 between pods: the max
+// count, whether a feasible node has a zone, the SI_FAST_ZONES zone sums,
+// the (min, max) of the interpod counts, the flag's two maxima, padding.
+constexpr int SI_BLOCK_WORDS = 12;
+constexpr size_t SI_HEAD_BYTES = SI_BLOCK_WORDS * sizeof(int);
+static_assert(2 + SI_FAST_ZONES + 4 <= SI_BLOCK_WORDS && SI_HEAD_BYTES % 16 == 0,
+              "spread+interpod block words");
+template <int RUN>
+constexpr bool SI_HAS_IDS = RUN <= SI_IDS_MAX_RUN;
+
+template <int RUN>
+__host__ __device__ constexpr size_t si_ids_bytes() {
+  return SI_HAS_IDS<RUN> ? (size_t)IP_MAX_K * THREADS * RUN : 0;
+}
+
+__host__ __device__ inline size_t si_rep_bytes(int k, int nd, int u) {
+  return (size_t)(k - 1) * nd * u * sizeof(float);
+}
+
+// Whether the replica lives in shared memory: the carve's `base` bytes, the
+// ids and the replica within a block's shared memory.
+template <int RUN>
+__host__ __device__ inline bool si_rep_shared(size_t base, int k, int nd, int u) {
+  return base + SI_HEAD_BYTES + si_ids_bytes<RUN>() + si_rep_bytes(k, nd, u) <= (size_t)MAX_SMEM;
 }
 
 // ---- PTX: cp.async, mbarriers and st.async to another block of the cluster
@@ -1131,6 +1246,118 @@ __device__ __forceinline__ float ip_count(const IpaArgs& ip, const float* dom_b,
   return 0.0f;
 }
 
+// The start of the spread+interpod build's region past its carve: the
+// block's partial words.
+template <int RUN, bool PACKED, bool NORM>
+__device__ __forceinline__ int* si_block(float* smem_base) {
+  using B = Build<RUN, true, true, false>;
+  return reinterpret_cast<int*>(reinterpret_cast<unsigned char*>(smem_base)
+         + smem_bytes<true, true, PACKED, NORM>(THREADS * RUN, B::STAGES, B::POD_ROW));
+}
+
+// The block's domain ids as bytes.
+template <int RUN, bool PACKED, bool NORM>
+__device__ __forceinline__ unsigned char* si_ids(float* smem_base) {
+  return reinterpret_cast<unsigned char*>(si_block<RUN, PACKED, NORM>(smem_base)) + SI_HEAD_BYTES;
+}
+
+// The spread+interpod build's domain id of node g (block column c) in
+// topology slot k, as a byte: from the block's ids in shared memory
+// ([IP_MAX_K][NB] bytes), else from the topology in device memory.
+template <int RUN>
+__device__ __forceinline__ unsigned si_id(const IpaArgs& ip, const unsigned char* ids,
+                                          int k, int c, int g) {
+  if constexpr (SI_HAS_IDS<RUN>) {
+    return ids[k * (THREADS * RUN) + c];
+  } else {
+    const int d = __ldg(ip.topology + (size_t)g * ip.k + k);
+    return d < 0 ? SI_NO_ID : d < ip.nd ? (unsigned)d : SI_PAST;
+  }
+}
+
+// ip_count in the spread+interpod build: the replica `rep` holds slots
+// 1..k-1 ([k - 1, nd, uq + ue], in shared or device memory) and the
+// domain ids come as bytes (si_id); the same values in the same order.
+template <int RUN>
+__device__ __forceinline__ float si_count(const IpaArgs& ip, const float* rep,
+                                          const unsigned char* ids, int u, int tk,
+                                          int c, int g, int N) {
+  const int U = ip.uq + ip.ue;
+  if (tk == 0) return ip.node_t[(size_t)u * N + g];
+  auto at = [&](int k, unsigned d) {
+    return d < (unsigned)ip.nd ? rep[((size_t)(k - 1) * ip.nd + d) * U + u] : 0.0f;
+  };
+  if (tk > 0 && tk < ip.k) return at(tk, si_id<RUN>(ip, ids, tk, c, g));
+  if (tk == TKEY_DEFAULT_UNION) {
+    const unsigned z = si_id<RUN>(ip, ids, TOPO_ZONE, c, g);
+    const unsigned r = si_id<RUN>(ip, ids, TOPO_REGION, c, g);
+    const float host = (z == SI_NO_ID && r == SI_NO_ID) ? ip.node_t[(size_t)u * N + g] : 0.0f;
+    return __fsub_rn(__fadd_rn(__fadd_rn(host, at(TOPO_ZONE, z)), at(TOPO_REGION, r)),
+                     at(TOPO_ZONE_REGION, si_id<RUN>(ip, ids, TOPO_ZONE_REGION, c, g)));
+  }
+  return 0.0f;
+}
+
+// Whether the placed node's message carries its ids: the blocks keep
+// their ids, and the ids of slots 1..k-1 fit the message.
+template <int RUN>
+__device__ __forceinline__ bool si_ids_in_message(const IpaArgs& ip) {
+  return SI_HAS_IDS<RUN> && ip.k <= SI_MSG_SLOTS + 1;
+}
+
+// The spread+interpod build's message of the placed node g (of block
+// `rank`): its index and pod, and its ids of slots 1..SI_MSG_SLOTS as bytes
+// from the block's ids where it carries them (else 0, unread).
+template <int RUN>
+__device__ __forceinline__ int4 si_message(const IpaArgs& ip, const unsigned char* ids,
+                                           int g, int p, int rank) {
+  int4 msg = make_int4(g, p, 0, 0);
+  if constexpr (SI_HAS_IDS<RUN>) {
+    if (si_ids_in_message<RUN>(ip)) {
+      const int c = g - rank * THREADS * RUN;
+      unsigned lo = 0u, hi = 0u;
+#pragma unroll
+      for (int k = 1; k <= SI_MSG_SLOTS; ++k) {
+        const unsigned b = ids[k * THREADS * RUN + c];
+        if (k <= 4) lo |= b << (8 * (k - 1));
+        else hi |= b << (8 * (k - 5));
+      }
+      msg.z = (int)lo;
+      msg.w = (int)hi;
+    }
+  }
+  return msg;
+}
+
+// The spread+interpod build's replica update by warps 1-15 (thread t):
+// the placed pod's rows `row` into the replica `rep` (slots 1..k-1) at the
+// placed node's domains, whose ids of slots 1..SI_MSG_SLOTS ride its
+// message `wm` as bytes where the sender keeps them (`in_msg`), else come
+// from the topology in device memory.
+__device__ __forceinline__ void si_update_replica(const IpaArgs& ip, float* rep,
+                                                  const float* row, int4 wm, bool in_msg,
+                                                  int t) {
+  const int U = ip.uq + ip.ue;
+  const int* ids = ip.topology + (size_t)wm.x * ip.k;   // the node's
+  for (int i = U + t - 32; i < ip.k * U; i += THREADS - 32) {
+    const int k = i / U;
+    const int u = i - k * U;
+    const float v = row[u];
+    if (v == 0.0f) continue;
+    unsigned d;
+    if (in_msg) {
+      d = ((k <= 4 ? (unsigned)wm.z : (unsigned)wm.w) >> (8 * ((k - 1) & 3))) & 0xffu;
+    } else {
+      const int di = __ldg(ids + k);
+      d = di < 0 ? SI_NO_ID : di < ip.nd ? (unsigned)di : SI_PAST;
+    }
+    if (d < (unsigned)ip.nd) {
+      float* cell = rep + ((size_t)(k - 1) * ip.nd + d) * U + u;
+      *cell = __fadd_rn(*cell, v);
+    }
+  }
+}
+
 // Warp 0: pod row pr's count entries into s.ip_list (see the header) and
 // *s.ip_head = (entries, reject every node, a weighted entry exists, the
 // match or carried-term row is not zero). Reads the term attributes and
@@ -1284,10 +1511,40 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
     sp_bytes = 16u * (unsigned)(sp_chunks + (!IPA && NORM ? 1 : 0));
   }
   [[maybe_unused]] float* dom_b = nullptr;   // this block's replica (interpod build)
+  if constexpr (IPA && SPREAD) {
+    // the spread+interpod build: dom_b is the replica's slot 1 (slots
+    // 1..k-1, in shared memory where they fit), and the block's domain ids
+    // as bytes follow the carve (see the header)
+    constexpr size_t BASE = smem_bytes<true, true, PACKED, NORM>(NB, STAGES, POD_ROW);
+    unsigned char* ids = si_ids<RUN, PACKED, NORM>(smem_base);
+    if (t < SI_BLOCK_WORDS) si_block<RUN, PACKED, NORM>(smem_base)[t] = 0;
+    const int slot = ip.nd * (ip.uq + ip.ue);   // cells of one topology slot
+    if (si_rep_shared<RUN>(BASE, ip.k, ip.nd, ip.uq + ip.ue)) {
+      dom_b = reinterpret_cast<float*>(ids + si_ids_bytes<RUN>());
+      for (int i = t; i < (ip.k - 1) * slot; i += THREADS) dom_b[i] = ip.dom0[slot + i];
+    } else {
+      float* rep = ip.dom + (size_t)rank * ip.k * slot;
+      for (int i = t; i < ip.k * slot; i += THREADS) rep[i] = ip.dom0[i];
+      dom_b = rep + slot;
+    }
+    if constexpr (SI_HAS_IDS<RUN>) {
+#pragma unroll
+      for (int j = 0; j < RUN; ++j) {
+        const int g = g0 + j;
+        for (int k = 0; k < IP_MAX_K; ++k) {
+          const int d = (k < ip.k && g < N) ? ip.topology[(size_t)g * ip.k + k] : -1;
+          ids[k * NB + c0 + j] =
+              (unsigned char)(d < 0 ? SI_NO_ID : d < ip.nd ? (unsigned)d : SI_PAST);
+        }
+      }
+    }
+  }
   if constexpr (IPA) {
-    const int cells = ip.k * ip.nd * (ip.uq + ip.ue);
-    dom_b = ip.dom + (size_t)rank * cells;
-    for (int i = t; i < cells; i += THREADS) dom_b[i] = ip.dom0[i];   // the block's replica
+    if constexpr (!SPREAD) {
+      const int cells = ip.k * ip.nd * (ip.uq + ip.ue);
+      dom_b = ip.dom + (size_t)rank * cells;
+      for (int i = t; i < cells; i += THREADS) dom_b[i] = ip.dom0[i];   // the block's replica
+    }
     for (int i = t; i < 5 * IP_MAX_UE; i += THREADS) {
       const int a = i / IP_MAX_UE, e = i - a * IP_MAX_UE;
       s.t_attr[i] = e < ip.ue ? ip.term_attr[a * ip.ue + e] : 0;
@@ -1747,19 +2004,26 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
       } else if (win_pending) {
         mbar_wait(s.bar_win, win_phase);
         if (t == 32) mbar_arm(s.bar_win, IP_BYTES);   // for the next one
-        const int* ids = ip.topology + (size_t)s.win_slot->x * ip.k;   // the node's
-        const float* row = s.pods + ((p - 1) % POD_SLOTS) * POD_ROW + POD_ROW_MAIN
-                           + IPW_ROWS;
-        // cells (k, u) of slots 1..k-1 (hostname: node-level counts)
-        for (int i = U + t - 32; i < ip.k * U; i += THREADS - 32) {
-          const int k = i / U;
-          const int u = i - k * U;
-          const float v = row[u];
-          if (v == 0.0f) continue;
-          const int d = __ldg(ids + k);
-          if (d >= 0 && d < ip.nd) {
-            float* cell = dom_b + ((size_t)k * ip.nd + d) * U + u;
-            *cell = __fadd_rn(*cell, v);
+        if constexpr (SPREAD) {   // (the spread+interpod build)
+          si_update_replica(ip, dom_b,
+                            s.pods + ((p - 1) % POD_SLOTS) * POD_ROW + POD_ROW_MAIN + IPW_ROWS,
+                            *s.win_slot,
+                            si_ids_in_message<RUN>(ip), t);
+        } else {
+          const int* ids = ip.topology + (size_t)s.win_slot->x * ip.k;   // the node's
+          const float* row = s.pods + ((p - 1) % POD_SLOTS) * POD_ROW + POD_ROW_MAIN
+                             + IPW_ROWS;
+          // cells (k, u) of slots 1..k-1 (hostname: node-level counts)
+          for (int i = U + t - 32; i < ip.k * U; i += THREADS - 32) {
+            const int k = i / U;
+            const int u = i - k * U;
+            const float v = row[u];
+            if (v == 0.0f) continue;
+            const int d = __ldg(ids + k);
+            if (d >= 0 && d < ip.nd) {
+              float* cell = dom_b + ((size_t)k * ip.nd + d) * U + u;
+              *cell = __fadd_rn(*cell, v);
+            }
           }
         }
       }
@@ -1770,26 +2034,67 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
       // 2. feasibility and counts of the run's feasible nodes
       float cnt[RUN];
       int lo = 0, hi = 0;   // min and max count, clamped through 0
+      if constexpr (SPREAD) {
+        // the spread+interpod build: the entries outer and the run's nodes
+        // inner, so the run's loads of one entry are independent; each
+        // node's entries in list order, as below
+        const unsigned char* ids = si_ids<RUN, PACKED, NORM>(smem_base);
+        bool live[RUN];
+        float viol[RUN];
+        bool any = false;
 #pragma unroll
-      for (int j = 0; j < RUN; ++j) {
-        ipsc[j] = 0.0f;
-        cnt[j] = 0.0f;
-        ipok[j] = head.y == 0 && ms[j] > -INFINITY && lr[j] >= 0.0f;
-        if (!ipok[j] || head.x == 0) continue;
-        float c = 0.0f, viol = 0.0f;
-        for (int i = 0; i < head.x; ++i) {
-          const int4 e = s.ip_list[i];
-          const float v = ip_count(ip, dom_b, e.x, e.y, g0 + j, N);
-          if (e.z == ROLE_SCORE) c = __fadd_rn(c, __fmul_rn(__int_as_float(e.w), v));
-          else if (e.z == ROLE_CARRIED_ANTI) viol = __fadd_rn(viol, v);
-          else if (e.z == ROLE_ANTI) ipok[j] = ipok[j] && v == 0.0f;
-          else ipok[j] = ipok[j] && v > 0.0f;   // ROLE_AFF
+        for (int j = 0; j < RUN; ++j) {
+          ipsc[j] = 0.0f;
+          cnt[j] = 0.0f;
+          viol[j] = 0.0f;
+          ipok[j] = head.y == 0 && ms[j] > -INFINITY && lr[j] >= 0.0f;
+          live[j] = ipok[j] && head.x != 0;
+          any = any || live[j];
         }
-        ipok[j] = ipok[j] && viol == 0.0f;
-        cnt[j] = c;
-        if (ipok[j]) {
-          lo = min(lo, (int)c);
-          hi = max(hi, (int)c);
+        if (any) {
+          for (int i = 0; i < head.x; ++i) {
+            const int4 e = s.ip_list[i];
+#pragma unroll
+            for (int j = 0; j < RUN; ++j) {
+              if (!live[j]) continue;
+              const float v = si_count<RUN>(ip, dom_b, ids, e.x, e.y, c0 + j, g0 + j, N);
+              if (e.z == ROLE_SCORE) cnt[j] = __fadd_rn(cnt[j], __fmul_rn(__int_as_float(e.w), v));
+              else if (e.z == ROLE_CARRIED_ANTI) viol[j] = __fadd_rn(viol[j], v);
+              else if (e.z == ROLE_ANTI) ipok[j] = ipok[j] && v == 0.0f;
+              else ipok[j] = ipok[j] && v > 0.0f;   // ROLE_AFF
+            }
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < RUN; ++j) {
+          ipok[j] = ipok[j] && viol[j] == 0.0f;
+          if (ipok[j]) {
+            lo = min(lo, (int)cnt[j]);
+            hi = max(hi, (int)cnt[j]);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < RUN; ++j) {
+          ipsc[j] = 0.0f;
+          cnt[j] = 0.0f;
+          ipok[j] = head.y == 0 && ms[j] > -INFINITY && lr[j] >= 0.0f;
+          if (!ipok[j] || head.x == 0) continue;
+          float c = 0.0f, viol = 0.0f;
+          for (int i = 0; i < head.x; ++i) {
+            const int4 e = s.ip_list[i];
+            const float v = ip_count(ip, dom_b, e.x, e.y, g0 + j, N);
+            if (e.z == ROLE_SCORE) c = __fadd_rn(c, __fmul_rn(__int_as_float(e.w), v));
+            else if (e.z == ROLE_CARRIED_ANTI) viol = __fadd_rn(viol, v);
+            else if (e.z == ROLE_ANTI) ipok[j] = ipok[j] && v == 0.0f;
+            else ipok[j] = ipok[j] && v > 0.0f;   // ROLE_AFF
+          }
+          ipok[j] = ipok[j] && viol == 0.0f;
+          cnt[j] = c;
+          if (ipok[j]) {
+            lo = min(lo, (int)c);
+            hi = max(hi, (int)c);
+          }
         }
       }
       // the flag's counts over the nodes the predicate leaves, and the
@@ -1802,7 +2107,18 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
           norm_counts<RUN>(norm_of(nm...), nq, g0, ipok, nc, &mt, &mn);
           mt = __reduce_max_sync(FULL, mt);
           mn = __reduce_max_sync(FULL, mn);
-          if (lane == 0) s.nm_w[warp] = make_int2((int)mt, (int)mn);
+          if constexpr (SPREAD) {   // (into the block's words, up to SI_FAST_ZONES zones)
+            if (sp.nz <= SI_FAST_ZONES) {
+              if (lane == 0) {
+                atomicMax(reinterpret_cast<unsigned*>(si_block<RUN, PACKED, NORM>(smem_base)) + 8, mt);
+                atomicMax(reinterpret_cast<unsigned*>(si_block<RUN, PACKED, NORM>(smem_base)) + 9, mn);
+              }
+            } else if (lane == 0) {
+              s.nm_w[warp] = make_int2((int)mt, (int)mn);
+            }
+          } else {
+            if (lane == 0) s.nm_w[warp] = make_int2((int)mt, (int)mn);
+          }
         }
       }
       // 3. the cluster's min and max, and the scores
@@ -1815,40 +2131,108 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
 #pragma unroll
         for (int j = 0; j < RUN; ++j) ss[j] = MAX_PRIORITY;
         if (sp_on || ip_on || nm_x) {
+          // up to SI_FAST_ZONES zones in use (`fast`), the warp's zone sums
+          // take one reduction a zone pair, the warps' partials meet in the
+          // block's words by shared atomics, and the cluster's take one
+          // reduction a zone (see the header); past it, one reduction a
+          // zone in the warp and serial sums a lane, as in the spread build
+          const bool fast = sp.nz <= SI_FAST_ZONES;
           if (sp_on) {   // the warp's max count, any zoned node, zone sums
             int cmax = 0;
             bool zoned = false;
+            unsigned pk0 = 0u, pk1 = 0u;   // zones 0-1 and 2-3, 16 bits a zone
 #pragma unroll
             for (int j = 0; j < RUN; ++j) {
               if (!ipok[j]) continue;
-              cmax = max(cmax, (int)nxt[j]);
+              const int c = (int)nxt[j];
+              cmax = max(cmax, c);
               zoned = zoned || dom[j] >= 0;
+              if (fast && dom[j] >= 0 && dom[j] < sp.nz) {
+                const unsigned f = (unsigned)c << (16 * (dom[j] & 1));
+                if (dom[j] < 2) pk0 += f;
+                else pk1 += f;
+              }
             }
             int* wsl = s.sp_w + warp * SP_WORDS;
-            auto zone_sum = [&](int d) {
-              int v = 0;
-#pragma unroll
-              for (int j = 0; j < RUN; ++j) v += (ipok[j] && dom[j] == d) ? (int)nxt[j] : 0;
-              v = __reduce_add_sync(FULL, v);
-              if (lane == 0) wsl[1 + d] = v;
+            int* blk = si_block<RUN, PACKED, NORM>(smem_base);
+            // zone d's warp sum, into the warp's slot or the block's words
+            auto put = [&](int d, int v) {
+              if (fast) atomicAdd(blk + 2 + d, v);
+              else wsl[1 + d] = v;
             };
-            for (unsigned m = zlo; m != 0u; m &= m - 1u) zone_sum(__ffs((int)m) - 1);
-            for (unsigned m = zhi; m != 0u; m &= m - 1u) zone_sum(32 + __ffs((int)m) - 1);
             const int wmax = __reduce_max_sync(FULL, cmax);
             const unsigned wzoned = __ballot_sync(FULL, zoned);
-            if (lane == 0) wsl[0] = wmax | (wzoned != 0u ? SP_ZONED : 0);
+            bool packed = false;
+            if (fast) {
+              // a field sums one zone's counts over at most 32 RUN nodes,
+              // each at most wmax: exact while wmax * 32 RUN < 2^16
+              const unsigned w01 = __reduce_add_sync(FULL, pk0);
+              const unsigned w23 = __reduce_add_sync(FULL, pk1);
+              packed = (unsigned)wmax * (32u * RUN) < SI_FIELD;
+              if (packed && lane == 0) {
+                put(0, (int)(w01 & (SI_FIELD - 1u)));
+                put(1, (int)(w01 >> 16));
+                put(2, (int)(w23 & (SI_FIELD - 1u)));
+                put(3, (int)(w23 >> 16));
+              }
+            }
+            if (!packed) {
+              auto zone_sum = [&](int d) {
+                int v = 0;
+#pragma unroll
+                for (int j = 0; j < RUN; ++j) v += (ipok[j] && dom[j] == d) ? (int)nxt[j] : 0;
+                v = __reduce_add_sync(FULL, v);
+                if (lane == 0) put(d, v);
+              };
+              for (unsigned m = zlo; m != 0u; m &= m - 1u) zone_sum(__ffs((int)m) - 1);
+              for (unsigned m = zhi; m != 0u; m &= m - 1u) zone_sum(32 + __ffs((int)m) - 1);
+            }
+            if (lane == 0) {
+              if (fast) {
+                atomicMax(blk, wmax);
+                if (wzoned != 0u) atomicOr(blk + 1, 1);
+              } else {
+                wsl[0] = wmax | (wzoned != 0u ? SP_ZONED : 0);
+              }
+            }
           }
           if (ip_on) {
             const int wlo = __reduce_min_sync(FULL, lo);
             const int whi = __reduce_max_sync(FULL, hi);
-            if (lane == 0) s.ip_w[warp] = make_int2(wlo, whi);
+            if (lane == 0) {
+              if (fast) {
+                atomicMin(si_block<RUN, PACKED, NORM>(smem_base) + 6, wlo);
+                atomicMax(si_block<RUN, PACKED, NORM>(smem_base) + 7, whi);
+              } else {
+                s.ip_w[warp] = make_int2(wlo, whi);
+              }
+            }
           }
           __syncthreads();
           if (warp == 0) {   // the block's message, into slot `rank` of every block
             // (the (min, max) chunk also carries the flag's maxima)
             const int chunks = (sp_on ? sp_chunks : 0) + (ip_on || nm_x ? 1 : 0);
             if (lane == 0) mbar_arm(s.bar_sp, CLUSTER * 16u * (unsigned)chunks);
-            if (sp_on) {
+            int4 mm = make_int4(0, 0, 0, 0);
+            if (fast) {
+              // the block's words, gathered by the warps' atomics before the
+              // barrier: into the message, then back to 0 for the next pod
+              int* blk = si_block<RUN, PACKED, NORM>(smem_base);
+              const int4 b0 = reinterpret_cast<const int4*>(blk)[0];
+              const int4 b1 = reinterpret_cast<const int4*>(blk)[1];
+              const int4 b2 = reinterpret_cast<const int4*>(blk)[2];
+              if (sp_on && lane == 0) {
+                int* out = reinterpret_cast<int*>(s.sp_out);
+                out[0] = b0.x | (b0.y != 0 ? SP_ZONED : 0);
+                out[1] = b0.z;
+                out[2] = b0.w;
+                out[3] = b1.x;
+                out[4] = b1.y;
+              }
+              mm = make_int4(b1.z, b1.w, b2.x, b2.y);
+              __syncwarp();
+              if (lane < SI_BLOCK_WORDS) blk[lane] = 0;
+            } else if (sp_on) {
               int* out = reinterpret_cast<int*>(s.sp_out);
               const int w0 = lane < WARPS ? s.sp_w[lane * SP_WORDS] : 0;
               const int bmax = __reduce_max_sync(FULL, w0 & (SP_ZONED - 1));
@@ -1861,13 +2245,12 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
               }
               if (lane == 0) out[0] = bmax | (int)bzoned;
             }
-            int4 mm = make_int4(0, 0, 0, 0);
-            if (ip_on) {
+            if (ip_on && !fast) {
               const int2 v = lane < WARPS ? s.ip_w[lane] : make_int2(0, 0);
               mm.x = __reduce_min_sync(FULL, v.x);
               mm.y = __reduce_max_sync(FULL, v.y);
             }
-            if (nm_x) {
+            if (nm_x && !fast) {
               const int2 v = lane < WARPS ? s.nm_w[lane] : make_int2(0, 0);
               mm.z = (int)__reduce_max_sync(FULL, (unsigned)v.x);
               mm.w = (int)__reduce_max_sync(FULL, (unsigned)v.y);
@@ -1887,32 +2270,64 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
             const int max_c = __reduce_max_sync(FULL, b0 & (SP_ZONED - 1));
             const unsigned any_z = __reduce_or_sync(FULL, (unsigned)(b0 & SP_ZONED));
             int zlo_sum = 0, zhi_sum = 0;
-            if (lane < sp.nz) {
+            int zs[SI_FAST_ZONES] = {};   // (fast) every lane: zone d's sum
+            float max_zone;
+            if (fast) {   // lane b reads block b: one reduction a zone
 #pragma unroll
-              for (int b = 0; b < CLUSTER; ++b) zlo_sum += sp_word(s, b, 1 + lane);
-            }
-            if (lane + 32 < sp.nz) {
+              for (int d = 0; d < SI_FAST_ZONES; ++d)
+                zs[d] = __reduce_add_sync(
+                    FULL, lane < CLUSTER && d < sp.nz ? sp_word(s, lane, 1 + d) : 0);
+              max_zone = (float)max(max(zs[0], zs[1]), max(zs[2], zs[3]));
+            } else {
+              if (lane < sp.nz) {
 #pragma unroll
-              for (int b = 0; b < CLUSTER; ++b) zhi_sum += sp_word(s, b, 33 + lane);
+                for (int b = 0; b < CLUSTER; ++b) zlo_sum += sp_word(s, b, 1 + lane);
+              }
+              if (lane + 32 < sp.nz) {
+#pragma unroll
+                for (int b = 0; b < CLUSTER; ++b) zhi_sum += sp_word(s, b, 33 + lane);
+              }
+              max_zone = (float)__reduce_max_sync(FULL, max(zlo_sum, zhi_sum));
             }
             const float max_node = (float)max_c;
-            const float max_zone = (float)__reduce_max_sync(FULL, max(zlo_sum, zhi_sum));
             const bool have_zones = any_z != 0u;
             const double r_node = __drcp_rn((double)fmaxf(max_node, 1.0f));
             const double r_zone = __drcp_rn((double)fmaxf(max_zone, 1.0f));
+            if (fast) {
+              // the node part of counts 0-31, lane x holding count x's, and
+              // the zone part of zone d in lane d, of no summed zone in lanes
+              // 4-31; a node reads its two parts with __shfl_sync (the same
+              // arithmetic on the same values, so the same bits)
+              const float node_tab = spread_part(max_node, (float)lane, r_node);
+              const int zl = lane == 0 ? zs[0] : lane == 1 ? zs[1] : lane == 2 ? zs[2]
+                             : lane == 3 ? zs[3] : 0;
+              const float zone_tab = spread_part(max_zone, (float)zl, r_zone);
 #pragma unroll
-            for (int j = 0; j < RUN; ++j) {
-              const int d = dom[j];
-              int zc = __shfl_sync(FULL, zlo_sum, d & 31);
-              if (sp.nz > 32) {
-                const int zc_hi = __shfl_sync(FULL, zhi_sum, d & 31);
-                if (d >= 32) zc = zc_hi;
+              for (int j = 0; j < RUN; ++j) {
+                const int d = dom[j];
+                const int x = (int)nxt[j];
+                float node_s = __shfl_sync(FULL, node_tab, x & 31);
+                if (!((unsigned)x < 32u && (float)x == nxt[j]))
+                  node_s = spread_part(max_node, nxt[j], r_node);
+                const float zone_s =
+                    __shfl_sync(FULL, zone_tab, d >= 0 && d < sp.nz ? d : SI_FAST_ZONES);
+                ss[j] = spread_score(node_s, d >= 0 ? zone_s : 0.0f, d >= 0, have_zones);
               }
-              const bool summed = d >= 0 && d < sp.nz;
-              const float zone_s =
-                  d >= 0 ? spread_part(max_zone, summed ? (float)zc : 0.0f, r_zone) : 0.0f;
-              ss[j] = spread_score(spread_part(max_node, nxt[j], r_node), zone_s, d >= 0,
-                                   have_zones);
+            } else {
+#pragma unroll
+              for (int j = 0; j < RUN; ++j) {
+                const int d = dom[j];
+                int zc = __shfl_sync(FULL, zlo_sum, d & 31);
+                if (sp.nz > 32) {
+                  const int zc_hi = __shfl_sync(FULL, zhi_sum, d & 31);
+                  if (d >= 32) zc = zc_hi;
+                }
+                const bool summed = d >= 0 && d < sp.nz;
+                const float zone_s =
+                    d >= 0 ? spread_part(max_zone, summed ? (float)zc : 0.0f, r_zone) : 0.0f;
+                ss[j] = spread_score(spread_part(max_node, nxt[j], r_node), zone_s, d >= 0,
+                                     have_zones);
+              }
             }
           }
           if (ip_on) {   // every warp: the cluster's (min, max), the priority
@@ -2176,9 +2591,17 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
               // counts, as in the spread build; these adds cover its match
               // row)
               if constexpr (SPREAD) __syncwarp();
-              if (lane < CLUSTER)
-                st_async_v4(map_rank(smem_u32(s.win_slot), lane), make_int4(gw, p, 0, 0),
-                            map_rank(smem_u32(s.bar_win), lane));
+              if constexpr (SPREAD) {   // (with the node's ids)
+                if (lane < CLUSTER)
+                  st_async_v4(map_rank(smem_u32(s.win_slot), lane),
+                              si_message<RUN>(ip, si_ids<RUN, PACKED, NORM>(smem_base),
+                                              gw, p, rank),
+                              map_rank(smem_u32(s.bar_win), lane));
+              } else {
+                if (lane < CLUSTER)
+                  st_async_v4(map_rank(smem_u32(s.win_slot), lane), make_int4(gw, p, 0, 0),
+                              map_rank(smem_u32(s.bar_win), lane));
+              }
               const float* row = pr + POD_ROW_MAIN + IPW_ROWS;
               for (int u = lane; u < ip.uq + ip.ue; u += 32) {
                 const float v = row[u];
@@ -2245,8 +2668,13 @@ int launch(const Operands& o, SpreadParam<SPREAD> sp, IpaParam<IPA> ip,
   constexpr bool NORM = sizeof...(Norm) == 1;
   auto kernel = assign_scan_kernel<RUN, SPREAD, IPA, GANG, NORM, Norm...>;
   using B = Build<RUN, SPREAD, IPA, GANG>;
-  const size_t smem =
+  size_t smem =
       smem_bytes<SPREAD, IPA, B::PACKED, NORM>(THREADS * RUN, B::STAGES, B::POD_ROW);
+  if constexpr (SPREAD && IPA) {   // + the block's ids, and its replica where it fits
+    const int u = ip.uq + ip.ue;
+    const bool rep = si_rep_shared<RUN>(smem, ip.k, ip.nd, u);
+    smem += SI_HEAD_BYTES + si_ids_bytes<RUN>() + (rep ? si_rep_bytes(ip.k, ip.nd, u) : 0);
+  }
   if (smem > (size_t)MAX_SMEM) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

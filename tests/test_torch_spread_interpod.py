@@ -398,6 +398,10 @@ def test_harness_warms_and_runs_the_spread_interpod_traffic(monkeypatch):
 
 # ---- (d) the CUDA build's combined exchange, modelled ----
 #
+# (The exchange as it stood before the build's redesign for Hopper; the
+# redesigned build sends the same chunks, and tests/test_torch_si_redesign.py
+# models them with the normalization flag's maxima too.)
+#
 # The spread+interpod build (csrc/assign_scan.cu) sends one cluster
 # message a pod when the pod needs the SelectorSpread partial (spread_q >=
 # 0: 1 + Z words in ceil((1 + Z) / 4) 16-byte chunks), the interpod (min,
