@@ -124,15 +124,21 @@ fails; nothing is caught and skipped:
    launched once a batch, always with the normalization flag (and no
    other build), and the first and last batch must equal
    schedule_batch_plain on the state and batch the driver solved them on;
-   tt_na_build times the flag's main build on the first batch against its
-   plain version and the main build without the flag; norm_cells runs the
+   the line gives each batch's misses of the main build's guess of the
+   maxima (second rounds) by a host replay of its table; tt_na_build times
+   the flag's main build on the first batch against its plain version and
+   the main build without the flag; norm_cells runs the
    first batch of the spread, gang, interpod and spread_interpod cells
    with one PreferNoSchedule taint added through their builds with the
    flag (once each), held against the plain versions (the interpod builds
-   on the first 256 pods) and timed; and phase 3 ends with norm_build:
-   every build with the flag against its plain version at every RUN, with
-   zero maxima, the largest counts on infeasible nodes, ties, padding
-   nodes and odd N;
+   on the first 256 pods) and timed (the gang build's misses in the line);
+   and phase 3 ends with norm_build: every build with the flag against its
+   plain version at every RUN, with zero maxima, the largest counts on
+   infeasible nodes, ties, padding nodes and odd N, and the main and gang
+   builds on traffics that force their guess of the maxima to miss (the
+   only nodes holding the maxima fill up until the maxima drop to 0, two
+   rows with one table key alternate, 40 classes cycle through the table's
+   32 entries);
 13. the kernels line, the nvidia-smi line, and last the result line.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
@@ -211,6 +217,11 @@ NORM_TT_OPS, NORM_NA_OPS = 11, 24
 # the norm_build phase's (pods, nodes): odd N at every build of the scan
 # (1, 2, 4 and 8 nodes a thread), and N = 40,000 with its last blocks empty
 NORM_SHAPES = ((120, 999), (120, 12001), (100, 30001), (80, 65535), (60, 40000))
+# the norm_build phase's traffics that force the main and gang builds'
+# guess of the flag's maxima to miss (norm_miss_inputs), and the classes
+# the overflow traffic cycles through (more than the table's 32 entries)
+NORM_MISS_KINDS = ("fill", "collide", "overflow")
+NORM_OVERFLOW_CLASSES = 40
 # pods of a cell's first batch on which the interpod and spread+interpod
 # builds with the flag are held against, and timed beside, the plain path
 # (whose loops take 14-16 ms a pod on the card); their kernels-line entries
@@ -273,7 +284,9 @@ def ptxas_report(log: str) -> dict:
                     j += 1
                 name, i = mangled[j:j + int(mangled[i:j])], j + int(mangled[i:j])
             if mangled[i:i + 1] == "I":
-                args = re.findall(r"Li(\d+)E|Lb([01])E", mangled[i:].split("EEv")[0])
+                # (the first five: the flag's operand type NormMain<RUN>
+                # carries a template argument of its own)
+                args = re.findall(r"Li(\d+)E|Lb([01])E", mangled[i:].split("EEv")[0])[:5]
                 name += f"<{','.join(a or b for a, b in args)}>"
         elif name and ("registers" in ln or "spill" in ln):
             out[name] = (out.get(name, "") + " " + ln.strip()).strip()
@@ -431,6 +444,91 @@ def norm_test_inputs(torch, rng, dev, masked, w_tt=1.0, w_na=1.0):
         w_tt=w_tt, w_na=w_na, node_taint=t(node_taint), node_req=t(node_req),
         pod_untol=t(untol), pod_terms=t(terms),
         pod_weights=torch.from_numpy(weights).to(dev))
+
+
+def norm_miss_inputs(torch, rng, dev, sargs, kind):
+    """Scan operands (scan_inputs' `sargs`, changed) and NormInputs that
+    force the main and gang builds' guess of the flag's maxima to miss
+    (csrc/assign_scan.cu's header: the maxima table):
+    - fill: three nodes meet the pods' preferred terms (weights 60 and 40:
+      sums 100, 60 and 40), each with room for two more pods, and w_na =
+      100 (every other static score 20) makes them win, so the maxima fall
+      from 100 to 60, 40 and 0 as the only nodes holding them fill up;
+    - collide: the pods alternate between untolerating taint 0 and taints
+      0 and 2 (maxima 1 and 2 while a node with both is feasible), the
+      second row's unweighted fourth term word chosen so that both rows
+      have one table key;
+    - overflow: pod p untolerates the lowest 1 + p % 40 taints and some
+      nodes carry all 64, so 40 keys with 40 maxima cycle through the
+      table's 32 entries.
+    Returns (the operands, the NormInputs)."""
+    from kubernetes_tpu_torch.ops.assign_scan import (NORM_SLOTS, NormInputs,
+                                                      norm_key_weight, norm_pod_rows,
+                                                      norm_row_key)
+
+    ms, reqs, nz_reqs, alloc, requested, nonzero, rr = sargs
+    p, n = ms.shape
+    node_taint = np.zeros(n, np.uint64)
+    node_req = np.zeros(n, np.uint64)
+    untol = np.zeros(p, np.uint64)
+    terms = np.zeros((p, NORM_SLOTS), np.uint64)
+    weights = np.zeros((p, NORM_SLOTS), np.float32)
+    w_na = 1.0
+    if kind == "fill":
+        hot = torch.from_numpy(rng.choice(n, 3, replace=False)).to(dev)
+        node_req[hot.cpu().numpy()] = [3, 1, 2]
+        terms[:, 0], terms[:, 1] = 1, 2
+        weights[:, 0], weights[:, 1] = 60.0, 40.0
+        w_na = 100.0
+        ms = torch.where(ms > float("-inf"), 20.0, float("-inf"))
+        ms[:, hot] = 20.0
+        alloc, requested = alloc.clone(), requested.clone()
+        requested[hot, 1:] = 0.0
+        alloc[hot, 0] = requested[hot, 0] + 2.0
+        alloc[hot, 1], alloc[hot, 2] = 64000.0, 65536.0
+    elif kind == "collide":
+        node_taint |= np.where(rng.random(n) < 0.2, np.uint64(1), np.uint64(0))
+        node_taint |= np.where(rng.random(n) < 0.2, np.uint64(4), np.uint64(0))
+        untol[0::2], untol[1::2] = 1, 5
+    elif kind == "overflow":
+        node_taint[rng.random(n) < 0.05] = ~np.uint64(0)
+        k = 1 + np.arange(p) % NORM_OVERFLOW_CLASSES
+        untol[:] = (np.uint64(1) << k.astype(np.uint64)) - np.uint64(1)
+    else:
+        raise ValueError(f"norm_miss_inputs: {kind}")
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.int64)).to(dev)
+
+    norm = NormInputs(w_tt=1.0, w_na=w_na, node_taint=t(node_taint), node_req=t(node_req),
+                      pod_untol=t(untol), pod_terms=t(terms),
+                      pod_weights=torch.from_numpy(weights).to(dev))
+    if kind == "collide" and p > 1:
+        # the odd rows' fourth term word (ints 8 and 9, weight 0) such that
+        # their key is the even rows': int 9 solves the key's sum
+        rows = norm_pod_rows(norm).cpu().numpy()
+        rest = norm_row_key(rows[1])   # ints 8 and 9 are 0 here
+        x9 = (norm_row_key(rows[0]) - rest) * pow(norm_key_weight(9), -1, 1 << 32)
+        terms[1::2, 3] = np.uint64(x9 % (1 << 32)) << np.uint64(32)
+        norm.pod_terms = t(terms)
+        keys = {norm_row_key(r) for r in norm_pod_rows(norm).cpu().numpy()}
+        if len(keys) != 1:
+            raise AssertionError(f"norm_miss_inputs: collide made keys {keys}")
+    return (ms, reqs, nz_reqs, alloc, requested, nonzero, rr), norm
+
+
+def norm_misses(name, args, norm, got):
+    """The second rounds (misses of the guess) of a main or gang build's
+    launch with the flag on `args` that returned `got`, from the host
+    replay of its maxima table (ops/assign_scan.py norm_true_maxima and
+    norm_table_misses): (misses, pods that exchange maxima)."""
+    from kubernetes_tpu_torch.ops.assign_scan import norm_table_misses, norm_true_maxima
+
+    gang = args[9] if name == "assign_scan_gang" else None
+    maxima = norm_true_maxima(args[0], args[1], args[3], args[4], norm,
+                              got.assignments, gang)
+    table = norm_table_misses(norm, maxima)
+    return sum(m is True for m in table), sum(m is not None for m in table)
 
 
 def compare_spread(torch, got, want) -> float:
@@ -1848,6 +1946,9 @@ def norm_entry(torch, call, launches: int, reps: int = 5) -> dict:
              "plain_ms": start.elapsed_time(end), "library_ms": None,
              "shape": list(args[0].shape)}
     entry["bound_ms"], entry["bound_by"] = norm_bound(lambda: base(want), args[0], norm)
+    if name in ("assign_scan", "assign_scan_gang"):   # (not on the kernels line)
+        entry["norm_misses"], entry["norm_exchanging_pods"] = norm_misses(
+            name, args, norm, got)
     return entry
 
 
@@ -1859,10 +1960,13 @@ def norm_build_phase(torch, rng, dev) -> dict:
     in runs, some without an entry: the flag's maxima sent alone); at the
     first shape also
     TaintToleration alone (w_na = 0) and NodeAffinity alone (w_tt = 0) at
-    other weights. Returns the phase line."""
+    other weights; and the main and gang builds on norm_miss_inputs'
+    traffics, whose guesses of the maxima miss (the host replay's misses
+    of each, which must be some, in the line). Returns the phase line."""
     from kubernetes_tpu_torch.ops import assign_scan as scan
 
     errs: dict = {}
+    misses: dict = {}
     for p_, n_ in NORM_SHAPES:
         sargs = list(scan_inputs(torch, rng, dev, p_, n_))
         sargs[0], norm = norm_test_inputs(torch, rng, dev, sargs[0])
@@ -1887,11 +1991,32 @@ def norm_build_phase(torch, rng, dev) -> dict:
                 err = compare(torch, kern(*sargs, 1.0, 1.0, *extra, v),
                               plain(*sargs, 1.0, 1.0, *extra, v))
                 errs[name] = max(errs.get(name, 0.0), err)
+        # the main and gang builds on traffics that force their guess of the
+        # maxima to miss, each miss counted by the host replay of the table
+        for kind in NORM_MISS_KINDS:
+            margs, mnorm = norm_miss_inputs(torch, rng, dev,
+                                            scan_inputs(torch, rng, dev, p_, n_), kind)
+            gang = random_gang(torch, rng, dev, p_)
+            for name, kern, plain, extra in (
+                    ("assign_scan", scan.assign_scan, scan.assign_scan_plain, ()),
+                    ("assign_scan_gang", scan.assign_scan_gang,
+                     scan.assign_scan_gang_plain, (gang,))):
+                args = (*margs, 1.0, 1.0, *extra)
+                got = kern(*args, mnorm)
+                err = compare_scan(torch, got, plain(*args, mnorm))
+                errs[name] = max(errs.get(name, 0.0), err)
+                m, x = norm_misses(name, args, mnorm, got)
+                key = f"{name}_{kind}"
+                got_m, got_x = misses.get(key, (0, 0))
+                misses[key] = (got_m + m, got_x + x)
     runs = sorted({scan.node_run(n_) for _, n_ in NORM_SHAPES})
     if runs != list(scan.RUNS):
         raise AssertionError(f"norm_build checked {runs}, built {scan.RUNS}")
+    if not all(m > 0 for m, _x in misses.values()):
+        raise AssertionError(f"norm_build: a forced-miss traffic missed nothing {misses}")
     return {"phase": "norm_build", "shapes": [list(x) for x in NORM_SHAPES],
-            "runs": runs, "max_abs_err": errs, "kernel_equals_plain": True}
+            "runs": runs, "max_abs_err": errs, "kernel_equals_plain": True,
+            "forced_misses_of_exchanging_pods": {k: list(v) for k, v in misses.items()}}
 
 
 def _count_launches(kernels, reset: bool = False) -> tuple[dict, dict]:
@@ -1927,7 +2052,9 @@ def tt_na_phase(torch, caps, dev, kernels) -> tuple[dict, dict]:
     sched = Scheduler(caps, device=dev)
     sched.add_nodes(nodes)
     seen = []
-    solve = record_solves(torch, driver, TT_NA_CHECKED, seen)
+    # every batch's inputs, for the misses a batch (the first and the last
+    # are also held against the plain path)
+    solve = record_solves(torch, driver, range(HEADLINE_PODS), seen)
     _count_launches(kernels, reset=True)
     try:
         result = measure(sched, pods)
@@ -1948,6 +2075,13 @@ def tt_na_phase(torch, caps, dev, kernels) -> tuple[dict, dict]:
             raise AssertionError(f"tt_na: batch {k} raises {flags}")
         compare_scan(torch, got, solver.schedule_batch_plain(
             state, batch, rr, solver.DEFAULT_POLICY, flags, caps))
+    # the main build's second rounds a batch: the host replay of its maxima
+    # table over the maxima the batch's placements give
+    misses = []
+    for (state, batch, _rr, flags), got in seen:
+        name, _k, _p, args, norm, _c, _b = scan_call(torch, state, batch, flags, caps)
+        misses.append(norm_misses(name, args, norm, got))
+        del args
     # where the pods went: the odd groups do not tolerate the taint, and
     # every group prefers zone-{g % 3}
     tainted = {n.metadata.name for n in nodes if n.spec.taints}
@@ -1974,6 +2108,8 @@ def tt_na_phase(torch, caps, dev, kernels) -> tuple[dict, dict]:
             "tolerating_pods_on_tainted_nodes": tolerating,
             "pods_in_preferred_zone": preferred,
             "checked_batches_equal_plain": list(TT_NA_CHECKED),
+            "norm_misses_per_batch": [m for m, _x in misses],
+            "norm_exchanging_pods_per_batch": [x for _m, x in misses],
             "first_batch_norm_ms": entry["ms"],
             **timed(torch, lambda: assign_scan(*args), 5, "first_batch_flag_off_ms")}
     return line, entry
@@ -2044,7 +2180,9 @@ def norm_cells_phase(torch, dev, kernels) -> tuple[dict, list]:
         line[cell] = {"caps": [caps.num_nodes, caps.batch_pods], "placed": result.scheduled,
                       "launches": launches, "norm_launches": norm_launches,
                       "held_shape": entry["shape"], "ms": entry["ms"],
-                      "plain_ms": entry["plain_ms"], "kernel_equals_plain": True}
+                      "plain_ms": entry["plain_ms"], "kernel_equals_plain": True,
+                      **{k: entry[k] for k in ("norm_misses", "norm_exchanging_pods")
+                         if k in entry}}
         del sched, seen, state, batch, call
     return line, entries
 

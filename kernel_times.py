@@ -75,9 +75,15 @@ by RUN, whether this tree's SASS is byte-identical to it
 build on the first batch it is timed on above with the flag of one
 PreferNoSchedule taint on node 0 that no pod tolerates (`*_norm_ms`,
 beside the same build's flag-off time of its part), each also as
-`*_kernel_us`. `--parts` picks what to time, a comma list of mask, scan,
-spread, interpod, spread_interpod, gang, run8, phase_a, norm and sass (all
-by default). Exits non-zero without a CUDA device.
+`*_kernel_us`; `norm_main` times the main and gang builds with the flag
+alone (tt_na's first batch, `tt_na_norm_*` and `tt_na_flag_off_*`, and
+bench[gang]'s first batch with that one taint, `gang_norm_*` and
+`gang_flag_off_*`) and gives, where the tree has the host replay of the
+main and gang builds' maxima table, the misses of each (`*_norm_misses`:
+misses, pods exchanging maxima). `--parts` picks what to time, a comma
+list of mask, scan, spread, interpod, spread_interpod, gang, run8, phase_a,
+norm, norm_main and sass (all by default). Exits non-zero without a CUDA
+device.
 """
 
 from __future__ import annotations
@@ -100,7 +106,7 @@ import numpy as np
 HERE = Path(__file__).resolve().parent
 REPS = 5
 PARTS = ("mask", "scan", "spread", "interpod", "spread_interpod", "gang", "run8",
-         "phase_a", "norm", "sass")
+         "phase_a", "norm", "norm_main", "sass")
 # the gang batch's columns timed at 2 nodes a thread, and the shape of the
 # spread and interpod builds' 8-node timing
 RUN2_COLUMNS = 16384
@@ -307,6 +313,29 @@ def main() -> int:
         for key, call in calls:
             out.update(smoke.timed(torch, call, REPS, f"{key}_ms"))
             out[f"{key}_kernel_us"] = kernel_us(device_times(torch, ((call, REPS),)))
+    if "norm_main" in parts and hasattr(scan_module, "NormInputs"):
+        # the main and gang builds with the flag alone: tt_na's first batch
+        # and bench[gang]'s first with one untolerated taint, each beside
+        # its build without the flag, and where the tree has the host
+        # replay of the maxima table, the misses of each
+        caps_t, state, batch, flags = smoke.tt_na_first_batch(torch, dev)
+        _name, _k, _p, targs, tnorm, _c, _b = smoke.scan_call(torch, state, batch,
+                                                               flags, caps_t)
+        _c, _n, _p, _m, gargs, gang, _gs, _gb = smoke.gang_first_batch(torch, dev)
+        one = smoke.one_taint_norm(torch, dev, *gargs[0].shape)
+        gang_scan = scan_module.assign_scan_gang
+        for key, call in (("tt_na_norm", lambda: assign_scan(*targs, tnorm)),
+                          ("tt_na_flag_off", lambda: assign_scan(*targs)),
+                          ("gang_norm", lambda: gang_scan(*gargs, gang, one)),
+                          ("gang_flag_off", lambda: gang_scan(*gargs, gang))):
+            out.update(smoke.timed(torch, call, REPS, f"{key}_ms"))
+            out[f"{key}_kernel_us"] = kernel_us(device_times(torch, ((call, REPS),)))
+        if hasattr(scan_module, "norm_table_misses"):
+            for key, name, args, norm in (("tt_na", "assign_scan", targs, tnorm),
+                                          ("gang", "assign_scan_gang", (*gargs, gang), one)):
+                kern = assign_scan if name == "assign_scan" else gang_scan
+                out[f"{key}_norm_misses"] = smoke.norm_misses(name, args, norm,
+                                                              kern(*args, norm))
     if "sass" in parts:
         cuobjdump = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
         out["scan_sass"] = sass_digests(cuobjdump, library_path("assign_scan"),

@@ -524,12 +524,9 @@
 // alike): each thread packs its feasible nodes' counts (taints in bits 0-7,
 // at most 64; the weight sum above, weights are integers up to 65,535 and
 // any other traps) and takes their maxima, the warp reduces them with
-// redux.sync.max.u32, and the block's two maxima cross the cluster before
-// the score: in the main and gang builds on an exchange of their own (one
-// block barrier, then one 16-byte st.async a block onto a sixth mbarrier,
-// single-buffered as the interpod build's (min, max) is: a block reads it
-// before its triple barrier, and no block sends the next pod's before it
-// has every block's triple of this one); in the spread build as one more
+// redux.sync.max.u32, and the block's two maxima cross the cluster: in the
+// main and gang builds in the triple's free word, behind a guess (below);
+// in the spread build as one more
 // chunk of the spread partial's message (sent whenever the flag is on, so
 // the message's size stays the launch's, and the exchange runs for a pod
 // that needs either); in the interpod and spread+interpod builds in the
@@ -546,6 +543,92 @@
 // LeastRequested and the other terms rather than at JAX's place between
 // BalancedAllocation and InterPodAffinityPriority, and the score loops are
 // those of the builds without the flag.
+//
+// The main and gang builds guess the maxima, and the triple checks the
+// guess (an exchange of the maxima before the score, a block barrier and a
+// cluster round on a sixth mbarrier, cost about half the flag's time):
+//   - the guess. A table maps a pod's row of 16 ints to the maxima last
+//     found for it: NM_TABLE entries (key, maxima | NM_VALID), one a lane of
+//     every warp, in shared memory (a warp reads its 32 entries with one
+//     ballot; a lane reads and writes only its own entry, so no barrier
+//     guards it). The key is a multiply-add over the row's ints, a lane an
+//     int, one redux (NM_MIX). A key not in the table guesses maxima 0 and,
+//     once checked, takes the entry after the last one taken (first in,
+//     first out); a key in it keeps its entry. Every warp of every block
+//     keeps the same table: it is a function of the rows and the cluster's
+//     true maxima of the exchanging pods so far, which every warp sees
+//     alike. A collision costs a miss, never a wrong result;
+//   - the check. Each warp takes its true maxima over its feasible nodes
+//     (s.nm_w) before the triple's barrier, and warp 0 packs the block's
+//     into the triple's free word, mt | mn << 8 (mt <= 64, mn <= 4 * 65,535
+//     < 2^18: a non-negative int below 2^26). After the triple's wait every
+//     warp takes the cluster's maxima from the 16 free words, records them
+//     in its table and compares them with the guess. On a hit the
+//     selection reads the triples as without the flag. On a miss each
+//     thread reads its run's static scores again from the ring (the slot is
+//     refilled with row p + STAGES only after pod p + 1's barrier), adds
+//     the flag's terms of the true maxima (its counts taken again into
+//     registers of its own, its LeastRequested and BalancedAllocation from
+//     the term cache, so nothing of the first round stays live across the
+//     wait), and the block's second triple goes round on the sixth
+//     mbarrier into s.nm_slot; every block copies the 16 into its slots of
+//     this pod's parity, passes one more block barrier, and the selection
+//     reads them;
+//   - the preparation. What a pod needs but the ledger is done while the
+//     pod before it waits for its triples (norm_prepare, after that pod's
+//     barrier, which publishes the next row): the weight checks and flags,
+//     the counts, the key and the table's guess, and the run's flag terms
+//     of the guess, kept a node in shared memory (nm_flag). That guess is
+//     read before the pod before it records its maxima, so after the record
+//     it is mended to what a lookup after it finds: the pod's word where
+//     the keys are equal, 0 where the record took the entry it found (and
+//     the terms again where the guess moved). A row equal to the previous
+//     pod's skips the checks, flags, key and lookup, which hold. So a pod's
+//     own chain before its barrier holds its feasible maxima and the
+//     addition of its terms alone;
+//   - the counts are cached across pods: a node's raw packed count depends
+//     only on its words, fixed for the launch, and the pod's row, so a
+//     thread keeps its run's (one unsigned a node, norm_counts' packing)
+//     and takes them again only when the row
+//     differs from the previous pod's (a lane compares an int, one vote)
+//     or that pod did not exchange; feasibility is applied at use, to the
+//     maxima and the selection. At 1, 2 and 4 nodes a thread the run's
+//     node words are loaded once a launch into registers (4 a node), and
+//     where no word of the pod has a bit past 31 the counts take the low
+//     halves alone;
+//   - the kept terms (norm_score's, in nm_flag) are reused while the row
+//     and the guess repeat: a run of one workload's replicas takes its
+//     nodes' terms once;
+//   - the registers a thread keeps from pod to pod ride the flag's operand
+//     (NormMain, taken by value), so no other build's source changes.
+// Why this is the plain version's result:
+//   (a) No slot is overwritten while it is read. A block sends its second
+//       triple of pod p only after it has received every block's first
+//       triple of pod p, and a block sends that only after its first
+//       barrier of pod p, which its threads pass only after they are done
+//       with any earlier pod's second triples; so s.nm_slot and the sixth
+//       mbarrier, single-buffered, are free when the next redo's bytes come,
+//       and the mbarrier was re-armed by then (thread 0 arms it right after
+//       its wait), as the parity argument above says for the triples. The
+//       copy into the pod's own triple slots comes after the redo's first
+//       barrier, which every warp passes after its check has read them,
+//       and before any block can send pod p + 2's triples there (after its
+//       wait for this block's triple of pod p + 1). Nothing else the guess
+//       adds is shared: a thread alone reads and writes its table entry,
+//       its counts and its columns of nm_flag, and the rows it reads are
+//       published by the barriers the pod ring already has.
+//   (b) Hit and miss give the plain version's assignment, score, feasible
+//       count and rr. Feasibility (the static row and the ledger fit) does
+//       not depend on the guess, so the true maxima and the feasible count
+//       are the same in both rounds, and every block decides alike: the
+//       same 16 words, the same table. A hit scored every node with the
+//       true maxima; a miss discards the guess's round, scores again with
+//       the true maxima and selects on that round alone; the terms are
+//       norm_score's, added in any order, as above.
+//   (c) The gang build's revert needs nothing more: it restores the ledger
+//       and rr, and the next pod's feasible set, whatever it is, gives the
+//       true maxima that the check compares; the table, the counts and the
+//       kept terms hold no ledger state.
 //
 // Bound of the flag: its build's bytes plus the words, N * 16 + P * 64
 // bytes (0.26 MB at N = 16,384 and 4,096 pods), negligible beside the
@@ -664,6 +747,18 @@ constexpr size_t NM_SMEM = (size_t)POD_SLOTS * NM_ROW * sizeof(int)
                            + (size_t)CLUSTER * sizeof(int4)
                            + (size_t)WARPS * sizeof(int2) + 2 * sizeof(uint64_t);
 static_assert(NM_W + NM_SLOTS <= NM_ROW && NM_SMEM % 16 == 0, "norm layout");
+// the main and gang builds' maxima table (see the header): one entry a lane
+// of every warp, (a row's key, its maxima | NM_VALID), after NM_SMEM
+constexpr int NM_TABLE = 32;
+constexpr unsigned NM_VALID = 1u << 31;
+constexpr size_t NM_TABLE_BYTES = (size_t)WARPS * NM_TABLE * sizeof(int2);
+// a row's key: the sum over its NM_ROW ints x_l of x_l * (2 l + 1) * NM_MIX,
+// mod 2^32 (lane l takes one product, one redux.sync adds them)
+constexpr unsigned NM_MIX = 0x9E3779B9u;
+// the packed maxima, mt | mn << 8: mt at most 64 taints, mn at most
+// NM_SLOTS weights of 65,535
+static_assert(NM_TABLE == 32 && 64u < 256u
+              && (64u | (NM_SLOTS * 65535u) << 8) < (1u << 26), "norm table");
 
 // Row-ring slots and pod-slot width of one build.
 template <int RUN, bool SPREAD, bool IPA, bool GANG>
@@ -740,6 +835,30 @@ struct NormArgs {
 // build's instructions at 1, 2 and 4 nodes a thread (so did three more
 // variables of the kernel's scope; the flag keeps none).
 __device__ __forceinline__ const NormArgs& norm_of(const NormArgs& nm) { return nm; }
+
+// The main and gang builds take the flag's operand with room for what a
+// thread keeps from pod to pod (the kernel's copy of its by-value operand,
+// in registers), so the kernel's scope gains no variable in any build: the
+// run's raw packed counts for the words of the pod they were taken for,
+// whether that was the last pod prepared; the flags, key, guess and table
+// entry of the pod being scored and of the next pod, prepared while this
+// one's triples travel; the table entry the next new key replaces; the
+// maxima the prepared flag terms are of; and at 1, 2 and 4 nodes a thread
+// the run's node words.
+template <int RUN>
+struct NormMain : NormArgs {
+  unsigned cnt[RUN];
+  bool cnt_ok;                         // cnt is of the last pod prepared
+  bool tt, na;                         // the pod scored: its flags
+  bool x_n, tt_n, na_n;                // and the next pod, prepared
+  unsigned key, guess, key_n, guess_n;
+  int at, at_n;                        // their keys' entries, -1 = none
+  unsigned next;
+  unsigned t_word;                     // the maxima nm_flag's terms are of
+  ulonglong2 w[RUN <= 4 ? RUN : 1];
+};
+template <int RUN>
+__device__ __forceinline__ NormMain<RUN>& keep_of(NormMain<RUN>& k) { return k; }
 
 // One pod's words: its untolerated taints, its terms and their integer
 // weights (0: the slot never scores), and whether each count can be
@@ -818,7 +937,8 @@ __host__ __device__ constexpr size_t smem_bytes(int nb, int STAGES, int POD_ROW)
                       + (size_t)(CLUSTER + 1) * sizeof(int4)
                       + (size_t)WARPS * sizeof(int2) + 2 * sizeof(uint64_t)
                 : 0)
-         + (NORM ? NM_SMEM : 0);
+         + (NORM ? NM_SMEM : 0)
+         + (NORM && !SPREAD && !IPA ? NM_TABLE_BYTES + (size_t)nb * sizeof(float) : 0);
 }
 
 template <bool SPREAD, int STAGES, int POD_ROW, bool IPA = false>
@@ -871,6 +991,16 @@ __device__ Smem carve(float* base, int nb) {
   s.nm_w = reinterpret_cast<int2*>(s.nm_slot + CLUSTER);
   s.bar_nm = reinterpret_cast<uint64_t*>(s.nm_w + WARPS);
   return s;
+}
+
+// The main and gang builds' maxima table, past the flag's regions (its
+// entry t is thread t's: lane t % 32 of warp t / 32), then the next pod's
+// flag terms a node (the run's at column c0, as the term columns).
+__device__ __forceinline__ int2* nm_table(const Smem& s) {
+  return reinterpret_cast<int2*>(s.bar_nm + 2);
+}
+__device__ __forceinline__ float* nm_flag(const Smem& s) {
+  return reinterpret_cast<float*>(nm_table(s) + WARPS * NM_TABLE);
 }
 
 // The 8-node carve: carve's layout without the two term columns, the ring
@@ -1159,6 +1289,131 @@ __device__ __forceinline__ void norm_counts(const NormArgs& nm, const NormPod& q
   *mn = b;
 }
 
+// A pod's words for its counts from its row in the ring, whose weights the
+// warp has checked (norm_pod's traps) and whose flags it has taken.
+__device__ __forceinline__ NormPod norm_words(const int* row, bool tt, bool na) {
+  NormPod q;
+  const unsigned long long* w = reinterpret_cast<const unsigned long long*>(row);
+  q.untol = w[0];
+#pragma unroll
+  for (int k = 0; k < NM_SLOTS; ++k) {
+    q.term[k] = w[1 + k];
+    const float f = __int_as_float(row[NM_W + k]);
+    q.wt[k] = f > 0.0f ? (unsigned)f : 0u;
+  }
+  q.tt = tt;
+  q.na = na;
+  return q;
+}
+
+// The run's raw counts for pod words q at every node below N whatever its
+// feasibility (0 past N), packed as norm_counts packs them (untolerated
+// taints in bits 0-7, the met terms' weights from bit 8): the node words
+// from kp.w at 1, 2 and 4 nodes a thread, else through L1; the low 32 bits
+// alone where the pod's words have no higher bit (LO32).
+template <int RUN, bool LO32>
+__device__ __forceinline__ void norm_raw_counts(const NormArgs& nm, const NormPod& q,
+                                                int g0, int N, const NormMain<RUN>& kp,
+                                                unsigned (&out)[RUN]) {
+#pragma unroll
+  for (int j = 0; j < RUN; ++j) {
+    unsigned c = 0u;
+    if (g0 + j < N) {
+      ulonglong2 w;
+      if constexpr (RUN <= 4) w = kp.w[j];
+      else w = nm.node_w[g0 + j];
+      unsigned ct = 0u, cn = 0u;
+      if (q.tt)
+        ct = LO32 ? (unsigned)__popc((unsigned)w.x & (unsigned)q.untol)
+                  : (unsigned)__popcll(w.x & q.untol);
+      if (q.na) {
+#pragma unroll
+        for (int k = 0; k < NM_SLOTS; ++k) {
+          const bool met = LO32 ? ((unsigned)w.y & (unsigned)q.term[k]) == (unsigned)q.term[k]
+                                : (w.y & q.term[k]) == q.term[k];
+          cn += met ? q.wt[k] : 0u;
+        }
+      }
+      c = ct | (cn << 8);
+    }
+    out[j] = c;
+  }
+}
+
+// The run's counts for a pod's row (x: lane l's int l of it) into out: the
+// 32-bit form where no word of the pod has a bit past 31.
+template <int RUN>
+__device__ __forceinline__ void norm_count_row(const NormMain<RUN>& kp, const int* row,
+                                               int x, int lane, bool tt, bool na, int g0,
+                                               int N, unsigned (&out)[RUN]) {
+  const NormPod q = norm_words(row, tt, na);
+  if (__all_sync(FULL, !(lane < NM_W && (lane & 1)) || x == 0))
+    norm_raw_counts<RUN, true>(kp, q, g0, N, kp, out);
+  else
+    norm_raw_counts<RUN, false>(kp, q, g0, N, kp, out);
+}
+
+// The run's masked static scores from its ring slot (`at`: the slot's
+// column c0), as the pod loop reads them.
+template <int RUN>
+__device__ __forceinline__ void load_scores(const float* at, int lane, float (&ms)[RUN]) {
+  if constexpr (RUN == 8) {
+    const int sw = ((lane >> 2) & 1) << 2;
+    const float4 a = *reinterpret_cast<const float4*>(at + sw);
+    const float4 b = *reinterpret_cast<const float4*>(at + (4 - sw));
+    ms[0] = a.x; ms[1] = a.y; ms[2] = a.z; ms[3] = a.w;
+    ms[4] = b.x; ms[5] = b.y; ms[6] = b.z; ms[7] = b.w;
+  } else {
+    load_run<RUN>(at, ms);
+  }
+}
+
+// The run's best score, its ties (bit j: run position j) and feasible
+// count, as the main and gang builds take them in the pod loop.
+template <int RUN>
+__device__ __forceinline__ void best_of_run(const float (&ms)[RUN], const float (&lr)[RUN],
+                                            const float (&ba)[RUN], float w_lr, float w_ba,
+                                            float* best_out, unsigned* tied_out,
+                                            int* feas_out) {
+  float best = -INFINITY;
+  unsigned tied = 0u;
+  int feas = 0;
+  if constexpr (RUN == 8) {
+    float sc[RUN];
+    unsigned fm = 0u;
+#pragma unroll
+    for (int j = 0; j < RUN; ++j) {
+      const bool ok = ms[j] > -INFINITY && lr[j] >= 0.0f;
+      const float v = __fadd_rn(__fadd_rn(ms[j], __fmul_rn(w_lr, lr[j])), __fmul_rn(w_ba, ba[j]));
+      sc[j] = ok ? __fadd_rn(v, 0.0f) : -INFINITY;
+      fm |= ok ? 1u << j : 0u;
+    }
+    best = fmaxf(fmaxf(fmaxf(sc[0], sc[1]), fmaxf(sc[2], sc[3])),
+                 fmaxf(fmaxf(sc[4], sc[5]), fmaxf(sc[6], sc[7])));
+#pragma unroll
+    for (int j = 0; j < RUN; ++j) tied |= sc[j] == best ? 1u << j : 0u;
+    tied &= fm;
+    feas = __popc(fm);
+  } else {
+#pragma unroll
+    for (int j = 0; j < RUN; ++j) {
+      if (!(ms[j] > -INFINITY) || lr[j] < 0.0f) continue;
+      const float sc = __fadd_rn(__fadd_rn(__fadd_rn(ms[j], __fmul_rn(w_lr, lr[j])),
+                                           __fmul_rn(w_ba, ba[j])), 0.0f);
+      ++feas;
+      if (sc > best) {
+        best = sc;
+        tied = 1u << j;
+      } else if (sc == best) {
+        tied |= 1u << j;
+      }
+    }
+  }
+  *best_out = best;
+  *tied_out = tied;
+  *feas_out = feas;
+}
+
 // The cluster's maxima from each lane's block maxima (lanes past the
 // cluster pass 0).
 __device__ __forceinline__ void norm_maxima(unsigned bt, unsigned bn, float* m_tt,
@@ -1192,6 +1447,77 @@ __device__ __forceinline__ float norm_score(const NormArgs& nm, unsigned c, floa
                 FLOOR_EPS))
           : 0.0f;
   return __fadd_rn(__fmul_rn(nm.w_tt, tt), __fmul_rn(nm.w_na, na));
+}
+
+// The flag's terms of the run for the packed maxima `word` and counts cnt:
+// norm_score's, with the score's weights.
+template <int RUN>
+__device__ __forceinline__ void norm_terms(const NormMain<RUN>& kp, unsigned word,
+                                           const unsigned (&cnt)[RUN], float (&out)[RUN]) {
+  const float m_tt = (float)(word & 0xffu);
+  const float m_na = (float)(word >> 8);
+  const double r_tt = __drcp_rn((double)fmaxf(m_tt, 1.0f));
+  const double r_na = __drcp_rn((double)fmaxf(m_na, 1.0f));
+#pragma unroll
+  for (int j = 0; j < RUN; ++j) out[j] = norm_score(kp, cnt[j], m_tt, m_na, r_tt, r_na);
+}
+
+// The flag's terms of the run for the packed maxima `word` into its columns
+// of nm_flag, and the maxima they are of.
+template <int RUN>
+__device__ __forceinline__ void norm_flag_terms(NormMain<RUN>& kp, const Smem& s, int c0,
+                                                unsigned word) {
+  float fl[RUN];
+  norm_terms<RUN>(kp, word, kp.cnt, fl);
+#pragma unroll
+  for (int j = 0; j < RUN; ++j) nm_flag(s)[c0 + j] = fl[j];
+  kp.t_word = word;
+}
+
+// Prepare pod q (below P, its row visible to the block), every thread
+// alike, while the pod before it waits for its triples: its flags, its
+// counts (kept when its row is the previous pod's and that pod exchanged),
+// its key and the table's guess, and the run's flag terms of the guess into
+// nm_flag (kept when the counts and the guess are those they were taken
+// for).
+template <int RUN>
+__device__ __forceinline__ void norm_prepare(NormMain<RUN>& kp, const Smem& s, int q,
+                                             int lane, int t, int c0, int g0, int N) {
+  const int* row = s.nm_pods + (q % POD_SLOTS) * NM_ROW;
+  // (lane l < 16 reads int l of the row and of the previous pod's; the
+  // warp checks the weights and takes the flags, the key and whether the
+  // rows are equal with votes and one redux)
+  const int x = lane < NM_ROW ? row[lane] : 0;
+  const int y = lane < NM_ROW ? s.nm_pods[((q + POD_SLOTS - 1) % POD_SLOTS) * NM_ROW + lane] : 0;
+  // the previous pod's row: its checks, flags, key and entry hold (its
+  // guess and entry are mended after its check, as where the keys are
+  // equal)
+  const bool same_row = q > 0 && __all_sync(FULL, x == y);
+  if (!same_row) {
+    const float f = __int_as_float(x);
+    const bool weight = lane >= NM_W && lane < NM_W + NM_SLOTS && f > 0.0f;
+    if (__any_sync(FULL, weight && (f != truncf(f) || f > NM_MAX_WEIGHT))) __trap();
+    kp.tt_n = kp.w_tt != 0.0f && __any_sync(FULL, lane < 2 && x != 0);
+    kp.na_n = kp.w_na != 0.0f && __any_sync(FULL, weight);
+    kp.x_n = kp.tt_n || kp.na_n;
+  }
+  if (!kp.x_n) {
+    kp.cnt_ok = false;
+    return;
+  }
+  const bool same = kp.cnt_ok && same_row;
+  if (!same) norm_count_row<RUN>(kp, row, x, lane, kp.tt_n, kp.na_n, g0, N, kp.cnt);
+  kp.cnt_ok = true;
+  if (!same_row) {
+    kp.key_n = __reduce_add_sync(FULL, (unsigned)x * ((2u * lane + 1u) * NM_MIX));
+    const int2 e = nm_table(s)[t];
+    const unsigned hit =
+        __ballot_sync(FULL, ((unsigned)e.y & NM_VALID) != 0u && (unsigned)e.x == kp.key_n);
+    kp.at_n = hit != 0u ? __ffs((int)hit) - 1 : -1;
+    kp.guess_n = __shfl_sync(FULL, (unsigned)e.y & ~NM_VALID, kp.at_n & 31);
+    if (hit == 0u) kp.guess_n = 0u;   // an unknown key: guess no counts
+  }
+  if (!same || kp.guess_n != kp.t_word) norm_flag_terms<RUN>(kp, s, c0, kp.guess_n);
 }
 
 // One half of SelectorSpread (spread.py:50-58): MAX_PRIORITY * (m - x) /
@@ -1551,6 +1877,17 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
     }
     if (t < IP_MAX_U) s.totals[t] = t < ip.uq + ip.ue ? ip.totals[t] : 0.0f;
   }
+  if constexpr (NORM && !SPREAD && !IPA) {   // the flag's table entry, counts, words
+    NormMain<RUN>& kp = keep_of(nm...);
+    nm_table(s)[t] = make_int2(0, 0);
+    kp.cnt_ok = false;
+    kp.next = 0u;
+    if constexpr (RUN <= 4) {
+#pragma unroll
+      for (int j = 0; j < RUN; ++j)
+        kp.w[j] = g0 + j < N ? kp.node_w[g0 + j] : make_ulonglong2(0ull, 0ull);
+    }
+  }
   auto issue_row = [&](int p) {
     if (p < P) {
       float* slot = s.ring + (p % STAGES) * NB;
@@ -1751,6 +2088,8 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
   // block sends
   cluster.sync();
   if constexpr (SPREAD) fetch_counts(0);
+  if constexpr (NORM && !SPREAD && !IPA)   // the flag's first pod (main, gang)
+    norm_prepare<RUN>(keep_of(nm...), s, 0, lane, t, c0, g0, N);
 
   for (int p = 0; p < P; ++p) {
     cp_async_wait<STAGES - 3>();  // this thread's copies of pods p and p+1 landed
@@ -1835,7 +2174,39 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
     float m_tt = 0.0f, m_na = 0.0f;   // the cluster's maxima over the feasible nodes
     bool nm_x = false;                // the pod's counts can be nonzero: exchanged
     if constexpr (!IPA) {
-      if constexpr (NORM) {
+      if constexpr (NORM && !SPREAD) {
+        // main, gang: the pod was prepared while the pod before it waited
+        // (norm_prepare); its warp's true maxima for the triple's free word
+        // and its flag terms of the guess (see the header)
+        NormMain<RUN>& kp = keep_of(nm...);
+        kp.tt = kp.tt_n;
+        kp.na = kp.na_n;
+        kp.key = kp.key_n;
+        kp.guess = kp.guess_n;
+        kp.at = kp.at_n;
+        nm_x = kp.x_n;
+        if (nm_x) {
+          unsigned mt = 0u, mn = 0u;
+#pragma unroll
+          for (int j = 0; j < RUN; ++j) {
+            if (ms[j] > -INFINITY && lr[j] >= 0.0f) {
+              mt = max(mt, kp.cnt[j] & 0xffu);
+              mn = max(mn, kp.cnt[j] >> 8);
+            }
+          }
+          mt = __reduce_max_sync(FULL, mt);
+          mn = __reduce_max_sync(FULL, mn);
+          if (lane == 0) s.nm_w[warp] = make_int2((int)mt, (int)mn);
+          float fl[RUN];
+          load_run<RUN>(nm_flag(s) + c0, fl);
+#pragma unroll
+          for (int j = 0; j < RUN; ++j) ms[j] = __fadd_rn(ms[j], fl[j]);
+        } else {
+          const float q = __fadd_rn(__fmul_rn(kp.w_tt, MAX_PRIORITY), __fmul_rn(kp.w_na, 0.0f));
+#pragma unroll
+          for (int j = 0; j < RUN; ++j) ms[j] = __fadd_rn(ms[j], q);
+        }
+      } else if constexpr (NORM) {
         const NormPod nq = norm_pod(norm_of(nm...), s.nm_pods + (p % POD_SLOTS) * NM_ROW);
         nm_x = nq.tt || nq.na;
         if (nm_x) {
@@ -1847,26 +2218,6 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
           mt = __reduce_max_sync(FULL, mt);
           mn = __reduce_max_sync(FULL, mn);
           if (lane == 0) s.nm_w[warp] = make_int2((int)mt, (int)mn);
-          if constexpr (!SPREAD) {   // main, gang: an exchange of their own
-            __syncthreads();
-            if (warp == 0) {   // the block's maxima, into slot `rank` of every block
-              const int2 v = lane < WARPS ? s.nm_w[lane] : make_int2(0, 0);
-              const unsigned bt = __reduce_max_sync(FULL, (unsigned)v.x);
-              const unsigned bn = __reduce_max_sync(FULL, (unsigned)v.y);
-              if (lane < CLUSTER)   // block l's slot `rank`, on its mbarrier
-                st_async_v4(map_rank(smem_u32(&s.nm_slot[rank]), lane),
-                            make_int4((int)bt, (int)bn, 0, 0),
-                            map_rank(smem_u32(s.bar_nm), lane));
-            }
-            // (sp_phase: the parity of the flag's exchange in the builds
-            // without the spread one)
-            mbar_wait(s.bar_nm, sp_phase);
-            if (t == 0) mbar_arm(s.bar_nm, CLUSTER * 16u);   // next exchanging pod
-            sp_phase ^= 1u;
-            const int4 b4 = s.nm_slot[lane < CLUSTER ? lane : 0];
-            norm_maxima(lane < CLUSTER ? (unsigned)b4.x : 0u,
-                        lane < CLUSTER ? (unsigned)b4.y : 0u, &m_tt, &m_na);
-          }
         }
       }
     }
@@ -2402,7 +2753,7 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
     // ---- the flag's terms, added to the run's static scores (every term is
     // an integer, so the sum is exact in any order; -inf stays -inf): the
     // score loops below stay those of the builds without the flag
-    if constexpr (NORM) {
+    if constexpr (NORM && (SPREAD || IPA)) {   // (main, gang: the prepared terms, above)
       const double r_tt = __drcp_rn((double)fmaxf(m_tt, 1.0f));
       const double r_na = __drcp_rn((double)fmaxf(m_na, 1.0f));
 #pragma unroll
@@ -2473,24 +2824,127 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
 
     // ---- (best, ties, feasible) of the warp, the block, the cluster
     const int par = p & 1;
-    const int key = order_key(best);
-    const int nt = __popc(tied);
+    int key = order_key(best);
+    int nt = __popc(tied);
     const Triple wt = warp_reduce(Triple{key, nt, feas});
     if (lane == 0) s.wslot[par * WARPS + warp] = wt;
     __syncthreads();
     if (warp == 0) {   // the block's triple, into slot `rank` of every block
       const Triple v = warp_reduce(lane < WARPS ? s.wslot[par * WARPS + lane] : empty());
-      if (lane < CLUSTER)
-        st_async_v4(par ? to_slot1 : to_slot0, make_int4(v.key, v.ties, v.feas, 0),
-                    par ? to_bar1 : to_bar0);
+      if constexpr (NORM && !SPREAD && !IPA) {
+        // (main, gang: + the block's true maxima of the flag, packed)
+        const int2 m = lane < WARPS && nm_x ? s.nm_w[lane] : make_int2(0, 0);
+        const unsigned packed = __reduce_max_sync(FULL, (unsigned)m.x)
+                                | __reduce_max_sync(FULL, (unsigned)m.y) << 8;
+        if (lane < CLUSTER)
+          st_async_v4(par ? to_slot1 : to_slot0, make_int4(v.key, v.ties, v.feas, (int)packed),
+                      par ? to_bar1 : to_bar0);
+      } else {
+        if (lane < CLUSTER)
+          st_async_v4(par ? to_slot1 : to_slot0, make_int4(v.key, v.ties, v.feas, 0),
+                      par ? to_bar1 : to_bar0);
+      }
     }
     // start pod p+3's copies while the triples travel: its row slot held
     // row p-1 and its pod slot pod p-5, both read before this barrier
     issue_row(p + STAGES - 1);
     // and load pod p+1's counts, whose slot this barrier published
     if constexpr (SPREAD) fetch_counts(p + 1);
+    // (main, gang with the flag: and prepare pod p+1, its row published by
+    // the same barrier)
+    if constexpr (NORM && !SPREAD && !IPA)
+      if (p + 1 < P) norm_prepare<RUN>(keep_of(nm...), s, p + 1, lane, t, c0, g0, N);
     mbar_wait(&s.bar[par], (p >> 1) & 1);
     if (t == 0) mbar_arm(&s.bar[par], CLUSTER * TRIPLE_BYTES);   // for pod p+2
+
+    // ---- the flag's check (main, gang): every warp takes the cluster's
+    // maxima from the triples' free words, records them in its table, and
+    // on a wrong guess scores the pod again and exchanges it again
+    if constexpr (NORM && !SPREAD && !IPA) {
+      if (nm_x) {
+        NormMain<RUN>& kp = keep_of(nm...);
+        const int4 c4 = s.cslot[par * CLUSTER + (lane < CLUSTER ? lane : 0)];
+        const unsigned w4 = lane < CLUSTER ? (unsigned)c4.w : 0u;
+        const unsigned word =
+            __reduce_max_sync(FULL, w4 & 0xffu) | __reduce_max_sync(FULL, w4 >> 8) << 8;
+        int2* e = nm_table(s) + t;
+        int slot = kp.at;
+        if (slot >= 0) {
+          if (lane == slot) e->y = (int)(word | NM_VALID);
+        } else {
+          slot = (int)kp.next;
+          if (lane == slot) *e = make_int2((int)kp.key, (int)(word | NM_VALID));
+          kp.next = (kp.next + 1u) % NM_TABLE;
+        }
+        // the next pod looked the table up before this update: where its
+        // key is this key, its entry is this one and its guess this word;
+        // where this pod's new entry took its entry, it has none and
+        // guesses 0 (as a lookup after the update finds); its flag terms
+        // again where its guess moved
+        if (p + 1 < P && kp.x_n) {
+          unsigned g = kp.guess_n;
+          if (kp.key_n == kp.key) {
+            kp.at_n = slot;
+            g = word;
+          } else if (kp.at < 0 && kp.at_n == slot) {
+            kp.at_n = -1;
+            g = 0u;
+          }
+          if (__builtin_expect(g != kp.guess_n, 0)) {
+            kp.guess_n = g;
+            norm_flag_terms<RUN>(kp, s, c0, g);
+          }
+        }
+        if (__builtin_expect(word != kp.guess, 0)) {
+          // this pod's counts again, into registers of their own (the next
+          // pod's hold kp.cnt), its terms of the true maxima, and the static
+          // row again (its ring slot is refilled only after pod p+1's
+          // barrier)
+          const int* row = s.nm_pods + (p % POD_SLOTS) * NM_ROW;
+          const int x = lane < NM_ROW ? row[lane] : 0;
+          unsigned cp[RUN];
+          norm_count_row<RUN>(kp, row, x, lane, kp.tt, kp.na, g0, N, cp);
+          float fl[RUN];
+          norm_terms<RUN>(kp, word, cp, fl);
+          load_scores<RUN>(s.ring + (p % STAGES) * NB + c0, lane, ms);
+#pragma unroll
+          for (int j = 0; j < RUN; ++j) ms[j] = __fadd_rn(ms[j], fl[j]);
+          // (and the terms from the term cache, which holds this pod's)
+          if constexpr (PACKED) {
+#pragma unroll
+            for (int j = 0; j < RUN; ++j) {
+              lr[j] = byte_term(lr1[j / 4], j % 4, LR_BIAS);
+              ba[j] = byte_term(bab[j / 4], j % 4, BA_BIAS);
+            }
+          } else {
+            load_run<RUN>(s.t_lr + c0, lr);
+            load_run<RUN>(s.t_ba + c0, ba);
+          }
+          best_of_run<RUN>(ms, lr, ba, w_lr, w_ba, &best, &tied, &feas);
+          key = order_key(best);
+          nt = __popc(tied);
+          const Triple wr = warp_reduce(Triple{key, nt, feas});
+          if (lane == 0) s.wslot[par * WARPS + warp] = wr;
+          __syncthreads();
+          if (warp == 0) {   // the block's second triple, on the flag's mbarrier
+            const Triple v = warp_reduce(lane < WARPS ? s.wslot[par * WARPS + lane] : empty());
+            if (lane < CLUSTER)
+              st_async_v4(map_rank(smem_u32(&s.nm_slot[rank]), lane),
+                          make_int4(v.key, v.ties, v.feas, 0),
+                          map_rank(smem_u32(s.bar_nm), lane));
+          }
+          // (sp_phase: the parity of the flag's mbarrier in the builds
+          // without the spread exchange)
+          mbar_wait(s.bar_nm, sp_phase);
+          if (t == 0) mbar_arm(s.bar_nm, CLUSTER * TRIPLE_BYTES);   // the next redo
+          sp_phase ^= 1u;
+          // the selection below reads the second round where it reads the
+          // first
+          if (t < CLUSTER) s.cslot[par * CLUSTER + t] = s.nm_slot[t];
+          __syncthreads();
+        }
+      }
+    }
 
     // ---- every warp: the global best, ntie, this block's tie offset
     const int4 b4 = s.cslot[par * CLUSTER + (lane < CLUSTER ? lane : 0)];
@@ -2710,12 +3164,19 @@ int launch(const Operands& o, SpreadParam<SPREAD> sp, IpaParam<IPA> ip,
   return (int)cudaGetLastError();
 }
 
-// The instance with the normalization flag when its pod words are given.
+// The instance with the normalization flag when its pod words are given
+// (the main and gang builds' operand with room for their kept registers).
 template <int RUN, bool SPREAD, bool IPA, bool GANG>
 int launch_norm(const Operands& o, SpreadParam<SPREAD> sp, IpaParam<IPA> ip,
                 GangParam<GANG> gg, cudaStream_t stream) {
-  if (o.nm.pod_w != nullptr) return launch<RUN, SPREAD, IPA, GANG>(o, sp, ip, gg, stream, o.nm);
-  return launch<RUN, SPREAD, IPA, GANG>(o, sp, ip, gg, stream);
+  if (o.nm.pod_w == nullptr) return launch<RUN, SPREAD, IPA, GANG>(o, sp, ip, gg, stream);
+  if constexpr (!SPREAD && !IPA) {
+    NormMain<RUN> nm = {};
+    static_cast<NormArgs&>(nm) = o.nm;
+    return launch<RUN, SPREAD, IPA, GANG>(o, sp, ip, gg, stream, nm);
+  } else {
+    return launch<RUN, SPREAD, IPA, GANG>(o, sp, ip, gg, stream, o.nm);
+  }
 }
 
 // The build for `run` nodes per thread (1, 2, 4 or 8), with

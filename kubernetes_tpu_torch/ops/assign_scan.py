@@ -510,22 +510,153 @@ def _check_norm(norm: NormInputs | None, p: int, n: int, dev) -> None:
 _NORM_ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_float] * 2
 
 
+def norm_pod_rows(norm: NormInputs) -> torch.Tensor:
+    """i32[P, 16]: each pod's row of the flag's words as the kernel reads it
+    (the untolerated word, 4 term words, 4 weights as f32 bits, 2 of
+    padding)."""
+    p = norm.pod_untol.shape[0]
+    words = torch.cat([norm.pod_untol[:, None], norm.pod_terms], 1).contiguous()
+    return torch.cat([words.view(torch.int32),
+                      norm.pod_weights.contiguous().view(torch.int32),
+                      words.new_zeros((p, 2), dtype=torch.int32)], 1).contiguous()
+
+
 def _norm_operands(norm: NormInputs | None):
     """The flag's device operands, (the tensors the pointers point into,
     which the caller holds until the launch is enqueued, and the launch's
     pointers and weights): i64[N, 2] node words and i32[P, 16] pod rows
-    (the untolerated word, 4 term words, 4 weights as f32 bits, 2 of
-    padding); null pointers with the flag off."""
+    (`norm_pod_rows`); null pointers with the flag off."""
     if norm is None:
         return (), (None, None, 0.0, 0.0)
-    p = norm.pod_untol.shape[0]
     node_w = torch.stack([norm.node_taint, norm.node_req], 1).contiguous()
-    words = torch.cat([norm.pod_untol[:, None], norm.pod_terms], 1).contiguous()
-    pod_w = torch.cat([words.view(torch.int32),
-                       norm.pod_weights.contiguous().view(torch.int32),
-                       words.new_zeros((p, 2), dtype=torch.int32)], 1).contiguous()
+    pod_w = norm_pod_rows(norm)
     return (node_w, pod_w), (node_w.data_ptr(), pod_w.data_ptr(),
                              float(norm.w_tt), float(norm.w_na))
+
+
+# ---- a host model of the main and gang builds' maxima table (the kernel
+# header's guess and check), for counting the scan's second rounds
+
+NORM_TABLE = 32                  # entries: one a lane of every warp
+NORM_MIX = 0x9E3779B9            # the key's multiplier (the kernel's NM_MIX)
+
+
+def norm_key_weight(l: int) -> int:
+    """The odd multiplier of int l of a row in its key."""
+    return ((2 * l + 1) * NORM_MIX) & 0xFFFFFFFF
+
+
+def norm_row_key(row) -> int:
+    """The table's key of one pod row (16 ints): the sum of int l times
+    norm_key_weight(l), mod 2^32, as the kernel's warp takes it (a lane an
+    int, one redux.sync)."""
+    return sum((int(v) & 0xFFFFFFFF) * norm_key_weight(l)
+               for l, v in enumerate(row)) & 0xFFFFFFFF
+
+
+def norm_pack(mt: int, mn: int) -> int:
+    """The maxima as the triple's free word carries them: mt | mn << 8."""
+    return int(mt) | int(mn) << 8
+
+
+class NormMaximaTable:
+    """The kernel's maxima table: `entries` (key, packed maxima) pairs; a
+    key not held guesses 0 and takes the entry after the last one taken
+    (first in, first out), a key held keeps its entry and takes each pod's
+    true maxima."""
+
+    def __init__(self, entries: int = NORM_TABLE):
+        self.keys: list[int | None] = [None] * entries
+        self.words = [0] * entries
+        self.next = 0
+
+    def guess(self, key: int) -> tuple[int, int]:
+        """(the guessed packed maxima, the key's entry or -1)."""
+        for i, k in enumerate(self.keys):
+            if k == key:
+                return self.words[i], i
+        return 0, -1
+
+    def settle(self, key: int, at: int, word: int) -> None:
+        """Record a pod's true maxima for its key (`at` from `guess`)."""
+        if at < 0:
+            at = self.next
+            self.keys[at] = key
+            self.next = (self.next + 1) % len(self.keys)
+        self.words[at] = word
+
+    def step(self, key: int, word: int) -> bool:
+        """One exchanging pod: whether its guess missed `word` (a second
+        round in the kernel); the table takes the word."""
+        guess, at = self.guess(key)
+        self.settle(key, at, word)
+        return guess != word
+
+
+def norm_exchanges(norm: NormInputs) -> list[bool]:
+    """Per pod, whether the kernel takes and checks its maxima: an
+    untolerated taint with w_tt set, or a positively weighted term with
+    w_na set."""
+    tt = (norm.pod_untol != 0) & bool(norm.w_tt)
+    na = (norm.pod_weights > 0).any(1) & bool(norm.w_na)
+    return (tt | na).tolist()
+
+
+def norm_true_maxima(masked_static, requests, allocatable, requested, norm: NormInputs,
+                     assignments, gang: GangInputs | None = None) -> list:
+    """Per pod, the packed true maxima of the flag's counts over its
+    feasible nodes (the static row and the ledger fit) as a scan that made
+    `assignments` saw them, or None where the pod exchanges none: a replay
+    of the ledger from the assignments (a gang build's, members of reverted
+    groups included, settled at each group boundary as the scan settles
+    them), counts per distinct row."""
+    p_count, _ = masked_static.shape
+    exch = norm_exchanges(norm)
+    rows = norm_pod_rows(norm).cpu().numpy()
+    tt_on = (norm.pod_untol != 0).tolist()
+    na_on = (norm.pod_weights > 0).any(1).tolist()
+    placed_at = [int(a) for a in assignments.tolist()]
+    gang_ids = gang.gang_id.tolist() if gang is not None else [0] * p_count
+    gang_mins = gang.gang_min.tolist() if gang is not None else [0] * p_count
+    req = requested.clone()
+    cache: dict = {}
+    out = torch.zeros((p_count, 2), dtype=torch.float32, device=masked_static.device)
+    gang_cur, placed, quorum, snap = 0, 0, 0, None
+    for p in range(p_count):
+        if gang_ids[p] != gang_cur:
+            if gang_cur > 0 and placed < quorum:
+                req = snap
+            if gang_ids[p] > 0:
+                snap, placed, quorum = req.clone(), 0, gang_mins[p]
+            gang_cur = gang_ids[p]
+        if exch[p]:
+            key = rows[p].tobytes()
+            if key not in cache:
+                cache[key] = norm_counts(norm, p)
+            tt, na = cache[key]
+            feasible = (masked_static[p] > float("-inf")) & fits_resources_dyn(
+                allocatable, requests[p:p + 1], req, dyn_gpu=False,
+                dyn_storage=False)[0]
+            if tt_on[p] and norm.w_tt:
+                out[p, 0] = torch.where(feasible, tt, 0.0).max()
+            if na_on[p] and norm.w_na:
+                out[p, 1] = torch.where(feasible, na, 0.0).max()
+        if placed_at[p] >= 0:
+            req[placed_at[p]] += requests[p]
+            placed += gang_cur > 0
+    maxima = out.cpu().to(torch.int64).tolist()
+    return [norm_pack(*m) if x else None for m, x in zip(maxima, exch)]
+
+
+def norm_table_misses(norm: NormInputs, maxima: list,
+                      entries: int = NORM_TABLE) -> list:
+    """Per pod, whether the kernel's guess missed (True: a second round),
+    None where the pod exchanges no maxima: the table replayed over the
+    pods' rows and their true maxima (`norm_true_maxima`)."""
+    table = NormMaximaTable(entries)
+    rows = norm_pod_rows(norm).cpu().numpy()
+    return [None if word is None else table.step(norm_row_key(row), word)
+            for row, word in zip(rows, maxima)]
 
 
 def _launch(symbol, argtypes, masked_static, requests, nonzero_requests,
