@@ -517,16 +517,24 @@ def norm_miss_inputs(torch, rng, dev, sargs, kind):
     return (ms, reqs, nz_reqs, alloc, requested, nonzero, rr), norm
 
 
+# the scan builds whose flag guesses its maxima (every build but
+# spread+interpod; csrc/assign_scan.cu's header)
+NORM_GUESS_BUILDS = ("assign_scan", "assign_scan_spread", "assign_scan_interpod",
+                     "assign_scan_gang")
+
+
 def norm_misses(name, args, norm, got):
-    """The second rounds (misses of the guess) of a main or gang build's
-    launch with the flag on `args` that returned `got`, from the host
-    replay of its maxima table (ops/assign_scan.py norm_true_maxima and
+    """The second rounds (misses of the guess) of a launch of build `name`
+    (NORM_GUESS_BUILDS) with the flag on `args` that returned `got`, from
+    the host replay of its maxima table (ops/assign_scan.py
+    norm_true_maxima, with the interpod build's predicate, and
     norm_table_misses): (misses, pods that exchange maxima)."""
     from kubernetes_tpu_torch.ops.assign_scan import norm_table_misses, norm_true_maxima
 
     gang = args[9] if name == "assign_scan_gang" else None
+    interpod = args[9] if name == "assign_scan_interpod" else None
     maxima = norm_true_maxima(args[0], args[1], args[3], args[4], norm,
-                              got.assignments, gang)
+                              got.assignments, gang, interpod)
     table = norm_table_misses(norm, maxima)
     return sum(m is True for m in table), sum(m is not None for m in table)
 
@@ -1831,9 +1839,10 @@ def gang_phase(torch, dev, kernels) -> tuple[dict, dict]:
     return line, entry
 
 
-def tt_na_first_batch(torch, dev):
+def tt_na_first_batch(torch, dev, n_nodes=HEADLINE_NODES, n_pods=HEADLINE_PODS):
     """The tt_na cell's first batch, encoded through a Scheduler on the
-    cell's cluster and flushed: (caps, state, batch, flags)."""
+    cell's cluster and flushed (with `n_nodes` and `n_pods`, the cluster
+    and pods of another cell's size): (caps, state, batch, flags)."""
     from kubernetes_tpu_torch.ops import solver
     from kubernetes_tpu_torch.perf.fixtures import make_nodes, make_pods
     from kubernetes_tpu_torch.perf.harness import TT_NA_NODES, TT_NA_PODS, default_caps
@@ -1841,14 +1850,26 @@ def tt_na_first_batch(torch, dev):
     from kubernetes_tpu_torch.state.convert import batch_from_numpy
     from kubernetes_tpu_torch.state.pod_batch import encode_pods
 
-    caps = default_caps(HEADLINE_NODES, HEADLINE_PODS)
+    caps = default_caps(n_nodes, n_pods)
     ref = Scheduler(caps, device=dev)
-    ref.add_nodes(make_nodes(HEADLINE_NODES, **TT_NA_NODES))
+    ref.add_nodes(make_nodes(n_nodes, **TT_NA_NODES))
     host = encode_pods(make_pods(caps.batch_pods, **TT_NA_PODS), caps,
                        ref.statedb.table, ctx=ref.encode_cache.ctx)
     state = ref.statedb.flush()
     batch = batch_from_numpy(host, dev)
     return caps, state, batch, solver.batch_flags(state, batch)
+
+
+def tt_na_words(torch, dev, n_nodes: int, n_pods: int):
+    """NormInputs of the tt_na cell's alternating words at another cell's
+    size: TT_NA_NODES on its n_nodes nodes and TT_NA_PODS' 16 classes on
+    the first batch of its n_pods pods (class i % 16 for pod i), as the
+    solver packs them."""
+    from kubernetes_tpu_torch.ops import solver
+
+    _caps, state, batch, flags = tt_na_first_batch(torch, dev, n_nodes, n_pods)
+    return solver.scan_norm_inputs(state, batch, solver.check_supported(
+        solver.DEFAULT_POLICY, flags))
 
 
 def one_taint_norm(torch, dev, p: int, n: int):
@@ -1946,7 +1967,7 @@ def norm_entry(torch, call, launches: int, reps: int = 5) -> dict:
              "plain_ms": start.elapsed_time(end), "library_ms": None,
              "shape": list(args[0].shape)}
     entry["bound_ms"], entry["bound_by"] = norm_bound(lambda: base(want), args[0], norm)
-    if name in ("assign_scan", "assign_scan_gang"):   # (not on the kernels line)
+    if name in NORM_GUESS_BUILDS:   # (not on the kernels line)
         entry["norm_misses"], entry["norm_exchanging_pods"] = norm_misses(
             name, args, norm, got)
     return entry
@@ -1960,9 +1981,10 @@ def norm_build_phase(torch, rng, dev) -> dict:
     in runs, some without an entry: the flag's maxima sent alone); at the
     first shape also
     TaintToleration alone (w_na = 0) and NodeAffinity alone (w_tt = 0) at
-    other weights; and the main and gang builds on norm_miss_inputs'
-    traffics, whose guesses of the maxima miss (the host replay's misses
-    of each, which must be some, in the line). Returns the phase line."""
+    other weights; and the builds that guess the flag's maxima (main,
+    spread, interpod, gang) on norm_miss_inputs' traffics, whose guesses
+    miss (the host replay's misses of each, which must be some, in the
+    line). Returns the phase line."""
     from kubernetes_tpu_torch.ops import assign_scan as scan
 
     errs: dict = {}
@@ -1991,19 +2013,28 @@ def norm_build_phase(torch, rng, dev) -> dict:
                 err = compare(torch, kern(*sargs, 1.0, 1.0, *extra, v),
                               plain(*sargs, 1.0, 1.0, *extra, v))
                 errs[name] = max(errs.get(name, 0.0), err)
-        # the main and gang builds on traffics that force their guess of the
-        # maxima to miss, each miss counted by the host replay of the table
+        # the builds that guess the flag's maxima on traffics that force
+        # their guess to miss, each miss counted by the host replay of the
+        # table
         for kind in NORM_MISS_KINDS:
             margs, mnorm = norm_miss_inputs(torch, rng, dev,
                                             scan_inputs(torch, rng, dev, p_, n_), kind)
             gang = random_gang(torch, rng, dev, p_)
-            for name, kern, plain, extra in (
-                    ("assign_scan", scan.assign_scan, scan.assign_scan_plain, ()),
+            for name, kern, plain, extra, compare in (
+                    ("assign_scan", scan.assign_scan, scan.assign_scan_plain, (),
+                     compare_scan),
+                    ("assign_scan_spread", scan.assign_scan_spread,
+                     scan.assign_scan_spread_plain,
+                     (spread_inputs(torch, rng, dev, n_, p_, no_entry=0.3),),
+                     compare_spread),
+                    ("assign_scan_interpod", scan.assign_scan_interpod,
+                     scan.assign_scan_interpod_plain,
+                     (interpod_inputs(torch, rng, dev, n_, p_),), compare_interpod),
                     ("assign_scan_gang", scan.assign_scan_gang,
-                     scan.assign_scan_gang_plain, (gang,))):
+                     scan.assign_scan_gang_plain, (gang,), compare_scan)):
                 args = (*margs, 1.0, 1.0, *extra)
                 got = kern(*args, mnorm)
-                err = compare_scan(torch, got, plain(*args, mnorm))
+                err = compare(torch, got, plain(*args, mnorm))
                 errs[name] = max(errs.get(name, 0.0), err)
                 m, x = norm_misses(name, args, mnorm, got)
                 key = f"{name}_{kind}"

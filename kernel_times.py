@@ -80,10 +80,17 @@ alone (tt_na's first batch, `tt_na_norm_*` and `tt_na_flag_off_*`, and
 bench[gang]'s first batch with that one taint, `gang_norm_*` and
 `gang_flag_off_*`) and gives, where the tree has the host replay of the
 main and gang builds' maxima table, the misses of each (`*_norm_misses`:
-misses, pods exchanging maxima). `--parts` picks what to time, a comma
-list of mask, scan, spread, interpod, spread_interpod, gang, run8, phase_a,
-norm, norm_main and sass (all by default). Exits non-zero without a CUDA
-device.
+misses, pods exchanging maxima); `norm_si` times the spread and interpod
+builds with the flag alone on bench[spread]'s and bench[interpod]'s first
+batches, with one untolerated taint (`spread_one_taint_*`,
+`interpod_one_taint_*`) and with the tt_na cell's alternating words at
+the cell's size (`spread_tt_na_words_*`, `interpod_tt_na_words_*`:
+TT_NA_NODES on its nodes, TT_NA_PODS' 16 classes on its pods), beside
+each build without the flag (`spread_flag_off_*`, `interpod_flag_off_*`),
+and, where the tree's host replay takes the interpod predicate, the misses
+of each. `--parts` picks what to time, a comma list of mask, scan, spread,
+interpod, spread_interpod, gang, run8, phase_a, norm, norm_main, norm_si
+and sass (all by default). Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -92,6 +99,7 @@ import argparse
 import dataclasses
 import hashlib
 import importlib.util
+import inspect
 import json
 import os
 import re
@@ -106,7 +114,7 @@ import numpy as np
 HERE = Path(__file__).resolve().parent
 REPS = 5
 PARTS = ("mask", "scan", "spread", "interpod", "spread_interpod", "gang", "run8",
-         "phase_a", "norm", "norm_main", "sass")
+         "phase_a", "norm", "norm_main", "norm_si", "sass")
 # the gang batch's columns timed at 2 nodes a thread, and the shape of the
 # spread and interpod builds' 8-node timing
 RUN2_COLUMNS = 16384
@@ -336,6 +344,34 @@ def main() -> int:
                 kern = assign_scan if name == "assign_scan" else gang_scan
                 out[f"{key}_norm_misses"] = smoke.norm_misses(name, args, norm,
                                                               kern(*args, norm))
+    if "norm_si" in parts and hasattr(scan_module, "NormInputs"):
+        # the spread and interpod builds with the flag alone: bench[spread]'s
+        # and bench[interpod]'s first batches with one untolerated taint
+        # (norm_cells') and with the tt_na cell's alternating words at the
+        # cell's size, each beside its build without the flag, and where the
+        # tree's host replay takes the interpod predicate, the misses of each
+        _c, _n, _p, _s, sstate, sbatch, sflags, zones = smoke.spread_first_batch(torch, dev)
+        sargs, spread = smoke.spread_scan_args(torch, sstate, sbatch, _c, sflags, zones)
+        _c, iargs, ip = smoke.interpod_first_batch(torch, dev)
+        replay = "interpod" in inspect.signature(
+            getattr(scan_module, "norm_true_maxima", lambda: None)).parameters
+        for key, name, a, size in (
+                ("spread", "assign_scan_spread", (*sargs, spread),
+                 (smoke.HEADLINE_NODES, smoke.HEADLINE_PODS)),
+                ("interpod", "assign_scan_interpod", (*iargs, ip),
+                 (smoke.INTERPOD_NODES, smoke.INTERPOD_PODS))):
+            fn = getattr(scan_module, name)
+            words = {"one_taint": smoke.one_taint_norm(torch, dev, *a[0].shape),
+                     "tt_na_words": smoke.tt_na_words(torch, dev, *size)}
+            calls = [(f"{key}_flag_off", lambda fn=fn, a=a: fn(*a))]
+            calls += [(f"{key}_{w}", lambda fn=fn, a=a, v=v: fn(*a, v))
+                      for w, v in words.items()]
+            for k, call in calls:
+                out.update(smoke.timed(torch, call, REPS, f"{k}_ms"))
+                out[f"{k}_kernel_us"] = kernel_us(device_times(torch, ((call, REPS),)))
+            if replay:
+                for w, v in words.items():
+                    out[f"{key}_{w}_norm_misses"] = smoke.norm_misses(name, a, v, fn(*a, v))
     if "sass" in parts:
         cuobjdump = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
         out["scan_sass"] = sass_digests(cuobjdump, library_path("assign_scan"),

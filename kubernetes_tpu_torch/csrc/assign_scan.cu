@@ -525,28 +525,29 @@
 // at most 64; the weight sum above, weights are integers up to 65,535 and
 // any other traps) and takes their maxima, the warp reduces them with
 // redux.sync.max.u32, and the block's two maxima cross the cluster: in the
-// main and gang builds in the triple's free word, behind a guess (below);
-// in the spread build as one more
-// chunk of the spread partial's message (sent whenever the flag is on, so
-// the message's size stays the launch's, and the exchange runs for a pod
-// that needs either); in the interpod and spread+interpod builds in the
-// free words of the (min, max) chunk. Feasible means after the ledger fit
-// and, in the interpod builds, after the predicate, as in JAX. Each node
-// then adds w_tt * trunc((1 - c / M) * 10 + eps) (10 when M = 0) and w_na *
-// trunc(c * 10 / M + eps) (0 when M = 0) in JAX's order, --fmad=false,
-// dividing by multiplying with the double reciprocal of M as the spread
-// build does (exact: norm_score). A pod whose counts are all 0 scores 10 and
-// 0 without an exchange. Every term of the score is an integer-valued f32
-// far below 2^24 (weights are integers, every normalized term is in 0..10),
-// so the score's f32 sum is exact in any order: one block a pod adds the
-// run's flag terms to its masked static scores (-inf stays -inf), before
+// main, gang, spread and interpod builds in the triple's free word, behind
+// a guess (below); in the spread+interpod build in the free words of the
+// (min, max) chunk of its combined exchange, which then runs for a pod that
+// needs any of its parts. Feasible means after the ledger fit and, in the
+// interpod builds, after the predicate, as in JAX. Each node then adds w_tt
+// * trunc((1 - c / M) * 10 + eps) (10 when M = 0) and w_na * trunc(c * 10 /
+// M + eps) (0 when M = 0) in JAX's order, --fmad=false, dividing by
+// multiplying with the double reciprocal of M as the spread build does
+// (exact: norm_score). A pod whose counts are all 0 scores 10 and 0 without
+// an exchange. Every term of the score is an integer-valued f32 far below
+// 2^24 (weights are integers, every normalized term is in 0..10), so the
+// score's f32 sum is exact in any order: one block a pod adds the run's
+// flag terms to its masked static scores (-inf stays -inf), before
 // LeastRequested and the other terms rather than at JAX's place between
 // BalancedAllocation and InterPodAffinityPriority, and the score loops are
 // those of the builds without the flag.
 //
-// The main and gang builds guess the maxima, and the triple checks the
-// guess (an exchange of the maxima before the score, a block barrier and a
-// cluster round on a sixth mbarrier, cost about half the flag's time):
+// The main, gang, spread and interpod builds guess the maxima, and the
+// triple checks the guess (an exchange of the maxima before the score, a
+// block barrier and a cluster round, cost about half the flag's time in the
+// main and gang builds; in the spread build it was one more chunk of every
+// pod's partial and an exchange for a pod without an entry, in the interpod
+// build a (min, max) round for a pod that does not count):
 //   - the guess. A table maps a pod's row of 16 ints to the maxima last
 //     found for it: NM_TABLE entries (key, maxima | NM_VALID), one a lane of
 //     every warp, in shared memory (a warp reads its 32 entries with one
@@ -559,26 +560,42 @@
 //     true maxima of the exchanging pods so far, which every warp sees
 //     alike. A collision costs a miss, never a wrong result;
 //   - the check. Each warp takes its true maxima over its feasible nodes
-//     (s.nm_w) before the triple's barrier, and warp 0 packs the block's
-//     into the triple's free word, mt | mn << 8 (mt <= 64, mn <= 4 * 65,535
-//     < 2^18: a non-negative int below 2^26). After the triple's wait every
-//     warp takes the cluster's maxima from the 16 free words, records them
-//     in its table and compares them with the guess. On a hit the
-//     selection reads the triples as without the flag. On a miss each
-//     thread reads its run's static scores again from the ring (the slot is
-//     refilled with row p + STAGES only after pod p + 1's barrier), adds
-//     the flag's terms of the true maxima (its counts taken again into
-//     registers of its own, its LeastRequested and BalancedAllocation from
-//     the term cache, so nothing of the first round stays live across the
-//     wait), and the block's second triple goes round on the sixth
-//     mbarrier into s.nm_slot; every block copies the 16 into its slots of
-//     this pod's parity, passes one more block barrier, and the selection
-//     reads them;
+//     (s.nm_w) before the triple's barrier (in the interpod build after the
+//     predicate), and warp 0 packs the block's into the triple's free word,
+//     mt | mn << 8 (mt <= 64, mn <= 4 * 65,535 < 2^18: a non-negative int
+//     below 2^26). After the triple's wait every warp takes the cluster's
+//     maxima from the 16 free words, records them in its table and compares
+//     them with the guess. On a hit the selection reads the triples as
+//     without the flag. On a miss each thread reads its run's static scores
+//     again from the ring (the slot is refilled with row p + STAGES only
+//     after pod p + 1's barrier), adds the flag's terms of the true maxima
+//     (its counts taken again into registers of its own, its LeastRequested
+//     and BalancedAllocation from the term cache, and in the spread and
+//     interpod builds SelectorSpread, or the predicate and the priority of
+//     the inter-pod terms, kept in registers from the first round), and the
+//     block's second triple goes round on the sixth mbarrier into
+//     s.nm_slot (its parity sp_phase, or ip_phase in the spread build,
+//     whose sp_phase is its partial's); every block copies the 16 into its
+//     slots of this pod's parity, passes one more block barrier, and the
+//     selection reads them;
+//   - so a pod exchanges what it exchanged without the flag: the spread
+//     build's partial keeps its size without the flag (one 16-byte chunk a
+//     block at 3 zones), and a pod without an entry sends none; the
+//     interpod build's pod that does not count (no weighted entry) runs no
+//     (min, max) round;
 //   - the preparation. What a pod needs but the ledger is done while the
 //     pod before it waits for its triples (norm_prepare, after that pod's
 //     barrier, which publishes the next row): the weight checks and flags,
 //     the counts, the key and the table's guess, and the run's flag terms
-//     of the guess, kept a node in shared memory (nm_flag). That guess is
+//     of the guess, kept a node in shared memory (nm_flag). A spread pod
+//     with an entry prepares the next pod but its terms earlier, while its
+//     partials travel (after its spread barrier, which publishes the row),
+//     and the terms after sending its triple (norm_late_terms); an
+//     interpod pod that counts prepares the next pod while its (min, max)
+//     travels (after step 1's barrier). Priced on one untolerated taint and
+//     on tt_na's alternating words (PERF.md, section 6, PR 20): the spread
+//     build's terms in its partial's round cost more than they saved, the
+//     interpod build's after its triple more than in its round. That guess is
 //     read before the pod before it records its maxima, so after the record
 //     it is mended to what a lookup after it finds: the pod's word where
 //     the keys are equal, 0 where the record took the entry it found (and
@@ -587,20 +604,30 @@
 //     own chain before its barrier holds its feasible maxima and the
 //     addition of its terms alone;
 //   - the counts are cached across pods: a node's raw packed count depends
-//     only on its words, fixed for the launch, and the pod's row, so a
-//     thread keeps its run's (one unsigned a node, norm_counts' packing)
-//     and takes them again only when the row
-//     differs from the previous pod's (a lane compares an int, one vote)
-//     or that pod did not exchange; feasibility is applied at use, to the
-//     maxima and the selection. At 1, 2 and 4 nodes a thread the run's
-//     node words are loaded once a launch into registers (4 a node), and
-//     where no word of the pod has a bit past 31 the counts take the low
-//     halves alone;
+//     only on its words, fixed for the launch, and the pod's row (not on
+//     the ledger, nor on the interpod build's predicate), so a thread keeps
+//     its run's (one unsigned a node, norm_counts' packing) and takes them
+//     again only when the row differs from the previous pod's (a lane
+//     compares an int, one vote) or that pod did not exchange; feasibility
+//     is applied at use, to the maxima and the selection. At 1, 2 and 4
+//     nodes a thread the run's node words are loaded once a launch into
+//     registers (4 a node), and where no word of the pod has a bit past 31
+//     the counts take the low halves alone;
 //   - the kept terms (norm_score's, in nm_flag) are reused while the row
 //     and the guess repeat: a run of one workload's replicas takes its
 //     nodes' terms once;
 //   - the registers a thread keeps from pod to pod ride the flag's operand
-//     (NormMain, taken by value), so no other build's source changes.
+//     (NormMain, taken by value), so no other build's source changes; the
+//     table and nm_flag add NM_TABLE_BYTES + NB * 4 bytes a block (20 KiB
+//     at 8 nodes a thread), which the spread and interpod builds fit at
+//     every RUN: 230,272 and 228,752 of 232,448 bytes at 8.
+//   Priced and not kept (PERF.md, section 6, PR 20): in the spread build,
+//   the maxima in one more word of an entry pod's partial, checked after
+//   the partials' wait and re-scored locally on a miss, the triple's guess
+//   left to pods without an entry (faster on alternating words, slower on
+//   one taint: two chunks a block at 3 zones); in the spread and interpod
+//   builds, the warps' maxima gathered by shared atomics and the hit read
+//   from flag bits of the free word (one redux for two; slower).
 // Why this is the plain version's result:
 //   (a) No slot is overwritten while it is read. A block sends its second
 //       triple of pod p only after it has received every block's first
@@ -613,22 +640,32 @@
 //       copy into the pod's own triple slots comes after the redo's first
 //       barrier, which every warp passes after its check has read them,
 //       and before any block can send pod p + 2's triples there (after its
-//       wait for this block's triple of pod p + 1). Nothing else the guess
-//       adds is shared: a thread alone reads and writes its table entry,
-//       its counts and its columns of nm_flag, and the rows it reads are
+//       wait for this block's triple of pod p + 1). The spread build's
+//       partials of pod p and the interpod build's (min, max) of pod p are
+//       read before the pod's first triple is sent; the next pod's come
+//       only after every block's first (and second) triples of pod p, and
+//       the placed node's index of pod p after its second round, so the
+//       redo moves none of their slots or mbarriers. Nothing else the guess
+//       adds is shared: a thread alone reads and writes its table entry, its
+//       counts and its columns of nm_flag, and the rows it reads are
 //       published by the barriers the pod ring already has.
 //   (b) Hit and miss give the plain version's assignment, score, feasible
-//       count and rr. Feasibility (the static row and the ledger fit) does
-//       not depend on the guess, so the true maxima and the feasible count
-//       are the same in both rounds, and every block decides alike: the
-//       same 16 words, the same table. A hit scored every node with the
-//       true maxima; a miss discards the guess's round, scores again with
-//       the true maxima and selects on that round alone; the terms are
+//       count and rr. Feasibility (the static row and the ledger fit, and the
+//       predicate) does not depend on the guess, so the true maxima and the
+//       feasible count are the same in both rounds, and every block decides
+//       alike: the same 16 words, the same table. A hit scored every node
+//       with the true maxima; a miss discards the guess's round, scores
+//       again with the true maxima and selects on that round alone;
+//       SelectorSpread and the inter-pod priority do not depend on the
+//       flag, so the first round's are the second's; the terms are
 //       norm_score's, added in any order, as above.
 //   (c) The gang build's revert needs nothing more: it restores the ledger
 //       and rr, and the next pod's feasible set, whatever it is, gives the
 //       true maxima that the check compares; the table, the counts and the
-//       kept terms hold no ledger state.
+//       kept terms hold no ledger state. In the interpod build a pod's
+//       maxima depend on the predicate, and the predicate on the carried
+//       terms of the pods placed before it, which both rounds read from one
+//       ledger, untouched until the pod's selection.
 //
 // Bound of the flag: its build's bytes plus the words, N * 16 + P * 64
 // bytes (0.26 MB at N = 16,384 and 4,096 pods), negligible beside the
@@ -747,10 +784,11 @@ constexpr size_t NM_SMEM = (size_t)POD_SLOTS * NM_ROW * sizeof(int)
                            + (size_t)CLUSTER * sizeof(int4)
                            + (size_t)WARPS * sizeof(int2) + 2 * sizeof(uint64_t);
 static_assert(NM_W + NM_SLOTS <= NM_ROW && NM_SMEM % 16 == 0, "norm layout");
-// the main and gang builds' maxima table (see the header): one entry a lane
-// of every warp, (a row's key, its maxima | NM_VALID), after NM_SMEM
+// the maxima table of the builds that guess (NM_GUESS; see the header): one
+// entry a lane of every warp, (a row's key, its maxima | NM_VALID), after NM_SMEM
 constexpr int NM_TABLE = 32;
 constexpr unsigned NM_VALID = 1u << 31;
+constexpr unsigned NM_STALE = ~0u;     // no packed maxima: nm_flag's terms are stale
 constexpr size_t NM_TABLE_BYTES = (size_t)WARPS * NM_TABLE * sizeof(int2);
 // a row's key: the sum over its NM_ROW ints x_l of x_l * (2 l + 1) * NM_MIX,
 // mod 2^32 (lane l takes one product, one redux.sync adds them)
@@ -836,9 +874,10 @@ struct NormArgs {
 // variables of the kernel's scope; the flag keeps none).
 __device__ __forceinline__ const NormArgs& norm_of(const NormArgs& nm) { return nm; }
 
-// The main and gang builds take the flag's operand with room for what a
-// thread keeps from pod to pod (the kernel's copy of its by-value operand,
-// in registers), so the kernel's scope gains no variable in any build: the
+// The builds that guess the flag's maxima (main, gang, spread, interpod:
+// NM_GUESS, below) take the flag's operand with room for what a thread
+// keeps from pod to pod (the kernel's copy of its by-value operand, in
+// registers), so the kernel's scope gains no variable in any build: the
 // run's raw packed counts for the words of the pod they were taken for,
 // whether that was the last pod prepared; the flags, key, guess and table
 // entry of the pod being scored and of the next pod, prepared while this
@@ -859,6 +898,12 @@ struct NormMain : NormArgs {
 };
 template <int RUN>
 __device__ __forceinline__ NormMain<RUN>& keep_of(NormMain<RUN>& k) { return k; }
+
+// The builds whose flag guesses the maxima and checks them in the triple
+// (see the header), taking NormMain: every build with the flag but the
+// spread+interpod build.
+template <bool SPREAD, bool IPA, bool NORM>
+constexpr bool NM_GUESS = NORM && !(SPREAD && IPA);
 
 // One pod's words: its untolerated taints, its terms and their integer
 // weights (0: the slot never scores), and whether each count can be
@@ -915,9 +960,9 @@ struct Smem {
   uint64_t* bar_win;                             // the placed node's mbarrier
   // the normalization flag's regions follow every build's own
   int* nm_pods;                                  // [POD_SLOTS][NM_ROW] pod words
-  int4* nm_slot;                                 // [CLUSTER] block maxima (main, gang)
+  int4* nm_slot;                                 // [CLUSTER] second triples (NM_GUESS)
   int2* nm_w;                                    // [WARPS] warp maxima
-  uint64_t* bar_nm;                              // the maxima's mbarrier (main, gang)
+  uint64_t* bar_nm;                              // their mbarrier (NM_GUESS)
 };
 
 template <bool SPREAD, bool IPA = false, bool PACKED = false, bool NORM = false>
@@ -938,7 +983,7 @@ __host__ __device__ constexpr size_t smem_bytes(int nb, int STAGES, int POD_ROW)
                       + (size_t)WARPS * sizeof(int2) + 2 * sizeof(uint64_t)
                 : 0)
          + (NORM ? NM_SMEM : 0)
-         + (NORM && !SPREAD && !IPA ? NM_TABLE_BYTES + (size_t)nb * sizeof(float) : 0);
+         + (NM_GUESS<SPREAD, IPA, NORM> ? NM_TABLE_BYTES + (size_t)nb * sizeof(float) : 0);
 }
 
 template <bool SPREAD, int STAGES, int POD_ROW, bool IPA = false>
@@ -993,7 +1038,7 @@ __device__ Smem carve(float* base, int nb) {
   return s;
 }
 
-// The main and gang builds' maxima table, past the flag's regions (its
+// The maxima table of the builds that guess, past the flag's regions (its
 // entry t is thread t's: lane t % 32 of warp t / 32), then the next pod's
 // flag terms a node (the run's at column c0, as the term columns).
 __device__ __forceinline__ int2* nm_table(const Smem& s) {
@@ -1414,6 +1459,58 @@ __device__ __forceinline__ void best_of_run(const float (&ms)[RUN], const float 
   *feas_out = feas;
 }
 
+// best_of_run for the spread build (x: SelectorSpread, w_x: w_ss) or the
+// interpod build (x: InterPodAffinityPriority, w_x: w_ip, and its
+// predicate ok), as their pod loop takes them.
+template <int RUN, bool IPA>
+__device__ __forceinline__ void best_of_run_x(const float (&ms)[RUN], const float (&lr)[RUN],
+                                              const float (&ba)[RUN], const float (&x)[RUN],
+                                              const bool (&ok)[RUN], float w_lr, float w_ba,
+                                              float w_x, float* best_out, unsigned* tied_out,
+                                              int* feas_out) {
+  float best = -INFINITY;
+  unsigned tied = 0u;
+  int feas = 0;
+  if constexpr (RUN == 8 && !IPA) {
+    float sc[RUN];
+    unsigned fm = 0u;
+#pragma unroll
+    for (int j = 0; j < RUN; ++j) {
+      const bool f = ms[j] > -INFINITY && lr[j] >= 0.0f;
+      const float v = __fadd_rn(__fadd_rn(__fadd_rn(ms[j], __fmul_rn(w_lr, lr[j])),
+                                          __fmul_rn(w_ba, ba[j])), __fmul_rn(w_x, x[j]));
+      sc[j] = f ? __fadd_rn(v, 0.0f) : -INFINITY;
+      fm |= f ? 1u << j : 0u;
+    }
+    best = fmaxf(fmaxf(fmaxf(sc[0], sc[1]), fmaxf(sc[2], sc[3])),
+                 fmaxf(fmaxf(sc[4], sc[5]), fmaxf(sc[6], sc[7])));
+#pragma unroll
+    for (int j = 0; j < RUN; ++j) tied |= sc[j] == best ? 1u << j : 0u;
+    tied &= fm;
+    feas = __popc(fm);
+  } else {
+#pragma unroll
+    for (int j = 0; j < RUN; ++j) {
+      if (!(ms[j] > -INFINITY) || lr[j] < 0.0f) continue;
+      if constexpr (IPA)
+        if (!ok[j]) continue;
+      const float sc = __fadd_rn(__fadd_rn(__fadd_rn(__fadd_rn(ms[j], __fmul_rn(w_lr, lr[j])),
+                                                     __fmul_rn(w_ba, ba[j])),
+                                           __fmul_rn(w_x, x[j])), 0.0f);
+      ++feas;
+      if (sc > best) {
+        best = sc;
+        tied = 1u << j;
+      } else if (sc == best) {
+        tied |= 1u << j;
+      }
+    }
+  }
+  *best_out = best;
+  *tied_out = tied;
+  *feas_out = feas;
+}
+
 // The cluster's maxima from each lane's block maxima (lanes past the
 // cluster pass 0).
 __device__ __forceinline__ void norm_maxima(unsigned bt, unsigned bn, float* m_tt,
@@ -1479,8 +1576,9 @@ __device__ __forceinline__ void norm_flag_terms(NormMain<RUN>& kp, const Smem& s
 // counts (kept when its row is the previous pod's and that pod exchanged),
 // its key and the table's guess, and the run's flag terms of the guess into
 // nm_flag (kept when the counts and the guess are those they were taken
-// for).
-template <int RUN>
+// for). Without TERMS the terms are left to norm_late_terms (new counts
+// mark the kept terms stale).
+template <int RUN, bool TERMS = true>
 __device__ __forceinline__ void norm_prepare(NormMain<RUN>& kp, const Smem& s, int q,
                                              int lane, int t, int c0, int g0, int N) {
   const int* row = s.nm_pods + (q % POD_SLOTS) * NM_ROW;
@@ -1517,7 +1615,18 @@ __device__ __forceinline__ void norm_prepare(NormMain<RUN>& kp, const Smem& s, i
     kp.guess_n = __shfl_sync(FULL, (unsigned)e.y & ~NM_VALID, kp.at_n & 31);
     if (hit == 0u) kp.guess_n = 0u;   // an unknown key: guess no counts
   }
-  if (!same || kp.guess_n != kp.t_word) norm_flag_terms<RUN>(kp, s, c0, kp.guess_n);
+  if constexpr (TERMS) {
+    if (!same || kp.guess_n != kp.t_word) norm_flag_terms<RUN>(kp, s, c0, kp.guess_n);
+  } else {
+    if (!same) kp.t_word = NM_STALE;
+  }
+}
+
+// The flag terms of a pod norm_prepare<RUN, false> prepared, where its
+// guess is not the maxima nm_flag's terms are of (or they are stale).
+template <int RUN>
+__device__ __forceinline__ void norm_late_terms(NormMain<RUN>& kp, const Smem& s, int c0) {
+  if (kp.x_n && kp.guess_n != kp.t_word) norm_flag_terms<RUN>(kp, s, c0, kp.guess_n);
 }
 
 // One half of SelectorSpread (spread.py:50-58): MAX_PRIORITY * (m - x) /
@@ -1833,8 +1942,7 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
   [[maybe_unused]] unsigned sp_bytes = 0u;
   if constexpr (SPREAD) {
     sp_chunks = (1 + sp.nz + 3) / 4;
-    // (the spread build: + the flag's maxima, one chunk, whenever it is on)
-    sp_bytes = 16u * (unsigned)(sp_chunks + (!IPA && NORM ? 1 : 0));
+    sp_bytes = 16u * (unsigned)sp_chunks;
   }
   [[maybe_unused]] float* dom_b = nullptr;   // this block's replica (interpod build)
   if constexpr (IPA && SPREAD) {
@@ -1877,7 +1985,7 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
     }
     if (t < IP_MAX_U) s.totals[t] = t < ip.uq + ip.ue ? ip.totals[t] : 0.0f;
   }
-  if constexpr (NORM && !SPREAD && !IPA) {   // the flag's table entry, counts, words
+  if constexpr (NM_GUESS<SPREAD, IPA, NORM>) {   // the flag's table entry, counts, words
     NormMain<RUN>& kp = keep_of(nm...);
     nm_table(s)[t] = make_int2(0, 0);
     kp.cnt_ok = false;
@@ -1986,7 +2094,7 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
       if constexpr (!SPREAD) mbar_arm(s.bar_ip, CLUSTER * IP_BYTES);
       mbar_arm(s.bar_win, IP_BYTES);
     }
-    if constexpr (!SPREAD && !IPA && NORM) {   // the flag's maxima (main, gang)
+    if constexpr (NM_GUESS<SPREAD, IPA, NORM>) {   // the flag's second triples
       mbar_init(s.bar_nm, 1);
       asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
       mbar_arm(s.bar_nm, CLUSTER * 16u);
@@ -2014,7 +2122,8 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
   // (spread build; loaded one pod ahead, see the header)
   [[maybe_unused]] int q_next = -1;
   [[maybe_unused]] float nxt[RUN];
-  if constexpr (SPREAD && NORM) {   // a pod with maxima alone reads them
+  if constexpr (SPREAD && IPA && NORM) {   // (unread before its first load; kept in
+                                           // this build, whose SASS it keeps)
 #pragma unroll
     for (int j = 0; j < RUN; ++j) nxt[j] = 0.0f;
   }
@@ -2088,7 +2197,7 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
   // block sends
   cluster.sync();
   if constexpr (SPREAD) fetch_counts(0);
-  if constexpr (NORM && !SPREAD && !IPA)   // the flag's first pod (main, gang)
+  if constexpr (NM_GUESS<SPREAD, IPA, NORM>)   // the flag's first pod
     norm_prepare<RUN>(keep_of(nm...), s, 0, lane, t, c0, g0, N);
 
   for (int p = 0; p < P; ++p) {
@@ -2174,10 +2283,10 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
     float m_tt = 0.0f, m_na = 0.0f;   // the cluster's maxima over the feasible nodes
     bool nm_x = false;                // the pod's counts can be nonzero: exchanged
     if constexpr (!IPA) {
-      if constexpr (NORM && !SPREAD) {
-        // main, gang: the pod was prepared while the pod before it waited
-        // (norm_prepare); its warp's true maxima for the triple's free word
-        // and its flag terms of the guess (see the header)
+      if constexpr (NORM) {
+        // main, gang, spread: the pod was prepared while the pod before it
+        // waited (norm_prepare); its warp's true maxima for the triple's
+        // free word and its flag terms of the guess (see the header)
         NormMain<RUN>& kp = keep_of(nm...);
         kp.tt = kp.tt_n;
         kp.na = kp.na_n;
@@ -2206,30 +2315,32 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
 #pragma unroll
           for (int j = 0; j < RUN; ++j) ms[j] = __fadd_rn(ms[j], q);
         }
-      } else if constexpr (NORM) {
-        const NormPod nq = norm_pod(norm_of(nm...), s.nm_pods + (p % POD_SLOTS) * NM_ROW);
-        nm_x = nq.tt || nq.na;
-        if (nm_x) {
-          bool fe[RUN];
-#pragma unroll
-          for (int j = 0; j < RUN; ++j) fe[j] = ms[j] > -INFINITY && lr[j] >= 0.0f;
-          unsigned mt, mn;
-          norm_counts<RUN>(norm_of(nm...), nq, g0, fe, nc, &mt, &mn);
-          mt = __reduce_max_sync(FULL, mt);
-          mn = __reduce_max_sync(FULL, mn);
-          if (lane == 0) s.nm_w[warp] = make_int2((int)mt, (int)mn);
-        }
       }
+    } else if constexpr (NORM && !SPREAD) {
+      // interpod: the pod prepared as above and its flag terms of the
+      // guess; its warp's true maxima follow the predicate (below)
+      NormMain<RUN>& kp = keep_of(nm...);
+      kp.tt = kp.tt_n;
+      kp.na = kp.na_n;
+      kp.key = kp.key_n;
+      kp.guess = kp.guess_n;
+      kp.at = kp.at_n;
+      nm_x = kp.x_n;
+      float fl[RUN];
+      if (nm_x) {
+        load_run<RUN>(nm_flag(s) + c0, fl);
+      } else {
+        const float q = __fadd_rn(__fmul_rn(kp.w_tt, MAX_PRIORITY), __fmul_rn(kp.w_na, 0.0f));
+#pragma unroll
+        for (int j = 0; j < RUN; ++j) fl[j] = q;
+      }
+#pragma unroll
+      for (int j = 0; j < RUN; ++j) ms[j] = __fadd_rn(ms[j], fl[j]);
     }
     // ---- SelectorSpread of the run (spread build)
     [[maybe_unused]] float ss[RUN];
     if constexpr (SPREAD && !IPA) {
-      // pod p has no entry (fetched one pod ahead), and with the flag no
-      // maxima to send; a pod with maxima alone runs the partial on the
-      // counts loaded last (scored 10 after the exchange)
-      bool quiet = q_next < 0;
-      if constexpr (NORM) quiet = quiet && !nm_x;
-      if (quiet) {
+      if (q_next < 0) {   // pod p has no entry (fetched one pod ahead)
 #pragma unroll
         for (int j = 0; j < RUN; ++j) ss[j] = MAX_PRIORITY;
       } else {
@@ -2271,18 +2382,13 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
             out[1 + d] = z;
           }
           if (lane == 0) out[0] = bmax | (int)bzoned;
-          if constexpr (NORM) {   // + the flag's maxima, one chunk, whenever it is on
-            const int2 v = lane < WARPS && nm_x ? s.nm_w[lane] : make_int2(0, 0);
-            const unsigned bt = __reduce_max_sync(FULL, (unsigned)v.x);
-            const unsigned bn = __reduce_max_sync(FULL, (unsigned)v.y);
-            if (lane < CLUSTER)   // block l's slot `rank`, on the partial's mbarrier
-              st_async_v4(map_rank(smem_u32(&s.nm_slot[rank]), lane),
-                          make_int4((int)bt, (int)bn, 0, 0), to_sp_bar);
-          }
           __syncwarp();
           for (int k = lane / CLUSTER; k < sp_chunks; k += 32 / CLUSTER)
             st_async_v4(to_sp_slot + k * 16, s.sp_out[k], to_sp_bar);
         }
+        if constexpr (NORM)   // (pod p+1, its row published by this barrier; its
+          // flag terms after the triples are sent)
+          if (p + 1 < P) norm_prepare<RUN, false>(keep_of(nm...), s, p + 1, lane, t, c0, g0, N);
         mbar_wait(s.bar_sp, sp_phase);
         if (t == 0) mbar_arm(s.bar_sp, CLUSTER * sp_bytes);   // next exchanging pod
         sp_phase ^= 1u;
@@ -2319,17 +2425,6 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
               d >= 0 ? spread_part(max_zone, summed ? (float)zc : 0.0f, r_zone) : 0.0f;
           ss[j] = spread_score(spread_part(max_node, nxt[j], r_node), zone_s, d >= 0,
                                have_zones);
-        }
-        if constexpr (NORM) {
-          if (q_next < 0) {   // maxima alone: no SelectorSpread
-#pragma unroll
-            for (int j = 0; j < RUN; ++j) ss[j] = MAX_PRIORITY;
-          }
-          if (nm_x) {   // every warp: the flag's maxima
-            const int4 b4 = s.nm_slot[lane < CLUSTER ? lane : 0];
-            norm_maxima(lane < CLUSTER ? (unsigned)b4.x : 0u,
-                        lane < CLUSTER ? (unsigned)b4.y : 0u, &m_tt, &m_na);
-          }
         }
       }
     }
@@ -2449,8 +2544,9 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
         }
       }
       // the flag's counts over the nodes the predicate leaves, and the
-      // warp's maxima (they ride the (min, max) chunk)
-      if constexpr (NORM) {
+      // warp's maxima: spread+interpod, in the (min, max) chunk; interpod,
+      // from the prepared counts, for the triple's free word
+      if constexpr (NORM && SPREAD) {
         const NormPod nq = norm_pod(norm_of(nm...), s.nm_pods + (p % POD_SLOTS) * NM_ROW);
         nm_x = nq.tt || nq.na;
         if (nm_x) {
@@ -2458,18 +2554,30 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
           norm_counts<RUN>(norm_of(nm...), nq, g0, ipok, nc, &mt, &mn);
           mt = __reduce_max_sync(FULL, mt);
           mn = __reduce_max_sync(FULL, mn);
-          if constexpr (SPREAD) {   // (into the block's words, up to SI_FAST_ZONES zones)
-            if (sp.nz <= SI_FAST_ZONES) {
-              if (lane == 0) {
-                atomicMax(reinterpret_cast<unsigned*>(si_block<RUN, PACKED, NORM>(smem_base)) + 8, mt);
-                atomicMax(reinterpret_cast<unsigned*>(si_block<RUN, PACKED, NORM>(smem_base)) + 9, mn);
-              }
-            } else if (lane == 0) {
-              s.nm_w[warp] = make_int2((int)mt, (int)mn);
+          // (into the block's words, up to SI_FAST_ZONES zones)
+          if (sp.nz <= SI_FAST_ZONES) {
+            if (lane == 0) {
+              atomicMax(reinterpret_cast<unsigned*>(si_block<RUN, PACKED, NORM>(smem_base)) + 8, mt);
+              atomicMax(reinterpret_cast<unsigned*>(si_block<RUN, PACKED, NORM>(smem_base)) + 9, mn);
             }
-          } else {
-            if (lane == 0) s.nm_w[warp] = make_int2((int)mt, (int)mn);
+          } else if (lane == 0) {
+            s.nm_w[warp] = make_int2((int)mt, (int)mn);
           }
+        }
+      } else if constexpr (NORM) {
+        if (nm_x) {
+          const NormMain<RUN>& kp = keep_of(nm...);
+          unsigned mt = 0u, mn = 0u;
+#pragma unroll
+          for (int j = 0; j < RUN; ++j) {
+            if (ipok[j]) {
+              mt = max(mt, kp.cnt[j] & 0xffu);
+              mn = max(mn, kp.cnt[j] >> 8);
+            }
+          }
+          mt = __reduce_max_sync(FULL, mt);
+          mn = __reduce_max_sync(FULL, mn);
+          if (lane == 0) s.nm_w[warp] = make_int2((int)mt, (int)mn);
         }
       }
       // 3. the cluster's min and max, and the scores
@@ -2703,49 +2811,35 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
           }
         }
       } else {
-        // (the (min, max) chunk also carries the flag's maxima)
-        if (head.z != 0 || nm_x) {
-          if (head.z != 0) {
-            const int wlo = __reduce_min_sync(FULL, lo);
-            const int whi = __reduce_max_sync(FULL, hi);
-            if (lane == 0) s.ip_w[warp] = make_int2(wlo, whi);
-          }
+        if (head.z != 0) {
+          const int wlo = __reduce_min_sync(FULL, lo);
+          const int whi = __reduce_max_sync(FULL, hi);
+          if (lane == 0) s.ip_w[warp] = make_int2(wlo, whi);
           __syncthreads();
           if (warp == 0) {   // the block's (min, max), into slot `rank` of every block
-            int4 mm = make_int4(0, 0, 0, 0);
-            if (head.z != 0) {
-              const int2 v = lane < WARPS ? s.ip_w[lane] : make_int2(0, 0);
-              mm.x = __reduce_min_sync(FULL, v.x);
-              mm.y = __reduce_max_sync(FULL, v.y);
-            }
-            if (nm_x) {
-              const int2 v = lane < WARPS ? s.nm_w[lane] : make_int2(0, 0);
-              mm.z = (int)__reduce_max_sync(FULL, (unsigned)v.x);
-              mm.w = (int)__reduce_max_sync(FULL, (unsigned)v.y);
-            }
-            if (lane < CLUSTER) st_async_v4(to_ip_slot, mm, to_ip_bar);
+            const int2 v = lane < WARPS ? s.ip_w[lane] : make_int2(0, 0);
+            const int blo = __reduce_min_sync(FULL, v.x);
+            const int bhi = __reduce_max_sync(FULL, v.y);
+            if (lane < CLUSTER) st_async_v4(to_ip_slot, make_int4(blo, bhi, 0, 0), to_ip_bar);
           }
+          if constexpr (NORM)   // (pod p+1, its row published by step 1's barrier)
+            if (p + 1 < P) norm_prepare<RUN>(keep_of(nm...), s, p + 1, lane, t, c0, g0, N);
           mbar_wait(s.bar_ip, ip_phase);
-          if (t == 0) mbar_arm(s.bar_ip, CLUSTER * IP_BYTES);   // next exchanging pod
+          if (t == 0) mbar_arm(s.bar_ip, CLUSTER * IP_BYTES);   // next counting pod
           ip_phase ^= 1u;
           const int4 b4 = s.ip_slot[lane < CLUSTER ? lane : 0];
-          if (head.z != 0) {
-            const float min_c = (float)__reduce_min_sync(FULL, lane < CLUSTER ? b4.x : 0);
-            const float max_c = (float)__reduce_max_sync(FULL, lane < CLUSTER ? b4.y : 0);
-            const float spread_c = __fsub_rn(max_c, min_c);
-            if (spread_c > 0.0f) {
+          const float min_c = (float)__reduce_min_sync(FULL, lane < CLUSTER ? b4.x : 0);
+          const float max_c = (float)__reduce_max_sync(FULL, lane < CLUSTER ? b4.y : 0);
+          const float spread_c = __fsub_rn(max_c, min_c);
+          if (spread_c > 0.0f) {
 #pragma unroll
-              for (int j = 0; j < RUN; ++j)
-                if (ipok[j])
-                  ipsc[j] = truncf(__fadd_rn(
-                      __fdiv_rn(__fmul_rn(MAX_PRIORITY, __fsub_rn(cnt[j], min_c)),
-                                fmaxf(spread_c, 1.0f)),
-                      FLOOR_EPS));
-            }
+            for (int j = 0; j < RUN; ++j)
+              if (ipok[j])
+                ipsc[j] = truncf(__fadd_rn(
+                    __fdiv_rn(__fmul_rn(MAX_PRIORITY, __fsub_rn(cnt[j], min_c)),
+                              fmaxf(spread_c, 1.0f)),
+                    FLOOR_EPS));
           }
-          if (nm_x)   // every warp: the flag's maxima
-            norm_maxima(lane < CLUSTER ? (unsigned)b4.z : 0u,
-                        lane < CLUSTER ? (unsigned)b4.w : 0u, &m_tt, &m_na);
         }
       }
     }
@@ -2753,7 +2847,7 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
     // ---- the flag's terms, added to the run's static scores (every term is
     // an integer, so the sum is exact in any order; -inf stays -inf): the
     // score loops below stay those of the builds without the flag
-    if constexpr (NORM && (SPREAD || IPA)) {   // (main, gang: the prepared terms, above)
+    if constexpr (NORM && SPREAD && IPA) {   // (the other builds: the guess's terms, above)
       const double r_tt = __drcp_rn((double)fmaxf(m_tt, 1.0f));
       const double r_na = __drcp_rn((double)fmaxf(m_na, 1.0f));
 #pragma unroll
@@ -2831,8 +2925,8 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
     __syncthreads();
     if (warp == 0) {   // the block's triple, into slot `rank` of every block
       const Triple v = warp_reduce(lane < WARPS ? s.wslot[par * WARPS + lane] : empty());
-      if constexpr (NORM && !SPREAD && !IPA) {
-        // (main, gang: + the block's true maxima of the flag, packed)
+      if constexpr (NM_GUESS<SPREAD, IPA, NORM>) {
+        // (+ the block's true maxima of the flag, packed)
         const int2 m = lane < WARPS && nm_x ? s.nm_w[lane] : make_int2(0, 0);
         const unsigned packed = __reduce_max_sync(FULL, (unsigned)m.x)
                                 | __reduce_max_sync(FULL, (unsigned)m.y) << 8;
@@ -2848,19 +2942,36 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
     // start pod p+3's copies while the triples travel: its row slot held
     // row p-1 and its pod slot pod p-5, both read before this barrier
     issue_row(p + STAGES - 1);
-    // and load pod p+1's counts, whose slot this barrier published
-    if constexpr (SPREAD) fetch_counts(p + 1);
-    // (main, gang with the flag: and prepare pod p+1, its row published by
-    // the same barrier)
-    if constexpr (NORM && !SPREAD && !IPA)
-      if (p + 1 < P) norm_prepare<RUN>(keep_of(nm...), s, p + 1, lane, t, c0, g0, N);
+    if constexpr (SPREAD && NM_GUESS<SPREAD, IPA, NORM>) {
+      // (the spread build with the flag: a pod with an entry prepared pod
+      // p+1 but its flag terms while its partials travelled, the others
+      // prepare it here)
+      const bool early = q_next >= 0;
+      fetch_counts(p + 1);
+      if (p + 1 < P) {
+        if (early) norm_late_terms<RUN>(keep_of(nm...), s, c0);
+        else norm_prepare<RUN>(keep_of(nm...), s, p + 1, lane, t, c0, g0, N);
+      }
+    } else if constexpr (IPA && NM_GUESS<SPREAD, IPA, NORM>) {
+      // (the interpod build with the flag: so did a pod that counts, while
+      // its (min, max) travelled)
+      if (head.z == 0 && p + 1 < P)
+        norm_prepare<RUN>(keep_of(nm...), s, p + 1, lane, t, c0, g0, N);
+    } else {
+      // and load pod p+1's counts, whose slot this barrier published
+      if constexpr (SPREAD) fetch_counts(p + 1);
+      // (with the flag's guess: and prepare pod p+1, its row published by the
+      // same barrier)
+      if constexpr (NM_GUESS<SPREAD, IPA, NORM>)
+        if (p + 1 < P) norm_prepare<RUN>(keep_of(nm...), s, p + 1, lane, t, c0, g0, N);
+    }
     mbar_wait(&s.bar[par], (p >> 1) & 1);
     if (t == 0) mbar_arm(&s.bar[par], CLUSTER * TRIPLE_BYTES);   // for pod p+2
 
-    // ---- the flag's check (main, gang): every warp takes the cluster's
-    // maxima from the triples' free words, records them in its table, and
-    // on a wrong guess scores the pod again and exchanges it again
-    if constexpr (NORM && !SPREAD && !IPA) {
+    // ---- the flag's check: every warp takes the cluster's maxima from the
+    // triples' free words, records them in its table, and on a wrong guess
+    // scores the pod again and exchanges it again
+    if constexpr (NM_GUESS<SPREAD, IPA, NORM>) {
       if (nm_x) {
         NormMain<RUN>& kp = keep_of(nm...);
         const int4 c4 = s.cslot[par * CLUSTER + (lane < CLUSTER ? lane : 0)];
@@ -2920,7 +3031,16 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
             load_run<RUN>(s.t_lr + c0, lr);
             load_run<RUN>(s.t_ba + c0, ba);
           }
-          best_of_run<RUN>(ms, lr, ba, w_lr, w_ba, &best, &tied, &feas);
+          // (SelectorSpread and the predicate and priority of the
+          // inter-pod terms, kept from the first round)
+          if constexpr (SPREAD)
+            best_of_run_x<RUN, false>(ms, lr, ba, ss, ipok, w_lr, w_ba, sp.w_ss, &best,
+                                      &tied, &feas);
+          else if constexpr (IPA)
+            best_of_run_x<RUN, true>(ms, lr, ba, ipsc, ipok, w_lr, w_ba, ip.w_ip, &best,
+                                     &tied, &feas);
+          else
+            best_of_run<RUN>(ms, lr, ba, w_lr, w_ba, &best, &tied, &feas);
           key = order_key(best);
           nt = __popc(tied);
           const Triple wr = warp_reduce(Triple{key, nt, feas});
@@ -2933,11 +3053,17 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
                           make_int4(v.key, v.ties, v.feas, 0),
                           map_rank(smem_u32(s.bar_nm), lane));
           }
-          // (sp_phase: the parity of the flag's mbarrier in the builds
-          // without the spread exchange)
-          mbar_wait(s.bar_nm, sp_phase);
-          if (t == 0) mbar_arm(s.bar_nm, CLUSTER * TRIPLE_BYTES);   // the next redo
-          sp_phase ^= 1u;
+          // (the parity of the flag's mbarrier: sp_phase in the builds
+          // without the spread exchange, ip_phase in the spread build)
+          if constexpr (SPREAD) {
+            mbar_wait(s.bar_nm, ip_phase);
+            if (t == 0) mbar_arm(s.bar_nm, CLUSTER * TRIPLE_BYTES);   // the next redo
+            ip_phase ^= 1u;
+          } else {
+            mbar_wait(s.bar_nm, sp_phase);
+            if (t == 0) mbar_arm(s.bar_nm, CLUSTER * TRIPLE_BYTES);   // the next redo
+            sp_phase ^= 1u;
+          }
           // the selection below reads the second round where it reads the
           // first
           if (t < CLUSTER) s.cslot[par * CLUSTER + t] = s.nm_slot[t];
@@ -3165,12 +3291,12 @@ int launch(const Operands& o, SpreadParam<SPREAD> sp, IpaParam<IPA> ip,
 }
 
 // The instance with the normalization flag when its pod words are given
-// (the main and gang builds' operand with room for their kept registers).
+// (NormMain where the build guesses the flag's maxima).
 template <int RUN, bool SPREAD, bool IPA, bool GANG>
 int launch_norm(const Operands& o, SpreadParam<SPREAD> sp, IpaParam<IPA> ip,
                 GangParam<GANG> gg, cudaStream_t stream) {
   if (o.nm.pod_w == nullptr) return launch<RUN, SPREAD, IPA, GANG>(o, sp, ip, gg, stream);
-  if constexpr (!SPREAD && !IPA) {
+  if constexpr (NM_GUESS<SPREAD, IPA, true>) {
     NormMain<RUN> nm = {};
     static_cast<NormArgs&>(nm) = o.nm;
     return launch<RUN, SPREAD, IPA, GANG>(o, sp, ip, gg, stream, nm);

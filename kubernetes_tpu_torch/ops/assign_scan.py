@@ -534,8 +534,9 @@ def _norm_operands(norm: NormInputs | None):
                              float(norm.w_tt), float(norm.w_na))
 
 
-# ---- a host model of the main and gang builds' maxima table (the kernel
-# header's guess and check), for counting the scan's second rounds
+# ---- a host model of the maxima table of the builds that guess the flag's
+# maxima (every build but spread+interpod; the kernel header's guess and
+# check), for counting the scan's second rounds
 
 NORM_TABLE = 32                  # entries: one a lane of every warp
 NORM_MIX = 0x9E3779B9            # the key's multiplier (the kernel's NM_MIX)
@@ -603,13 +604,16 @@ def norm_exchanges(norm: NormInputs) -> list[bool]:
 
 
 def norm_true_maxima(masked_static, requests, allocatable, requested, norm: NormInputs,
-                     assignments, gang: GangInputs | None = None) -> list:
+                     assignments, gang: GangInputs | None = None,
+                     interpod: InterpodInputs | None = None) -> list:
     """Per pod, the packed true maxima of the flag's counts over its
-    feasible nodes (the static row and the ledger fit) as a scan that made
-    `assignments` saw them, or None where the pod exchanges none: a replay
-    of the ledger from the assignments (a gang build's, members of reverted
-    groups included, settled at each group boundary as the scan settles
-    them), counts per distinct row."""
+    feasible nodes (the static row and the ledger fit, and with `interpod`
+    the inter-pod predicate over the carried-term ledger, as the interpod
+    build takes them) as a scan that made `assignments` saw them, or None
+    where the pod exchanges none: a replay of the ledgers from the
+    assignments (a gang build's, members of reverted groups included,
+    settled at each group boundary as the scan settles them), counts per
+    distinct row."""
     p_count, _ = masked_static.shape
     exch = norm_exchanges(norm)
     rows = norm_pod_rows(norm).cpu().numpy()
@@ -619,6 +623,12 @@ def norm_true_maxima(masked_static, requests, allocatable, requested, norm: Norm
     gang_ids = gang.gang_id.tolist() if gang is not None else [0] * p_count
     gang_mins = gang.gang_min.tolist() if gang is not None else [0] * p_count
     req = requested.clone()
+    ip = interpod
+    if ip is not None:
+        ledger = make_ledger(ip.podsel_count, ip.term_count, ip.topology,
+                             ip.domain_universe)
+        onehot = topology_onehot(ip.topology, ip.domain_universe)
+        one = torch.ones((), dtype=torch.float32, device=masked_static.device)
     cache: dict = {}
     out = torch.zeros((p_count, 2), dtype=torch.float32, device=masked_static.device)
     gang_cur, placed, quorum, snap = 0, 0, 0, None
@@ -637,6 +647,9 @@ def norm_true_maxima(masked_static, requests, allocatable, requested, norm: Norm
             feasible = (masked_static[p] > float("-inf")) & fits_resources_dyn(
                 allocatable, requests[p:p + 1], req, dyn_gpu=False,
                 dyn_storage=False)[0]
+            if ip is not None and ip.use_ipa:
+                pod = SimpleNamespace(**{f: getattr(ip, f)[p] for f in POD_ROW_FIELDS})
+                feasible = feasible & interpod_feasible(ip, pod, ledger, onehot)
             if tt_on[p] and norm.w_tt:
                 out[p, 0] = torch.where(feasible, tt, 0.0).max()
             if na_on[p] and norm.w_na:
@@ -644,6 +657,9 @@ def norm_true_maxima(masked_static, requests, allocatable, requested, norm: Norm
         if placed_at[p] >= 0:
             req[placed_at[p]] += requests[p]
             placed += gang_cur > 0
+            if ip is not None:
+                ledger_add(ledger, ip.pod_matches_q[p], placed_at[p], one,
+                           ip.pod_carries_e[p], ip.topology)
     maxima = out.cpu().to(torch.int64).tolist()
     return [norm_pack(*m) if x else None for m, x in zip(maxima, exch)]
 
