@@ -139,7 +139,30 @@ fails; nothing is caught and skipped:
    only nodes holding the maxima fill up until the maxima drop to 0, two
    rows with one table key alternate, 40 classes cycle through the table's
    32 entries);
-13. the kernels line, the nvidia-smi line, and last the result line.
+13. preemption: the preemption cell (perf/harness.py `preemption_cluster`:
+   15,000 nodes, N = 16,384, each filled by two priority-0 fillers of
+   1900m / 256Mi, 30,000 bound pods, S = 16 victim slots; a wave of 3,750
+   pods of 2 cpu / 512Mi at priority 1000, P = 4,096) through
+   Scheduler(device="cuda"): no wave pod may land before an eviction,
+   every wave pod must get a verdict with k = 1 or 2, the verdicts'
+   victims must be disjoint, of lower priority and evictable, kernel 3
+   must have launched, and after the victims are removed the whole wave
+   must land; then kernel 3 against its plain version on the post-scan
+   operands of the wave's batch exactly (preempt_node and victim_count) on
+   the uniform cluster, a mixed one (filler priorities 0, 100, 200, every
+   5th filler protected, wave priorities 150 and 1000, requests of 2, 1 and
+   3 cpu) and a gang one (groups of 8 at quorum 8, fewer evictable victims
+   than the wave needs, so that groups revert; held without the gang mask
+   too, where a missing revert would show, and it must show groups that
+   found nodes after a revert), timed on the uniform and mixed batches;
+   the uniform operands are the drill's own first batch (the driver's
+   `prepare_chunk`) before its removals; last the wide check, the mixed
+   operands tiled and shuffled to N = 65,536 on their first 512 pods,
+   where the kernel reads the slots' requests through L2;
+14. the kernels line, the nvidia-smi line, and last the result line.
+
+Every phase line carries `elapsed_s`, the script's seconds when it was
+printed, so the phases' shares of the time limit can be read off a run.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
@@ -227,10 +250,45 @@ NORM_OVERFLOW_CLASSES = 40
 # (whose loops take 14-16 ms a pod on the card); their kernels-line entries
 # say so in `scope`
 NORM_PREFIX = 256
+# the preemption cell (perf/harness.py preemption_cluster): nodes, and the
+# variants whose post-scan operands kernel 3 is held on; operations of the
+# pass per (taking-part pod, statically feasible node): per slot the
+# evictable, taken and priority tests (3), the ledger's adds (R); and per
+# fit checked: the slot's subtraction a resource (R), the fit's adds and
+# compares (pods 2, cpu, memory and gpu 6, storage 5)
+PREEMPT_NODES = HEADLINE_NODES
+PREEMPT_VARIANTS = ("uniform", "mixed", "gang")
+PREEMPT_SLOT_OPS = 3
+PREEMPT_FIT_OPS = 13
+# the wide check of kernel 3: the mixed operands' node axis tiled to N =
+# 65,536 (a cluster past 32,768 nodes), where a block's slot requests no
+# longer fit in its shared memory (csrc/preemption.cu MAX_SMEM), on the
+# batch's first pods
+PREEMPT_WIDE_COPIES = 4
+PREEMPT_WIDE_PODS = 512
+PREEMPT_SMEM_LIMIT = 232448
+
+
+T0 = time.perf_counter()
 
 
 def emit(obj) -> None:
+    """One JSON line; a phase line also gets the script's seconds so far."""
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": time.perf_counter() - T0}
     print(json.dumps(obj), flush=True)
+
+
+def timed_call(torch, fn):
+    """(fn(), the CUDA-event ms of that one call): a plain version's
+    result and its time from the call the kernel is compared with."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def time_ms(torch, fn, reps: int, warmup: int = 1) -> tuple[float, float, float]:
@@ -782,16 +840,15 @@ def spread_phase(torch, caps, dev, kernels) -> tuple[dict, dict]:
     imbalance = max(max(v) - min(v) for v in per_group.values())
 
     args, spread = spread_scan_args(torch, state0, first, caps, flags0, zones)
-    err = compare_spread(torch, assign_scan_spread(*args, spread),
-                         assign_scan_spread_plain(*args, spread))
+    plain, plain_ms = timed_call(torch, lambda: assign_scan_spread_plain(*args, spread))
+    err = compare_spread(torch, assign_scan_spread(*args, spread), plain)
     entry = {
         "name": "assign_scan_spread", "route": "cuda",
         "source": "kubernetes_tpu_torch/csrc/assign_scan.cu",
         "replaces": "kubernetes_tpu/ops/spread.py:29",
         "launches": launches["assign_scan_spread"], "max_abs_err": err,
         **timed(torch, lambda: assign_scan_spread(*args, spread), reps=5),
-        "plain_ms": time_ms(torch, lambda: assign_scan_spread_plain(*args, spread),
-                            reps=1, warmup=0)[0],
+        "plain_ms": plain_ms,
         "library_ms": None,
     }
     entry["bound_ms"], entry["bound_by"] = spread_bound(args, spread)
@@ -1152,8 +1209,8 @@ def interpod_phase(torch, caps, dev, kernels) -> tuple[dict, dict]:
             state0.requested, state0.nonzero_requested, 0, float(g.w_lr),
             float(g.w_ba))
     ip = solver.interpod_inputs(state0, batch0, g, caps.domain_universe)
-    err = compare_interpod(torch, assign_scan_interpod(*args, ip),
-                           assign_scan_interpod_plain(*args, ip))
+    plain, plain_ms = timed_call(torch, lambda: assign_scan_interpod_plain(*args, ip))
+    err = compare_interpod(torch, assign_scan_interpod(*args, ip), plain)
     entries, counting = interpod_entries(torch, ip)
     entry = {
         "name": "assign_scan_interpod", "route": "cuda",
@@ -1161,8 +1218,7 @@ def interpod_phase(torch, caps, dev, kernels) -> tuple[dict, dict]:
         "replaces": "kubernetes_tpu/ops/interpod.py:152",
         "launches": launches["assign_scan_interpod"], "max_abs_err": err,
         **timed(torch, lambda: assign_scan_interpod(*args, ip), reps=5),
-        "plain_ms": time_ms(torch, lambda: assign_scan_interpod_plain(*args, ip),
-                            reps=1, warmup=0)[0],
+        "plain_ms": plain_ms,
         "library_ms": None,
     }
     entry["bound_ms"], entry["bound_by"] = interpod_bound(torch, args, ip)
@@ -2218,6 +2274,191 @@ def norm_cells_phase(torch, dev, kernels) -> tuple[dict, list]:
     return line, entries
 
 
+def preemption_bound(inputs, fits: int) -> tuple[float, str]:
+    """Kernel 3's bound on one batch's operands: the VictimTable, the taking
+    part pods' static rows, the ledger and allocatable, the pods' columns
+    and the two outputs once each; or the operations its data needs (the
+    plain pass's count of fit checks, `tally`)."""
+    n, s = inputs.victims.prio.shape
+    p, r = inputs.requests.shape
+    part = inputs.part
+    m = int(part.sum())
+    feasible = int((inputs.masked_static[part] > float("-inf")).sum())
+    nbytes = (n * s * (4 + 4 * r + 1) + m * n * 4 + 2 * n * r * 4
+              + p * (4 * r + 4 + 1 + 4) + 2 * p * 4)
+    ops = feasible * (PREEMPT_SLOT_OPS * s + r) + fits * (r + PREEMPT_FIT_OPS)
+    return bound(nbytes, ops)
+
+
+def widened(torch, inputs, copies: int, pods: int, seed: int):
+    """`inputs` with its node axis tiled `copies` times under one seeded
+    permutation (every node-side operand and the static rows alike), the
+    batch cut to its first `pods` pods."""
+    from kubernetes_tpu_torch.ops.preemption import VictimTable
+
+    n = inputs.allocatable.shape[0]
+    perm = torch.randperm(n * copies, generator=torch.Generator().manual_seed(seed))
+    perm = perm.to(inputs.allocatable.device)
+
+    def nodes(t, dim=0):
+        return torch.cat([t] * copies, dim).index_select(dim, perm).contiguous()
+
+    v = inputs.victims
+    return dataclasses.replace(
+        inputs, allocatable=nodes(inputs.allocatable),
+        base_requested=nodes(inputs.base_requested),
+        masked_static=nodes(inputs.masked_static[:pods], 1),
+        requests=inputs.requests[:pods].contiguous(),
+        priority=inputs.priority[:pods].contiguous(),
+        part=inputs.part[:pods].contiguous(), gang_id=inputs.gang_id[:pods].contiguous(),
+        victims=VictimTable(nodes(v.prio), nodes(v.req), nodes(v.ok)))
+
+
+def preempt_requests_in_l2(torch, dev, n: int, s: int, r: int) -> bool:
+    """csrc/preemption.cu's choice for N nodes: the slots' requests stay in
+    device memory where a block's range of them does not fit in its shared
+    memory (the wrapper's grid, the kernel's layout and limit)."""
+    from kubernetes_tpu_torch.ops.preemption import THREADS
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    blocks = max(1, min(sms, -(-n // THREADS)))
+    nb = -(-n // blocks)
+    return nb * 4 * (s + s * r + 2 + 3 * r) > PREEMPT_SMEM_LIMIT
+
+
+def preemption_phase(torch, dev, kernels) -> tuple[dict, dict]:
+    """The preemption cell's drill through the driver, then kernel 3 against
+    its plain version on each variant's post-scan operands and on the wide
+    one (phase 13 of the module docstring). Returns (the phase line, the
+    kernels-line entry)."""
+    from kubernetes_tpu_torch.ops.preemption import (
+        gang_verdict_mask,
+        preemption_pass,
+        preemption_pass_plain,
+    )
+    from kubernetes_tpu_torch.perf.harness import (
+        preemption_caps,
+        preemption_cluster,
+        preemption_drill,
+        preemption_pass_inputs,
+    )
+
+    sched, wave = preemption_cluster(PREEMPT_NODES, "uniform", dev)
+    # the uniform operands: the drill's first batch, before its removals
+    held = {"uniform": preemption_pass_inputs(sched, wave)}
+    for k in kernels:
+        k.launches = 0
+    drill = preemption_drill(sched, wave)
+    launches = {k.__name__: k.launches for k in kernels}
+    if not all(launches.values()):
+        raise AssertionError(f"kernels not launched in the preemption drill: {launches}")
+    if drill.verdicts != drill.wave or not set(drill.victim_counts) <= {1, 2}:
+        raise AssertionError(f"preemption: {drill.verdicts}/{drill.wave} verdicts, "
+                             f"k {sorted(set(drill.victim_counts))}")
+    if drill.bound_wave != drill.wave or drill.victims != sum(drill.victim_counts):
+        raise AssertionError(f"preemption: {drill.bound_wave}/{drill.wave} landed "
+                             f"after removing {drill.victims} victims")
+    del sched, wave
+    caps = preemption_caps(PREEMPT_NODES)
+    line = {"phase": "preemption", "nodes": drill.n_nodes,
+            "caps": [caps.num_nodes, caps.batch_pods, caps.victim_slots],
+            "wave": drill.wave, "verdicts": drill.verdicts, "victims": drill.victims,
+            "k_counts": {str(k): drill.victim_counts.count(k)
+                         for k in sorted(set(drill.victim_counts))},
+            "bound_wave": drill.bound_wave, "verdict_seconds": drill.verdict_seconds,
+            "rebind_seconds": drill.rebind_seconds, "launches": launches}
+    entry = {"name": "preemption_pass", "route": "cuda",
+             "source": "kubernetes_tpu_torch/csrc/preemption.cu",
+             "replaces": "kubernetes_tpu/ops/solver.py:948",
+             "launches": launches["preemption_pass"], "library_ms": None}
+
+    def held_against_plain(name, inputs, tally=None):
+        """Kernel 3 against the plain pass without the gang mask (a
+        group's revert shows in the later groups' verdicts, which the mask
+        hides), and with it where the batch has groups. Returns (the masked
+        verdicts, the raw ones, the plain pass's seconds, the error)."""
+        args = inputs.args()
+        got = preemption_pass(*args, False)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = preemption_pass_plain(*args, False, tally=tally)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        pairs = [(got, want)]
+        if inputs.use_gang:
+            pairs.append((preemption_pass(*args, True),
+                          gang_verdict_mask(inputs.gang_id, inputs.part, *want)))
+        for kind, (g, w) in zip(("raw", "masked"), pairs):
+            for a, b, column in zip(g, w, ("preempt_node", "victim_count")):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"preemption {name}: kernel 3 != plain on "
+                                         f"{int((a != b).sum())} pods' {kind} {column}")
+        err = max_abs_err(torch, [ab for g, w in pairs for ab in zip(g, w)])
+        return pairs[-1][1], want, plain_s, err
+
+    def verdict_stats(inputs, node, count, plain_s) -> dict:
+        found = node >= 0
+        return {"pods": int(inputs.part.sum()), "verdicts": int(found.sum()),
+                "k_counts": {str(k): int((count[found] == k).sum())
+                             for k in sorted(set(count[found].tolist()))},
+                "plain_seconds": plain_s}
+
+    errs, variants = [], {}
+    for variant in PREEMPT_VARIANTS:
+        inputs = held.pop(variant, None) or preemption_pass_inputs(
+            *preemption_cluster(PREEMPT_NODES, variant, dev))
+        tally: dict = {}
+        (node, count), (raw_node, _), plain_s, err = held_against_plain(
+            variant, inputs, tally)
+        errs.append(err)
+        stats = verdict_stats(inputs, node, count, plain_s)
+        if variant == "gang":
+            members = inputs.part & (inputs.gang_id > 0)
+            hidden = members & (raw_node >= 0) & (node < 0)
+            stats["members_without_verdict"] = int((members & (node < 0)).sum())
+            # groups whose members found nodes the mask then hid: past the
+            # first reverted group, only on nodes its revert gave back
+            stats["groups_hidden"] = len(set(inputs.gang_id[hidden].tolist()))
+            if not (0 < stats["members_without_verdict"] < int(members.sum())
+                    and stats["groups_hidden"] >= 2):
+                raise AssertionError(f"preemption gang: no group reverted, none "
+                                     f"found sets, or none after a revert: {stats}")
+        if variant == "mixed":
+            if len(stats["k_counts"]) < 2:
+                raise AssertionError(f"preemption mixed: one k only: {stats}")
+            mixed = inputs
+        if variant != "gang":
+            stats.update(timed(torch, lambda: preemption_pass(
+                *inputs.args(), inputs.use_gang), reps=5))
+            stats["bound_ms"], stats["bound_by"] = preemption_bound(inputs, tally["fits"])
+        if variant == "uniform":
+            entry.update({k: stats[k] for k in ("ms", "ms_min", "ms_max",
+                                                "bound_ms", "bound_by")})
+            entry["plain_ms"] = 1e3 * plain_s
+        variants[variant] = stats
+        del inputs
+
+    # the wide check: the slots' requests read through L2 (csrc/preemption.cu
+    # step 1), which a cluster past 32,768 nodes takes
+    wide = widened(torch, mixed, PREEMPT_WIDE_COPIES, PREEMPT_WIDE_PODS, seed=13)
+    del mixed
+    n_wide, s = wide.victims.prio.shape
+    if not preempt_requests_in_l2(torch, dev, n_wide, s, wide.requests.shape[1]):
+        raise AssertionError(f"preemption wide: N = {n_wide} keeps the requests "
+                             f"in shared memory")
+    (node, count), _, plain_s, err = held_against_plain("wide", wide)
+    errs.append(err)
+    stats = {"nodes": n_wide, **verdict_stats(wide, node, count, plain_s),
+             **timed(torch, lambda: preemption_pass(*wide.args(), False), reps=5)}
+    if len(stats["k_counts"]) < 2:
+        raise AssertionError(f"preemption wide: one k only: {stats}")
+    variants["wide"] = stats
+    del wide
+    entry["max_abs_err"] = max(errs)
+    line.update({"variants": variants, "kernel_equals_plain": True})
+    return line, entry
+
+
 def many_class_pod_dicts(n: int) -> list[dict]:
     """n pending pods, each its own equivalence class: make_pods' spec with
     memory requests 250Mi + k KiB (k < n)."""
@@ -2497,8 +2738,8 @@ def main() -> int:
 
     # ---- 3: assign_scan at the headline shape ----
     caps, nodes, pods, ref, state, first, scan_args = first_batch(torch, dev)
-    scan_err = compare_scan(torch, assign_scan(*scan_args),
-                            assign_scan_plain(*scan_args))
+    plain, plain_ms = timed_call(torch, lambda: assign_scan_plain(*scan_args))
+    scan_err = compare_scan(torch, assign_scan(*scan_args), plain)
 
     het = scan_inputs(torch, rng, dev)
     het_err = compare_scan(torch, assign_scan(*het), assign_scan_plain(*het))
@@ -2510,7 +2751,7 @@ def main() -> int:
         "replaces": "kubernetes_tpu/ops/solver.py:733",
         "max_abs_err": max(scan_err, het_err, miss_err),
         **timed(torch, lambda: assign_scan(*scan_args), reps=5),
-        "plain_ms": time_ms(torch, lambda: assign_scan_plain(*scan_args), reps=1)[0],
+        "plain_ms": plain_ms,
         "library_ms": None,
     }
     k2["bound_ms"], k2["bound_by"] = scan_bound(*scan_args[:6])
@@ -2733,13 +2974,19 @@ def main() -> int:
     line, k8 = norm_cells_phase(torch, dev, scans)
     emit(line)
 
-    # ---- 13: kernels line, card line, result line ----
+    # ---- 13: the preemption cell and kernel 3 ----
+    from kubernetes_tpu_torch.ops.preemption import preemption_pass
+
+    line, k9 = preemption_phase(torch, dev, (static_mask, assign_scan, preemption_pass))
+    emit(line)
+
+    # ---- 14: kernels line, card line, result line ----
     # (and `scope`, where an entry's figures are not all of the same inputs)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [{**{k: entry[k] for k in keys},
                        **{k: entry[k] for k in ("scope",) if k in entry}}
-                      for entry in (k1, k2, k3, k4, k6, k5, k7, *k8)]})
+                      for entry in (k1, k2, k3, k4, k6, k5, k7, *k8, k9)]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -88,9 +88,19 @@ the cell's size (`spread_tt_na_words_*`, `interpod_tt_na_words_*`:
 TT_NA_NODES on its nodes, TT_NA_PODS' 16 classes on its pods), beside
 each build without the flag (`spread_flag_off_*`, `interpod_flag_off_*`),
 and, where the tree's host replay takes the interpod predicate, the misses
-of each. `--parts` picks what to time, a comma list of mask, scan, spread,
-interpod, spread_interpod, gang, run8, phase_a, norm, norm_main, norm_si
-and sass (all by default). Exits non-zero without a CUDA device.
+of each. Where the tree has the preemption pass (kernel 3,
+`ops/preemption.py`), `preempt` holds it against its plain version on the
+post-scan operands of the preemption cell's wave (perf/harness.py
+`preemption_pass_inputs`, 15,000 nodes, N = 16,384, S = 16, P = 4,096) on
+the uniform and the mixed cluster, and times it (`preempt_<variant>_ms`,
+`*_kernel_us`: the kernel's device time a launch, torch.profiler) beside
+the plain version once (`preempt_<variant>_plain_ms`), and on the
+uniform wave with every node statically infeasible, which prices the
+per-pod exchange alone (`preempt_exchange_only_ms`), with its ptxas
+report (`preempt_ptxas`). `--parts` picks what to time, a comma list of
+mask, scan, spread, interpod, spread_interpod, gang, run8, phase_a, norm,
+norm_main, norm_si, preempt and sass (all by default). Exits non-zero
+without a CUDA device.
 """
 
 from __future__ import annotations
@@ -114,7 +124,7 @@ import numpy as np
 HERE = Path(__file__).resolve().parent
 REPS = 5
 PARTS = ("mask", "scan", "spread", "interpod", "spread_interpod", "gang", "run8",
-         "phase_a", "norm", "norm_main", "norm_si", "sass")
+         "phase_a", "norm", "norm_main", "norm_si", "preempt", "sass")
 # the gang batch's columns timed at 2 nodes a thread, and the shape of the
 # spread and interpod builds' 8-node timing
 RUN2_COLUMNS = 16384
@@ -372,6 +382,44 @@ def main() -> int:
             if replay:
                 for w, v in words.items():
                     out[f"{key}_{w}_norm_misses"] = smoke.norm_misses(name, a, v, fn(*a, v))
+    if "preempt" in parts and importlib.util.find_spec(
+            "kubernetes_tpu_torch.ops.preemption") is not None:
+        from kubernetes_tpu_torch.ops.preemption import (
+            preemption_pass,
+            preemption_pass_plain,
+        )
+        from kubernetes_tpu_torch.perf.harness import (
+            preemption_cluster,
+            preemption_pass_inputs,
+        )
+
+        for variant in ("uniform", "mixed"):
+            inputs = preemption_pass_inputs(
+                *preemption_cluster(smoke.PREEMPT_NODES, variant, dev))
+            args = (*inputs.args(), inputs.use_gang)
+            got = preemption_pass(*args)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = preemption_pass_plain(*args)
+            torch.cuda.synchronize()
+            out[f"preempt_{variant}_plain_ms"] = 1e3 * (time.perf_counter() - t0)
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError(f"preempt {variant}: kernel 3 != plain")
+            call = lambda args=args: preemption_pass(*args)  # noqa: E731
+            out.update(smoke.timed(torch, call, REPS, f"preempt_{variant}_ms"))
+            out[f"preempt_{variant}_kernel_us"] = next(
+                us for name, us in device_times(torch, ((call, REPS),))["per_launch"].items()
+                if name.startswith("preemption_kernel"))
+            out[f"preempt_{variant}_pods"] = int(inputs.part.sum())
+            if variant == "uniform":
+                # every node statically infeasible: each taking-part pod
+                # still crosses the grid, no node is evaluated or booked
+                bare = dataclasses.replace(
+                    inputs, masked_static=torch.full_like(inputs.masked_static,
+                                                          float("-inf")))
+                call = lambda a=(*bare.args(), False): preemption_pass(*a)  # noqa: E731
+                out.update(smoke.timed(torch, call, REPS, "preempt_exchange_only_ms"))
+        out["preempt_ptxas"] = smoke.ptxas_report(build_log("preemption"))
     if "sass" in parts:
         cuobjdump = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
         out["scan_sass"] = sass_digests(cuobjdump, library_path("assign_scan"),

@@ -187,10 +187,12 @@ class NormInputs:
     pod_weights: torch.Tensor
 
 
-# bits of a word (the taint and requirement universes the flag takes) and
-# preferred-term slots a pod
+# bits of a word (the taint and requirement universes the flag takes),
+# preferred-term slots a pod, and the largest preferred weight (the kernel's
+# packed counts stay below 2^24; csrc/assign_scan.cu NM_MAX_WEIGHT)
 NORM_MAX_U = 64
 NORM_SLOTS = 4
+NORM_MAX_WEIGHT = 65535
 
 
 def pack_words(member: torch.Tensor) -> torch.Tensor:
@@ -219,7 +221,8 @@ def norm_inputs(w_tt: float, w_na: float, taint_prefer_member: torch.Tensor,
     """The flag's words from the JAX layout's columns: taint_prefer_member
     f32[N, UT], req_member f32[N, UR], untolerated f32[P, UT] (1 = not
     tolerated), pref_onehot f32[P, TP, UR] (a term's distinct requirement
-    ids) and pref_weight f32[P, TP]. ValueError past UT, UR = 64 or TP = 4."""
+    ids) and pref_weight f32[P, TP]. ValueError past UT, UR = 64 or TP = 4,
+    or for a preferred weight that is not an integer in [0, 65,535]."""
     ut, ur, tp = untolerated.shape[1], req_member.shape[1], pref_onehot.shape[1]
     if ut > NORM_MAX_U or ur > NORM_MAX_U or tp > NORM_SLOTS:
         raise ValueError(
@@ -229,6 +232,12 @@ def norm_inputs(w_tt: float, w_na: float, taint_prefer_member: torch.Tensor,
     pad = NORM_SLOTS - tp
     terms = pack_words(pref_onehot)
     weights = pref_weight.to(torch.float32)
+    bad = ~((weights >= 0) & (weights <= NORM_MAX_WEIGHT)
+            & (weights == torch.trunc(weights)))
+    if bool(bad.any()):
+        raise ValueError(
+            f"norm_inputs: preferred term weight {float(weights[bad][0])} is "
+            f"not an integer in [0, {NORM_MAX_WEIGHT}]")
     if pad:
         terms = torch.cat([terms, terms.new_zeros((p, pad))], 1)
         weights = torch.cat([weights, weights.new_zeros((p, pad))], 1)

@@ -37,9 +37,16 @@ the next. This solver reproduces that decision for decision:
   NodeAffinity, whichever build runs takes the normalization flag: both
   scores over each pod's feasible nodes, from 64-bit taint and
   requirement words Phase A packs (`norm_inputs`).
+- **Preemption (serial over the pods left out)**: when the batch raises
+  the preempt gate (a pod with a priority) and the caller gives a
+  VictimTable, kernel 3 (ops/preemption.py) finds, for every valid pod the
+  scan and the gang mask left unplaced, the node whose eviction of the
+  fewest lowest-priority victims lets it fit, on the post-scan ledger and
+  the masked static scores, for every build: `preempt_node` and
+  `victim_count` in the result, (-1, 0) when the pass is off.
 
-This package carries the main path and the spread, ipa, gang, tt and na
-gates: a batch whose content raises any other BatchFlags gate, a batch that needs
+This package carries the main path and the spread, ipa, gang, tt, na and
+preempt gates: a batch whose content raises any other BatchFlags gate, a batch that needs
 the gang build with the spread or the interpod build, a policy that weighs
 ServiceSpreadingPriority on a spread batch, or a policy outside the fused
 static mask or with argument-carrying registrations, raises
@@ -79,6 +86,13 @@ from kubernetes_tpu_torch.ops.assign_scan import (
     assign_scan_spread_interpod_plain,
     assign_scan_spread_plain,
     norm_inputs,
+)
+from kubernetes_tpu_torch.ops.preemption import (
+    VictimTable,
+    group_runs,
+    participants,
+    preemption_pass,
+    preemption_pass_plain,
 )
 from kubernetes_tpu_torch.ops.static_mask import node_bits, static_mask, static_mask_plain
 from kubernetes_tpu_torch.state.cluster_state import ClusterState
@@ -174,15 +188,16 @@ _STATIC_PRIORITIES = ("EqualPriority", "ImageLocalityPriority",
 def check_supported(policy: Policy, flags: BatchFlags) -> PolicyGates:
     """The gates of a (policy, flags) pair this solver implements; raises
     NotImplementedError naming every gate or registration it does not."""
-    # spread, ipa, gang, tt and na are carried; svcanti is neutral without
-    # a ServiceAntiAffinity registration, which the PolicyRows check below
-    # refuses
+    # spread, ipa, gang, tt, na and preempt are carried; svcanti is neutral
+    # without a ServiceAntiAffinity registration, which the PolicyRows
+    # check below refuses
     raised = [f.name for f in fields(BatchFlags) if getattr(flags, f.name)
-              and f.name not in ("spread", "svcanti", "ipa", "gang", "tt", "na")]
+              and f.name not in ("spread", "svcanti", "ipa", "gang", "tt", "na",
+                                 "preempt")]
     if raised:
         raise NotImplementedError(
             f"batch raises solver gates {raised}: only the main path and "
-            f"the spread, ipa, gang, tt and na gates are implemented")
+            f"the spread, ipa, gang, tt, na and preempt gates are implemented")
     if flags.spread and policy.weight("ServiceSpreadingPriority"):
         raise NotImplementedError(
             "ServiceSpreadingPriority with a weight is not implemented")
@@ -232,6 +247,11 @@ class SolverResult:
     # reverted (the gang build), else None
     gang_placed: torch.Tensor | None = None
     gang_reverted: torch.Tensor | None = None
+    # i32[P]: the preemption pass's verdicts for the pods the scan left
+    # unplaced, the node whose first victim_count candidates of its
+    # VictimTable row the pod would evict (-1, 0: no set, or the pass off)
+    preempt_node: torch.Tensor | None = None
+    victim_count: torch.Tensor | None = None
 
 
 def _static_rest(state: ClusterState, batch: PodBatch,
@@ -298,9 +318,7 @@ def gang_member_mask(gang_id: torch.Tensor, gang_min: torch.Tensor,
     index_add. Returns (assignments, scores, groups placed, groups
     reverted), the counts as i64 scalars."""
     p = gang_id.shape[0]
-    first = torch.ones((p,), dtype=torch.bool, device=gang_id.device)
-    first[1:] = gang_id[1:] != gang_id[:-1]
-    seg = torch.cumsum(first.to(torch.int64), 0) - 1
+    first, seg = group_runs(gang_id)
     placed = torch.zeros((p,), dtype=torch.int64, device=gang_id.device)
     placed.index_add_(0, seg, (assignments >= 0).to(torch.int64))
     failed = (gang_id > 0) & (placed[seg] < gang_min)
@@ -343,7 +361,8 @@ def scan_norm_inputs(state: ClusterState, batch: PodBatch,
 
 
 def _solve(state, batch, rr_start, policy, flags, caps, spread_zones, mask_fn,
-           scan_fn, spread_fn, interpod_fn, gang_fn, spread_interpod_fn):
+           scan_fn, spread_fn, interpod_fn, gang_fn, spread_interpod_fn,
+           victims=None, preempt_fn=preemption_pass_plain):
     if flags is None:
         flags = batch_flags(state, batch)
     g = check_supported(policy, flags)
@@ -373,19 +392,30 @@ def _solve(state, batch, rr_start, policy, flags, caps, spread_zones, mask_fn,
     if flags.gang:
         assignments, scores, placed, reverted = gang_member_mask(
             batch.gang_id, batch.gang_min, assignments, scores)
+    if flags.preempt and victims is not None:
+        preempt_node, victim_count = preempt_fn(
+            state.allocatable, scan.new_requested, masked, batch.requests,
+            batch.priority.contiguous(),
+            participants(batch.valid, assignments).contiguous(),
+            batch.gang_id.contiguous(), victims, flags.gang)
+    else:
+        preempt_node = torch.full_like(assignments, -1)
+        victim_count = torch.zeros_like(assignments)
     return SolverResult(
         assignments=assignments, scores=scores,
         feasible_counts=scan.feasible_counts,
         new_requested=scan.new_requested, new_nonzero=scan.new_nonzero,
         rr_end=scan.rr_end, new_podsel=scan.new_podsel,
-        new_term=scan.new_term, gang_placed=placed, gang_reverted=reverted)
+        new_term=scan.new_term, gang_placed=placed, gang_reverted=reverted,
+        preempt_node=preempt_node, victim_count=victim_count)
 
 
 def schedule_batch(state: ClusterState, batch: PodBatch, rr_start,
                    policy: Policy = DEFAULT_POLICY,
                    flags: BatchFlags | None = None,
                    caps: Capacities | None = None,
-                   spread_zones: int | None = None) -> SolverResult:
+                   spread_zones: int | None = None,
+                   victims: VictimTable | None = None) -> SolverResult:
     """Schedule a whole pending batch against the accounted state.
 
     All tensors live on one device: CUDA tensors run the kernels, CPU
@@ -396,22 +426,27 @@ def schedule_batch(state: ClusterState, batch: PodBatch, rr_start,
     Capacities()), and the domain universe of the topology slots
     inter-pod affinity aggregates over; `spread_zones`, the zone ids in use
     (`NodeTable.spread_zones`, default the whole universe), bounds what the
-    spread build sums and exchanges. Returns per-pod assignments plus
-    the post-batch ledgers (assume semantics)."""
+    spread build sums and exchanges. `victims` (a VictimTable on the same
+    device) runs the preemption pass when the flags raise preempt (JAX
+    `schedule_batch(victims=)`: a batch without priorities, or a caller
+    with nothing evictable, runs without it). Returns per-pod assignments,
+    the post-batch ledgers (assume semantics) and the pass's verdicts."""
     return _solve(state, batch, rr_start, policy, flags, caps, spread_zones,
                   static_mask, assign_scan, assign_scan_spread,
                   assign_scan_interpod, assign_scan_gang,
-                  assign_scan_spread_interpod)
+                  assign_scan_spread_interpod, victims, preemption_pass)
 
 
 def schedule_batch_plain(state: ClusterState, batch: PodBatch, rr_start,
                          policy: Policy = DEFAULT_POLICY,
                          flags: BatchFlags | None = None,
-                         caps: Capacities | None = None) -> SolverResult:
+                         caps: Capacities | None = None,
+                         victims: VictimTable | None = None) -> SolverResult:
     """`schedule_batch` through the kernels' plain versions on any device:
     the reference a card run holds the kernel path against (it sums
     SelectorSpread's zones over the whole universe)."""
     return _solve(state, batch, rr_start, policy, flags, caps, None,
                   static_mask_plain, assign_scan_plain,
                   assign_scan_spread_plain, assign_scan_interpod_plain,
-                  assign_scan_gang_plain, assign_scan_spread_interpod_plain)
+                  assign_scan_gang_plain, assign_scan_spread_interpod_plain,
+                  victims, preemption_pass_plain)

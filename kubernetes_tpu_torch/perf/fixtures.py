@@ -3,9 +3,13 @@ fake nodes and templated pods at any scale, as v1 objects of this package.
 They build the same objects as the reference package's fixtures of the same
 name, for the options this package's solver carries; `prefer_taint_every`,
 `class_tolerations` and `class_preferred` are this package's own (the tt_na
-traffic, perf/harness.py)."""
+traffic, perf/harness.py), and so are cycled cpu requests and priorities
+(the preemption traffic; the reference sets priorities through
+PriorityClasses and its admission plugin, which this package lacks)."""
 
 from __future__ import annotations
+
+from typing import Sequence
 
 from kubernetes_tpu_torch.api.objects import Node, Pod, Service
 from kubernetes_tpu_torch.gang import GROUP_MIN_ANNOTATION, GROUP_NAME_ANNOTATION
@@ -44,14 +48,15 @@ def make_nodes(n: int, cpu: str = "4", memory: str = "8Gi", pods: str = "110",
     return out
 
 
-def make_pods(n: int, cpu: str = "100m", memory: str = "250Mi",
+def make_pods(n: int, cpu: str | Sequence[str] = "100m", memory: str = "250Mi",
               name_prefix: str = "pod", selector_every: int = 0,
               tolerate: bool = False, namespace: str = "default",
               app_groups: int = 0, anti_affinity_every: int = 0,
               pref_affinity_every: int = 0, gang_size: int = 0,
               gang_min: int | None = None,
               class_tolerations: tuple = (),
-              class_preferred: tuple = ()) -> list[Pod]:
+              class_preferred: tuple = (),
+              priority: int | Sequence[int] = 0) -> list[Pod]:
     """Templated pending pods (the basic scheduler_perf pod spec: small cpu
     and memory requests); optional periodic nodeSelector, a toleration of
     the fixtures' NoSchedule taint, and labels app=app-{i % app_groups}
@@ -64,7 +69,11 @@ def make_pods(n: int, cpu: str = "100m", memory: str = "250Mi",
     gang_size, or the trailing group is below its quorum. With app groups,
     `class_tolerations[g]` and `class_preferred[g]` (lists of v1
     tolerations and of preferred node-affinity terms, one a group) are
-    added to the pods of group g."""
+    added to the pods of group g. `cpu` and `priority` may be sequences,
+    cycled over the pods (pod i takes entry i % len); a nonzero priority is
+    written to spec.priority."""
+    cpus = [cpu] if isinstance(cpu, str) else list(cpu)
+    prios = [priority] if isinstance(priority, int) else list(priority)
     out = []
     for i in range(n):
         meta: dict = {"name": f"{name_prefix}-{i}", "namespace": namespace}
@@ -77,8 +86,11 @@ def make_pods(n: int, cpu: str = "100m", memory: str = "250Mi",
         spec: dict = {"containers": [{
             "name": "app",
             "image": "k8s.gcr.io/pause:3.0",
-            "resources": {"requests": {"cpu": cpu, "memory": memory}},
+            "resources": {"requests": {"cpu": cpus[i % len(cpus)],
+                                       "memory": memory}},
         }]}
+        if prios[i % len(prios)]:
+            spec["priority"] = prios[i % len(prios)]
         if selector_every and i % selector_every == 0:
             spec["nodeSelector"] = {"label-0": f"value-{i % 7}"}
         if tolerate:

@@ -25,6 +25,19 @@
   na gates, which every build takes as its normalization flag: the
   `tt_na` traffic is `run_throughput(15000, 30000,
   node_kwargs=TT_NA_NODES, pod_kwargs=TT_NA_PODS)`.
+- `run_preemption` drives the preemption drill (the reference's
+  bench[preemption], kubernetes_tpu/perf/harness.py `_run_preemption`):
+  every node's cpu filled by two priority-0 fillers, then a wave of n/4
+  pods at priority 1000 whose 2-cpu request fits only after an eviction,
+  in one batch: every wave pod must get a verdict, the verdicts' victims
+  must be disjoint, of lower priority and evictable, and after the caller
+  removes them the whole wave must land. `preemption_pass_inputs` gives
+  the post-scan operands of the pass on the first batch the driver would
+  solve, on that cluster and on two variants (`preemption_cluster`) the
+  card holds kernel 3 on (`mixed`: filler priorities 0, 100, 200,
+  every 5th filler protected, wave priorities 150 and 1000 and requests of
+  2, 1 and 3 cpu; `gang`: the wave in groups of 8 at quorum 8 with fewer
+  evictable victims than it needs).
 
 Both build the CUDA kernels and warm the device before the clock starts,
 and run on `cuda` unless given another device.
@@ -40,7 +53,12 @@ import torch
 
 from kubernetes_tpu_torch.gang import pod_group_key
 from kubernetes_tpu_torch.models.policy import DEFAULT_POLICY, Policy
-from kubernetes_tpu_torch.ops.solver import schedule_batch
+from kubernetes_tpu_torch.ops.preemption import VictimTable, participants
+from kubernetes_tpu_torch.ops.solver import (
+    check_supported,
+    masked_static_scores,
+    schedule_batch,
+)
 from kubernetes_tpu_torch.perf.fixtures import make_nodes, make_pods, make_services
 from kubernetes_tpu_torch.scheduler.driver import Scheduler
 from kubernetes_tpu_torch.state.convert import upload_blobs
@@ -249,3 +267,171 @@ def run_throughput(n_nodes: int, n_pods: int, caps: Capacities | None = None,
         raise RuntimeError(f"gang run: only {settled}/{result.gang_groups} "
                            f"groups settled")
     return result
+
+
+# the preemption drill (kubernetes_tpu/perf/harness.py:268-330): two
+# fillers a node of 1900m / 256Mi leave 200m of a 4-cpu node free; the
+# wave, n/4 pods of 2 cpu / 512Mi at PREEMPTION_PRIORITY, fits only after
+# an eviction
+PREEMPTION_FILLERS = 2
+PREEMPTION_PRIORITY = 1000
+PREEMPTION_GANG = 8
+
+
+def preemption_caps(n_nodes: int) -> Capacities:
+    """Nodes padded to a power of two (N = 16,384 at 15,000 nodes), and the
+    wave in one batch (P = 4,096 for its 3,750 pods)."""
+    wave = n_nodes // 4
+    return Capacities(num_nodes=1 << max(6, (n_nodes - 1).bit_length()),
+                      batch_pods=min(4096, max(64, 1 << max(0, wave - 1).bit_length())))
+
+
+def _filler_index(pod) -> int:
+    return int(pod.metadata.name.rsplit("-", 1)[1])
+
+
+def preemption_cluster(n_nodes: int, variant: str = "uniform", device=None,
+                       policy: Policy = DEFAULT_POLICY):
+    """(Scheduler with the fillers bound, the wave's pods) of one variant:
+    `uniform` the drill's; `mixed` with filler i at priority (i % 3) * 100,
+    every 5th filler protected, the wave's priorities alternating 150 and
+    1000 and its requests cycling 2, 1 and 3 cpu; `gang` the drill's wave
+    in groups of 8 at quorum 8 (n/4 rounded down to a multiple of 8), only
+    the fillers of its first half's nodes and three more evictable (a pod
+    evicts one filler a node), so the first half of the groups find sets
+    and the next one reverts after three members."""
+    if variant not in ("uniform", "mixed", "gang"):
+        raise ValueError(f"preemption variant {variant!r}")
+    wave_n = n_nodes // 4
+    evictable = None
+    filler_prio, wave_kwargs = 0, {"cpu": "2", "priority": PREEMPTION_PRIORITY}
+    if variant == "mixed":
+        filler_prio = (0, 100, 200)
+        wave_kwargs = {"cpu": ("2", "1", "3"), "priority": (150, PREEMPTION_PRIORITY)}
+        evictable = lambda pod: _filler_index(pod) % 5 != 0  # noqa: E731
+    elif variant == "gang":
+        wave_n -= wave_n % PREEMPTION_GANG
+        wave_kwargs["gang_size"] = PREEMPTION_GANG
+        open_nodes = wave_n // 2 + 3
+        evictable = lambda pod: (_filler_index(pod)  # noqa: E731
+                                 // PREEMPTION_FILLERS < open_nodes)
+    sched = Scheduler(preemption_caps(n_nodes), policy, device, evictable=evictable)
+    sched.add_nodes(make_nodes(n_nodes))
+    fillers = make_pods(PREEMPTION_FILLERS * n_nodes, cpu="1900m", memory="256Mi",
+                        name_prefix="filler", priority=filler_prio)
+    for i, pod in enumerate(fillers):
+        sched.add_pod(pod, f"node-{i // PREEMPTION_FILLERS}")
+    wave = make_pods(wave_n, memory="512Mi", name_prefix="crit", **wave_kwargs)
+    return sched, wave
+
+
+@dataclass
+class PassInputs:
+    """The preemption pass's operands after the scan of one batch
+    (ops.preemption.preemption_pass, in its order: `args()`)."""
+
+    allocatable: torch.Tensor
+    base_requested: torch.Tensor
+    masked_static: torch.Tensor
+    requests: torch.Tensor
+    priority: torch.Tensor
+    part: torch.Tensor
+    gang_id: torch.Tensor
+    victims: VictimTable
+    use_gang: bool
+
+    def args(self) -> tuple:
+        return (self.allocatable, self.base_requested, self.masked_static,
+                self.requests, self.priority, self.part, self.gang_id,
+                self.victims)
+
+
+def preemption_pass_inputs(sched: Scheduler, wave) -> PassInputs:
+    """The pass's operands on the first batch of `sched.schedule(wave)`:
+    the driver's own batching and operands (`Scheduler.batches`,
+    `Scheduler.prepare_chunk`, nothing claimed yet), the scan, and the
+    masked static scores. Changes nothing of `sched`'s state (it encodes
+    through its cache into its host blobs)."""
+    chunk, gang_id, gang_min = next(iter(sched.batches(wave)))
+    state, batch, flags, victims, _slots = sched.prepare_chunk(chunk, gang_id, gang_min)
+    if victims is None:
+        raise ValueError("preemption_pass_inputs: no preempt gate or nothing evictable")
+    policy = sched.policy
+    scan = schedule_batch(state, batch, sched.rr, policy, flags, sched.caps,
+                          spread_zones=sched.statedb.table.spread_zones)
+    inputs = PassInputs(
+        allocatable=state.allocatable, base_requested=scan.new_requested,
+        masked_static=masked_static_scores(state, batch, policy,
+                                           check_supported(policy, flags)),
+        requests=batch.requests, priority=batch.priority.contiguous(),
+        part=participants(batch.valid, scan.assignments).contiguous(),
+        gang_id=batch.gang_id.contiguous(), victims=victims, use_gang=flags.gang)
+    _sync(sched.device)   # the host blobs are free again
+    return inputs
+
+
+@dataclass
+class PreemptionResult:
+    n_nodes: int
+    wave: int
+    verdicts: int            # wave pods with a victim set
+    victims: int             # distinct victims named
+    victim_counts: list      # k of each verdict
+    bound_wave: int          # wave pods placed after the removals
+    verdict_seconds: float   # the first schedule call: scan, pass, resolve
+    rebind_seconds: float    # the removals and the second schedule call
+    device: str
+
+    def __str__(self) -> str:
+        return (f"preemption N={self.n_nodes}: {self.verdicts}/{self.wave} "
+                f"verdicts naming {self.victims} victims in "
+                f"{self.verdict_seconds:.3f}s, {self.bound_wave}/{self.wave} "
+                f"landed after the removals on {self.device}")
+
+
+def run_preemption(n_nodes: int, device=None,
+                   policy: Policy = DEFAULT_POLICY) -> PreemptionResult:
+    """The preemption drill on `preemption_cluster(n_nodes)`, the kernels
+    built and warmed first."""
+    dev = resolve_device(device)
+    sched, wave = preemption_cluster(n_nodes, "uniform", dev, policy)
+    warm(sched.caps, policy, dev)
+    return preemption_drill(sched, wave)
+
+
+def preemption_drill(sched: Scheduler, wave) -> PreemptionResult:
+    """The drill through `Scheduler.schedule`: the wave gets its verdicts,
+    the caller removes the victims (`remove_pod`), and the wave is
+    scheduled again. Raises if a wave pod lands before an eviction, or if
+    a verdict's victims are shared, not of lower priority or not
+    evictable."""
+    dev = sched.device
+    accounted = sched.statedb._accounted
+    gc.collect()
+    t0 = time.perf_counter()
+    first = sched.schedule(wave)
+    _sync(dev)
+    t1 = time.perf_counter()
+    if any(v is not None for v in first.values()):
+        raise RuntimeError("preemption drill: a wave pod landed before any eviction")
+    verdicts = dict(sched.preemptions)
+    victims = [key for _node, keys in verdicts.values() for key in keys]
+    if len(set(victims)) != len(victims):
+        raise RuntimeError("preemption drill: a victim named by two verdicts")
+    for key in victims:
+        pod = accounted[key][6]
+        if pod.spec.priority >= PREEMPTION_PRIORITY or (
+                sched.evictable is not None and not sched.evictable(pod)):
+            raise RuntimeError(f"preemption drill: victim {key} not evictable")
+    t2 = time.perf_counter()
+    for key in victims:
+        sched.remove_pod(key)
+    second = sched.schedule(wave)
+    _sync(dev)
+    t3 = time.perf_counter()
+    return PreemptionResult(
+        n_nodes=len(sched.statedb.table.row_of), wave=len(wave), verdicts=len(verdicts),
+        victims=len(set(victims)),
+        victim_counts=[len(keys) for _node, keys in verdicts.values()],
+        bound_wave=sum(v is not None for v in second.values()),
+        verdict_seconds=t1 - t0, rebind_seconds=t3 - t2, device=str(dev))

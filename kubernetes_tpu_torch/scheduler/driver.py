@@ -5,7 +5,8 @@ pods in `caps.batch_pods` chunks. Each chunk is encoded through the
 EncodeCache into one reused pair of host blobs (the unused tail rows reset
 to the padding row), its gates are read from those blobs, the blobs are
 uploaded and sliced back into a PodBatch on the device, solved, read back,
-and committed to the StateDB from the f32 blob. The round-robin counter
+and committed to the StateDB from the f32 blob (`batches` gives the
+chunks, `prepare_chunk` one chunk's solver operands). The round-robin counter
 chains from batch to batch, so a sequence of `schedule` calls makes the
 decisions one long serial schedule would. `add_pod`, `remove_pod` and
 `remove_node` keep the StateDB in step for pods bound and deleted, and
@@ -40,8 +41,22 @@ individually where they stand (the reference's treatment after its
 quorum timeout; a call is given all the pods there are, so a group below
 quorum counts one timeout). `gang_placed`, `gang_reverted` and
 `gang_timeouts` count groups.
-Watching an apiserver and binding are host-plane work for a later slice of
-the port.
+
+Pods with a priority raise the solver's preempt gate. With
+`enable_preemption` (the default) such a chunk is solved with a
+VictimTable built from the StateDB (preemption.build_victim_table: the
+`evictable` callable stands in for the PodDisruptionBudget check), and the
+pass's verdicts for the pods left unplaced are resolved into victim pod
+keys: `preemptions` maps each such pod's key to (node name, victim keys)
+for the last `schedule` call, with one set of claimed victims across the
+call (a later chunk's table leaves them out). A gang group that did not
+reach its quorum is all or nothing, as the reference driver's
+(kubernetes_tpu/scheduler/driver.py `_apply_batch`): its verdicts are
+resolved only when every unplaced member has one. The driver evicts
+nothing: removing the victims stays the caller's `remove_pod`, after which
+the preemptors schedule again. Eviction through an apiserver, nominated
+node holds and the rebind, like watching an apiserver and binding, are
+host-plane work for a later slice of the port.
 """
 
 from __future__ import annotations
@@ -68,8 +83,13 @@ from kubernetes_tpu_torch.gang import (
 )
 from kubernetes_tpu_torch.models.policy import DEFAULT_POLICY, Policy
 from kubernetes_tpu_torch.ops.solver import schedule_batch
+from kubernetes_tpu_torch.preemption import build_victim_table, resolve_victims
 from kubernetes_tpu_torch.state.context import EncodeContext
-from kubernetes_tpu_torch.state.convert import host_blobs, upload_blobs
+from kubernetes_tpu_torch.state.convert import (
+    host_blobs,
+    upload_blobs,
+    victims_from_numpy,
+)
 from kubernetes_tpu_torch.state.encode_cache import EncodeCache
 from kubernetes_tpu_torch.state.layout import Capacities
 from kubernetes_tpu_torch.state.pod_batch import (
@@ -87,9 +107,15 @@ _NONE: dict = {}   # a namespace without objects of a kind (never written)
 
 class Scheduler:
     def __init__(self, caps: Capacities | None = None,
-                 policy: Policy = DEFAULT_POLICY, device=None):
+                 policy: Policy = DEFAULT_POLICY, device=None,
+                 enable_preemption: bool = True, evictable=None):
         self.caps = caps or Capacities()
         self.policy = policy
+        self.enable_preemption = enable_preemption
+        self.evictable = evictable   # pod -> bool, the PDB check's stand-in
+        # pod key -> (node name, victim pod keys) of the last schedule call
+        self.preemptions: dict[str, tuple[str, list[str]]] = {}
+        self._claimed: set[str] = set()   # victims named in this call
         self.statedb = StateDB(self.caps, device)
         self.device = self.statedb.device
         # kind -> namespace -> name -> object
@@ -176,15 +202,21 @@ class Scheduler:
         """Place `pods` in order, gang groups whole. Returns {pod key: node
         name, or None when no node fits or the pod's group was reverted}."""
         out: dict[str, str | None] = {}
-        step = self.caps.batch_pods
-        if any(GROUP_NAME_ANNOTATION in pod.metadata.annotations for pod in pods):
-            batches = self._gang_batches(pods)
-        else:   # no group: fixed slices, without a pass over each pod
-            batches = ((pods[start:start + step], None, None)
-                       for start in range(0, len(pods), step))
-        for chunk, gang_id, gang_min in batches:
+        self.preemptions = {}
+        self._claimed = set()
+        for chunk, gang_id, gang_min in self.batches(pods):
             out.update(self._schedule_chunk(chunk, gang_id, gang_min))
         return out
+
+    def batches(self, pods: Sequence[Pod]):
+        """(pods, gang_id, gang_min) of each batch `schedule(pods)` solves,
+        in order (gang_id and gang_min None for a call without groups)."""
+        step = self.caps.batch_pods
+        if any(GROUP_NAME_ANNOTATION in pod.metadata.annotations for pod in pods):
+            return self._gang_batches(pods)
+        # no group: fixed slices, without a pass over each pod
+        return ((pods[start:start + step], None, None)
+                for start in range(0, len(pods), step))
 
     def _gang_quorum(self, gkey: str, members: Sequence[Pod]) -> int:
         """The PodGroup's minMember, else the largest group-min annotation
@@ -237,9 +269,14 @@ class Scheduler:
         if chunk:
             yield chunk, gang_id, gang_min
 
-    def _schedule_chunk(self, pods: Sequence[Pod], gang_id=None,
-                        gang_min=None) -> dict[str, str | None]:
-        t0 = time.perf_counter()
+    def prepare_chunk(self, pods: Sequence[Pod], gang_id=None, gang_min=None,
+                      claimed=frozenset()) -> tuple:
+        """(state, batch, flags, victims, slots): one batch's solver operands
+        as `schedule` makes them. The pods are encoded through the cache
+        into the reused host blobs, the gates read from the blobs, the
+        VictimTable built from the StateDB when the preempt gate is up
+        (without the `claimed` pod keys; victims and slots None otherwise),
+        the StateDB flushed and the blobs uploaded and sliced."""
         fblob, iblob = self._host_blobs
         n = len(pods)
         table = self.statedb.table
@@ -262,19 +299,40 @@ class Scheduler:
         if gang_id is not None:
             # after every encode: a class row carries no batch-local group
             write_gang_columns(fblob, iblob, gang_id, gang_min, self.caps)
-        flags = packed_batch_flags(fblob, iblob, n, self.statedb.table, self.caps)
+        flags = packed_batch_flags(fblob, iblob, n, table, self.caps)
+        victims = slots = None
+        if self.enable_preemption and flags.preempt:
+            host, slots = build_victim_table(self.statedb, evictable=self.evictable,
+                                             exclude=claimed)
+            if host is not None:
+                victims = victims_from_numpy(host, self.device)
         state = self.statedb.flush()
         batch = unpack_batch(*upload_blobs(*self._blobs, self.device), self.caps)
+        return state, batch, flags, victims, slots
+
+    def _schedule_chunk(self, pods: Sequence[Pod], gang_id=None,
+                        gang_min=None) -> dict[str, str | None]:
+        t0 = time.perf_counter()
+        n = len(pods)
+        table = self.statedb.table
+        state, batch, flags, victims, slots = self.prepare_chunk(
+            pods, gang_id, gang_min, self._claimed)
         t1 = time.perf_counter()
         result = schedule_batch(state, batch, self.rr, self.policy, flags,
-                                self.caps, spread_zones=table.spread_zones)
-        assignments = result.assignments.cpu().numpy()
+                                self.caps, spread_zones=table.spread_zones,
+                                victims=victims)
+        if victims is None:
+            assignments = result.assignments.cpu().numpy()
+        else:   # the verdicts ride the same readback
+            assignments, pnode, pcount = torch.stack(
+                (result.assignments, result.preempt_node,
+                 result.victim_count)).cpu().numpy()
         t2 = time.perf_counter()
         name_of = self.statedb.table.name_of
         placed = [name_of[row] if row >= 0 else None
                   for row in assignments[:n].tolist()]
         hit = np.flatnonzero(assignments[:n] >= 0).tolist()
-        self.statedb.commit_batch(result, fblob, zip(
+        self.statedb.commit_batch(result, self._host_blobs[0], zip(
             map(pods.__getitem__, hit), map(placed.__getitem__, hit), hit))
         self.rr = result.rr_end
         self.last_result = result
@@ -283,6 +341,49 @@ class Scheduler:
                 (result.gang_placed, result.gang_reverted)).tolist()
             self.gang_placed += placed_groups
             self.gang_reverted += reverted_groups
+        if victims is not None:
+            self._resolve_preemptions(pods, assignments[:n], pnode[:n],
+                                      pcount[:n], slots, gang_id, gang_min)
         self.encode_seconds.append(t1 - t0)
         self.solve_seconds.append(t2 - t1)
         return dict(zip((pod.key for pod in pods), placed))
+
+    def _resolve_preemptions(self, pods, rows, pnode, pcount, slots, gang_id,
+                             gang_min) -> None:
+        """Turn a chunk's verdicts into `preemptions` entries: a group below
+        its quorum only when every unplaced member has a verdict (members
+        resolved in order until one cannot be), then every other unplaced
+        pod with a verdict."""
+        name_of = self.statedb.table.name_of
+
+        def resolve(i: int) -> bool:
+            node = name_of[int(pnode[i])]
+            if node is None:
+                return False   # the node left since the solve
+            keys = resolve_victims(slots, int(pnode[i]), int(pcount[i]),
+                                   int(pods[i].spec.priority), self._claimed)
+            if keys is None:
+                return False
+            self.preemptions[pods[i].key] = (node, keys)
+            return True
+
+        handled: set[int] = set()
+        if gang_id is not None:
+            start = 0
+            while start < len(pods):
+                gid, end = gang_id[start], start + 1
+                while end < len(pods) and gang_id[end] == gid:
+                    end += 1
+                members = range(start, end)
+                start = end
+                if gid <= 0 or sum(rows[i] >= 0 for i in members) >= gang_min[members[0]]:
+                    continue   # no group, or placed: stragglers go one by one
+                handled.update(members)
+                unplaced = [i for i in members if rows[i] < 0]
+                if unplaced and all(pnode[i] >= 0 for i in unplaced):
+                    for i in unplaced:
+                        if not resolve(i):
+                            break
+        for i in np.flatnonzero((rows < 0) & (pnode >= 0)).tolist():
+            if i not in handled:
+                resolve(i)

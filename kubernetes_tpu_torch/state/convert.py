@@ -10,6 +10,9 @@ fed the same encoded inputs. Dtypes follow the CUDA kernels' needs:
 
 `rr` (uint32 in the reference) is carried as a Python int in [0, 2^32).
 
+`victims_from_numpy` carries a VictimTable of numpy arrays (this package's
+`preemption.build_victim_table`'s, or the reference package's) to a device.
+
 `upload_blobs` carries a batch's two packed blobs (state.pod_batch
 `pack_batch`) across, from this package's driver or from the reference
 package's, and `host_blobs` allocates the driver's reusable host pair.
@@ -52,6 +55,15 @@ def state_from_numpy(obj, device) -> ClusterState:
 def batch_from_numpy(obj, device) -> PodBatch:
     return PodBatch(**{name: to_device(getattr(obj, name), device)
                        for name in BATCH_FIELDS})
+
+
+def victims_from_numpy(obj, device):
+    """ops.preemption.VictimTable on `device` from any object with prio,
+    req and ok numpy arrays (i32[N, S], f32[N, S, R], bool[N, S])."""
+    from kubernetes_tpu_torch.ops.preemption import VictimTable
+
+    return VictimTable(**{name: to_device(getattr(obj, name), device)
+                          for name in ("prio", "req", "ok")})
 
 
 def rr_from_numpy(rr) -> int:

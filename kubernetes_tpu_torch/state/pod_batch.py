@@ -8,9 +8,10 @@ membership columns must be refilled (StateDB.flush) before the batch is
 solved.
 
 This package's solver covers the scheduler's main path, SelectorSpread,
-inter-pod (anti-)affinity and gang groups. The encoder rejects, with
+inter-pod (anti-)affinity, gang groups and pod priority (the `priority`
+column, which gates the preemption pass). The encoder rejects, with
 NotImplementedError, pods whose features would change the result outside
-it (volumes, host ports, priority). Features the solver gates per batch
+it (volumes, host ports). Features the solver gates per batch
 (gpu and storage requests, preferred node affinity) are encoded, and the
 solver raises on them. The spreading columns (spread_q, spread_svc_q,
 svcanti_q, svcanti_total) are read from the pod's namespace and labels and
@@ -198,8 +199,6 @@ def unsupported_feature(pod: Pod) -> str | None:
         return "volumes"
     if pod.host_ports():
         return "host ports"
-    if pod.spec.priority:
-        return "pod priority"
     return None
 
 
@@ -307,6 +306,7 @@ def encode_pod_into(batch: PodBatch, i: int, pod: Pod, caps: Capacities,
         batch.node_name_lo[i] = 0
         batch.node_name_hi[i] = 0
     batch.best_effort[i] = pod.is_best_effort()
+    batch.priority[i] = pod.spec.priority
     _encode_node_affinity(batch, i, pod, caps, table)
     _encode_interpod_affinity(batch, i, pod, caps, table)
     _encode_workloads(batch, i, pod, table, ctx or EMPTY_CONTEXT)

@@ -44,6 +44,7 @@ from kubernetes_tpu_torch.state.pod_batch import (  # noqa: E402
     PackedRow,
     _layout,
     batch_flags,
+    blob_col,
     blob_widths,
     empty_batch,
     encode_pod_into,
@@ -437,6 +438,14 @@ def test_refused_pods_are_never_served_from_the_cache(feature, meta, spec):
     d = _pod("base", **spec)  # the cached pod, updated
     d["metadata"].update(meta)
     refused = Pod.from_dict(d)
+    if feature == "pod priority":
+        # encoded since the preemption pass: the changed priority is a
+        # class of its own, never the cached base's row
+        for _ in range(2):
+            cache.encode_packed_into(fblob, iblob, 1, refused)
+        assert cache.misses == 2 and cache.hits == 1
+        assert blob_col(fblob, iblob, "priority", CAPS)[[0, 1]].tolist() == [0, 10]
+        return
     for _ in range(2):  # a refused class is never stored to hit later
         with pytest.raises(NotImplementedError, match=feature):
             cache.encode_packed_into(fblob, iblob, 1, refused)

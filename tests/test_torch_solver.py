@@ -167,7 +167,11 @@ def test_gates_outside_the_main_path_raise(gate):
     nodes, pods = random_cluster(rng, 24, BATCH, gated=gate in ("tt", "gpu",
                                                                 "storage", "na"))
     (state, batch, _), (jstate, jbatch, _) = encode_both(nodes, pods)
-    if gate in ("tt", "na"):
+    if gate == "preempt":
+        # carried since the preemption pass: without a VictimTable the pass
+        # is off on both sides, and no pod gets a verdict
+        batch.priority[0] = jbatch.priority[0] = 5
+    if gate in ("tt", "na", "preempt"):
         # carried since the normalization flag (the gated cluster's gpu and
         # storage requests held off by the flags, on both sides)
         jflags = dataclasses.replace(NO_GATES, **{gate: True})
@@ -178,6 +182,7 @@ def test_gates_outside_the_main_path_raise(gate):
                              flags=dataclasses.replace(BatchFlags(*([False] * 12)),
                                                        **{gate: True}))
         assert_same(got, want, gate)
+        assert (got.preempt_node == -1).all() and (got.victim_count == 0).all()
         return
     if gate == "ports":
         batch.port_onehot[0, 0] = 1.0
@@ -189,8 +194,6 @@ def test_gates_outside_the_main_path_raise(gate):
             batch.spread_q[0] = 0
         else:
             batch.paff_q[1, 0] = 0
-    elif gate == "preempt":
-        batch.priority[0] = 5
     with pytest.raises(NotImplementedError) as info:
         schedule_batch(state_from_numpy(state, "cpu"),
                        batch_from_numpy(batch, "cpu"), 0)
