@@ -154,11 +154,17 @@ fails; nothing is caught and skipped:
    3 cpu) and a gang one (groups of 8 at quorum 8, fewer evictable victims
    than the wave needs, so that groups revert; held without the gang mask
    too, where a missing revert would show, and it must show groups that
-   found nodes after a revert), timed on the uniform and mixed batches;
-   the uniform operands are the drill's own first batch (the driver's
-   `prepare_chunk`) before its removals; last the wide check, the mixed
-   operands tiled and shuffled to N = 65,536 on their first 512 pods,
-   where the kernel reads the slots' requests through L2;
+   found nodes after a revert, on nodes a reverted group had booked, whose
+   cached verdicts the kernel must evaluate again), timed on the uniform
+   and mixed batches; the uniform operands are the drill's own first
+   batch (the driver's `prepare_chunk`) before its removals; then the
+   wide check, the mixed operands tiled and shuffled to N = 65,536 on
+   their first 512 pods, where kernel 3's placement (ops/preemption.py
+   `preemption_layout`, the function the wrapper launches with) reads
+   the read-only columns through L2 and keeps the bookings in device
+   memory; last the class-churn check, the mixed operands' first 512 pods
+   with (priority, cpu request) drawn from 24 classes, more than a node's
+   verdict entries;
 14. the kernels line, the nvidia-smi line, and last the result line.
 
 Every phase line carries `elapsed_s`, the script's seconds when it was
@@ -261,12 +267,18 @@ PREEMPT_VARIANTS = ("uniform", "mixed", "gang")
 PREEMPT_SLOT_OPS = 3
 PREEMPT_FIT_OPS = 13
 # the wide check of kernel 3: the mixed operands' node axis tiled to N =
-# 65,536 (a cluster past 32,768 nodes), where a block's slot requests no
-# longer fit in its shared memory (csrc/preemption.cu MAX_SMEM), on the
-# batch's first pods
+# 65,536 (a cluster past 32,768 nodes), where the read-only columns are
+# read through L2 (ops/preemption.py preemption_layout), on the batch's
+# first pods
 PREEMPT_WIDE_COPIES = 4
 PREEMPT_WIDE_PODS = 512
-PREEMPT_SMEM_LIMIT = 232448
+# the class-churn check of kernel 3: the mixed operands' first pods with
+# priorities and cpu requests (millicores) drawn from more classes than a
+# node's verdict cache holds (ops/preemption.py MAX_ENTRIES), so most pods
+# evaluate every node again
+PREEMPT_CHURN_PODS = 512
+PREEMPT_CHURN_PRIORITIES = (50, 150, 250, 1000)
+PREEMPT_CHURN_CPU = (500.0, 1000.0, 1500.0, 2000.0, 2500.0, 3000.0)
 
 
 T0 = time.perf_counter()
@@ -2314,16 +2326,46 @@ def widened(torch, inputs, copies: int, pods: int, seed: int):
         victims=VictimTable(nodes(v.prio), nodes(v.req), nodes(v.ok)))
 
 
-def preempt_requests_in_l2(torch, dev, n: int, s: int, r: int) -> bool:
-    """csrc/preemption.cu's choice for N nodes: the slots' requests stay in
-    device memory where a block's range of them does not fit in its shared
-    memory (the wrapper's grid, the kernel's layout and limit)."""
-    from kubernetes_tpu_torch.ops.preemption import THREADS
+def class_churn(torch, inputs, pods: int, seed: int):
+    """`inputs` cut to its first `pods` pods (or all), each pod's (priority, cpu
+    request) drawn from PREEMPT_CHURN_PRIORITIES x PREEMPT_CHURN_CPU
+    under a seed."""
+    from kubernetes_tpu_torch.state.layout import Resource
 
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    blocks = max(1, min(sms, -(-n // THREADS)))
-    nb = -(-n // blocks)
-    return nb * 4 * (s + s * r + 2 + 3 * r) > PREEMPT_SMEM_LIMIT
+    rng = np.random.default_rng(seed)
+    pods = min(pods, inputs.requests.shape[0])
+    cls = rng.integers(0, len(PREEMPT_CHURN_PRIORITIES) * len(PREEMPT_CHURN_CPU), pods)
+    dev = inputs.requests.device
+    requests = inputs.requests[:pods].clone()
+    requests[:, Resource.CPU] = torch.tensor(
+        [PREEMPT_CHURN_CPU[c % len(PREEMPT_CHURN_CPU)] for c in cls], device=dev)
+    priority = torch.tensor([PREEMPT_CHURN_PRIORITIES[c // len(PREEMPT_CHURN_CPU)]
+                             for c in cls], dtype=torch.int32, device=dev)
+    return dataclasses.replace(
+        inputs, masked_static=inputs.masked_static[:pods].contiguous(),
+        requests=requests, priority=priority, part=inputs.part[:pods].contiguous(),
+        gang_id=inputs.gang_id[:pods].contiguous())
+
+
+def revert_reused_nodes(inputs, node, raw_node) -> int:
+    """Nodes a reverted gang group booked (its members' raw verdicts, the
+    mask hid them) that a later group's raw verdicts name again: the
+    revert gave them back, so their verdicts were evaluated again."""
+    gid = inputs.gang_id.tolist()
+    raw, masked = raw_node.tolist(), node.tolist()
+    part = inputs.part.tolist()
+    restored, pending, reused, cur = set(), set(), set(), None
+    for i, g in enumerate(gid):
+        if g != cur:   # the group left: its hidden bookings were reverted
+            restored |= pending
+            pending, cur = set(), g
+        if not part[i] or g <= 0 or raw[i] < 0:
+            continue
+        if raw[i] in restored:
+            reused.add(raw[i])
+        if masked[i] < 0:
+            pending.add(raw[i])
+    return len(reused)
 
 
 def preemption_phase(torch, dev, kernels) -> tuple[dict, dict]:
@@ -2332,7 +2374,11 @@ def preemption_phase(torch, dev, kernels) -> tuple[dict, dict]:
     one (phase 13 of the module docstring). Returns (the phase line, the
     kernels-line entry)."""
     from kubernetes_tpu_torch.ops.preemption import (
+        TAG,
+        card_smem_limit,
         gang_verdict_mask,
+        pass_schedule,
+        preemption_layout,
         preemption_pass,
         preemption_pass_plain,
     )
@@ -2417,10 +2463,12 @@ def preemption_phase(torch, dev, kernels) -> tuple[dict, dict]:
             hidden = members & (raw_node >= 0) & (node < 0)
             stats["members_without_verdict"] = int((members & (node < 0)).sum())
             # groups whose members found nodes the mask then hid: past the
-            # first reverted group, only on nodes its revert gave back
+            # first reverted group, only on nodes its revert gave back,
+            # whose cached verdicts the kernel must have evaluated again
             stats["groups_hidden"] = len(set(inputs.gang_id[hidden].tolist()))
+            stats["revert_reused_nodes"] = revert_reused_nodes(inputs, node, raw_node)
             if not (0 < stats["members_without_verdict"] < int(members.sum())
-                    and stats["groups_hidden"] >= 2):
+                    and stats["groups_hidden"] >= 2 and stats["revert_reused_nodes"] > 0):
                 raise AssertionError(f"preemption gang: no group reverted, none "
                                      f"found sets, or none after a revert: {stats}")
         if variant == "mixed":
@@ -2438,22 +2486,44 @@ def preemption_phase(torch, dev, kernels) -> tuple[dict, dict]:
         variants[variant] = stats
         del inputs
 
-    # the wide check: the slots' requests read through L2 (csrc/preemption.cu
-    # step 1), which a cluster past 32,768 nodes takes
+    # the wide check: the read-only columns read through L2, the bookings
+    # in the blocks' arena, which a cluster past 32,768 nodes takes
     wide = widened(torch, mixed, PREEMPT_WIDE_COPIES, PREEMPT_WIDE_PODS, seed=13)
-    del mixed
     n_wide, s = wide.victims.prio.shape
-    if not preempt_requests_in_l2(torch, dev, n_wide, s, wide.requests.shape[1]):
-        raise AssertionError(f"preemption wide: N = {n_wide} keeps the requests "
-                             f"in shared memory")
+    lay = preemption_layout(n_wide, s, wide.requests.shape[1], card_smem_limit(dev))
+    if not {"alloc", "base", "prio", "req"} <= set(lay.l2) or "extra" in lay.shared:
+        raise AssertionError(f"preemption wide: N = {n_wide} keeps its columns "
+                             f"in shared memory: {lay}")
     (node, count), _, plain_s, err = held_against_plain("wide", wide)
     errs.append(err)
-    stats = {"nodes": n_wide, **verdict_stats(wide, node, count, plain_s),
+    stats = {"nodes": n_wide, "layout": dataclasses.asdict(lay),
+             **verdict_stats(wide, node, count, plain_s),
              **timed(torch, lambda: preemption_pass(*wide.args(), False), reps=5)}
     if len(stats["k_counts"]) < 2:
         raise AssertionError(f"preemption wide: one k only: {stats}")
     variants["wide"] = stats
     del wide
+
+    # the class-churn check: more classes than a node's verdict entries
+    churn = class_churn(torch, mixed, PREEMPT_CHURN_PODS, seed=17)
+    del mixed
+    n, s = churn.victims.prio.shape
+    lay = preemption_layout(n, s, churn.requests.shape[1], card_smem_limit(dev))
+    meta = pass_schedule(churn.requests, churn.priority, churn.part, churn.gang_id,
+                         lay.entries)
+    classes = len(set((meta[:, 2] & TAG).tolist()))
+    if classes <= lay.entries:
+        raise AssertionError(f"preemption churn: {classes} classes, "
+                             f"{lay.entries} entries")
+    (node, count), _, plain_s, err = held_against_plain("churn", churn)
+    errs.append(err)
+    stats = {"classes": classes, "entries": lay.entries,
+             **verdict_stats(churn, node, count, plain_s),
+             **timed(torch, lambda: preemption_pass(*churn.args(), False), reps=5)}
+    if len(stats["k_counts"]) < 2:
+        raise AssertionError(f"preemption churn: one k only: {stats}")
+    variants["churn"] = stats
+    del churn
     entry["max_abs_err"] = max(errs)
     line.update({"variants": variants, "kernel_equals_plain": True})
     return line, entry

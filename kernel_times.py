@@ -94,10 +94,18 @@ post-scan operands of the preemption cell's wave (perf/harness.py
 `preemption_pass_inputs`, 15,000 nodes, N = 16,384, S = 16, P = 4,096) on
 the uniform and the mixed cluster, and times it (`preempt_<variant>_ms`,
 `*_kernel_us`: the kernel's device time a launch, torch.profiler) beside
-the plain version once (`preempt_<variant>_plain_ms`), and on the
-uniform wave with every node statically infeasible, which prices the
-per-pod exchange alone (`preempt_exchange_only_ms`), with its ptxas
-report (`preempt_ptxas`). `--parts` picks what to time, a comma list of
+the plain version once (`preempt_<variant>_plain_ms`), on the uniform
+wave with every node statically infeasible, which prices the per-pod
+exchange alone (`preempt_exchange_only_ms`, `_kernel_us`), and on
+chip_smoke.py's wide check (the mixed operands at N = 65,536, their first
+512 pods: `preempt_wide_ms`) and class-churn check (the first 512 pods
+over 24 classes: `preempt_churn_ms`), each held against the plain
+version first; with its ptxas report (`preempt_ptxas`: registers, spills
+and static shared bytes of each instance) and, where the tree has
+`preemption_layout`, the dynamic shared bytes and placement at N = 16,384
+and 65,536 (`preempt_layout`). With `preempt` alone only kernel 3 is
+built. `--sass-against DIR` also says whether kernel 1's SASS equals the
+other tree's (`mask_sass_same_as_against`). `--parts` picks what to time, a comma list of
 mask, scan, spread, interpod, spread_interpod, gang, run8, phase_a, norm,
 norm_main, norm_si, preempt and sass (all by default). Exits non-zero
 without a CUDA device.
@@ -150,8 +158,8 @@ def main() -> int:
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
     sys.path.insert(0, str(opts.root.resolve()))
-    from kubernetes_tpu_torch.native.build import (build, build_log, library_path,
-                                                   nvcc_path)
+    from kubernetes_tpu_torch.native.build import (KERNELS, build, build_log,
+                                                   library_path, nvcc_path)
     from kubernetes_tpu_torch.ops import assign_scan as scan_module
     from kubernetes_tpu_torch.ops.assign_scan import assign_scan
     from kubernetes_tpu_torch.ops.static_mask import static_mask
@@ -162,7 +170,9 @@ def main() -> int:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
-    build()
+    # (the preemption kernel alone when nothing else is timed)
+    build(("preemption",) if parts <= {"preempt"} else
+          tuple(n for n in KERNELS if n != "preemption" or "preempt" in parts))
     out = {"root": str(opts.root), "nvidia_smi": smi.splitlines()[0]}
     if "mask" in parts:
         args = smoke.static_mask_inputs(torch, rng, dev)
@@ -413,12 +423,41 @@ def main() -> int:
             out[f"preempt_{variant}_pods"] = int(inputs.part.sum())
             if variant == "uniform":
                 # every node statically infeasible: each taking-part pod
-                # still crosses the grid, no node is evaluated or booked
+                # still crosses the blocks, no node is evaluated or booked
                 bare = dataclasses.replace(
                     inputs, masked_static=torch.full_like(inputs.masked_static,
                                                           float("-inf")))
                 call = lambda a=(*bare.args(), False): preemption_pass(*a)  # noqa: E731
                 out.update(smoke.timed(torch, call, REPS, "preempt_exchange_only_ms"))
+                out["preempt_exchange_only_kernel_us"] = next(
+                    us for name, us in device_times(torch, ((call, REPS),))["per_launch"].items()
+                    if name.startswith("preemption_kernel"))
+                continue
+            # the wide check (N = 65,536, the batch's first 512 pods) and the
+            # class churn (the first 512 pods over 24 classes), as
+            # chip_smoke.py holds them
+            for key, held in (
+                    ("wide", smoke.widened(torch, inputs, smoke.PREEMPT_WIDE_COPIES,
+                                           smoke.PREEMPT_WIDE_PODS, seed=13)),
+                    ("churn", smoke.class_churn(torch, inputs, smoke.PREEMPT_CHURN_PODS,
+                                                seed=17))):
+                a = (*held.args(), False)
+                if not all(torch.equal(x, y) for x, y in zip(preemption_pass(*a),
+                                                               preemption_pass_plain(*a))):
+                    raise AssertionError(f"preempt {key}: kernel 3 != plain")
+                call = lambda a=a: preemption_pass(*a)  # noqa: E731
+                out.update(smoke.timed(torch, call, REPS, f"preempt_{key}_ms"))
+                out[f"preempt_{key}_kernel_us"] = next(
+                    us for name, us in device_times(torch, ((call, REPS),))["per_launch"].items()
+                    if name.startswith("preemption_kernel"))
+                del held
+        from kubernetes_tpu_torch.ops import preemption as preempt_module
+
+        if hasattr(preempt_module, "preemption_layout"):
+            out["preempt_layout"] = {
+                n: dataclasses.asdict(preempt_module.preemption_layout(
+                    n, 16, 6, preempt_module.card_smem_limit(dev)))
+                for n in (16384, 65536)}
         out["preempt_ptxas"] = smoke.ptxas_report(build_log("preemption"))
     if "sass" in parts:
         cuobjdump = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
@@ -431,12 +470,16 @@ def main() -> int:
             other = subprocess.run(
                 [sys.executable, "-c", _BUILD_OTHER, str(opts.sass_against.resolve())],
                 capture_output=True, text=True, timeout=900, check=True)
-            theirs = sass_digests(cuobjdump, Path(other.stdout.split()[-1]))
+            scan_lib, mask_lib = other.stdout.split()[-2:]
+            theirs = sass_digests(cuobjdump, Path(scan_lib))
             mine = out["scan_sass"]
             out["scan_sass_same_as_against"] = {
                 build: {run: mine.get(build, {}).get(run, {}).get("exact") == d["exact"]
                         for run, d in runs.items()}
                 for build, runs in theirs.items()}
+            out["mask_sass_same_as_against"] = (
+                library_digest(cuobjdump, library_path("static_mask"))
+                == library_digest(cuobjdump, Path(mask_lib)))
     print(json.dumps(out), flush=True)
     return 0
 
@@ -455,10 +498,22 @@ def build_name(flags: str) -> str:
         return BUILDS[flags[:3]] + ("+norm" if flags[3] == "1" else "")
     return BUILDS[flags]
 
-# builds the scan library of the tree at argv[1] and prints its path
+# builds the scan and mask libraries of the tree at argv[1] and prints
+# their paths
 _BUILD_OTHER = ("import sys; sys.path.insert(0, sys.argv[1]); "
                 "from kubernetes_tpu_torch.native.build import build, library_path; "
-                "build(); print(library_path('assign_scan'))")
+                "build(('static_mask', 'assign_scan')); "
+                "print(library_path('assign_scan'), library_path('static_mask'))")
+
+
+def library_digest(cuobjdump: str, library: Path) -> str:
+    """A sha1 of every function's instruction text in a built library
+    (addresses and encodings left out), for kernel 1's SASS."""
+    sass = subprocess.run([cuobjdump, "-sass", str(library)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    lines = [re.sub(r"/\*[^*]*\*/", "", ln).strip()
+             for ln in sass.splitlines() if "/*" in ln and ";" in ln]
+    return hashlib.sha1("\n".join(lines).encode()).hexdigest()[:16]
 
 
 def sass_digests(cuobjdump: str, library: Path, sass_out: Path | None = None) -> dict:

@@ -180,8 +180,116 @@ def preemption_pass_plain(allocatable, base_requested, masked_static, requests,
     return out_node, out_k
 
 
-_ARGTYPES = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-THREADS = 128   # the kernel's block: one node a thread a round
+CLUSTER = 16       # the kernel's blocks, one cluster
+THREADS = 512      # a block's threads
+MAX_ENTRIES = 8    # verdicts a node keeps, one a class
+SMEM_LIMIT = 232448   # an H100's opt-in shared memory a block
+STATIC_SMEM = 2048    # the kernel's static shared memory, rounded up
+# the kernel's node columns in placement order, and their bytes a node
+# (cache: a verdict entry)
+COLUMNS = ("avail", "cache", "extra", "alloc", "base", "prio")
+MUTABLE = ("avail", "cache", "extra")
+# a meta row's tag word: the class tag, its verdicts' entry in bits 24..31;
+# its last word: the gang_id changes so far, IN_GROUP where gang_id > 0
+# (csrc/preemption.cu)
+TAG = (1 << 24) - 1
+CHANGES, IN_GROUP = (1 << 30) - 1, 1 << 30
+
+
+@dataclass(frozen=True)
+class PreemptionLayout:
+    """Kernel 3's launch geometry and placement (csrc/preemption.cu
+    `layout_for` computes the same and refuses a launch that differs)."""
+
+    nodes_thread: int     # nodes a thread (2, 8, or more past 65,536 nodes)
+    nodes_block: int      # THREADS * nodes_thread, one block's range
+    entries: int          # verdicts a node (the class cache)
+    shared: tuple         # columns in shared memory
+    shared_bytes: int     # dynamic shared memory a block
+    arena_bytes: int      # a block's mutable columns in device memory
+    l2: tuple             # read-only columns read through L2
+
+    @property
+    def shared_mask(self) -> int:
+        return sum(1 << COLUMNS.index(c) for c in self.shared)
+
+
+def preemption_layout(n: int, s: int, r: int = Resource.COUNT,
+                      smem_limit: int = SMEM_LIMIT) -> PreemptionLayout:
+    """Where kernel 3 keeps each node column for N nodes and S slots on a
+    card with `smem_limit` bytes of shared memory a block: in column
+    order, each goes to shared memory while it fits in the limit less the
+    kernel's static part (the cache with as many entries as fit, up to
+    MAX_ENTRIES, at least one); a mutable column that does not fit goes to
+    the block's arena in device memory, a read-only one is read from the
+    caller's tensor through L2, as the slots' requests always are. Raises
+    ValueError for what the kernel does not take (R other than
+    Resource.COUNT, S outside 1..32, N outside 1..2^24 - 1)."""
+    if r != Resource.COUNT or not 1 <= s <= MAX_SLOTS or not 1 <= n < MAX_NODES:
+        raise ValueError(f"preemption_pass: R={r} (the kernel takes "
+                         f"{Resource.COUNT}), S={s} (1 to {MAX_SLOTS}), "
+                         f"N={n} (1 to {MAX_NODES - 1})")
+    per_block = -(-n // CLUSTER)
+    run = -(-per_block // THREADS)
+    run = 2 if run <= 2 else 8 if run <= 8 else run
+    nb = THREADS * run
+    budget = smem_limit - STATIC_SMEM
+    # (the priorities' shared rows: S rounded up to 16 ints, swizzled)
+    sizes = {"avail": 4 * nb, "extra": 4 * r * nb, "alloc": 4 * r * nb,
+             "base": 4 * r * nb, "prio": 4 * (-(-s // 16) * 16) * nb}
+    used = arena = 0
+    entries = MAX_ENTRIES
+    shared = []
+    for c in COLUMNS:
+        if c == "cache":
+            fit = (budget - used) // (8 * nb)
+            entries = min(fit, MAX_ENTRIES) if fit >= 1 else MAX_ENTRIES
+            sizes[c] = 8 * nb * entries
+        if used + sizes[c] <= budget:
+            shared.append(c)
+            used += sizes[c]
+        elif c in MUTABLE:
+            arena += sizes[c]
+    l2 = tuple(c for c in COLUMNS if c not in shared and c not in MUTABLE) + ("req",)
+    return PreemptionLayout(nodes_thread=run, nodes_block=nb, entries=entries,
+                            shared=tuple(shared), shared_bytes=used,
+                            arena_bytes=arena, l2=l2)
+
+
+def card_smem_limit(dev) -> int:
+    """The card's opt-in shared memory a block (SMEM_LIMIT where PyTorch
+    does not report it)."""
+    props = torch.cuda.get_device_properties(dev)
+    return int(getattr(props, "shared_memory_per_block_optin", SMEM_LIMIT))
+
+
+def pass_schedule(requests, priority, part, gang_id,
+                  entries: int = MAX_ENTRIES) -> torch.Tensor:
+    """i32[M, 4]: the taking-part pods in batch order as kernel 3 walks
+    them, {pod, priority, tag | entry << 24, changes | IN_GROUP where
+    gang_id > 0}: the plain version of csrc/preemption.cu
+    `schedule_kernel`. The tag is 1 + the first pod of the batch with the
+    same request bits and priority, its verdicts' entry (tag - 1) %
+    `entries`; `changes` counts the gang_id changes in pods 0..pod (gang_id
+    0 before the batch), so a group boundary lies between two taking-part
+    pods wherever it moved."""
+    dev = part.device
+    p = part.shape[0]
+    classes = torch.cat([requests.contiguous().view(torch.int32), priority[:, None]], 1)
+    inverse = torch.unique(classes, dim=0, return_inverse=True)[1]
+    first = torch.full((p,), p, dtype=torch.int64, device=dev).scatter_reduce(
+        0, inverse, torch.arange(p, device=dev), "amin")
+    prev = torch.cat([torch.zeros((1,), dtype=gang_id.dtype, device=dev), gang_id[:-1]])
+    changes = torch.cumsum((gang_id != prev).to(torch.int64), 0)
+    idx = torch.nonzero(part).flatten()
+    first = first[inverse[idx]]
+    return torch.stack([idx, priority[idx].to(torch.int64), (first + 1) | (first % entries) << 24,
+                        changes[idx] | (gang_id[idx] > 0).to(torch.int64) * IN_GROUP],
+                       1).to(torch.int32)
+
+
+_ARGTYPES = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 3
+             + [ctypes.c_void_p])
 
 
 def preemption_pass(allocatable, base_requested, masked_static, requests,
@@ -218,34 +326,34 @@ def preemption_pass(allocatable, base_requested, masked_static, requests,
                                      use_gang)
     if dev.type != "cuda":
         raise ValueError(f"preemption_pass: unsupported device {dev}")
-    if r != Resource.COUNT or s > MAX_SLOTS or n >= MAX_NODES:
-        raise ValueError(f"preemption_pass: R={r} (the kernel takes "
-                         f"{Resource.COUNT}), S={s} (at most {MAX_SLOTS}), "
-                         f"N={n} (below {MAX_NODES})")
+    if p >= MAX_NODES:   # a class tag takes 24 bits
+        raise ValueError(f"preemption_pass: P={p} (below {MAX_NODES})")
+    limit = card_smem_limit(dev)
+    lay = preemption_layout(n, s, r, limit)
     from kubernetes_tpu_torch.native.build import load
 
     fn = load("preemption").ktpu_preemption_pass
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    blocks = max(1, min(sms, -(-n // THREADS)))
-    out_node = torch.full((p,), -1, dtype=i32, device=dev)
-    out_k = torch.zeros((p,), dtype=i32, device=dev)
-    # the exchange: one 64-bit key and one arrival count a pod; the undo
-    # log of the open group's bookings, P entries a block of (node, taken
-    # slots, extra row)
-    keys = torch.full((p,), -1, dtype=torch.int64, device=dev)
-    arrive = torch.zeros((p,), dtype=i32, device=dev)
-    undo = torch.empty((blocks, max(p, 1), 2 + r), dtype=f32, device=dev)
+    # (the kernel's schedule fills the outputs with -1 and 0 first)
+    out_node = torch.empty((p,), dtype=i32, device=dev)
+    out_k = torch.empty((p,), dtype=i32, device=dev)
+    # the walk's pod rows and their number (the kernel's schedule), each
+    # block's undo log of the open group's bookings, one entry a pod of
+    # (node, avail word, extra row), and the blocks' arena
+    meta = torch.empty((max(p, 1), 4), dtype=i32, device=dev)
+    m_count = torch.empty((1,), dtype=i32, device=dev)
+    undo = torch.empty((CLUSTER, max(p, 1), 8), dtype=f32, device=dev)
+    arena = torch.empty((CLUSTER * max(lay.arena_bytes, 1),), dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(allocatable.data_ptr(), base_requested.data_ptr(),
-                 masked_static.data_ptr(), requests.data_ptr(),
-                 priority.data_ptr(), part.data_ptr(), gang_id.data_ptr(),
-                 victims.prio.data_ptr(), victims.req.data_ptr(),
-                 victims.ok.data_ptr(), out_node.data_ptr(), out_k.data_ptr(),
-                 keys.data_ptr(), arrive.data_ptr(), undo.data_ptr(),
-                 p, n, s, blocks, stream)
+                 masked_static.data_ptr(), requests.data_ptr(), priority.data_ptr(),
+                 part.data_ptr(), gang_id.data_ptr(), victims.prio.data_ptr(),
+                 victims.req.data_ptr(), victims.ok.data_ptr(), out_node.data_ptr(),
+                 out_k.data_ptr(), meta.data_ptr(), m_count.data_ptr(), undo.data_ptr(),
+                 arena.data_ptr(), p, n, s, lay.nodes_thread, lay.entries,
+                 lay.shared_mask, lay.shared_bytes, lay.arena_bytes, limit, stream)
     if err != 0:
         raise RuntimeError(f"preemption kernel launch failed: CUDA error {err}")
     preemption_pass.launches += 1
