@@ -98,10 +98,11 @@ fails; nothing is caught and skipped:
    affinity) through Scheduler(device="cuda"); every pod must be placed
    within allocatable, no node that holds an anti-affinity pod may hold
    another pod of its group, the spread+interpod build must have launched
-   once per batch (and no other build of the scan), and the first and the
-   last batch must equal schedule_batch_plain on the state and batch the
-   driver solved them on, every ledger included; spread_interpod_build
-   times the build on the first batch against the plain path's time;
+   once per batch (and no other build of the scan), and the first batch,
+   and the last batch's first 256 pods, must equal schedule_batch_plain on
+   the state and batch the driver solved them on, every ledger included;
+   spread_interpod_build times the build on the first batch against the
+   plain path's time;
 10. gang: the reference bench's bench[gang] (50,000 nodes in 3 zones,
    N = 65,536, 24,576 pods in 3,072 all-or-nothing groups of 8, 6 batches
    of 4,096) through Scheduler(device="cuda"); every group must settle
@@ -116,6 +117,21 @@ fails; nothing is caught and skipped:
    on the last row, a node that takes two members of a group that
    reverts, and gpu and storage requests in reverting groups; the gang
    build must equal its plain version exactly, rr_end included;
+11b. gang_spread_interpod: the spread_interpod cell's cluster and
+   Services with 24,576 pods of its mix in 3,072 all-or-nothing groups of
+   8 (6 batches of 4,096) through Scheduler(device="cuda"); every group
+   must be placed within allocatable, no node that holds an anti-affinity
+   pod may hold another pod of its group, the spread+interpod build with
+   the gang carry must have launched once a batch (and no other build),
+   and the device ledgers flushed at the end must equal the host's
+   recomputation from the placements; the first batch, and its variant in
+   which every 8th group has a member asking 5 CPUs (those groups revert
+   at full width), must equal schedule_batch_plain on their first 256
+   pods; gang_cells runs the first batch of the spread and interpod cells
+   with their pods in groups of 8, without and with one PreferNoSchedule
+   taint, and of gang_spread_interpod with the taint, through the builds
+   with the gang carry (once each), held against the plain versions on
+   the first 256 pods and timed there;
 12. tt_na: the tt_na cell (bench[headline]'s 15,000 nodes with
    dedicated=batch:PreferNoSchedule on every 8th, 30,000 pods in 16 app
    groups, the even ones tolerating the taint, each preferring a zone and
@@ -138,7 +154,12 @@ fails; nothing is caught and skipped:
    builds on traffics that force their guess of the maxima to miss (the
    only nodes holding the maxima fill up until the maxima drop to 0, two
    rows with one table key alternate, 40 classes cycle through the table's
-   32 entries);
+   32 entries); and gang_carry_hazards: the spread, interpod and
+   spread+interpod builds with the gang carry against their plain
+   versions at every RUN, with and without the flag, on each build's
+   hazard batches with groups that revert (a member that fits nowhere, a
+   group open at the last row), and the spread and interpod builds with
+   the carry on the traffics that force the flag's guess to miss;
 13. preemption: the preemption cell (perf/harness.py `preemption_cluster`:
    15,000 nodes, N = 16,384, each filled by two priority-0 fillers of
    1900m / 256Mi, 30,000 bound pods, S = 16 victim slots; a wave of 3,750
@@ -230,6 +251,18 @@ RUN8_SHAPES = ((50, 40001, False), (50, 50002, False), (37, 65535, False),
                (50, 40000, False), (66, 65536, True))
 RUN8_REVERTS = ((203, 40001, "heavy"), (201, 65535, "heavy"),
                 (122, 65536, "one_node"), (122, 50002, "one_node"))
+# the gang_spread_interpod cell: the spread_interpod cell's cluster and
+# Services, 24,576 pods of its mix in all-or-nothing groups of 8
+# (perf/harness.py GANG_SPREAD_INTERPOD_PODS; 6 batches of 4,096); the pods
+# of a first batch held against schedule_batch_plain (the plain loops take
+# 14-16 ms a pod on the card), and the groups of its reverting variant
+# whose first member asks for 5 CPUs, which no 4-CPU node fits
+GSI_PODS = 24576
+GSI_SCOPE = 256
+GSI_REVERT_EVERY = 8
+# the gang carry's hazards (pods, nodes): every build of the scan (1, 2, 4
+# and 8 nodes a thread)
+GANG_CARRY_SHAPES = ((64, 60), (64, 12000), (64, 30000), (96, 65536))
 # the tt_na cell (perf/harness.py TT_NA_NODES, TT_NA_PODS): bench[headline]'s
 # cluster with dedicated=batch:PreferNoSchedule on every 8th node, 16 app
 # groups with tolerations and preferred terms; its batches held against the
@@ -590,7 +623,8 @@ def norm_miss_inputs(torch, rng, dev, sargs, kind):
 # the scan builds whose flag guesses its maxima (every build but
 # spread+interpod; csrc/assign_scan.cu's header)
 NORM_GUESS_BUILDS = ("assign_scan", "assign_scan_spread", "assign_scan_interpod",
-                     "assign_scan_gang")
+                     "assign_scan_gang", "assign_scan_spread_gang",
+                     "assign_scan_interpod_gang")
 
 
 def norm_misses(name, args, norm, got):
@@ -601,8 +635,8 @@ def norm_misses(name, args, norm, got):
     norm_table_misses): (misses, pods that exchange maxima)."""
     from kubernetes_tpu_torch.ops.assign_scan import norm_table_misses, norm_true_maxima
 
-    gang = args[9] if name == "assign_scan_gang" else None
-    interpod = args[9] if name == "assign_scan_interpod" else None
+    gang = args[-1] if name.endswith("_gang") else None
+    interpod = args[9] if name.startswith("assign_scan_interpod") else None
     maxima = norm_true_maxima(args[0], args[1], args[3], args[4], norm,
                               got.assignments, gang, interpod)
     table = norm_table_misses(norm, maxima)
@@ -1470,17 +1504,61 @@ def spread_interpod_first_batch(torch, dev):
         state, batch, g, caps.domain_universe, sched.statedb.table.spread_zones))
 
 
+def gang_spread_interpod_first_batch(torch, dev, revert_every: int = 0):
+    """The gang_spread_interpod cell's first batch as the driver builds it
+    (its groups whole, the gang columns written after encoding), encoded
+    through a Scheduler's table and encode context on its flushed state,
+    and the scan's arguments for it: (caps, the scan arguments,
+    SpreadInputs, InterpodInputs, GangInputs). With `revert_every`, the
+    first member of every revert_every-th group asks 5 CPUs, which no node
+    fits, so those groups revert."""
+    from kubernetes_tpu_torch.ops import solver
+    from kubernetes_tpu_torch.ops.assign_scan import GangInputs
+    from kubernetes_tpu_torch.perf.fixtures import make_nodes, make_pods, make_services
+    from kubernetes_tpu_torch.perf.harness import GANG_SPREAD_INTERPOD_PODS, default_caps
+    from kubernetes_tpu_torch.scheduler import Scheduler
+    from kubernetes_tpu_torch.state.convert import batch_from_numpy
+    from kubernetes_tpu_torch.state.pod_batch import encode_pods
+
+    caps = default_caps(HEADLINE_NODES, GSI_PODS)
+    sched = Scheduler(caps, device=dev)
+    sched.add_nodes(make_nodes(HEADLINE_NODES, zones=3))
+    for svc in make_services(SPREAD_GROUPS):
+        sched.add_service(svc)
+    pods = make_pods(GSI_PODS, **GANG_SPREAD_INTERPOD_PODS)
+    chunk, gang_id, gang_min = next(sched._gang_batches(pods))
+    host = encode_pods(chunk, caps, sched.statedb.table, ctx=sched.encode_cache.ctx)
+    host.gang_id[:len(chunk)] = gang_id
+    host.gang_min[:len(chunk)] = gang_min
+    if revert_every:
+        rows = np.arange(0, len(chunk), revert_every * GANG_SIZE)
+        host.requests[rows, 1] = 5000.0
+        host.nonzero_requests[rows, 0] = 5000.0
+    state = sched.statedb.flush()
+    batch = batch_from_numpy(host, dev)
+    g = solver.check_supported(solver.DEFAULT_POLICY, solver.batch_flags(state, batch))
+    masked = solver.masked_static_scores(state, batch, solver.DEFAULT_POLICY, g)
+    args = (masked, batch.requests, batch.nonzero_requests, state.allocatable,
+            state.requested, state.nonzero_requested, 0, float(g.w_lr),
+            float(g.w_ba))
+    sp, ip = solver.spread_interpod_inputs(state, batch, g, caps.domain_universe,
+                                           sched.statedb.table.spread_zones)
+    return caps, args, sp, ip, GangInputs(gang_id=batch.gang_id.contiguous(),
+                                          gang_min=batch.gang_min.contiguous())
+
+
 def spread_interpod_phase(torch, caps, dev, kernels) -> tuple[dict, dict]:
     """The spread_interpod cell (bench[spread]'s 15,000 nodes in 3 zones,
     30,000 pods in 16 app groups and 16 Services, with bench[interpod]'s
     terms) through Scheduler(device="cuda"); every pod must be placed
     within allocatable, no node that holds an anti-affinity pod may hold
     another pod of its group, the spread+interpod build must have launched
-    once per batch (and no other build of the scan), and the first and the
-    last batch must equal schedule_batch_plain on the state and batch the
-    driver solved them on, every ledger included; the build is timed on
-    the first batch, against the plain path's time on that batch. Returns
-    (the phase line, the kernels-line entry)."""
+    once per batch (and no other build of the scan), and the first batch,
+    and the last batch's first GSI_SCOPE pods, must equal
+    schedule_batch_plain on the state and batch the driver solved them on,
+    every ledger included; the build is timed on the first batch, against
+    the plain path's time on that batch. Returns (the phase line, the
+    kernels-line entry)."""
     from kubernetes_tpu_torch.ops import solver
     from kubernetes_tpu_torch.ops.assign_scan import assign_scan_spread_interpod
     from kubernetes_tpu_torch.perf.fixtures import make_nodes, make_pods, make_services
@@ -1530,6 +1608,12 @@ def spread_interpod_phase(torch, caps, dev, kernels) -> tuple[dict, dict]:
     plains = {}
     for k in SI_CHECKED:
         (state, batch, rr, flags), got = seen[k]
+        if k != SI_CHECKED[0]:
+            # a later batch on its first GSI_SCOPE pods, the kernel path run
+            # again on them (the plain loop takes ~56 s a whole batch)
+            batch = scope_batch(batch, GSI_SCOPE)
+            got = solver.schedule_batch(state, batch, rr, solver.DEFAULT_POLICY, flags,
+                                        caps, spread_zones=sched.statedb.table.spread_zones)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         plain = solver.schedule_batch_plain(state, batch, rr, solver.DEFAULT_POLICY,
@@ -1587,7 +1671,8 @@ def spread_interpod_phase(torch, caps, dev, kernels) -> tuple[dict, dict]:
             "first_batch_entries_mean": float(entries.double().mean()),
             "first_batch_counting_pods": int(counting.sum()),
             "first_batch_spread_pods": int((spread.spread_q >= 0).sum()),
-            "launches": launches, "checked_batches_equal_plain": list(SI_CHECKED)}
+            "launches": launches, "checked_batches_equal_plain": list(SI_CHECKED),
+            "later_batch_scope_pods": GSI_SCOPE}
     return line, entry
 
 
@@ -1768,6 +1853,17 @@ def gang_bound(scan_args, gang, placed_members: int) -> tuple[float, str]:
     return bound(nbytes, SCAN_OPS_PER_PAIR * pairs)
 
 
+def gang_carry_bound(base, gang, res) -> tuple[float, str]:
+    """The bound of a spread, interpod or spread+interpod build with the
+    gang carry: its build's bytes and operations (`base()`), plus the group
+    ids and quorums read once and one undo-log entry (32 bytes) written per
+    placed group member of the result `res`."""
+    base()
+    nbytes, ops = BOUND_PARTS[-1]
+    members = int(((res.assignments >= 0) & (gang.gang_id > 0)).sum())
+    return bound(nbytes + 8 * gang.gang_id.numel() + 32 * members, ops)
+
+
 def gang_first_batch(torch, dev):
     """bench[gang]'s cluster and its first batch as the driver builds it
     (its groups whole, the gang columns written after encoding) on the
@@ -1907,6 +2003,312 @@ def gang_phase(torch, dev, kernels) -> tuple[dict, dict]:
     return line, entry
 
 
+def with_reverts(torch, rng, dev, args):
+    """Gang groups over a batch's scan arguments, built to revert:
+    random_gang's runs of groups (each at its full size as quorum) and solo
+    pods, the last rows one group, and in about half of the groups of two
+    or more, and in the last, one member after the first that fits nowhere
+    (its masked_static row -inf). Returns (the arguments with that
+    masked_static, GangInputs)."""
+    from kubernetes_tpu_torch.ops.assign_scan import GangInputs
+
+    ms = args[0].clone()
+    p = ms.shape[0]
+    gid = random_gang(torch, rng, dev, p).gang_id.cpu().numpy().copy()
+    tail = max(2, p // 12)
+    gid[-tail:] = gid.max() + 1
+    gmin = np.zeros(p, np.int32)
+    nowhere = []
+    for g in np.unique(gid[gid > 0]):
+        rows = np.flatnonzero(gid == g)
+        gmin[rows] = rows.size
+        if rows.size > 1 and (g == gid[-1] or rng.random() < 0.5):
+            nowhere.append(int(rows[1 + rng.integers(0, rows.size - 1)]))
+    ms[torch.tensor(nowhere, dtype=torch.long, device=ms.device)] = float("-inf")
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+
+    return (ms, *args[1:]), GangInputs(gang_id=t(gid), gang_min=t(gmin))
+
+
+def gang_carry_hazards_phase(torch, rng, dev) -> dict:
+    """The gang carry in the spread, interpod and spread+interpod builds
+    against their plain versions at each (pods, nodes) of
+    GANG_CARRY_SHAPES (every RUN), with and without the normalization flag
+    (norm_test_inputs), on batches built to revert (with_reverts: members
+    that fit nowhere, solo pods between groups, a group open at the last
+    row) over each build's hazards: the spread build's one-thread batch
+    (spread_hot_inputs: the count column loaded a pod ahead and patched by
+    the owner, so a revert must load it again), the interpod build's
+    one-node batch (every member of a group on one node) and wide batch
+    with 16 topology slots (interpod_hazard_inputs: the totals moved
+    mid-batch, the first-pod escape, ids past the universe), the
+    spread+interpod build's one-thread batch and its batch cycling spread
+    only, interpod only and both (spread_interpod_hazard_inputs); a revert
+    must give back the node-level counts, every block's replica and totals
+    and the count column. At the first shape also the spread and interpod
+    builds with the gang carry on norm_miss_inputs' traffics, whose guesses
+    miss. Returns the phase line."""
+    from kubernetes_tpu_torch.ops import assign_scan as scan
+    from kubernetes_tpu_torch.ops import solver
+
+    reverted: dict = {}
+    errs: dict = {}
+
+    def held(name, args, extra, gang, norm=None):
+        kern, plain = getattr(scan, name), getattr(scan, f"{name}_plain")
+        got = kern(*args, 1.0, 1.0, *extra, gang, norm)
+        want = plain(*args, 1.0, 1.0, *extra, gang, norm)
+        compare = compare_spread if name == "assign_scan_spread_gang" else (
+            lambda t, a, b: compare_interpod(t, a, b, name))
+        errs[name] = max(errs.get(name, 0.0), compare(torch, got, want))
+        _a, _s, _placed, n_rev = solver.gang_member_mask(
+            gang.gang_id, gang.gang_min, want.assignments, want.scores)
+        reverted[name] = reverted.get(name, 0) + int(n_rev)
+        return got
+
+    for p_, n_ in GANG_CARRY_SHAPES:
+        cases = []
+        hargs, sp_ = spread_hot_inputs(torch, rng, dev, n_, p_)
+        cases.append(("assign_scan_spread_gang", hargs, (sp_,)))
+        for pool, k_ in (("one_node", 8), ("wide", 16)):
+            hargs, ip_ = interpod_hazard_inputs(torch, rng, dev, n_, p_, k_, pool)
+            cases.append(("assign_scan_interpod_gang", hargs, (ip_,)))
+        for pool, k_, zones_, mode in (("one_thread", 5, 1, ""), ("wide", 8, 3, "alternate")):
+            hargs, sp_, ip_ = spread_interpod_hazard_inputs(torch, rng, dev, n_, p_, k_,
+                                                            pool, zones_, mode)
+            cases.append(("assign_scan_spread_interpod_gang", hargs, (sp_, ip_)))
+        for name, hargs, extra in cases:
+            gargs, gang = with_reverts(torch, rng, dev, hargs)
+            held(name, gargs, extra, gang)
+            ms_, norm_ = norm_test_inputs(torch, rng, dev, gargs[0])
+            held(name, (ms_, *gargs[1:]), extra, gang, norm_)
+    # the builds that guess the flag's maxima, on traffics that force misses
+    p_, n_ = GANG_CARRY_SHAPES[0]
+    misses: dict = {}
+    for kind in NORM_MISS_KINDS:
+        margs, mnorm = norm_miss_inputs(torch, rng, dev, scan_inputs(torch, rng, dev, p_, n_),
+                                        kind)
+        gargs, gang = with_reverts(torch, rng, dev, margs)
+        for name, extra in (("assign_scan_spread_gang",
+                             (spread_inputs(torch, rng, dev, n_, p_, no_entry=0.3),)),
+                            ("assign_scan_interpod_gang",
+                             (interpod_inputs(torch, rng, dev, n_, p_),))):
+            got = held(name, gargs, extra, gang, mnorm)
+            m, x = norm_misses(name, (*gargs, 1.0, 1.0, *extra, gang), mnorm, got)
+            key = f"{name}_{kind}"
+            misses[key] = [m, x]
+    runs = sorted({scan.node_run(n_) for _, n_ in GANG_CARRY_SHAPES})
+    if runs != list(scan.RUNS):
+        raise AssertionError(f"gang_carry_hazards checked {runs}, built {scan.RUNS}")
+    if not all(reverted.values()):
+        raise AssertionError(f"gang_carry_hazards: a build reverted no group {reverted}")
+    if not all(m > 0 for m, _x in misses.values()):
+        raise AssertionError(f"gang_carry_hazards: a forced-miss traffic missed nothing "
+                             f"{misses}")
+    return {"phase": "gang_carry_hazards", "shapes": [list(x) for x in GANG_CARRY_SHAPES],
+            "runs": runs, "groups_reverted": reverted, "max_abs_err": errs,
+            "forced_misses_of_exchanging_pods": misses, "kernels_equal_plain": True}
+
+
+def scope_batch(batch, pods: int):
+    """A PodBatch's first `pods` rows."""
+    return dataclasses.replace(batch, **{f.name: getattr(batch, f.name)[:pods]
+                                         for f in dataclasses.fields(batch)})
+
+
+def compare_solves(torch, got, want, what: str) -> None:
+    """Two SolverResults equal in every field, the gang counts included."""
+    for name in ("assignments", "scores", "feasible_counts", "new_requested",
+                 "new_nonzero", "rr_end", "new_podsel", "new_term", "gang_placed",
+                 "gang_reverted"):
+        a, b = getattr(got, name), getattr(want, name)
+        if (a is None) != (b is None) or (a is not None and not torch.equal(a, b)):
+            raise AssertionError(f"{what}: kernel path != plain on {name}")
+
+
+def gang_spread_interpod_phase(torch, dev, kernels) -> tuple[dict, dict]:
+    """The gang_spread_interpod cell (bench[spread]'s 15,000 nodes in 3
+    zones and 16 Services, 24,576 pods of bench[interpod]'s terms over 16
+    app groups in 3,072 all-or-nothing groups of 8 at quorum 8) through
+    Scheduler(device="cuda"): every group must settle placed (each fits),
+    no node may exceed its allocatable, no node that holds an anti-affinity
+    pod may hold another pod of its group, the spread+interpod build with
+    the gang carry must have launched once a batch (and no other build of
+    the scan), and the device ledgers flushed at the end must equal the
+    host's, which the StateDB recomputed from the placements. Then the
+    first batch, and its variant whose every GSI_REVERT_EVERY-th group asks
+    5 CPUs for its first member (which no node fits: the group reverts at
+    full width, and the groups after it read the counts it gave back), on
+    their first GSI_SCOPE pods through schedule_batch against
+    schedule_batch_plain, every field included; the build timed on the
+    first batch's scope. Returns (the phase line, the kernels-line entry)."""
+    from kubernetes_tpu_torch.ops import solver
+    from kubernetes_tpu_torch.perf.fixtures import make_nodes, make_pods, make_services
+    from kubernetes_tpu_torch.perf.harness import (GANG_SPREAD_INTERPOD_PODS,
+                                                   default_caps, measure, warm)
+    from kubernetes_tpu_torch.scheduler import Scheduler, driver
+
+    caps = default_caps(HEADLINE_NODES, GSI_PODS)
+    mix = GANG_SPREAD_INTERPOD_PODS
+    nodes = make_nodes(HEADLINE_NODES, zones=3)
+    pods = make_pods(GSI_PODS, **mix)
+    services = make_services(SPREAD_GROUPS)
+    warm(caps, solver.DEFAULT_POLICY, dev, n_services=SPREAD_GROUPS, pod_kwargs=mix)
+    sched = Scheduler(caps, device=dev)
+    sched.add_nodes(nodes)
+    for svc in services:
+        sched.add_service(svc)
+    seen = []
+    solve = record_solves(torch, driver, (0,), seen)
+    _count_launches(kernels, reset=True)
+    try:
+        result = measure(sched, pods)
+    finally:
+        driver.schedule_batch = solve
+    launches, norm_launches = _count_launches(kernels)
+    groups = GSI_PODS // mix["gang_size"]
+    if (result.scheduled, result.gang_groups, result.gang_placed) != (GSI_PODS, groups,
+                                                                       groups):
+        raise AssertionError(f"gang_spread_interpod: placed {result.scheduled}/{GSI_PODS}, "
+                             f"{result.gang_placed} of {result.gang_groups} groups")
+    want = {name: 0 for name in launches}
+    want.update(static_mask=result.batches,
+                assign_scan_spread_interpod_gang=result.batches)
+    if launches != want or any(norm_launches.values()) or result.batches != 6:
+        raise AssertionError(f"gang_spread_interpod: launches {launches} over "
+                             f"{result.batches} batches")
+    load = check_load(pods, result.placements, nodes)
+    group_on: dict = {}
+    anti_nodes = set()
+    for i, p in enumerate(pods):
+        key = (result.placements[p.key], p.metadata.labels["app"])
+        group_on[key] = group_on.get(key, 0) + 1
+        if i % mix["anti_affinity_every"] == 0:
+            anti_nodes.add(key)
+    crowded = [key for key in anti_nodes if group_on[key] != 1]
+    if crowded:
+        raise AssertionError(f"gang_spread_interpod: anti-affinity broken on {crowded[:5]}")
+    device = sched.statedb.flush()
+    for name in ("requested", "nonzero_requested", "podsel_count", "term_count"):
+        if not np.array_equal(getattr(device, name).cpu().numpy(),
+                              getattr(sched.statedb.host, name)):
+            raise AssertionError(f"gang_spread_interpod: device {name} != the host's")
+    # the first batch and its reverting variant on their scope
+    (state, batch, rr, flags), _got = seen[0]
+    zones = sched.statedb.table.spread_zones
+    first = scope_batch(batch, GSI_SCOPE)
+    heavy = first.requests.clone()
+    nonzero = first.nonzero_requests.clone()
+    members = torch.arange(GSI_SCOPE, device=heavy.device)
+    revert_rows = members[(members % (GSI_REVERT_EVERY * mix["gang_size"])) == 0]
+    heavy[revert_rows, 1] = 5000.0
+    nonzero[revert_rows, 0] = 5000.0
+    variant = dataclasses.replace(first, requests=heavy, nonzero_requests=nonzero)
+    held = {}
+    for key, b in (("first", first), ("reverting", variant)):
+        got = solver.schedule_batch(state, b, rr, solver.DEFAULT_POLICY, flags, caps,
+                                    spread_zones=zones)
+        plain = solver.schedule_batch_plain(state, b, rr, solver.DEFAULT_POLICY, flags,
+                                            caps)
+        compare_solves(torch, got, plain, f"gang_spread_interpod {key}")
+        held[key] = [int(plain.gang_placed), int(plain.gang_reverted)]
+    if held["reverting"][1] != revert_rows.numel():
+        raise AssertionError(f"gang_spread_interpod: reverting variant settled {held}")
+    call = scan_call(torch, state, first, flags, caps, zones)
+    if call[0] != "assign_scan_spread_interpod_gang" or call[4] is not None:
+        raise AssertionError(f"gang_spread_interpod: the batch runs {call[0]}")
+    entry = scoped(norm_entry(torch, call, launches["assign_scan_spread_interpod_gang"]),
+                   GSI_SCOPE)
+    whole = scan_call(torch, state, batch, flags, caps, zones)
+    encode_ms = 1e3 * sum(sched.encode_seconds)
+    solve_ms = 1e3 * sum(sched.solve_seconds)
+    line = {"phase": "gang_spread_interpod", "nodes": HEADLINE_NODES, "pods": GSI_PODS,
+            "services": len(services), **mix, "caps": [caps.num_nodes, caps.batch_pods],
+            **run_fields(result), "encode_ms": encode_ms, "solve_ms": solve_ms,
+            "remainder_ms": 1e3 * result.seconds - encode_ms - solve_ms,
+            "groups": result.gang_groups, "groups_placed": result.gang_placed,
+            "groups_reverted": result.gang_reverted, "nodes_used": len(load),
+            "anti_affinity_nodes": len(anti_nodes), "launches": launches,
+            "scope_pods": GSI_SCOPE, "scope_groups_placed_reverted": held,
+            **timed(torch, lambda: whole[1](*whole[3]), 5, "first_batch_whole_ms"),
+            "device_ledgers_equal_host": True, "scope_equals_plain": True}
+    return line, entry
+
+
+def gang_cells_phase(torch, dev, kernels) -> tuple[dict, list]:
+    """The first batch of the spread and interpod cells with their pods in
+    all-or-nothing groups of 8, each without and with one PreferNoSchedule
+    taint (on node 0, which no pod tolerates), and of the
+    gang_spread_interpod cell with that taint, through
+    Scheduler(device="cuda"): each runs its build with the gang carry, once,
+    with the flag where the taint is. Each build is held against its plain
+    version on the batch's first GSI_SCOPE pods and timed there. Returns
+    (the phase line, the kernels-line entries)."""
+    from kubernetes_tpu_torch.ops import solver
+    from kubernetes_tpu_torch.perf.fixtures import make_nodes, make_pods, make_services
+    from kubernetes_tpu_torch.perf.harness import (GANG_SPREAD_INTERPOD_PODS,
+                                                   default_caps, measure, warm)
+    from kubernetes_tpu_torch.scheduler import Scheduler, driver
+
+    spread_mix = {"app_groups": SPREAD_GROUPS, "gang_size": GANG_SIZE}
+    interpod_mix = {**INTERPOD_MIX, "gang_size": GANG_SIZE}
+    cells = (("spread_gang", HEADLINE_NODES, HEADLINE_PODS, spread_mix, SPREAD_GROUPS,
+              "assign_scan_spread_gang", False),
+             ("spread_gang+norm", HEADLINE_NODES, HEADLINE_PODS, spread_mix,
+              SPREAD_GROUPS, "assign_scan_spread_gang", True),
+             ("interpod_gang", INTERPOD_NODES, INTERPOD_PODS, interpod_mix, 0,
+              "assign_scan_interpod_gang", False),
+             ("interpod_gang+norm", INTERPOD_NODES, INTERPOD_PODS, interpod_mix, 0,
+              "assign_scan_interpod_gang", True),
+             ("spread_interpod_gang+norm", HEADLINE_NODES, GSI_PODS,
+              GANG_SPREAD_INTERPOD_PODS, SPREAD_GROUPS, "assign_scan_spread_interpod_gang",
+              True))
+    line: dict = {"phase": "gang_cells"}
+    entries = []
+    for cell, n_nodes, n_pods, mix, n_svc, build, flag in cells:
+        caps = default_caps(n_nodes, n_pods)
+        nodes = make_nodes(n_nodes, zones=3, prefer_taint_every=n_nodes if flag else 0)
+        pods = make_pods(caps.batch_pods - caps.batch_pods % GANG_SIZE, **mix)
+        warm(caps, solver.DEFAULT_POLICY, dev, n_svc, mix)
+        sched = Scheduler(caps, device=dev)
+        sched.add_nodes(nodes)
+        for svc in make_services(n_svc):
+            sched.add_service(svc)
+        seen = []
+        solve = record_solves(torch, driver, (0,), seen)
+        _count_launches(kernels, reset=True)
+        try:
+            result = measure(sched, pods)
+        finally:
+            driver.schedule_batch = solve
+        launches, norm_launches = _count_launches(kernels)
+        want = {name: 0 for name in launches}
+        want.update({"static_mask": 1, build: 1})
+        if launches != want or norm_launches[build] != flag:
+            raise AssertionError(f"gang_cells {cell}: launches {launches}, with the "
+                                 f"flag {norm_launches}")
+        (state, batch, _rr, flags), _got = seen[0]
+        if not flags.gang or flags.tt != flag:
+            raise AssertionError(f"gang_cells {cell}: the batch raises {flags}")
+        call = scan_call(torch, state, scope_batch(batch, GSI_SCOPE), flags, caps,
+                         sched.statedb.table.spread_zones)
+        if call[0] != build or (call[4] is not None) != flag:
+            raise AssertionError(f"gang_cells {cell}: the batch runs {call[0]}")
+        entry = scoped(norm_entry(torch, call, (norm_launches if flag else launches)[build]),
+                       GSI_SCOPE)
+        entries.append(entry)
+        line[cell] = {"caps": [caps.num_nodes, caps.batch_pods], "placed": result.scheduled,
+                      "groups_placed": result.gang_placed, "launches": launches,
+                      "norm_launches": norm_launches, "ms": entry["ms"],
+                      "plain_ms": entry["plain_ms"], "kernel_equals_plain": True,
+                      **{k: entry[k] for k in ("norm_misses", "norm_exchanging_pods")
+                         if k in entry}}
+        del sched, seen, state, batch, call
+    return line, entries
+
+
 def tt_na_first_batch(torch, dev, n_nodes=HEADLINE_NODES, n_pods=HEADLINE_PODS):
     """The tt_na cell's first batch, encoded through a Scheduler on the
     cell's cluster and flushed (with `n_nodes` and `n_pods`, the cluster
@@ -1988,6 +2390,26 @@ def scan_call(torch, state, batch, flags, caps, zones=None):
             float(g.w_ba))
     norm = solver.scan_norm_inputs(state, batch, g)
     u = caps.domain_universe
+    if flags.gang and (g.use_terms or g.w_ss):
+        gang = scan.GangInputs(gang_id=batch.gang_id.contiguous(),
+                               gang_min=batch.gang_min.contiguous())
+        if g.use_terms and g.w_ss:
+            sp, ip = solver.spread_interpod_inputs(state, batch, g, u, zones)
+            name, extra = "assign_scan_spread_interpod_gang", (sp, ip)
+            compare = lambda t, a, b: compare_interpod(t, a, b, "spread_interpod_gang")  # noqa: E731
+            base = lambda: spread_interpod_bound(torch, args, sp, ip)  # noqa: E731
+        elif g.use_terms:
+            ip = solver.interpod_inputs(state, batch, g, u)
+            name, extra = "assign_scan_interpod_gang", (ip,)
+            compare = lambda t, a, b: compare_interpod(t, a, b, "interpod_gang")  # noqa: E731
+            base = lambda: interpod_bound(torch, args, ip)  # noqa: E731
+        else:
+            sp = solver.spread_inputs(state, batch, g, u, zones)
+            name, extra, compare = "assign_scan_spread_gang", (sp,), compare_spread
+            base = lambda: spread_bound(args, sp)  # noqa: E731
+        return (name, getattr(scan, name), getattr(scan, f"{name}_plain"),
+                (*args, *extra, gang), norm, compare,
+                lambda res: gang_carry_bound(base, gang, res))
     if g.use_terms and g.w_ss:
         sp, ip = solver.spread_interpod_inputs(state, batch, g, u, zones)
         return ("assign_scan_spread_interpod", scan.assign_scan_spread_interpod,
@@ -2015,11 +2437,17 @@ def scan_call(torch, state, batch, flags, caps, zones=None):
             compare_scan, lambda _res: scan_bound(*args[:6]))
 
 
+# the kernels-line names of the builds with the gang carry
+GANG_CARRY_ROWS = {"assign_scan_spread_gang": "assign_scan_spread+gang",
+                   "assign_scan_interpod_gang": "assign_scan_interpod+gang",
+                   "assign_scan_spread_interpod_gang": "assign_scan_spread_interpod+gang"}
+
+
 def norm_entry(torch, call, launches: int, reps: int = 5) -> dict:
-    """The kernels-line entry of a build with the normalization flag on one
-    batch (`scan_call`): the build held against its plain version, timed
-    beside it (the plain version's one call that is compared), and its
-    bound from the batch."""
+    """The kernels-line entry of a build on one batch (`scan_call`), with
+    the normalization flag where the call has its operands: the build held
+    against its plain version, timed beside it (the plain version's one
+    call that is compared), and its bound from the batch."""
     name, kern, plain, args, norm, compare, base = call
     got = kern(*args, norm)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -2027,18 +2455,27 @@ def norm_entry(torch, call, launches: int, reps: int = 5) -> dict:
     want = plain(*args, norm)
     end.record()
     end.synchronize()
-    entry = {"name": f"{name}+norm", "route": "cuda",
-             "source": "kubernetes_tpu_torch/csrc/assign_scan.cu",
-             "replaces": "kubernetes_tpu/ops/solver.py:568", "launches": launches,
-             "max_abs_err": compare(torch, got, want),
+    entry = {"name": GANG_CARRY_ROWS.get(name, name) + ("+norm" if norm else ""),
+             "route": "cuda", "source": "kubernetes_tpu_torch/csrc/assign_scan.cu",
+             "replaces": "kubernetes_tpu/ops/solver.py:" + ("568" if norm else "738"),
+             "launches": launches, "max_abs_err": compare(torch, got, want),
              **timed(torch, lambda: kern(*args, norm), reps),
              "plain_ms": start.elapsed_time(end), "library_ms": None,
              "shape": list(args[0].shape)}
+    if norm is None:
+        entry["bound_ms"], entry["bound_by"] = base(want)
+        return entry
     entry["bound_ms"], entry["bound_by"] = norm_bound(lambda: base(want), args[0], norm)
     if name in NORM_GUESS_BUILDS:   # (not on the kernels line)
         entry["norm_misses"], entry["norm_exchanging_pods"] = norm_misses(
             name, args, norm, got)
     return entry
+
+
+def scoped(entry: dict, scope: int) -> dict:
+    """A kernels-line entry held and timed on a batch's first `scope` pods."""
+    return {**entry, "scope": (f"ms, plain_ms, bound_ms and max_abs_err on the batch's "
+                               f"first {scope} pods; launches on the whole run")}
 
 
 def norm_build_phase(torch, rng, dev) -> dict:
@@ -2924,6 +3361,10 @@ def main() -> int:
     # maxima, the largest counts on infeasible nodes, ties, padding, odd N
     emit(norm_build_phase(torch, rng, dev))
 
+    # ---- 3g: the gang carry in the spread, interpod and spread+interpod
+    # builds at every RUN on reverting batches, with and without the flag
+    emit(gang_carry_hazards_phase(torch, rng, dev))
+
     # ---- 4: the first batch through the cache and the blobs ----
     emit(packed_batch_phase(torch, caps, nodes, pods, dev))
 
@@ -3034,6 +3475,22 @@ def main() -> int:
           "runs": gb_runs, "groups_placed_reverted": reverted,
           "kernel_equals_plain": True})
 
+    # ---- 11b: the gang_spread_interpod cell, and the gang carry of every
+    # build in its cell's first batch
+    from kubernetes_tpu_torch.ops.assign_scan import (
+        assign_scan_interpod_gang,
+        assign_scan_spread_gang,
+        assign_scan_spread_interpod_gang,
+    )
+
+    every_scan = (static_mask, assign_scan, assign_scan_spread, assign_scan_interpod,
+                  assign_scan_spread_interpod, assign_scan_gang, assign_scan_spread_gang,
+                  assign_scan_interpod_gang, assign_scan_spread_interpod_gang)
+    line, k10 = gang_spread_interpod_phase(torch, dev, every_scan)
+    emit(line)
+    line, k11 = gang_cells_phase(torch, dev, every_scan)
+    emit(line)
+
     # ---- 12: the tt_na cell (the main build with the normalization flag)
     # and the flag in the other cells' builds ----
     scans = (static_mask, assign_scan, assign_scan_spread, assign_scan_interpod,
@@ -3056,7 +3513,7 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [{**{k: entry[k] for k in keys},
                        **{k: entry[k] for k in ("scope",) if k in entry}}
-                      for entry in (k1, k2, k3, k4, k6, k5, k7, *k8, k9)]})
+                      for entry in (k1, k2, k3, k4, k6, k5, k7, *k8, k10, *k11, k9)]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

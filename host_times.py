@@ -2,8 +2,9 @@
 """Time `Scheduler.schedule` end to end on the kinds of pending traffic a
 tree carries (two, three with SelectorSpread, four with inter-pod
 affinity, five with gang groups, six with SelectorSpread and inter-pod
-affinity in one batch, seven with TaintToleration and NodeAffinity), for
-comparing two trees of the repository on one card.
+affinity in one batch, seven with TaintToleration and NodeAffinity, eight
+with gang groups that also need SelectorSpread and inter-pod affinity),
+for comparing two trees of the repository on one card.
 
     python3 host_times.py [--root DIR] [--reps K]
 
@@ -35,7 +36,11 @@ from its own sources and its Scheduler places the same pods on the same
   one filler label and dedicated=batch:PreferNoSchedule on every 8th,
   30,000 pods in 16 app groups, the even ones tolerating the taint, each
   preferring a zone and the odd ones a label value too (perf/harness.py
-  `TT_NA_NODES`, `TT_NA_PODS`).
+  `TT_NA_NODES`, `TT_NA_PODS`);
+- gang_spread_interpod, where the tree's harness has
+  `GANG_SPREAD_INTERPOD_PODS`: spread_interpod's 15,000 nodes and 16
+  Services, 24,576 pods of its mix in 3,072 all-or-nothing groups of 8 (6
+  batches of P=4096).
 
 Each traffic runs K times (default 2), each on a fresh Scheduler after the
 kernels are built and warmed. The script collects garbage before each
@@ -148,6 +153,13 @@ def main() -> int:
         traffic["tt_na"] = (caps, make_nodes(smoke.HEADLINE_NODES, **harness.TT_NA_NODES),
                             make_pods(smoke.HEADLINE_PODS, **harness.TT_NA_PODS), ())
         warm(caps, DEFAULT_POLICY, dev, pod_kwargs=harness.TT_NA_PODS)
+    if hasattr(harness, "GANG_SPREAD_INTERPOD_PODS"):
+        gsi_caps = default_caps(smoke.HEADLINE_NODES, smoke.GSI_PODS)
+        traffic["gang_spread_interpod"] = (
+            gsi_caps, nodes, make_pods(smoke.GSI_PODS, **harness.GANG_SPREAD_INTERPOD_PODS),
+            fixtures.make_services(smoke.SPREAD_GROUPS))
+        warm(gsi_caps, DEFAULT_POLICY, dev, n_services=smoke.SPREAD_GROUPS,
+             pod_kwargs=harness.GANG_SPREAD_INTERPOD_PODS)
     out = {"nvidia_smi": smi.splitlines()[0], "root": str(opts.root.resolve())}
     for name, (caps_, nodes_, pods, services) in traffic.items():
         out[name] = []

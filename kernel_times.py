@@ -107,8 +107,17 @@ and 65,536 (`preempt_layout`). With `preempt` alone only kernel 3 is
 built. `--sass-against DIR` also says whether kernel 1's SASS equals the
 other tree's (`mask_sass_same_as_against`). `--parts` picks what to time, a comma list of
 mask, scan, spread, interpod, spread_interpod, gang, run8, phase_a, norm,
-norm_main, norm_si, preempt and sass (all by default). Exits non-zero
-without a CUDA device.
+norm_main, norm_si, preempt, gang_combined and sass (all by default).
+Where the tree has the gang carry in the spread and interpod builds,
+`gang_combined` prices it on the gang_spread_interpod cell's first batch
+(P = 4,096, N = 16,384, 512 groups of 8): the spread, interpod and
+spread+interpod builds, each without and with the carry
+(`gsi_batch_<build>_ms`, `gsi_batch_<build>_gang_ms`), and the builds
+with the carry on the batch's variant whose every 8th group reverts
+(`gsi_reverting_<build>_gang_ms`), each also as `*_kernel_us`; the scan's
+builds with the carry are named `spread_gang`, `interpod_gang` and
+`spread_interpod_gang` in the SASS digests. Exits non-zero without a CUDA
+device.
 """
 
 from __future__ import annotations
@@ -132,7 +141,7 @@ import numpy as np
 HERE = Path(__file__).resolve().parent
 REPS = 5
 PARTS = ("mask", "scan", "spread", "interpod", "spread_interpod", "gang", "run8",
-         "phase_a", "norm", "norm_main", "norm_si", "preempt", "sass")
+         "phase_a", "norm", "norm_main", "norm_si", "preempt", "gang_combined", "sass")
 # the gang batch's columns timed at 2 nodes a thread, and the shape of the
 # spread and interpod builds' 8-node timing
 RUN2_COLUMNS = 16384
@@ -459,6 +468,38 @@ def main() -> int:
                     n, 16, 6, preempt_module.card_smem_limit(dev)))
                 for n in (16384, 65536)}
         out["preempt_ptxas"] = smoke.ptxas_report(build_log("preemption"))
+    if "gang_combined" in parts and hasattr(scan_module, "assign_scan_spread_interpod_gang"):
+        # the gang carry's price: the gang_spread_interpod cell's first batch
+        # through the spread, interpod and spread+interpod builds, each
+        # without and with the carry, and through the builds with the carry
+        # on the batch's reverting variant
+        _c, gargs, sp, ip, gang = smoke.gang_spread_interpod_first_batch(torch, dev)
+        _c, rargs, rsp, rip, rgang = smoke.gang_spread_interpod_first_batch(
+            torch, dev, smoke.GSI_REVERT_EVERY)
+        sm = scan_module
+        for key, call in (
+                ("gsi_batch_spread", lambda: sm.assign_scan_spread(*gargs, sp)),
+                ("gsi_batch_spread_gang", lambda: sm.assign_scan_spread_gang(*gargs, sp, gang)),
+                ("gsi_batch_interpod", lambda: sm.assign_scan_interpod(*gargs, ip)),
+                ("gsi_batch_interpod_gang",
+                 lambda: sm.assign_scan_interpod_gang(*gargs, ip, gang)),
+                ("gsi_batch_spread_interpod",
+                 lambda: sm.assign_scan_spread_interpod(*gargs, sp, ip)),
+                ("gsi_batch_spread_interpod_gang",
+                 lambda: sm.assign_scan_spread_interpod_gang(*gargs, sp, ip, gang)),
+                ("gsi_reverting_spread_gang",
+                 lambda: sm.assign_scan_spread_gang(*rargs, rsp, rgang)),
+                ("gsi_reverting_interpod_gang",
+                 lambda: sm.assign_scan_interpod_gang(*rargs, rip, rgang)),
+                ("gsi_reverting_spread_interpod_gang",
+                 lambda: sm.assign_scan_spread_interpod_gang(*rargs, rsp, rip, rgang))):
+            out.update(smoke.timed(torch, call, REPS, f"{key}_ms"))
+            out[f"{key}_kernel_us"] = kernel_us(device_times(torch, ((call, REPS),)))
+        from kubernetes_tpu_torch.ops import solver
+
+        res = sm.assign_scan_spread_interpod_gang(*rargs, rsp, rip, rgang)
+        out["gsi_reverting_groups_reverted"] = int(solver.gang_member_mask(
+            rgang.gang_id, rgang.gang_min, res.assignments, res.scores)[3])
     if "sass" in parts:
         cuobjdump = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
         out["scan_sass"] = sass_digests(cuobjdump, library_path("assign_scan"),
@@ -489,7 +530,8 @@ def main() -> int:
 # `<build>+norm`, and without it the build itself
 BUILDS = {"": "main", "0": "main", "00": "main", "000": "main", "1": "spread",
           "10": "spread", "100": "spread", "01": "interpod", "010": "interpod",
-          "001": "gang", "11": "spread_interpod", "110": "spread_interpod"}
+          "001": "gang", "11": "spread_interpod", "110": "spread_interpod",
+          "101": "spread_gang", "011": "interpod_gang", "111": "spread_interpod_gang"}
 
 
 def build_name(flags: str) -> str:

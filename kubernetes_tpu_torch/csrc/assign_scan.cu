@@ -490,6 +490,46 @@
 // node-level counts read once and written once, the per-pod rows and the
 // domain aggregates read once, at 3.35 TB/s.
 //
+// The gang carry in the spread, interpod and spread+interpod builds (GANG
+// with SPREAD, IPA or both; entries ktpu_assign_scan_spread_gang,
+// _interpod_gang and _spread_interpod_gang): the JAX step settles a group
+// against its whole live ledger (`_live_ledger`, kubernetes_tpu/ops/
+// solver.py:357-363, the inter-pod ledger c.ipa included). These builds
+// keep the gang build's scheme (group state in registers, every thread
+// deciding alike, the undo log of the resource rows, rr and the term cache)
+// and their own chains unchanged, with:
+//   - the group id and quorum in free words of the build's pod slot (the
+//     spread slot's words 78-79, the interpod slot's 165-166), copied with
+//     the rest of the row;
+//   - each undo-log entry also naming its pod (its second float4's last
+//     word);
+//   - a revert that subtracts what the group added beyond the resource
+//     rows. The counts are integers far below 2^24, so (a + v) - v == a in
+//     f32 and no log of old counts is kept: the node-level counts (the
+//     [UQ, N] or [UQ+UE, N] copy in device memory), by each node's owner
+//     thread from its entries, the member's match (and carried-term) row
+//     read from the pod operands and subtracted with red.global.add; in the
+//     interpod builds, also every block's totals and replica, from the
+//     members' assignments: a cluster barrier first (release and acquire at
+//     cluster scope: every owner's assignment write is visible in every
+//     block), then thread t subtracts the rows of every placed member but
+//     the last from totals column t and from the replica cells (slot, column)
+//     it owns, at the member's domains read from the topology. The last
+//     member's rows never reached the totals and replica: its node's index
+//     is still on its way (they are added at the next pod's step 1), so the
+//     revert waits for it on the index's mbarrier, as step 1 would, and
+//     drops it. The group's members are the rows before the boundary with
+//     its id (consecutive rows), read back from gang_id;
+//   - what was prepared for the pod at the boundary before the revert:
+//     the spread builds' count column, loaded a pod ahead (and patched by
+//     the last member's owner), is loaded again after a block barrier that
+//     makes the subtractions visible; the interpod builds' count list and
+//     the replica's update are step 1 of that pod, which runs after the
+//     boundary is settled; the flag's prepared key, guess, counts and terms
+//     hold no ledger state (point (c) below).
+// After the last pod the open group is settled the same way, but for the
+// totals and replica, which are not returned.
+//
 // Bound of the gang build: that of the main build, masked_static read once
 // (1.07 GB at P = 4,096, N = 65,536: 0.32 ms at 3.35 TB/s) plus the
 // ledger; bench[gang] (50,000 nodes, 24,576 pods in groups of 8) launches
@@ -771,6 +811,14 @@ constexpr int GW_MIN = POD_ROW_MAIN + 1;  // and the group's quorum
 constexpr int GANG_POD_ROW = 12;          // floats of a gang pod slot
 constexpr int UNDO_WORDS = 3;             // float4s of an undo-log entry
 static_assert(GW_MIN < GANG_POD_ROW && GANG_POD_ROW % 4 == 0, "gang layout");
+// the gang carry in the spread and interpod slots: the group id and quorum
+// in free words past the slot's rows (the spread slot's match row ends at
+// word 73, the interpod slot's rows at 165, its word 167 is SI_Q)
+constexpr int SP_GW_ID = SP_POD_ROW - 2;
+constexpr int IP_GW_ID = SI_Q - 2;
+static_assert(SP_M + MAX_UQ <= SP_GW_ID && SP_GW_ID + 1 < SP_POD_ROW
+              && POD_ROW_MAIN + IPW_ROWS + IP_MAX_U <= IP_GW_ID && IP_GW_ID + 1 < SI_Q,
+              "gang words in the spread and interpod slots");
 
 // ---- the normalization flag's layout: a pod's row of ints, the untolerated
 // word, NM_SLOTS term words (u64, little-endian int pairs), their weights
@@ -812,6 +860,9 @@ struct Build {
   // register allocation at 1, 2 and 4 nodes a thread)
   [[maybe_unused]] static constexpr int SPQ = IPA ? SI_Q : SP_Q;
   [[maybe_unused]] static constexpr int SPM = IPA ? POD_ROW_MAIN + IPW_ROWS : SP_M;
+  // the pod-slot words of the group id and quorum (gang builds)
+  [[maybe_unused]] static constexpr int GWI = IPA ? IP_GW_ID : SPREAD ? SP_GW_ID : GW_ID;
+  [[maybe_unused]] static constexpr int GWM = GWI + 1;
 };
 
 // What the spread build reads beyond the main operands.
@@ -1875,6 +1926,75 @@ __device__ void ip_build_list(const Smem& s, const IpaArgs& ip, const float* pr,
   if (lane == 0) *s.ip_head = make_int4(n, reject, counting, row_nz);
 }
 
+// The gang carry's revert in the spread and interpod builds, beyond the
+// resource rows, rr and the term cache (see the header), called by every
+// thread of the cluster alike after `revert`'s block barrier: each thread
+// subtracts its own nodes' entries' match (and carried-term) rows from the
+// node-level counts; with `mid` (a revert at pod p's boundary, the scan
+// going on) in the interpod builds, also the rows of the group's placed
+// members before p - 1 from the block's totals and replica (`rep`: slot 1
+// in the spread+interpod build, slot 0 in the interpod build), after the
+// cluster barrier that made their assignments visible. Ends with a block
+// barrier.
+template <int RUN, bool SPREAD, bool IPA>
+__device__ void gang_revert_counts(const Smem& s, const SpreadParam<SPREAD>& sp,
+                                   const IpaParam<IPA>& ip, const GangArgs& gg,
+                                   const float4* undo_b, int undo_n,
+                                   const int* assignments, float* rep, int gang_cur,
+                                   int p, bool mid, int rank, int N, int t) {
+  const int c0 = t * RUN;
+  for (int i = undo_n - 1; i >= 0; --i) {
+    const int c = __float_as_int(undo_b[i * UNDO_WORDS].x);
+    if (c < c0 || c >= c0 + RUN) continue;   // another thread's node
+    const int pm = __float_as_int(undo_b[i * UNDO_WORDS + 1].w);
+    const int g = rank * THREADS * RUN + c;
+    const float* row;
+    float* counts;
+    int cols;
+    if constexpr (IPA) {
+      cols = ip.uq + ip.ue;
+      row = reinterpret_cast<const float*>(ip.pod_ip + (size_t)pm * (IPW_ROWS + cols)
+                                           + IPW_ROWS);
+      counts = ip.node_t;
+    } else {
+      cols = sp.uq;
+      row = sp.pod_matches + (size_t)pm * cols;
+      counts = sp.podsel_t;
+    }
+    for (int u = 0; u < cols; ++u) {
+      const float v = __ldg(row + u);
+      if (v != 0.0f) atomicAdd(counts + (size_t)u * N + g, -v);
+    }
+  }
+  if constexpr (IPA) {
+    if (mid) {
+      const int U = ip.uq + ip.ue;
+      for (int pm = p - 2; pm >= 0 && __ldg(gg.gang_id + pm) == gang_cur; --pm) {
+        const int a = __ldcg(assignments + pm);
+        if (a < 0) continue;   // not placed: nothing added
+        const float* row = reinterpret_cast<const float*>(
+            ip.pod_ip + (size_t)pm * (IPW_ROWS + U) + IPW_ROWS);
+        if (t < U) {
+          const float v = __ldg(row + t);
+          if (v != 0.0f) s.totals[t] = __fsub_rn(s.totals[t], v);
+        }
+        // cells (k, u) of slots 1..k-1 (hostname: node-level counts)
+        for (int i = U + t; i < ip.k * U; i += THREADS) {
+          const int k = i / U;
+          const int u = i - k * U;
+          const float v = __ldg(row + u);
+          if (v == 0.0f) continue;
+          const int d = __ldg(ip.topology + (size_t)a * ip.k + k);
+          if (d < 0 || d >= ip.nd) continue;
+          float* cell = rep + ((size_t)(SPREAD ? k - 1 : k) * ip.nd + d) * U + u;
+          *cell = __fsub_rn(*cell, v);
+        }
+      }
+    }
+  }
+  __syncthreads();
+}
+
 template <int RUN, bool SPREAD, bool IPA, bool GANG, bool NORM, typename... Norm>
 __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
     const float* __restrict__ masked_static, const float* __restrict__ requests,
@@ -2035,6 +2155,11 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
                     : t < SP_Q ? nonzero_requests + (size_t)p * 2 + (t - R)
                     : t == SP_Q ? reinterpret_cast<const float*>(sp.spread_q + p)
                     : sp.pod_matches + (size_t)p * sp.uq + (t - SP_M));
+        if constexpr (GANG)   // + the group id and quorum, in the slot's free words
+          if (t == Build<RUN, SPREAD, IPA, GANG>::GWI || t == Build<RUN, SPREAD, IPA, GANG>::GWM)
+            cp_async4(s.pods + (p % POD_SLOTS) * POD_ROW + t,
+                      reinterpret_cast<const float*>(
+                          (t == Build<RUN, SPREAD, IPA, GANG>::GWI ? gg.gang_id : gg.gang_min) + p));
       } else if constexpr (IPA) {   // + the interpod words
         const int ipw = IPW_ROWS + ip.uq + ip.ue;
         if (t < POD_ROW_MAIN + ipw)
@@ -2047,6 +2172,11 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
           if (t == SI_Q)
             cp_async4(s.pods + (p % POD_SLOTS) * POD_ROW + SI_Q,
                       reinterpret_cast<const float*>(sp.spread_q + p));
+        if constexpr (GANG)   // + the group id and quorum, in the slot's free words
+          if (t == Build<RUN, SPREAD, IPA, GANG>::GWI || t == Build<RUN, SPREAD, IPA, GANG>::GWM)
+            cp_async4(s.pods + (p % POD_SLOTS) * POD_ROW + t,
+                      reinterpret_cast<const float*>(
+                          (t == Build<RUN, SPREAD, IPA, GANG>::GWI ? gg.gang_id : gg.gang_min) + p));
       } else if constexpr (GANG) {   // + the group id and quorum
         if (t <= GW_MIN)
           cp_async4(s.pods + (p % POD_SLOTS) * POD_ROW + t,
@@ -2204,12 +2334,32 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
     cp_async_wait<STAGES - 3>();  // this thread's copies of pods p and p+1 landed
     const float* pr = s.pods + (p % POD_SLOTS) * POD_ROW;   // pod p's row
     if constexpr (GANG) {
-      const int gid = __float_as_int(pr[GW_ID]);
+      const int gid = __float_as_int(pr[Build<RUN, SPREAD, IPA, GANG>::GWI]);
       if (gid != gang_cur) {   // a group boundary: settle the group left
-        if (gang_cur > 0 && gang_placed < gang_min_cur) revert();
+        if (gang_cur > 0 && gang_placed < gang_min_cur) {
+          if constexpr (SPREAD || IPA) {
+            if constexpr (IPA) {
+              // the last member's node, still on its way: its rows never
+              // reach the totals and replica (see the header)
+              if (win_pending) {
+                if (warp != 0) mbar_wait(s.bar_win, win_phase);
+                if (t == 32) mbar_arm(s.bar_win, IP_BYTES);   // for the next one
+                win_phase ^= 1u;
+                win_pending = false;
+              }
+              cluster.sync();   // every member's assignment, in every block
+            }
+            revert();
+            gang_revert_counts<RUN, SPREAD, IPA>(s, sp, ip, gg, undo_b, undo_n, assignments,
+                                                 dom_b, gang_cur, p, true, rank, N, t);
+            if constexpr (SPREAD) fetch_counts(p);   // pod p's counts, of the restored ledger
+          } else {
+            revert();
+          }
+        }
         if (gid > 0) {         // and open the pod's group
           gang_placed = 0;
-          gang_min_cur = __float_as_int(pr[GW_MIN]);
+          gang_min_cur = __float_as_int(pr[Build<RUN, SPREAD, IPA, GANG>::GWM]);
           undo_n = 0;
           rr_entry = rr;
         }
@@ -3106,7 +3256,11 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
                 if (rq[OVERLAY] != 0.0f) { changed |= 4; e2.z = requested[(size_t)g * R + OVERLAY]; }
                 float4* e = undo_b + (size_t)undo_n * UNDO_WORDS;
                 e[0] = make_float4(__int_as_float(c), s.r_pods[c], s.r_cpu[c], s.r_mem[c]);
-                e[1] = make_float4(s.z_cpu[c], s.z_mem[c], __int_as_float(changed), 0.0f);
+                if constexpr (SPREAD || IPA)   // (+ the pod, whose rows a revert subtracts)
+                  e[1] = make_float4(s.z_cpu[c], s.z_mem[c], __int_as_float(changed),
+                                     __int_as_float(p));
+                else
+                  e[1] = make_float4(s.z_cpu[c], s.z_mem[c], __int_as_float(changed), 0.0f);
                 if (changed != 0) e[2] = e2;
               }
             }
@@ -3204,7 +3358,12 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
   if constexpr (IPA)
     if (win_pending) mbar_wait(s.bar_win, win_phase);   // the last pod's node
   if constexpr (GANG)   // the group still open after the last pod
-    if (gang_cur > 0 && gang_placed < gang_min_cur) revert();
+    if (gang_cur > 0 && gang_placed < gang_min_cur) {
+      revert();
+      if constexpr (SPREAD || IPA)   // (the node-level counts; no totals or replica)
+        gang_revert_counts<RUN, SPREAD, IPA>(s, sp, ip, gg, undo_b, undo_n, assignments,
+                                             dom_b, gang_cur, P, false, rank, N, t);
+    }
 
   // ---- write the run's ledger back
 #pragma unroll
@@ -3323,6 +3482,17 @@ int launch_run(const Operands& o, int run, SpreadParam<SPREAD> sp,
 
 }  // namespace
 
+// The build compiles this file in parts (native/build.py PARTS, one nvcc a
+// part, started together and linked into one library): part KTPU_PART holds
+// the entries below marked with it, and so the kernel instances they
+// launch; without KTPU_PART, every entry.
+#ifdef KTPU_PART
+#define KTPU_IN_PART(k) (KTPU_PART == (k))
+#else
+#define KTPU_IN_PART(k) 1
+#endif
+
+#if KTPU_IN_PART(0)
 // masked_static [P, N], requests [P, 6], nonzero_requests [P, 2],
 // allocatable [N, 6]; requested [N, 6] and nonzero [N, 2] hold the
 // batch-start ledger and are updated in place. run = nodes per thread
@@ -3346,7 +3516,9 @@ extern "C" int ktpu_assign_scan(
                    NormArgs{static_cast<const ulonglong2*>(node_w), pod_w, w_tt, w_na}};
   return launch_run<false>(o, run, NoSpread{}, stream);
 }
+#endif
 
+#if KTPU_IN_PART(0)
 // The spread build: the operands of ktpu_assign_scan, and podsel_t
 // [uq, N] (the pod-selector counts, transposed; updated in place),
 // spread_q [P] (-1 or an entry below uq), pod_matches [P, uq], zone [N]
@@ -3370,7 +3542,9 @@ extern "C" int ktpu_assign_scan_spread(
   const SpreadArgs sp{podsel_t, spread_q, pod_matches, zone, uq, nz, nd, w_ss};
   return launch_run<true>(o, run, sp, stream);
 }
+#endif
 
+#if KTPU_IN_PART(1)
 // The interpod build: the operands of ktpu_assign_scan, and node_t
 // [uq + ue, N] (the pod-selector then carried-term counts, transposed;
 // updated in place), dom0 [k, nd, uq + ue] (the domain aggregates), dom
@@ -3404,7 +3578,9 @@ extern "C" int ktpu_assign_scan_interpod(
                    k, nd, use_ipa, w_ip, hard_w};
   return launch_run<false, true>(o, run, NoSpread{}, stream, ip);
 }
+#endif
 
+#if KTPU_IN_PART(2)
 // The spread+interpod build: the operands of ktpu_assign_scan_interpod,
 // then spread_q [P] (-1 or an entry below uq), zone [N] (the GetZoneKey
 // domain id: -1 = none, below nz a zone in use, at least nd outside the
@@ -3435,7 +3611,9 @@ extern "C" int ktpu_assign_scan_spread_interpod(
                    k, nd, use_ipa, w_ip, hard_w};
   return launch_run<true, true>(o, run, sp, stream, ip);
 }
+#endif
 
+#if KTPU_IN_PART(0)
 // The gang build: the operands of ktpu_assign_scan, and gang_id [P] (the
 // batch-local group id, 0 = none; a group's members are consecutive
 // rows), gang_min [P] (the group's quorum) and undo [16, P, 3] float4s
@@ -3454,3 +3632,89 @@ extern "C" int ktpu_assign_scan_gang(
   const GangArgs gg{gang_id, gang_min, reinterpret_cast<float4*>(undo)};
   return launch_run<false, false, true>(o, run, NoSpread{}, stream, NoIpa{}, gg);
 }
+#endif
+
+#if KTPU_IN_PART(0)
+// The gang carry with SelectorSpread: the operands of
+// ktpu_assign_scan_spread, then those of ktpu_assign_scan_gang's gang_id,
+// gang_min and undo.
+extern "C" int ktpu_assign_scan_spread_gang(
+    const float* masked_static, const float* requests,
+    const float* nonzero_requests, const float* allocatable, float* requested,
+    float* nonzero, int* assignments, float* scores, int* feasible_counts,
+    long long* rr_io, int P, int N, int run, float w_lr, float w_ba,
+    float* podsel_t, const int* spread_q, const float* pod_matches,
+    const int* zone, int uq, int nz, int nd, float w_ss, const int* gang_id,
+    const int* gang_min, float* undo, const void* node_w, const int* pod_w,
+    float w_tt, float w_na, cudaStream_t stream) {
+  if (uq < 0 || uq > MAX_UQ || nz < 0 || nz > nd || nd > MAX_DOMAINS)
+    return (int)cudaErrorInvalidValue;
+  const Operands o{masked_static, requests, nonzero_requests, allocatable,
+                   requested, nonzero, assignments, scores, feasible_counts,
+                   rr_io, P, N, w_lr, w_ba,
+                   NormArgs{static_cast<const ulonglong2*>(node_w), pod_w, w_tt, w_na}};
+  const SpreadArgs sp{podsel_t, spread_q, pod_matches, zone, uq, nz, nd, w_ss};
+  const GangArgs gg{gang_id, gang_min, reinterpret_cast<float4*>(undo)};
+  return launch_run<true, false, true>(o, run, sp, stream, NoIpa{}, gg);
+}
+#endif
+
+#if KTPU_IN_PART(1)
+// The gang carry with inter-pod (anti-)affinity: the operands of
+// ktpu_assign_scan_interpod, then gang_id, gang_min and undo.
+extern "C" int ktpu_assign_scan_interpod_gang(
+    const float* masked_static, const float* requests,
+    const float* nonzero_requests, const float* allocatable, float* requested,
+    float* nonzero, int* assignments, float* scores, int* feasible_counts,
+    long long* rr_io, int P, int N, int run, float w_lr, float w_ba,
+    float* node_t, const float* dom0, float* dom, const float* totals,
+    const int* pod_ip, const int* topology, const int* term_attr, int uq,
+    int ue, int k, int nd, int use_ipa, float w_ip, float hard_w,
+    const int* gang_id, const int* gang_min, float* undo,
+    const void* node_w, const int* pod_w, float w_tt, float w_na,
+    cudaStream_t stream) {
+  if (uq < 0 || uq > IP_MAX_UQ || ue < 0 || ue > IP_MAX_UE || k < 5
+      || k > IP_MAX_K || nd < 1 || nd > IP_MAX_D)
+    return (int)cudaErrorInvalidValue;
+  const Operands o{masked_static, requests, nonzero_requests, allocatable,
+                   requested, nonzero, assignments, scores, feasible_counts,
+                   rr_io, P, N, w_lr, w_ba,
+                   NormArgs{static_cast<const ulonglong2*>(node_w), pod_w, w_tt, w_na}};
+  const IpaArgs ip{node_t, dom0, dom, totals, pod_ip, topology, term_attr, uq, ue,
+                   k, nd, use_ipa, w_ip, hard_w};
+  const GangArgs gg{gang_id, gang_min, reinterpret_cast<float4*>(undo)};
+  return launch_run<false, true, true>(o, run, NoSpread{}, stream, ip, gg);
+}
+#endif
+
+#if KTPU_IN_PART(3)
+// The gang carry with inter-pod (anti-)affinity and SelectorSpread: the
+// operands of ktpu_assign_scan_spread_interpod, then gang_id, gang_min and
+// undo.
+extern "C" int ktpu_assign_scan_spread_interpod_gang(
+    const float* masked_static, const float* requests,
+    const float* nonzero_requests, const float* allocatable, float* requested,
+    float* nonzero, int* assignments, float* scores, int* feasible_counts,
+    long long* rr_io, int P, int N, int run, float w_lr, float w_ba,
+    float* node_t, const float* dom0, float* dom, const float* totals,
+    const int* pod_ip, const int* topology, const int* term_attr, int uq,
+    int ue, int k, int nd, int use_ipa, float w_ip, float hard_w,
+    const int* spread_q, const int* zone, int nz, float w_ss,
+    const int* gang_id, const int* gang_min, float* undo,
+    const void* node_w, const int* pod_w, float w_tt, float w_na,
+    cudaStream_t stream) {
+  if (uq < 0 || uq > IP_MAX_UQ || ue < 0 || ue > IP_MAX_UE || k < 5
+      || k > IP_MAX_K || nd < 1 || nd > IP_MAX_D || nd > MAX_DOMAINS || nz < 0
+      || nz > nd)
+    return (int)cudaErrorInvalidValue;
+  const Operands o{masked_static, requests, nonzero_requests, allocatable,
+                   requested, nonzero, assignments, scores, feasible_counts,
+                   rr_io, P, N, w_lr, w_ba,
+                   NormArgs{static_cast<const ulonglong2*>(node_w), pod_w, w_tt, w_na}};
+  const SpreadArgs sp{node_t, spread_q, nullptr, zone, uq, nz, nd, w_ss};
+  const IpaArgs ip{node_t, dom0, dom, totals, pod_ip, topology, term_attr, uq, ue,
+                   k, nd, use_ipa, w_ip, hard_w};
+  const GangArgs gg{gang_id, gang_min, reinterpret_cast<float4*>(undo)};
+  return launch_run<true, true, true>(o, run, sp, stream, ip, gg);
+}
+#endif

@@ -10,8 +10,12 @@ PyTorch's headers, in seconds:
 The library lands in `kubernetes_tpu_torch/_build/` under a name that
 carries a digest of its source and flags, so an edited source is rebuilt
 and a finished build is reused. `build()` starts one `nvcc` per source, all
-at once. Nothing is built at import time: the first launch builds what it
-needs.
+at once; a source listed in `PARTS` (the scan, whose 64 kernel instances
+take minutes in one process) is compiled as that many objects, one `nvcc
+-c -DKTPU_PART=k` each, started with the rest, and linked into its one
+library: part k holds the C entries the source marks with it, and so the
+kernel instances they launch. Nothing is built at import time: the first
+launch builds what it needs.
 """
 
 from __future__ import annotations
@@ -31,6 +35,8 @@ KERNELS = ("static_mask", "assign_scan", "preemption")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
+# sources compiled in parts (KTPU_PART = 0 .. parts - 1), linked into one library
+PARTS = {"assign_scan": 4}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -55,13 +61,14 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     source = (SRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(source + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    flags = " ".join(NVCC_FLAGS) + f" parts={PARTS.get(name, 1)}"
+    digest = hashlib.sha1(source + flags.encode()).hexdigest()[:12]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 
 def build(names=KERNELS) -> dict[str, float]:
-    """Compile every listed kernel not yet built, one `nvcc` per source, all
-    started together. Returns {name: seconds} for those compiled; raises
+    """Compile every listed kernel not yet built, one `nvcc` per source (per
+    part of a source in PARTS, then one link), all started together. Returns {name: seconds} for those compiled; raises
     with the compiler's output if any fails. The `-Xptxas=-v` report
     (registers, shared memory, spills) is kept beside each library as
     `<library>.log`."""
@@ -72,20 +79,39 @@ def build(names=KERNELS) -> dict[str, float]:
     nvcc = nvcc_path()
     procs = {}
     t0 = time.perf_counter()
+
+    def start(cmd):
+        return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                text=True)
+
     for name in todo:
         out = library_path(name)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SRC_DIR / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, out)
+        src = str(SRC_DIR / f"{name}.cu")
+        if name in PARTS:
+            objs = [tmp.with_name(f"{tmp.name}.{k}.o") for k in range(PARTS[name])]
+            compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+            parts = [start([nvcc, *compile_flags, "-c", f"-DKTPU_PART={k}", "-o", str(o), src])
+                     for k, o in enumerate(objs)]
+            link = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *map(str, objs)]
+        else:
+            objs, parts, link = [], [start([nvcc, *NVCC_FLAGS, "-o", str(tmp), src])], None
+        procs[name] = (parts, objs, link, tmp, out)
     seconds = {}
     failed = []
-    for name, (proc, tmp, out) in procs.items():
-        log, _ = proc.communicate()
+    for name, (parts, objs, link, tmp, out) in procs.items():
+        logs = [proc.communicate()[0] for proc in parts]
+        codes = [proc.returncode for proc in parts]
+        if link is not None and not any(codes):
+            proc = start(link)
+            logs.append(proc.communicate()[0])
+            codes.append(proc.returncode)
+        for o in objs:
+            o.unlink(missing_ok=True)
         seconds[name] = time.perf_counter() - t0
-        if proc.returncode != 0:
-            failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
+        log = "".join(logs)
+        if any(codes):
+            failed.append(f"{name}: nvcc exited {max(codes)}\n{log}")
             continue
         os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
         out.with_name(out.name + ".log").write_text(log)

@@ -6,7 +6,7 @@ Pallas source: in eager PyTorch each pod would cost about fifteen launches,
 so the whole scan is one CUDA launch of one thread-block cluster
 (csrc/assign_scan.cu; its header gives the design and the bound).
 
-Five builds of the kernel, chosen at compile time:
+Eight builds of the kernel, chosen at compile time:
 - `assign_scan`, the main path's scan (resource fit, LeastRequested and
   BalancedAllocation, the round-robin tie-break, the resource ledger);
 - `assign_scan_spread`, the same scan plus SelectorSpread over the
@@ -29,7 +29,13 @@ Five builds of the kernel, chosen at compile time:
   back to what they were when it opened), and the last open group is
   settled after the last pod, so the returned ledger and rr_end are final.
   Assignments and scores come back as the scan made them; the solver masks
-  the members of reverted groups out afterwards (solver.py:837-853).
+  the members of reverted groups out afterwards (solver.py:837-853);
+- `assign_scan_spread_gang`, `assign_scan_interpod_gang` and
+  `assign_scan_spread_interpod_gang`, the spread, interpod and
+  spread+interpod builds with the gang carry: a reverted group also gives
+  back what it added to the pod-selector, carried-term and domain ledgers,
+  as JAX's `_live_ledger` restores the whole inter-pod ledger
+  (solver.py:357-363).
 
 Every build also takes the normalization flag at run time (`norm`,
 NormInputs, None = off): TaintToleration and NodeAffinity, each normalized
@@ -343,15 +349,57 @@ def assign_scan_spread_interpod_plain(masked_static, requests,
                        interpod, norm=norm)
 
 
+def assign_scan_spread_gang_plain(masked_static, requests, nonzero_requests,
+                                  allocatable, requested, nonzero, rr_start,
+                                  w_lr: float, w_ba: float, spread: SpreadInputs,
+                                  gang: GangInputs,
+                                  norm: NormInputs | None = None) -> ScanResult:
+    """`assign_scan_spread_plain` with the gang carry: a group settled below
+    its quorum also gives back its pod-selector counts."""
+    return _scan_plain(masked_static, requests, nonzero_requests, allocatable,
+                       requested, nonzero, rr_start, w_lr, w_ba, spread,
+                       gang=gang, norm=norm)
+
+
+def assign_scan_interpod_gang_plain(masked_static, requests, nonzero_requests,
+                                    allocatable, requested, nonzero, rr_start,
+                                    w_lr: float, w_ba: float,
+                                    interpod: InterpodInputs, gang: GangInputs,
+                                    norm: NormInputs | None = None) -> ScanResult:
+    """`assign_scan_interpod_plain` with the gang carry: a group settled
+    below its quorum also gives back its pod-selector, carried-term and
+    domain counts."""
+    return _scan_plain(masked_static, requests, nonzero_requests, allocatable,
+                       requested, nonzero, rr_start, w_lr, w_ba, None,
+                       interpod, gang, norm)
+
+
+def assign_scan_spread_interpod_gang_plain(masked_static, requests,
+                                           nonzero_requests, allocatable,
+                                           requested, nonzero, rr_start,
+                                           w_lr: float, w_ba: float,
+                                           spread: SpreadInputs,
+                                           interpod: InterpodInputs,
+                                           gang: GangInputs,
+                                           norm: NormInputs | None = None) -> ScanResult:
+    """`assign_scan_spread_interpod_plain` with the gang carry: a group
+    settled below its quorum also gives back its pod-selector,
+    carried-term and domain counts."""
+    return _scan_plain(masked_static, requests, nonzero_requests, allocatable,
+                       requested, nonzero, rr_start, w_lr, w_ba, spread,
+                       interpod, gang, norm)
+
+
 def assign_scan_gang_plain(masked_static, requests, nonzero_requests,
                            allocatable, requested, nonzero, rr_start,
                            w_lr: float, w_ba: float,
                            gang: GangInputs,
                            norm: NormInputs | None = None) -> ScanResult:
     """`assign_scan_plain` with the gang carry: at each group boundary the
-    group being left is settled (below quorum, the ledger and rr return to
-    their values at the group's first member), and after the last pod the
-    group still open is settled the same way."""
+    group being left is settled (below quorum, the ledgers and rr return to
+    their values at the group's first member, as JAX's `_live_ledger`
+    does), and after the last pod the group still open is settled the same
+    way."""
     return _scan_plain(masked_static, requests, nonzero_requests, allocatable,
                        requested, nonzero, rr_start, w_lr, w_ba, None,
                        gang=gang, norm=norm)
@@ -387,22 +435,27 @@ def _scan_plain(masked_static, requests, nonzero_requests, allocatable,
         gang_mins = gang.gang_min.tolist()
         gang_cur, quorum = 0, 0
         placed = torch.zeros((), dtype=torch.int64, device=dev)
+        carried = ledger if spread is not None or ip is not None else None
 
         def settle(req, nz, rr):
-            """The ledger and rr after settling the open group."""
+            """The ledgers and rr after settling the open group (the
+            affinity ledger in place)."""
             if gang_cur <= 0:
                 return req, nz, rr
             revert = placed < quorum
+            if carried is not None:
+                restore_ledger(carried, snap[3], revert)
             return (torch.where(revert, snap[0], req),
                     torch.where(revert, snap[1], nz),
                     torch.where(revert, snap[2], rr))
     for p in range(p_count):
         if gang is not None and gang_ids[p] != gang_cur:
             # a boundary: settle the group being left, then snapshot the
-            # settled ledger when this pod opens a group
+            # settled ledgers when this pod opens a group
             req, nz, rr = settle(req, nz, rr)
             if gang_ids[p] > 0:
-                snap = (req.clone(), nz.clone(), rr.clone())
+                snap = (req.clone(), nz.clone(), rr.clone(),
+                        None if carried is None else ledger_snapshot(carried))
                 placed = torch.zeros_like(placed)
                 quorum = gang_mins[p]
             gang_cur = gang_ids[p]
@@ -464,6 +517,26 @@ def _scan_plain(masked_static, requests, nonzero_requests, allocatable,
     return ScanResult(assignments, scores, counts, req, nz, rr,
                       ledger.podsel_count,
                       None if ip is None else ledger.term_count)
+
+
+# the AffinityLedger's fields a gang revert restores (JAX's `_live_ledger`
+# holds the whole of c.ipa)
+LEDGER_FIELDS = ("podsel_count", "total_q", "term_count", "dom_podsel",
+                 "dom_term", "total_e")
+
+
+def ledger_snapshot(ledger) -> dict:
+    """Copies of the ledger's tensors (the fields it carries)."""
+    return {f: getattr(ledger, f).clone() for f in LEDGER_FIELDS
+            if getattr(ledger, f) is not None}
+
+
+def restore_ledger(ledger, snap: dict, revert) -> None:
+    """Where `revert` (a bool, or a bool scalar tensor) holds, put the
+    snapshot's tensors back into the ledger."""
+    for f, old in snap.items():
+        setattr(ledger, f, torch.where(torch.as_tensor(revert, device=old.device),
+                                       old, getattr(ledger, f)))
 
 
 _ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 3
@@ -621,8 +694,9 @@ def norm_true_maxima(masked_static, requests, allocatable, requested, norm: Norm
     build takes them) as a scan that made `assignments` saw them, or None
     where the pod exchanges none: a replay of the ledgers from the
     assignments (a gang build's, members of reverted groups included,
-    settled at each group boundary as the scan settles them), counts per
-    distinct row."""
+    settled at each group boundary as the scan settles them, the
+    carried-term ledger with the resource ledger), counts per distinct
+    row."""
     p_count, _ = masked_static.shape
     exch = norm_exchanges(norm)
     rows = norm_pod_rows(norm).cpu().numpy()
@@ -644,9 +718,12 @@ def norm_true_maxima(masked_static, requests, allocatable, requested, norm: Norm
     for p in range(p_count):
         if gang_ids[p] != gang_cur:
             if gang_cur > 0 and placed < quorum:
-                req = snap
+                req = snap[0]
+                if ip is not None:
+                    restore_ledger(ledger, snap[1], True)
             if gang_ids[p] > 0:
-                snap, placed, quorum = req.clone(), 0, gang_mins[p]
+                snap = (req.clone(), None if ip is None else ledger_snapshot(ledger))
+                placed, quorum = 0, gang_mins[p]
             gang_cur = gang_ids[p]
         if exch[p]:
             key = rows[p].tobytes()
@@ -786,29 +863,57 @@ def assign_scan_spread(masked_static, requests, nonzero_requests, allocatable,
     wrapper hands the kernel a transposed [UQ, N] copy of the pod-selector
     ledger, which the kernel updates in place, and returns it as
     new_podsel [N, UQ]."""
-    args = (masked_static, requests, nonzero_requests, allocatable,
-            requested, nonzero)
-    dev = _check_operands("assign_scan_spread", *args)
-    uq = _check_spread(spread, *masked_static.shape, dev)
-    _check_norm(norm, *masked_static.shape, dev)
+    return _spread_scan(assign_scan_spread, (masked_static, requests,
+                        nonzero_requests, allocatable, requested, nonzero),
+                        rr_start, w_lr, w_ba, spread, None, norm)
+
+
+def assign_scan_spread_gang(masked_static, requests, nonzero_requests,
+                            allocatable, requested, nonzero, rr_start,
+                            w_lr: float, w_ba: float, spread: SpreadInputs,
+                            gang: GangInputs,
+                            norm: NormInputs | None = None) -> ScanResult:
+    """Phase B with SelectorSpread and the gang carry
+    (`assign_scan_spread_gang_plain`): the operands of `assign_scan_spread`,
+    and `gang` (GangInputs). On a card the wrapper also gives the kernel the
+    gang build's undo log (`assign_scan_gang`); a reverted group's
+    pod-selector counts are subtracted back in the kernel."""
+    return _spread_scan(assign_scan_spread_gang, (masked_static, requests,
+                        nonzero_requests, allocatable, requested, nonzero),
+                        rr_start, w_lr, w_ba, spread, gang, norm)
+
+
+def _spread_scan(wrapper, args, rr_start, w_lr, w_ba, spread: SpreadInputs,
+                 gang: GangInputs | None, norm: NormInputs | None) -> ScanResult:
+    """The spread build, with the gang carry when `gang` is given: checks,
+    the plain version on the CPU, else one launch counted on `wrapper`."""
+    name = wrapper.__name__
+    dev = _check_operands(name, *args)
+    p, n = args[0].shape
+    uq = _check_spread(spread, p, n, dev)
+    _check_gang(gang, p, dev)
+    _check_norm(norm, p, n, dev)
     if dev.type == "cpu":
-        return assign_scan_spread_plain(*args, rr_start, w_lr, w_ba, spread, norm)
-    _spread_limits("assign_scan_spread", spread, uq)
+        return _scan_plain(*args, rr_start, w_lr, w_ba, spread, gang=gang, norm=norm)
+    _spread_limits(name, spread, uq)
     podsel_t = spread.podsel_count.t().contiguous()
     zone = spread.topology[:, TOPO_SPREAD_ZONE].contiguous()
-    out = _launch("ktpu_assign_scan_spread", _SPREAD_ARGTYPES, *args,
+    _undo, gang_args = _gang_operands(gang, p, dev)
+    out = _launch(f"ktpu_{name}", _with_gang(_SPREAD_ARGTYPES, gang), *args,
                   rr_start, w_lr, w_ba,
                   (podsel_t.data_ptr(), spread.spread_q.data_ptr(),
                    spread.pod_matches_q.data_ptr(), zone.data_ptr(), uq,
-                   spread.zones, spread.domain_universe, float(spread.w_ss)),
-                  norm)
-    assign_scan_spread.launches += 1
-    assign_scan_spread.norm_launches += norm is not None
+                   spread.zones, spread.domain_universe, float(spread.w_ss),
+                   *gang_args), norm)
+    wrapper.launches += 1
+    wrapper.norm_launches += norm is not None
     return ScanResult(*out, podsel_t.t().contiguous())
 
 
 assign_scan_spread.launches = 0
 assign_scan_spread.norm_launches = 0   # of them, with the normalization flag
+assign_scan_spread_gang.launches = 0
+assign_scan_spread_gang.norm_launches = 0
 
 # the interpod build's columns (IP_MAX_UQ, IP_MAX_UE), term slots per pod
 # (IP_SLOTS), topology slots (IP_MAX_K) and domains of a slot (IP_MAX_D)
@@ -859,27 +964,29 @@ def assign_scan_interpod(masked_static, requests, nonzero_requests,
     returns as new_podsel [N, UQ] and new_term [N, UE], the batch-start
     domain aggregates, and room for one replica of them per block, which
     each block fills, updates and drops."""
-    args = (masked_static, requests, nonzero_requests, allocatable,
-            requested, nonzero)
-    dev = _check_operands("assign_scan_interpod", *args)
-    _check_interpod(interpod, *masked_static.shape, dev)
-    _check_norm(norm, *masked_static.shape, dev)
-    if dev.type == "cpu":
-        return assign_scan_interpod_plain(*args, rr_start, w_lr, w_ba, interpod,
-                                          norm)
-    _interpod_limits("assign_scan_interpod", interpod)
-    node_t, _held, extra = _interpod_operands(interpod)
-    out = _launch("ktpu_assign_scan_interpod", _INTERPOD_ARGTYPES, *args,
-                  rr_start, w_lr, w_ba, extra, norm)
-    assign_scan_interpod.launches += 1
-    assign_scan_interpod.norm_launches += norm is not None
-    uq = interpod.podsel_count.shape[1]
-    return ScanResult(*out, node_t[:uq].t().contiguous(),
-                      node_t[uq:].t().contiguous())
+    return _interpod_scan(assign_scan_interpod, (masked_static, requests,
+                          nonzero_requests, allocatable, requested, nonzero),
+                          rr_start, w_lr, w_ba, None, interpod, None, norm)
+
+
+def assign_scan_interpod_gang(masked_static, requests, nonzero_requests,
+                              allocatable, requested, nonzero, rr_start,
+                              w_lr: float, w_ba: float,
+                              interpod: InterpodInputs, gang: GangInputs,
+                              norm: NormInputs | None = None) -> ScanResult:
+    """Phase B with inter-pod (anti-)affinity and the gang carry
+    (`assign_scan_interpod_gang_plain`): the operands of
+    `assign_scan_interpod`, and `gang` (GangInputs), with the gang build's
+    undo log on a card."""
+    return _interpod_scan(assign_scan_interpod_gang, (masked_static, requests,
+                          nonzero_requests, allocatable, requested, nonzero),
+                          rr_start, w_lr, w_ba, None, interpod, gang, norm)
 
 
 assign_scan_interpod.launches = 0
 assign_scan_interpod.norm_launches = 0   # of them, with the normalization flag
+assign_scan_interpod_gang.launches = 0
+assign_scan_interpod_gang.norm_launches = 0
 
 
 def _check_interpod(ip: InterpodInputs, p: int, n: int, dev) -> None:
@@ -976,37 +1083,96 @@ def assign_scan_spread_interpod(masked_static, requests, nonzero_requests,
     SelectorSpread count columns are read from (its first UQ rows), and
     the spread build's entries and zone column; it returns new_podsel
     [N, UQ] and new_term [N, UE]. Limits: those of both builds."""
-    name = "assign_scan_spread_interpod"
-    args = (masked_static, requests, nonzero_requests, allocatable,
-            requested, nonzero)
+    return _interpod_scan(assign_scan_spread_interpod, (masked_static, requests,
+                          nonzero_requests, allocatable, requested, nonzero),
+                          rr_start, w_lr, w_ba, spread, interpod, None, norm)
+
+
+def assign_scan_spread_interpod_gang(masked_static, requests, nonzero_requests,
+                                     allocatable, requested, nonzero, rr_start,
+                                     w_lr: float, w_ba: float,
+                                     spread: SpreadInputs,
+                                     interpod: InterpodInputs, gang: GangInputs,
+                                     norm: NormInputs | None = None) -> ScanResult:
+    """Phase B with inter-pod (anti-)affinity, SelectorSpread and the gang
+    carry (`assign_scan_spread_interpod_gang_plain`): the operands of
+    `assign_scan_spread_interpod`, and `gang` (GangInputs), with the gang
+    build's undo log on a card."""
+    return _interpod_scan(assign_scan_spread_interpod_gang, (masked_static,
+                          requests, nonzero_requests, allocatable, requested,
+                          nonzero), rr_start, w_lr, w_ba, spread, interpod,
+                          gang, norm)
+
+
+def _interpod_scan(wrapper, args, rr_start, w_lr, w_ba,
+                   spread: SpreadInputs | None, interpod: InterpodInputs,
+                   gang: GangInputs | None, norm: NormInputs | None) -> ScanResult:
+    """The interpod build, or with `spread` the spread+interpod build, with
+    the gang carry when `gang` is given: checks, the plain version on the
+    CPU, else one launch counted on `wrapper`."""
+    name = wrapper.__name__
     dev = _check_operands(name, *args)
-    uq = _check_spread(spread, *masked_static.shape, dev)
-    _check_interpod(interpod, *masked_static.shape, dev)
-    _check_norm(norm, *masked_static.shape, dev)
-    if spread.domain_universe != interpod.domain_universe or not all(
-            _same(getattr(spread, f), getattr(interpod, f))
-            for f in ("podsel_count", "topology", "pod_matches_q")):
+    p, n = args[0].shape
+    uq = None if spread is None else _check_spread(spread, p, n, dev)
+    _check_interpod(interpod, p, n, dev)
+    _check_gang(gang, p, dev)
+    _check_norm(norm, p, n, dev)
+    if spread is not None and (
+            spread.domain_universe != interpod.domain_universe or not all(
+                _same(getattr(spread, f), getattr(interpod, f))
+                for f in ("podsel_count", "topology", "pod_matches_q"))):
         raise ValueError(f"{name}: spread and interpod carry different "
                          f"ledgers, topology, match rows or universes")
     if dev.type == "cpu":
-        return assign_scan_spread_interpod_plain(*args, rr_start, w_lr, w_ba,
-                                                 spread, interpod, norm)
-    _spread_limits(name, spread, uq)
+        return _scan_plain(*args, rr_start, w_lr, w_ba, spread, interpod, gang, norm)
+    if spread is not None:
+        _spread_limits(name, spread, uq)
     _interpod_limits(name, interpod)
     node_t, _held, extra = _interpod_operands(interpod)
-    zone = spread.topology[:, TOPO_SPREAD_ZONE].contiguous()
-    out = _launch("ktpu_assign_scan_spread_interpod", _SPREAD_INTERPOD_ARGTYPES,
-                  *args, rr_start, w_lr, w_ba,
-                  (*extra, spread.spread_q.data_ptr(), zone.data_ptr(),
-                   spread.zones, float(spread.w_ss)), norm)
-    assign_scan_spread_interpod.launches += 1
-    assign_scan_spread_interpod.norm_launches += norm is not None
+    argtypes = _INTERPOD_ARGTYPES
+    if spread is not None:
+        argtypes = _SPREAD_INTERPOD_ARGTYPES
+        zone = spread.topology[:, TOPO_SPREAD_ZONE].contiguous()
+        extra = (*extra, spread.spread_q.data_ptr(), zone.data_ptr(),
+                 spread.zones, float(spread.w_ss))
+    _undo, gang_args = _gang_operands(gang, p, dev)
+    out = _launch(f"ktpu_{name}", _with_gang(argtypes, gang), *args, rr_start,
+                  w_lr, w_ba, (*extra, *gang_args), norm)
+    wrapper.launches += 1
+    wrapper.norm_launches += norm is not None
+    uq = interpod.podsel_count.shape[1]
     return ScanResult(*out, node_t[:uq].t().contiguous(),
                       node_t[uq:].t().contiguous())
 
 
 assign_scan_spread_interpod.launches = 0
 assign_scan_spread_interpod.norm_launches = 0   # of them, with the normalization flag
+assign_scan_spread_interpod_gang.launches = 0
+assign_scan_spread_interpod_gang.norm_launches = 0
+
+
+def _check_gang(gang: GangInputs | None, p: int, dev) -> None:
+    """Check the GangInputs tensors of a p-pod batch."""
+    if gang is None:
+        return
+    for check in (("gang_id", gang.gang_id, torch.int32, (p,)),
+                  ("gang_min", gang.gang_min, torch.int32, (p,))):
+        check_tensor(*check, dev)
+
+
+def _gang_operands(gang: GangInputs | None, p: int, dev):
+    """The gang carry's device operands: (the undo log, [CLUSTER, P, 3]
+    float4s, which the caller holds until the launch is enqueued, and the
+    launch's pointers: gang_id, gang_min, the log); none without `gang`."""
+    if gang is None:
+        return None, ()
+    undo = torch.empty((CLUSTER, p, 3, 4), dtype=torch.float32, device=dev)
+    return undo, (gang.gang_id.data_ptr(), gang.gang_min.data_ptr(), undo.data_ptr())
+
+
+def _with_gang(argtypes: list, gang: GangInputs | None) -> list:
+    """A build's argtypes, with the gang operands before the stream."""
+    return argtypes if gang is None else argtypes[:-1] + [ctypes.c_void_p] * 4
 
 
 _GANG_ARGTYPES = _ARGTYPES[:-1] + [ctypes.c_void_p] * 3 + [ctypes.c_void_p]
@@ -1024,16 +1190,13 @@ def assign_scan_gang(masked_static, requests, nonzero_requests, allocatable,
             requested, nonzero)
     dev = _check_operands("assign_scan_gang", *args)
     p = masked_static.shape[0]
-    for check in (("gang_id", gang.gang_id, torch.int32, (p,)),
-                  ("gang_min", gang.gang_min, torch.int32, (p,))):
-        check_tensor(*check, dev)
+    _check_gang(gang, p, dev)
     _check_norm(norm, p, masked_static.shape[1], dev)
     if dev.type == "cpu":
         return assign_scan_gang_plain(*args, rr_start, w_lr, w_ba, gang, norm)
-    undo = torch.empty((CLUSTER, p, 3, 4), dtype=torch.float32, device=dev)
+    _undo, gang_args = _gang_operands(gang, p, dev)
     out = _launch("ktpu_assign_scan_gang", _GANG_ARGTYPES, *args, rr_start,
-                  w_lr, w_ba, (gang.gang_id.data_ptr(), gang.gang_min.data_ptr(),
-                               undo.data_ptr()), norm)
+                  w_lr, w_ba, gang_args, norm)
     assign_scan_gang.launches += 1
     assign_scan_gang.norm_launches += norm is not None
     return ScanResult(*out)

@@ -27,11 +27,14 @@ the next. This solver reproduces that decision for decision:
   batch needs both, the scan's spread+interpod build applies the
   predicate, then scores the priority and SelectorSpread over the nodes
   it leaves, over one pod-selector ledger. When the batch raises the
-  gang gate (a row with a group id), the scan's gang
-  build settles each all-or-nothing group as the scan leaves it: a group
-  below its quorum of placed members gives back its ledger charges and
-  round-robin bumps. After the scan, every member of such a group is
-  masked out of the result (node -1, score 0). When the batch raises the
+  gang gate (a row with a group id), the scan settles each all-or-nothing
+  group as the scan leaves it: a group below its quorum of placed members
+  gives back its ledger charges and round-robin bumps, and its
+  pod-selector, carried-term and domain counts where the batch also needs
+  SelectorSpread or inter-pod affinity (the gang build, or the gang carry
+  of the spread, interpod or spread+interpod build the other gates pick).
+  After the scan, every member of such a group is masked out of the
+  result (node -1, score 0). When the batch raises the
   tt gate (a PreferNoSchedule taint interned) or the na gate (a preferred
   node-affinity term) and the policy weighs TaintToleration or
   NodeAffinity, whichever build runs takes the normalization flag: both
@@ -46,9 +49,9 @@ the next. This solver reproduces that decision for decision:
   `victim_count` in the result, (-1, 0) when the pass is off.
 
 This package carries the main path and the spread, ipa, gang, tt, na and
-preempt gates: a batch whose content raises any other BatchFlags gate, a batch that needs
-the gang build with the spread or the interpod build, a policy that weighs
-ServiceSpreadingPriority on a spread batch, or a policy outside the fused
+preempt gates, each with any of the others: a batch whose content raises
+any other BatchFlags gate, a policy that weighs ServiceSpreadingPriority
+on a spread batch, or a policy outside the fused
 static mask or with argument-carrying registrations, raises
 NotImplementedError naming what is missing. It never computes an answer
 for a program it does not implement.
@@ -79,10 +82,16 @@ from kubernetes_tpu_torch.ops.assign_scan import (
     assign_scan_gang,
     assign_scan_gang_plain,
     assign_scan_interpod,
+    assign_scan_interpod_gang,
+    assign_scan_interpod_gang_plain,
     assign_scan_interpod_plain,
     assign_scan_plain,
     assign_scan_spread,
+    assign_scan_spread_gang,
+    assign_scan_spread_gang_plain,
     assign_scan_spread_interpod,
+    assign_scan_spread_interpod_gang,
+    assign_scan_spread_interpod_gang_plain,
     assign_scan_spread_interpod_plain,
     assign_scan_spread_plain,
     norm_inputs,
@@ -217,14 +226,6 @@ def check_supported(policy: Policy, flags: BatchFlags) -> PolicyGates:
     g = policy_gates(policy, flags)
     if not g.use_resources:
         raise NotImplementedError("policy without PodFitsResources")
-    builds = [gate for gate, needed in (("spread", bool(g.w_ss)),
-                                        ("ipa", g.use_terms),
-                                        ("gang", flags.gang)) if needed]
-    if "gang" in builds and len(builds) > 1:
-        raise NotImplementedError(
-            f"batch raises the {' and the '.join(map(repr, builds))} gates: "
-            f"the scan builds gang groups apart from SelectorSpread and "
-            f"inter-pod affinity, not together")
     return g
 
 
@@ -362,7 +363,8 @@ def scan_norm_inputs(state: ClusterState, batch: PodBatch,
 
 def _solve(state, batch, rr_start, policy, flags, caps, spread_zones, mask_fn,
            scan_fn, spread_fn, interpod_fn, gang_fn, spread_interpod_fn,
-           victims=None, preempt_fn=preemption_pass_plain):
+           victims=None, preempt_fn=preemption_pass_plain, spread_gang_fn=None,
+           interpod_gang_fn=None, spread_interpod_gang_fn=None):
     if flags is None:
         flags = batch_flags(state, batch)
     g = check_supported(policy, flags)
@@ -372,21 +374,26 @@ def _solve(state, batch, rr_start, policy, flags, caps, spread_zones, mask_fn,
             state.requested, state.nonzero_requested, rr_start,
             float(g.w_lr), float(g.w_ba))
     universe = (caps or Capacities()).domain_universe
-    # every build takes the flag's operands last
+    # the build's own operands, then the gang carry's where the batch has
+    # groups; every build takes the flag's operands last
     if g.use_terms and g.w_ss:
-        scan = spread_interpod_fn(*args, *spread_interpod_inputs(
-            state, batch, g, universe, spread_zones), norm)
+        build = (spread_interpod_fn, spread_interpod_gang_fn)
+        operands = spread_interpod_inputs(state, batch, g, universe, spread_zones)
     elif g.use_terms:
-        scan = interpod_fn(*args, interpod_inputs(state, batch, g, universe), norm)
+        build = (interpod_fn, interpod_gang_fn)
+        operands = (interpod_inputs(state, batch, g, universe),)
     elif g.w_ss:
-        scan = spread_fn(*args, spread_inputs(state, batch, g, universe,
-                                              spread_zones), norm)
-    elif flags.gang:
-        scan = gang_fn(*args, GangInputs(gang_id=batch.gang_id.contiguous(),
-                                         gang_min=batch.gang_min.contiguous()),
-                       norm)
+        build = (spread_fn, spread_gang_fn)
+        operands = (spread_inputs(state, batch, g, universe, spread_zones),)
     else:
-        scan = scan_fn(*args, norm)
+        build = (scan_fn, gang_fn)
+        operands = ()
+    if flags.gang:
+        scan = build[1](*args, *operands, GangInputs(
+            gang_id=batch.gang_id.contiguous(),
+            gang_min=batch.gang_min.contiguous()), norm)
+    else:
+        scan = build[0](*args, *operands, norm)
     assignments, scores = scan.assignments, scan.scores
     placed = reverted = None
     if flags.gang:
@@ -429,12 +436,17 @@ def schedule_batch(state: ClusterState, batch: PodBatch, rr_start,
     spread build sums and exchanges. `victims` (a VictimTable on the same
     device) runs the preemption pass when the flags raise preempt (JAX
     `schedule_batch(victims=)`: a batch without priorities, or a caller
-    with nothing evictable, runs without it). Returns per-pod assignments,
-    the post-batch ledgers (assume semantics) and the pass's verdicts."""
+    with nothing evictable, runs without it). Gang groups are settled in
+    whichever build the other gates pick, the inter-pod and pod-selector
+    ledgers reverted with the resource ledger (JAX `_live_ledger`). Returns
+    per-pod assignments, the post-batch ledgers (assume semantics) and the
+    pass's verdicts."""
     return _solve(state, batch, rr_start, policy, flags, caps, spread_zones,
                   static_mask, assign_scan, assign_scan_spread,
                   assign_scan_interpod, assign_scan_gang,
-                  assign_scan_spread_interpod, victims, preemption_pass)
+                  assign_scan_spread_interpod, victims, preemption_pass,
+                  assign_scan_spread_gang, assign_scan_interpod_gang,
+                  assign_scan_spread_interpod_gang)
 
 
 def schedule_batch_plain(state: ClusterState, batch: PodBatch, rr_start,
@@ -449,4 +461,6 @@ def schedule_batch_plain(state: ClusterState, batch: PodBatch, rr_start,
                   static_mask_plain, assign_scan_plain,
                   assign_scan_spread_plain, assign_scan_interpod_plain,
                   assign_scan_gang_plain, assign_scan_spread_interpod_plain,
-                  victims, preemption_pass_plain)
+                  victims, preemption_pass_plain, assign_scan_spread_gang_plain,
+                  assign_scan_interpod_gang_plain,
+                  assign_scan_spread_interpod_gang_plain)

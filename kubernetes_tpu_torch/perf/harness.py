@@ -79,6 +79,9 @@ INTERPOD_PODS = {"app_groups": 8, "anti_affinity_every": 16,
 # the spread_interpod traffic's pod mix: bench[spread]'s 16 app groups (each
 # selected by a Service) with bench[interpod]'s terms
 SPREAD_INTERPOD_PODS = {**INTERPOD_PODS, "app_groups": 16}
+# the gang_spread_interpod traffic's pod mix: the spread_interpod mix in
+# all-or-nothing groups of 8 consecutive pods, each at quorum 8
+GANG_SPREAD_INTERPOD_PODS = {**SPREAD_INTERPOD_PODS, "gang_size": 8}
 
 
 def _tt_na_preferred(group: int) -> list:

@@ -35,7 +35,11 @@ the reference's queue receives the group); if it does not fit the batch
 being filled, that batch is closed and the group opens the next one. Each
 group gets a batch-local id, written into the blobs after encoding, and
 the solver settles it all or nothing: every member of a reverted group
-comes back None and nothing of it is committed. A group larger than a
+comes back None and nothing of it is committed. A batch of groups that
+also needs SelectorSpread or inter-pod affinity (a Service selects its
+pods, or any accounted pod carries a pod-affinity term) is settled in the
+build those gates pick, and the StateDB adopts the pod-selector and
+carried-term ledgers the scan gave back with the group. A group larger than a
 batch, or below its quorum, is released: its members are scheduled
 individually where they stand (the reference's treatment after its
 quorum timeout; a call is given all the pods there are, so a group below

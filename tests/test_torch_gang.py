@@ -326,18 +326,33 @@ def test_gang_wrapper_runs_the_plain_scan_on_the_cpu():
 
 @pytest.mark.parametrize("gates", ["gang+spread", "gang+ipa"])
 def test_gang_with_another_build_names_both_gates(gates):
+    """The batch the solver once refused, naming both gates, since the gang
+    carry in the spread and interpod builds: random_cluster's batch with a
+    group of two whose first pod has a spread entry or whose second pod a
+    required affinity term equals JAX's, all four ledgers included."""
     rng = np.random.RandomState(940)
     nodes, pods = random_cluster(rng, 24, P)
     state, batch, _t = encode_cluster([obj.Node.from_dict(d) for d in nodes],
                                       [obj.Pod.from_dict(d) for d in pods], CAPS)
-    batch.gang_id[:2], batch.gang_min[:2] = 1, 2
-    if gates == "gang+spread":
-        batch.spread_q[0] = 0
-    else:
-        batch.paff_q[1, 0] = 0
-    with pytest.raises(NotImplementedError) as info:
-        schedule_batch(state_from_numpy(state, "cpu"), batch_from_numpy(batch, "cpu"), 0)
-    assert "'gang'" in str(info.value) and f"'{gates[5:]}'" in str(info.value)
+    jstate, jbatch, jtable = j_encode_cluster([jobj.Node.from_dict(d) for d in nodes],
+                                              [jobj.Pod.from_dict(d) for d in pods],
+                                              JCAPS)
+    for b in (batch, jbatch):
+        b.gang_id[:2], b.gang_min[:2] = 1, 2
+        if gates == "gang+spread":
+            b.spread_q[0] = 0
+        else:
+            b.paff_q[1, 0] = 0
+    jflags = jsolver.batch_flags(jbatch, len(pods), jtable)
+    assert jflags.gang and getattr(jflags, gates[5:])
+    want = jax.jit(lambda s, b, r: jsolver.schedule_batch(
+        s, b, r, J_POLICY, flags=jflags))(jstate, jbatch, np.uint32(0))
+    got = schedule_batch(state_from_numpy(state, "cpu"), batch_from_numpy(batch, "cpu"), 0)
+    assert_same(got, want, gates)
+    for name in ("new_podsel", "new_term"):
+        if getattr(got, name) is not None:   # (None: passed through)
+            np.testing.assert_array_equal(getattr(got, name).numpy(),
+                                          np.asarray(getattr(want, name)), name)
 
 
 # ---- the encoder and the encode cache ----

@@ -188,12 +188,29 @@ def test_gates_outside_the_main_path_raise(gate):
         batch.port_onehot[0, 0] = 1.0
     elif gate == "vol":
         batch.vol_want_rw[0, 0] = 1.0
-    elif gate.startswith("gang"):   # the gang build apart from the others
-        batch.gang_id[:2], batch.gang_min[:2] = 1, 2
-        if gate == "gang+spread":
-            batch.spread_q[0] = 0
-        else:
-            batch.paff_q[1, 0] = 0
+    elif gate.startswith("gang"):
+        # carried since the gang carry in the spread and interpod builds:
+        # the batch both gates name equals the reference's with those gates
+        for b in (batch, jbatch):
+            b.gang_id[:2], b.gang_min[:2] = 1, 2
+            if gate == "gang+spread":
+                b.spread_q[0] = 0
+            else:
+                b.paff_q[1, 0] = 0
+        raised = dict.fromkeys(gate.split("+"), True)
+        jflags = dataclasses.replace(NO_GATES, **raised)
+        want = jax.jit(lambda s, b, r: jsolver.schedule_batch(
+            s, b, r, J_POLICY, flags=jflags))(jstate, jbatch, np.uint32(0))
+        got = schedule_batch(state_from_numpy(state, "cpu"),
+                             batch_from_numpy(batch, "cpu"), 0,
+                             flags=dataclasses.replace(BatchFlags(*([False] * 12)),
+                                                       **raised))
+        assert_same(got, want, gate)
+        for name in ("new_podsel", "new_term"):
+            if getattr(got, name) is not None:   # (None: passed through)
+                np.testing.assert_array_equal(getattr(got, name).numpy(),
+                                              np.asarray(getattr(want, name)), name)
+        return
     with pytest.raises(NotImplementedError) as info:
         schedule_batch(state_from_numpy(state, "cpu"),
                        batch_from_numpy(batch, "cpu"), 0)

@@ -257,15 +257,22 @@ def test_the_formerly_refused_batch_matches_reference():
 
 
 def test_gang_with_both_names_every_gate():
+    """The batch the solver once refused, naming the spread, ipa and gang
+    gates, since the gang carry in the spread+interpod build: it equals
+    JAX's with those gates."""
     rng = np.random.RandomState(5)
     nodes, pods = random_cluster(rng, 24, BATCH)
-    (state, batch, _), _ = encode_main(nodes, pods)
-    batch.spread_q[0] = 0
-    batch.paff_q[1, 0] = 0
-    batch.gang_id[:2], batch.gang_min[:2] = 1, 2
-    with pytest.raises(NotImplementedError) as info:
-        schedule_batch(state_from_numpy(state, "cpu"), batch_from_numpy(batch, "cpu"), 0)
-    assert all(f"'{g}'" in str(info.value) for g in ("spread", "ipa", "gang"))
+    (state, batch, _), (jstate, jbatch, jtable) = encode_main(nodes, pods)
+    for b in (batch, jbatch):
+        b.spread_q[0] = 0
+        b.paff_q[1, 0] = 0
+        b.gang_id[:2], b.gang_min[:2] = 1, 2
+    flags = jsolver.batch_flags(jbatch, len(pods), jtable)
+    assert flags.spread and flags.ipa and flags.gang
+    want = jax.jit(lambda s, b, r: jsolver.schedule_batch(
+        s, b, r, J_POLICY, flags=flags))(jstate, jbatch, np.uint32(0))
+    got = schedule_batch(state_from_numpy(state, "cpu"), batch_from_numpy(batch, "cpu"), 0)
+    assert_same(got, want)
 
 
 # ---- (c) the driver: a carried anti term, then Service-selected pods ----
