@@ -76,19 +76,20 @@ fails; nothing is caught and skipped:
    30,000 pods in 16 app groups, 16 Services) through
    Scheduler(device="cuda"); every pod must be placed within allocatable,
    the spread build must have launched once per batch (and the main scan
-   never), and the first and the fifth batch must equal
-   schedule_batch_plain on the state and batch the driver solved them on,
-   pod-selector ledger included; times the spread build on the first
-   batch against its plain version;
+   never), and the first batch, and the fifth batch's first 256 pods,
+   must equal schedule_batch_plain on the state and batch the driver
+   solved them on, pod-selector ledger included; times the spread build on
+   the first batch against its plain version;
 9. interpod: the reference bench's bench[interpod] (5,000 nodes in 3
    zones, 8,192 pods in 8 app groups, required hostname anti-affinity on
    every 16th pod, weight-10 preferred zone affinity on every 2nd) through
    Scheduler(device="cuda"); every pod must be placed within allocatable,
    no node that holds an anti-affinity pod may hold another pod of its
    group, the interpod build must have launched once per batch (and the
-   main and spread builds never), and the first and a later batch must
-   equal schedule_batch_plain on the state and batch the driver solved
-   them on, all three ledgers included; interpod_build times the build on
+   main and spread builds never), and the first batch, and a later
+   batch's first 256 pods, must equal schedule_batch_plain on the state
+   and batch the driver solved them on, all three ledgers included;
+   interpod_build times the build on
    the first batch against its plain version (the edge shapes of phase 3
    hold it at every build, with carried anti terms, a custom topology key
    and the default-domain union);
@@ -186,6 +187,27 @@ fails; nothing is caught and skipped:
    memory; last the class-churn check, the mixed operands' first 512 pods
    with (priority, cpu request) drawn from 24 classes, more than a node's
    verdict entries;
+12b. gpu_ports: the gpu_ports cell (perf/harness.py gpu_ports_cluster:
+   bench[headline]'s 15,000 nodes, every 4th with 8 GPUs, every one 100Gi
+   of scratch and no overlay, a bound pod with host port 8080 on every
+   10th; 30,000 pods of 100m / 250Mi, every 4th asking a GPU, 1Gi of
+   scratch or 512Mi of overlay on others, host ports 8080 and 9100 on some)
+   through Scheduler(device="cuda"): every pod placed within its node's
+   GPUs, scratch, cpu, memory and pods, no host port twice on a node (the
+   device's counts equal to the host's), the main build with the EXT
+   variant launched once a batch (and no other build), the first and last
+   batch equal to the plain path; then the cell's first batch on fresh
+   clusters in groups of 8 (the gang build with EXT), with one member of
+   every 8th group asking 9 GPUs (64 groups revert), and with one
+   PreferNoSchedule taint, alone and in groups (the flag's EXT instances),
+   each launched once and held against the plain path; and phase 3 ends
+   with ext_hazards: the main and gang builds with EXT against their plain
+   versions at every RUN, with and without the flag, on batches whose
+   GPUs run out mid-batch, whose pods share few ports, list a port twice,
+   ask only a GPU or only scratch, or equal the previous pod in cpu and
+   memory but not in GPU or ports, on nodes with counts up to 3 and with
+   and without overlay allocatable, on groups that revert on a node three
+   members share, and on traffics that force the flag's guess to miss;
 14. the kernels line, the nvidia-smi line, and last the result line.
 
 Every phase line carries `elapsed_s`, the script's seconds when it was
@@ -289,6 +311,31 @@ NORM_OVERFLOW_CLASSES = 40
 # (whose loops take 14-16 ms a pod on the card); their kernels-line entries
 # say so in `scope`
 NORM_PREFIX = 256
+# the EXT variant's hazards (pods, nodes): the main and gang builds with
+# EXT at every RUN (1, 2, 4 and 8 nodes a thread), odd N; the host-port
+# universe of their inputs (a bit past 31 and bit 63 in use)
+EXT_SHAPES = ((120, 999), (120, 12001), (100, 30001), (80, 65535))
+EXT_PORTS = 64
+# operations of the EXT variant per evaluated (pod, node): the port words'
+# and and test 2, the gpu column's add and compare 2, the storage fit's
+# overlay test, three adds and a compare (or two adds and two compares) 5
+EXT_OPS_PER_PAIR = 9
+# the gpu_ports cell (perf/harness.py GPU_PORTS_NODES, GPU_PORTS_PODS,
+# gpu_ports_cluster): its batches held against the plain path (of 8: the
+# first and the last), the group size of its gang variant, and every how
+# many groups one member of its reverting variant asks 9 GPUs (no node has
+# more than 8)
+GPU_PORTS_CHECKED = (0, 7)
+GPU_PORTS_GANG = 8
+GPU_PORTS_REVERT_EVERY = 8
+# the pods of a later checked batch, and of the first batch with the flag,
+# held against the plain path (whose EXT loop takes ~3 ms a pod on the card)
+GPU_PORTS_SCOPE = 256
+# the EXT scan then kernel 3: a wave of priority pods asking 8 GPUs on the
+# gpu_ports cluster at 2,000 nodes (N = 2,048, one batch of 1,024): 400
+# fit whole GPU nodes, and evicting a bound pod frees the 100 with 7
+GPU_PREEMPT_NODES, GPU_PREEMPT_PODS = 2000, 600
+
 # the preemption cell (perf/harness.py preemption_cluster): nodes, and the
 # variants whose post-scan operands kernel 3 is held on; operations of the
 # pass per (taking-part pod, statically feasible node): per slot the
@@ -373,7 +420,8 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
 def ptxas_report(log: str) -> dict:
     """{kernel: "spill bytes, registers"} from nvcc's -Xptxas=-v report; a
     template kernel is named with its template arguments (the scan's
-    `<RUN, SPREAD, IPA, GANG, NORM>` as e.g. "assign_scan_kernel<8,0,0,1,0>")."""
+    `<RUN, SPREAD, IPA, GANG, NORM, EXT>` as e.g.
+    "assign_scan_kernel<8,0,0,1,0,0>")."""
     out, name = {}, None
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(_Z\w+)'", ln)
@@ -387,9 +435,9 @@ def ptxas_report(log: str) -> dict:
                     j += 1
                 name, i = mangled[j:j + int(mangled[i:j])], j + int(mangled[i:j])
             if mangled[i:i + 1] == "I":
-                # (the first five: the flag's operand type NormMain<RUN>
-                # carries a template argument of its own)
-                args = re.findall(r"Li(\d+)E|Lb([01])E", mangled[i:].split("EEv")[0])[:5]
+                # (those before the pack of operand types, `J...E`: the
+                # flag's NormMain<RUN> carries a template argument of its own)
+                args = re.findall(r"Li(\d+)E|Lb([01])E", mangled[i:].split("J")[0])
                 name += f"<{','.join(a or b for a, b in args)}>"
         elif name and ("registers" in ln or "spill" in ln):
             out[name] = (out.get(name, "") + " " + ln.strip()).strip()
@@ -629,16 +677,18 @@ NORM_GUESS_BUILDS = ("assign_scan", "assign_scan_spread", "assign_scan_interpod"
 
 def norm_misses(name, args, norm, got):
     """The second rounds (misses of the guess) of a launch of build `name`
-    (NORM_GUESS_BUILDS) with the flag on `args` that returned `got`, from
+    (NORM_GUESS_BUILDS, EXT_BUILDS) with the flag on `args` that returned `got`, from
     the host replay of its maxima table (ops/assign_scan.py
     norm_true_maxima, with the interpod build's predicate, and
     norm_table_misses): (misses, pods that exchange maxima)."""
-    from kubernetes_tpu_torch.ops.assign_scan import norm_table_misses, norm_true_maxima
+    from kubernetes_tpu_torch.ops.assign_scan import (ExtInputs, GangInputs,
+                                                      norm_table_misses, norm_true_maxima)
 
-    gang = args[-1] if name.endswith("_gang") else None
+    gang = next((a for a in args[9:] if isinstance(a, GangInputs)), None)
+    ext = next((a for a in args[9:] if isinstance(a, ExtInputs)), None)
     interpod = args[9] if name.startswith("assign_scan_interpod") else None
     maxima = norm_true_maxima(args[0], args[1], args[3], args[4], norm,
-                              got.assignments, gang, interpod)
+                              got.assignments, gang, interpod, ext)
     table = norm_table_misses(norm, maxima)
     return sum(m is True for m in table), sum(m is not None for m in table)
 
@@ -862,6 +912,12 @@ def spread_phase(torch, caps, dev, kernels) -> tuple[dict, dict]:
     load = check_load(pods, result.placements, nodes)
     for k in SPREAD_CHECKED:
         (state, batch, rr, flags), got = seen[k]
+        if k != SPREAD_CHECKED[0]:
+            # a later batch on its first GSI_SCOPE pods, the kernel path run
+            # again on them (the plain spread loop takes ~13 s a whole batch)
+            batch = scope_batch(batch, GSI_SCOPE)
+            got = solver.schedule_batch(state, batch, rr, solver.DEFAULT_POLICY, flags,
+                                        caps, spread_zones=sched.statedb.table.spread_zones)
         plain = solver.schedule_batch_plain(state, batch, rr, solver.DEFAULT_POLICY,
                                             flags, caps)
         compare_spread(torch, got, plain)
@@ -906,7 +962,8 @@ def spread_phase(torch, caps, dev, kernels) -> tuple[dict, dict]:
             "remainder_ms": 1e3 * result.seconds - encode_ms - solve_ms,
             "podsel_entries": len(sched.statedb.table.podsels),
             "nodes_used": len(load), "max_zone_imbalance_per_group": imbalance,
-            "launches": launches, "checked_batches_equal_plain": list(SPREAD_CHECKED)}
+            "launches": launches, "checked_batches_equal_plain": list(SPREAD_CHECKED),
+            "later_batch_scope_pods": GSI_SCOPE}
     return line, entry
 
 
@@ -1233,6 +1290,12 @@ def interpod_phase(torch, caps, dev, kernels) -> tuple[dict, dict]:
         raise AssertionError(f"interpod: anti-affinity broken on {crowded[:5]}")
     for k in INTERPOD_CHECKED:
         (state, batch, rr, flags), got = seen[k]
+        if k != INTERPOD_CHECKED[0]:
+            # a later batch on its first GSI_SCOPE pods, the kernel path run
+            # again on them (the plain interpod loop takes ~16-22 s a batch)
+            batch = scope_batch(batch, GSI_SCOPE)
+            got = solver.schedule_batch(state, batch, rr, solver.DEFAULT_POLICY, flags,
+                                        caps, spread_zones=sched.statedb.table.spread_zones)
         plain = solver.schedule_batch_plain(state, batch, rr, solver.DEFAULT_POLICY,
                                             flags, caps)
         compare_interpod(torch, got, plain)
@@ -1280,7 +1343,8 @@ def interpod_phase(torch, caps, dev, kernels) -> tuple[dict, dict]:
             "first_batch_entries_mean": float(entries.double().mean()),
             "first_batch_counting_pods": int(counting.sum()),
             "launches": launches,
-            "checked_batches_equal_plain": list(INTERPOD_CHECKED)}
+            "checked_batches_equal_plain": list(INTERPOD_CHECKED),
+            "later_batch_scope_pods": GSI_SCOPE}
     return line, entry
 
 
@@ -2122,7 +2186,7 @@ def compare_solves(torch, got, want, what: str) -> None:
     """Two SolverResults equal in every field, the gang counts included."""
     for name in ("assignments", "scores", "feasible_counts", "new_requested",
                  "new_nonzero", "rr_end", "new_podsel", "new_term", "gang_placed",
-                 "gang_reverted"):
+                 "gang_reverted", "new_port_count"):
         a, b = getattr(got, name), getattr(want, name)
         if (a is None) != (b is None) or (a is not None and not torch.equal(a, b)):
             raise AssertionError(f"{what}: kernel path != plain on {name}")
@@ -2426,6 +2490,20 @@ def scan_call(torch, state, batch, flags, caps, zones=None):
         return ("assign_scan_spread", scan.assign_scan_spread,
                 scan.assign_scan_spread_plain, (*args, sp), norm, compare_spread,
                 lambda _res: spread_bound(args, sp))
+    if g.use_ext:
+        ext = scan.ExtInputs(use_ports=g.use_ports,
+                             port_onehot=batch.port_onehot.contiguous(),
+                             port_count=state.port_count)
+        if flags.gang:
+            gang = scan.GangInputs(gang_id=batch.gang_id.contiguous(),
+                                   gang_min=batch.gang_min.contiguous())
+            return ("assign_scan_gang_ext", scan.assign_scan_gang_ext,
+                    scan.assign_scan_gang_ext_plain, (*args, ext, gang), norm, compare_ext,
+                    lambda res: ext_bound(lambda: gang_bound(args, gang, int(
+                        ((res.assignments >= 0) & (gang.gang_id > 0)).sum())), args, ext))
+        return ("assign_scan_ext", scan.assign_scan_ext, scan.assign_scan_ext_plain,
+                (*args, ext), norm, compare_ext,
+                lambda _res: ext_bound(lambda: scan_bound(*args[:6]), args, ext))
     if flags.gang:
         gang = scan.GangInputs(gang_id=batch.gang_id.contiguous(),
                                gang_min=batch.gang_min.contiguous())
@@ -2437,17 +2515,22 @@ def scan_call(torch, state, batch, flags, caps, zones=None):
             compare_scan, lambda _res: scan_bound(*args[:6]))
 
 
-# the kernels-line names of the builds with the gang carry
+# the kernels-line names of the builds with the gang carry and of the EXT
+# variant's
 GANG_CARRY_ROWS = {"assign_scan_spread_gang": "assign_scan_spread+gang",
                    "assign_scan_interpod_gang": "assign_scan_interpod+gang",
-                   "assign_scan_spread_interpod_gang": "assign_scan_spread_interpod+gang"}
+                   "assign_scan_spread_interpod_gang": "assign_scan_spread_interpod+gang",
+                   "assign_scan_ext": "assign_scan+ext",
+                   "assign_scan_gang_ext": "assign_scan_gang+ext"}
+EXT_BUILDS = ("assign_scan_ext", "assign_scan_gang_ext")
 
 
-def norm_entry(torch, call, launches: int, reps: int = 5) -> dict:
+def norm_entry(torch, call, launches: int, reps: int = 5, also=None) -> dict:
     """The kernels-line entry of a build on one batch (`scan_call`), with
     the normalization flag where the call has its operands: the build held
     against its plain version, timed beside it (the plain version's one
-    call that is compared), and its bound from the batch."""
+    call that is compared), and its bound from the batch. `also`, if
+    given, is called with the plain version's result."""
     name, kern, plain, args, norm, compare, base = call
     got = kern(*args, norm)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -2455,9 +2538,12 @@ def norm_entry(torch, call, launches: int, reps: int = 5) -> dict:
     want = plain(*args, norm)
     end.record()
     end.synchronize()
+    if also is not None:
+        also(want)
     entry = {"name": GANG_CARRY_ROWS.get(name, name) + ("+norm" if norm else ""),
              "route": "cuda", "source": "kubernetes_tpu_torch/csrc/assign_scan.cu",
-             "replaces": "kubernetes_tpu/ops/solver.py:" + ("568" if norm else "738"),
+             "replaces": "kubernetes_tpu/ops/solver.py:" + (
+                 "733" if name in EXT_BUILDS else "568" if norm else "738"),
              "launches": launches, "max_abs_err": compare(torch, got, want),
              **timed(torch, lambda: kern(*args, norm), reps),
              "plain_ms": start.elapsed_time(end), "library_ms": None,
@@ -2466,7 +2552,7 @@ def norm_entry(torch, call, launches: int, reps: int = 5) -> dict:
         entry["bound_ms"], entry["bound_by"] = base(want)
         return entry
     entry["bound_ms"], entry["bound_by"] = norm_bound(lambda: base(want), args[0], norm)
-    if name in NORM_GUESS_BUILDS:   # (not on the kernels line)
+    if name in NORM_GUESS_BUILDS + EXT_BUILDS:   # (not on the kernels line)
         entry["norm_misses"], entry["norm_exchanging_pods"] = norm_misses(
             name, args, norm, got)
     return entry
@@ -2721,6 +2807,466 @@ def norm_cells_phase(torch, dev, kernels) -> tuple[dict, list]:
                          if k in entry}}
         del sched, seen, state, batch, call
     return line, entries
+
+
+def ext_bound(base, args, ext) -> tuple[float, str]:
+    """The bound of a build with the EXT variant: its build's bytes and
+    operations (`base()`; they already count every column of the requests,
+    allocatable and requested once), plus the port words, read once a node
+    and a pod and written once a node (N * 16 + P * 8 bytes), and
+    EXT_OPS_PER_PAIR per statically feasible pair."""
+    base()
+    nbytes, ops = BOUND_PARTS[-1]
+    p, n = args[0].shape
+    pairs = float((args[0] > float("-inf")).sum())
+    return bound(nbytes + 16 * n + 8 * p, ops + EXT_OPS_PER_PAIR * pairs)
+
+
+def compare_ext(torch, got, want) -> float:
+    """compare_scan plus the host-port counts."""
+    err = compare_scan(torch, got, want)
+    a, b = got.new_port_count, want.new_port_count
+    if (a is None) != (b is None) or (a is not None and not torch.equal(a, b)):
+        raise AssertionError("assign_scan EXT kernel != plain on new_port_count")
+    return err if a is None else max(err, max_abs_err(torch, [(a, b)]))
+
+
+def ext_hazard_inputs(torch, rng, dev, n, p, hot=False):
+    """A seeded kernel-2 batch for the EXT variant (scan_inputs' requests in
+    runs, changed): a third of the nodes with 1 or 2 GPUs (some holding one
+    already), scratch on most, overlay allocatable on half (the rest take
+    overlay requests from scratch); a GPU, scratch or overlay request on a
+    pod drawn a pod, not a run, so that consecutive pods equal in cpu and
+    memory differ in them (the term cache's key), with half the pods
+    repeating the previous pod's (hits); pods asking only a GPU or only
+    scratch (cpu = memory = 0); host ports mostly from three ids (1, 37 and
+    63: a high word and its sign bit), one listed twice on some pods, and
+    accounted counts of 1 to 3 on a node. With `hot`, every pod fits only
+    six nodes, whose GPUs, scratch and ports run out mid-batch. Returns
+    (the scan arguments, ExtInputs)."""
+    from kubernetes_tpu_torch.ops.assign_scan import ExtInputs
+
+    ms, reqs, nz, alloc, requested, nonzero, rr = scan_inputs(torch, rng, dev, p, n)
+    a, q, r = alloc.cpu().numpy(), requested.cpu().numpy(), reqs.cpu().numpy()
+    gpu_nodes = rng.random(n) < 0.33
+    a[:, 3] = np.where(gpu_nodes, rng.integers(1, 3, n), 0)
+    q[:, 3] = np.where(gpu_nodes & (rng.random(n) < 0.3), 1, 0)
+    a[:, 4] = np.where(rng.random(n) < 0.85, rng.integers(1, 9, n) * 1024, 0)
+    a[:, 5] = np.where(rng.random(n) < 0.5, rng.integers(1, 5, n) * 1024, 0)
+    q[:, 4] = np.floor(a[:, 4] * rng.random(n) * 0.5)
+    q[:, 5] = np.floor(a[:, 5] * rng.random(n) * 0.5)
+    r[:, 3] = rng.random(p) < 0.35
+    r[:, 4] = np.where(rng.random(p) < 0.25, rng.choice([512, 1024, 2048], p), 0)
+    r[:, 5] = np.where(rng.random(p) < 0.2, rng.choice([256, 512, 1024], p), 0)
+    only = np.flatnonzero(rng.random(p) < 0.1)
+    r[only, 1:3] = 0
+    r[only, 3] = only % 2
+    r[only, 4] = np.where(only % 2, 0, 1024)
+    r[only, 5] = 0
+    onehot = np.zeros((p, EXT_PORTS), np.float32)
+    want = np.flatnonzero(rng.random(p) < 0.4)
+    port = np.where(rng.random(want.size) < 0.8, rng.choice([1, 37, 63], want.size),
+                    rng.integers(0, EXT_PORTS, want.size))
+    onehot[want, port] = np.where(rng.random(want.size) < 0.1, 2.0, 1.0)
+    same = np.flatnonzero(rng.random(p) < 0.5)
+    same = same[same > 0]
+    for i in same:   # ascending: a run copies its first pod's
+        r[i, 3:] = r[i - 1, 3:]
+        onehot[i] = onehot[i - 1]
+    counts = np.where(rng.random((n, EXT_PORTS)) < 0.04,
+                      rng.integers(1, 4, (n, EXT_PORTS)), 0).astype(np.float32)
+    ms = ms.clone()
+    if hot:
+        nodes = rng.choice(n, 6, replace=False)
+        keep = ms[:, nodes].clone()
+        ms[:] = float("-inf")
+        ms[:, nodes] = torch.where(keep > float("-inf"), keep, 20.0)
+        a[nodes, 0] = 64
+        a[nodes, 1:3] = [64000, 65536]
+        q[nodes, :3] = 0
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(dev)
+
+    return ((ms, t(r), nz, t(a), t(q), nonzero, rr),
+            ExtInputs(use_ports=True, port_onehot=t(onehot), port_count=t(counts)))
+
+
+def ext_shared_node_gang(torch, rng, dev, n, p):
+    """A seeded EXT batch with gang groups that revert on a node two or
+    more members share, in blocks of 10 rows: a group of 4 at quorum 4
+    whose first three members fit one roomy node only (its GPUs, scratch
+    and overlay, no overlay allocatable), each asking a GPU, 1Gi of scratch
+    or 512Mi of overlay and a host port of its own, and whose fourth fits
+    nowhere (reverted after three members on one node), then 6 pods fitting
+    only that node that ask the same GPUs and ports (they fit only if the
+    revert gave them back); the last rows one more group, open at the end.
+    Returns (the scan arguments, ExtInputs, GangInputs)."""
+    from kubernetes_tpu_torch.ops.assign_scan import GangInputs
+
+    (ms, reqs, nz, alloc, requested, nonzero, rr), ext = ext_hazard_inputs(
+        torch, rng, dev, n, p)
+    ms = ms.clone()
+    alloc, requested, reqs = alloc.clone(), requested.clone(), reqs.clone()
+    onehot = ext.port_onehot.clone()
+    gid = np.zeros(p, np.int32)
+    gmin = np.zeros(p, np.int32)
+    k = 0
+    for start in range(0, p - 10 + 1, 10):
+        k += 1
+        roomy = int(rng.integers(0, n))
+        rows = torch.arange(start, start + 10, device=dev)
+        ms[rows] = float("-inf")
+        ms[rows, roomy] = 100020.0
+        ms[start + 3] = float("-inf")   # the fourth member fits nowhere
+        alloc[roomy] = torch.tensor([16.0, 64000.0, 65536.0, 3.0, 4096.0, 0.0], device=dev)
+        requested[roomy] = 0.0
+        ext.port_count[roomy] = 0.0
+        gid[start:start + 4], gmin[start:start + 4] = k, 4
+        for j in range(10):
+            m = j % 4 if j < 4 else (j - 4) % 3
+            reqs[start + j, 3:] = torch.tensor(
+                [[1.0, 0.0, 0.0], [0.0, 1024.0, 0.0], [0.0, 0.0, 512.0],
+                 [1.0, 1024.0, 0.0]][m], device=dev)
+            onehot[start + j] = 0.0
+            onehot[start + j, 10 + m] = 1.0
+    tail = p - (p // 10) * 10 or 2
+    gid[-tail:], gmin[-tail:] = k + 1, tail
+
+    def t(a):
+        return torch.from_numpy(a).to(dev)
+
+    return ((ms, reqs, nz, alloc, requested, nonzero, rr),
+            dataclasses.replace(ext, port_onehot=onehot),
+            GangInputs(gang_id=t(gid), gang_min=t(gmin)))
+
+
+def ext_hazards_phase(torch, rng, dev) -> dict:
+    """The main and gang builds with the EXT variant against their plain
+    versions at every RUN (EXT_SHAPES), without and with the normalization
+    flag (norm_test_inputs), max_abs_err 0, on: ext_hazard_inputs' batch
+    (GPUs exhausted mid-batch on nodes with 1 or 2, many pods on few ports,
+    a port listed twice, accounted counts up to 3, pods asking only a GPU
+    or only scratch, nodes with and without overlay allocatable,
+    consecutive pods equal in cpu and memory but not in GPU or ports) and
+    its hot variant (six nodes take every pod), each also with the gang
+    carry on groups that revert (with_reverts); ext_shared_node_gang's
+    reverts on a node three members share; and, at the first shape, the
+    traffics that force the flag's guess to miss (norm_miss_inputs, with
+    the EXT variant over them), each miss counted by the host replay, which
+    takes the EXT fit. Returns the phase line."""
+    from kubernetes_tpu_torch.ops import assign_scan as scan
+    from kubernetes_tpu_torch.ops import solver
+
+    errs: dict = {}
+    reverted = 0
+    misses: dict = {}
+
+    def held(args, ext, gang=None, norm=None):
+        nonlocal reverted
+        name = "assign_scan_ext" if gang is None else "assign_scan_gang_ext"
+        extra = (ext,) if gang is None else (ext, gang)
+        got = getattr(scan, name)(*args, 1.0, 1.0, *extra, norm)
+        want = getattr(scan, f"{name}_plain")(*args, 1.0, 1.0, *extra, norm)
+        key = name + ("+norm" if norm is not None else "")
+        errs[key] = max(errs.get(key, 0.0), compare_ext(torch, got, want))
+        if gang is not None:
+            reverted += int(solver.gang_member_mask(gang.gang_id, gang.gang_min,
+                                                    want.assignments, want.scores)[3])
+        return name, (*args, 1.0, 1.0, *extra), got
+
+    for p_, n_ in EXT_SHAPES:
+        cases = [ext_hazard_inputs(torch, rng, dev, n_, p_),
+                 ext_hazard_inputs(torch, rng, dev, n_, p_, hot=True)]
+        for args, ext in cases:
+            gargs, gang = with_reverts(torch, rng, dev, args)
+            for a_, g_ in ((args, None), (gargs, gang)):
+                held(a_, ext, g_)
+                ms_, norm_ = norm_test_inputs(torch, rng, dev, a_[0])
+                held((ms_, *a_[1:]), ext, g_, norm_)
+        sargs, ext, gang = ext_shared_node_gang(torch, rng, dev, n_, p_)
+        held(sargs, ext, gang)
+        ms_, norm_ = norm_test_inputs(torch, rng, dev, sargs[0])
+        held((ms_, *sargs[1:]), ext, gang, norm_)
+    p_, n_ = EXT_SHAPES[0]
+    for kind in NORM_MISS_KINDS:
+        base, ext = ext_hazard_inputs(torch, rng, dev, n_, p_)
+        margs, mnorm = norm_miss_inputs(torch, rng, dev, base, kind)
+        gargs, gang = with_reverts(torch, rng, dev, margs)
+        for a_, g_ in ((margs, None), (gargs, gang)):
+            name, args, got = held(a_, ext, g_, mnorm)
+            m, x = norm_misses(name, args, mnorm, got)
+            misses[f"{name}_{kind}"] = [m, x]
+    runs = sorted({scan.node_run(n_) for _, n_ in EXT_SHAPES})
+    if runs != list(scan.RUNS):
+        raise AssertionError(f"ext_hazards checked {runs}, built {scan.RUNS}")
+    if reverted == 0:
+        raise AssertionError("ext_hazards: no group reverted")
+    if not all(m > 0 for m, _x in misses.values()):
+        raise AssertionError(f"ext_hazards: a forced-miss traffic missed nothing {misses}")
+    return {"phase": "ext_hazards", "shapes": [list(x) for x in EXT_SHAPES], "runs": runs,
+            "max_abs_err": errs, "groups_reverted": reverted,
+            "forced_misses_of_exchanging_pods": misses, "kernels_equal_plain": True}
+
+
+def gpu_ports_batch_pods(caps, group: bool = False, revert: bool = False):
+    """The gpu_ports cell's first batch of pods; with `group` in
+    all-or-nothing groups of GPU_PORTS_GANG at full quorum, and with
+    `revert` one member (the last) of every GPU_PORTS_REVERT_EVERY-th group
+    asking 9 GPUs, which no node has."""
+    from kubernetes_tpu_torch.gang import GROUP_MIN_ANNOTATION, GROUP_NAME_ANNOTATION
+    from kubernetes_tpu_torch.perf.fixtures import make_pods
+    from kubernetes_tpu_torch.perf.harness import GPU, GPU_PORTS_PODS
+
+    pods = make_pods(caps.batch_pods, **GPU_PORTS_PODS)
+    if group:
+        for i, pod in enumerate(pods):
+            pod.metadata.annotations = {
+                GROUP_NAME_ANNOTATION: f"gpu-ports-{i // GPU_PORTS_GANG}",
+                GROUP_MIN_ANNOTATION: str(GPU_PORTS_GANG)}
+        if revert:
+            stride = GPU_PORTS_GANG * GPU_PORTS_REVERT_EVERY
+            for pod in pods[GPU_PORTS_GANG - 1::stride]:
+                pod.spec.containers[0].requests[GPU] = "9"
+    return pods
+
+
+def gpu_ports_first_batch(torch, dev, group: bool = False, revert: bool = False,
+                          taint: bool = False):
+    """The gpu_ports cell's first batch (gpu_ports_batch_pods) as the
+    driver solves it on the cell's cluster (with `taint`, one
+    PreferNoSchedule taint on node 0): (caps, state, batch, flags)."""
+    from kubernetes_tpu_torch.perf.harness import default_caps, gpu_ports_cluster
+
+    caps = default_caps(HEADLINE_NODES, HEADLINE_PODS)
+    sched = gpu_ports_cluster(HEADLINE_NODES, caps, dev, node_kwargs={
+        "prefer_taint_every": HEADLINE_NODES} if taint else None)
+    chunk, gang_id, gang_min = next(iter(sched.batches(
+        gpu_ports_batch_pods(caps, group, revert))))
+    state, batch, flags, _victims, _slots = sched.prepare_chunk(chunk, gang_id, gang_min)
+    return caps, state, batch, flags
+
+
+def held_solve(torch, got, what: str, gang=None, scope: int | None = None):
+    """A check for norm_entry: the driver's SolverResult `got` equal to the
+    plain scan's result on the batch it solved (the member mask applied
+    with `gang`): every field, or with `scope` the assignments, scores and
+    feasible counts of the first `scope` pods (the scan is serial, so a
+    prefix's are the whole batch's)."""
+    from kubernetes_tpu_torch.ops import solver
+
+    def check(want):
+        a, sc = want.assignments, want.scores
+        if gang is not None:
+            a, sc, _placed, _reverted = solver.gang_member_mask(gang.gang_id, gang.gang_min,
+                                                                 a, sc)
+        n = a.shape[0] if scope is None else scope
+        pairs = {"assignments": (got.assignments[:n], a), "scores": (got.scores[:n], sc),
+                 "feasible_counts": (got.feasible_counts[:n], want.feasible_counts)}
+        if scope is None:
+            pairs.update({f: (getattr(got, f), getattr(want, f)) for f in (
+                "new_requested", "new_nonzero", "rr_end", "new_port_count")})
+        for f, (x, y) in pairs.items():
+            if (x is None) != (y is None) or (x is not None and not torch.equal(x, y)):
+                raise AssertionError(f"{what}: the driver's solve != plain on {f}")
+    return check
+
+
+def gpu_ports_preempt(torch, dev) -> dict:
+    """A batch with priorities and GPU requests through the EXT scan and
+    then kernel 3 on its ledger, through Scheduler(device="cuda"): the
+    gpu_ports cluster at GPU_PREEMPT_NODES nodes (its bound pods the
+    victims), a wave of GPU_PREEMPT_PODS pods of 8 GPUs at priority 1000.
+    The main build with EXT and kernel 3 launch once each; the driver's
+    solve equals schedule_batch_plain with the same VictimTable (verdicts
+    included); some pods are placed, some get a verdict. Returns the
+    phase's sub-line."""
+    from kubernetes_tpu_torch.ops import solver
+    from kubernetes_tpu_torch.perf.fixtures import make_pods
+    from kubernetes_tpu_torch.perf.harness import GPU, gpu_ports_cluster
+    from kubernetes_tpu_torch.scheduler import driver
+    from kubernetes_tpu_torch.state.layout import Capacities
+
+    caps = Capacities(num_nodes=1 << (GPU_PREEMPT_NODES - 1).bit_length(),
+                      batch_pods=1 << (GPU_PREEMPT_PODS - 1).bit_length())
+    sched = gpu_ports_cluster(GPU_PREEMPT_NODES, caps, dev)
+    wave = make_pods(GPU_PREEMPT_PODS, name_prefix="gpu-wave", priority=1000,
+                     extra_requests=((1, 0, {GPU: "8"}),))
+    seen = []
+    solve = driver.schedule_batch
+
+    def recording(state, batch, rr, policy, flags, caps_, **kw):
+        keep = dataclasses.replace(state, **{f.name: getattr(state, f.name).clone()
+                                             for f in dataclasses.fields(state)})
+        result = solve(state, batch, rr, policy, flags, caps_, **kw)
+        seen.append(((keep, batch, rr, flags, kw.get("victims")), result))
+        return result
+
+    driver.schedule_batch = recording
+    # (the wrappers the solver launches)
+    scan_ext, kernel3 = solver.assign_scan_ext, solver.preemption_pass
+    scan_ext.launches = kernel3.launches = 0
+    try:
+        placed = sched.schedule(wave)
+    finally:
+        driver.schedule_batch = solve
+    launches = (scan_ext.launches, kernel3.launches)
+    (state, batch, rr, flags, victims), got = seen[0]
+    if len(seen) != 1 or victims is None or not (flags.gpu and flags.preempt) \
+            or launches != (1, 1):
+        raise AssertionError(f"gpu_ports preempt: {len(seen)} batches, {flags}, "
+                             f"launches (EXT scan, kernel 3) {launches}")
+    want = solver.schedule_batch_plain(state, batch, rr, solver.DEFAULT_POLICY, flags, caps,
+                                       victims=victims)
+    for f in ("assignments", "scores", "feasible_counts", "new_requested", "preempt_node",
+              "victim_count"):
+        if not torch.equal(getattr(got, f), getattr(want, f)):
+            raise AssertionError(f"gpu_ports preempt: kernel path != plain on {f}")
+    n_placed = sum(v is not None for v in placed.values())
+    if not (0 < n_placed < len(wave) and sched.preemptions):
+        raise AssertionError(f"gpu_ports preempt: {n_placed} placed, "
+                             f"{len(sched.preemptions)} verdicts")
+    return {"nodes": GPU_PREEMPT_NODES, "pods": len(wave), "placed": n_placed,
+            "verdicts": len(sched.preemptions), "launches": list(launches),
+            "kernel_path_equals_plain": True}
+
+
+def gpu_ports_phase(torch, dev, kernels) -> tuple[dict, list]:
+    """The gpu_ports cell (perf/harness.py GPU_PORTS_NODES, GPU_PORTS_PODS,
+    gpu_ports_cluster: bench[headline]'s 15,000 nodes, every 4th with 8
+    GPUs, every one 100Gi of scratch and no overlay, a bound host-port pod
+    on every 10th; 30,000 pods asking GPUs, scratch, overlay and host ports
+    8080 and 9100) through Scheduler(device="cuda"): every pod placed, no
+    node past its GPUs or scratch (the host's ledger), no host port twice
+    on a node (the flushed device counts equal the host's, none above 1),
+    the main build with EXT launched once a batch (and no other build), the
+    first and last batch equal to the plain path on the state and batch the
+    driver solved them on. Then the cell's first batch through a fresh
+    cluster: in groups of 8 at quorum 8 (the gang build with EXT); that
+    again with one member of every 8th group asking 9 GPUs (those 64 groups
+    revert and give back their GPUs, scratch and ports); and with one
+    PreferNoSchedule taint on node 0 that no pod tolerates, as it is and in
+    groups of 8 (the flag's EXT instances) — each launched once, held
+    against the plain path and timed there; and a wave of priority pods
+    asking GPUs through the EXT scan and kernel 3 (gpu_ports_preempt).
+    Returns (the phase line, the kernels-line entries: main, main with the
+    flag, gang, gang with the flag)."""
+    from kubernetes_tpu_torch.ops import solver
+    from kubernetes_tpu_torch.ops.assign_scan import assign_scan
+    from kubernetes_tpu_torch.perf.fixtures import make_pods
+    from kubernetes_tpu_torch.perf.harness import (GPU_PORTS_PODS, default_caps,
+                                                   gpu_ports_cluster, measure, warm)
+    from kubernetes_tpu_torch.scheduler import driver
+    from kubernetes_tpu_torch.state.layout import Resource
+
+    caps = default_caps(HEADLINE_NODES, HEADLINE_PODS)
+    warm(caps, solver.DEFAULT_POLICY, dev, pod_kwargs=GPU_PORTS_PODS)
+    pods = make_pods(HEADLINE_PODS, **GPU_PORTS_PODS)
+    sched = gpu_ports_cluster(HEADLINE_NODES, caps, dev)
+    seen = []
+    solve = record_solves(torch, driver, GPU_PORTS_CHECKED, seen)
+    _count_launches(kernels, reset=True)
+    try:
+        result = measure(sched, pods)
+    finally:
+        driver.schedule_batch = solve
+    launches, norm_launches = _count_launches(kernels)
+    if result.scheduled != HEADLINE_PODS:
+        raise AssertionError(f"gpu_ports: placed {result.scheduled}/{HEADLINE_PODS}")
+    want = {name: 0 for name in launches}
+    want.update(static_mask=result.batches, assign_scan_ext=result.batches)
+    if launches != want or any(norm_launches.values()):
+        raise AssertionError(f"gpu_ports: launches {launches}, with the flag "
+                             f"{norm_launches}, over {result.batches} batches")
+    host = sched.statedb.host
+    if not ((host.requested[:, Resource.GPU] <= host.allocatable[:, Resource.GPU]).all()
+            and (host.requested[:, Resource.SCRATCH] + host.requested[:, Resource.OVERLAY]
+                 <= host.allocatable[:, Resource.SCRATCH]).all()
+            and (host.requested[:, :3] <= host.allocatable[:, :3]).all()):
+        raise AssertionError("gpu_ports: a node past its allocatable")
+    ports = sched.statedb.flush().port_count.cpu().numpy()
+    if not (np.array_equal(ports, host.port_count) and ports.max() == 1.0):
+        raise AssertionError("gpu_ports: host ports twice on a node, or the device "
+                             "counts differ from the host's")
+    for k in GPU_PORTS_CHECKED[1:]:   # (the first: its kernels-line entry, below)
+        (state, batch, rr, flags), got = seen[k]
+        if not (flags.ports and flags.gpu and flags.storage):
+            raise AssertionError(f"gpu_ports: batch {k} raises {flags}")
+        head = scope_batch(batch, GPU_PORTS_SCOPE)
+        kern = solver.schedule_batch(state, head, rr, solver.DEFAULT_POLICY, flags, caps)
+        compare_solves(torch, kern, solver.schedule_batch_plain(
+            state, head, rr, solver.DEFAULT_POLICY, flags, caps), f"gpu_ports batch {k}")
+        held_solve(torch, got, f"gpu_ports batch {k}", scope=GPU_PORTS_SCOPE)(kern)
+    (state, batch, rr, flags), got = seen[0]
+    call = scan_call(torch, state, batch, flags, caps)
+    if call[0] != "assign_scan_ext" or call[4] is not None or rr != 0:
+        raise AssertionError(f"gpu_ports: the first batch runs {call[0]}")
+    entries = {"assign_scan+ext": norm_entry(torch, call, launches["assign_scan_ext"],
+                                             also=held_solve(torch, got, "gpu_ports batch 0"))}
+    line = {"phase": "gpu_ports", "nodes": HEADLINE_NODES, "pods": HEADLINE_PODS,
+            "caps": [caps.num_nodes, caps.batch_pods], **run_fields(result),
+            "launches": launches, "checked_batches_equal_plain": list(GPU_PORTS_CHECKED),
+            "gpus_placed": int(host.requested[:, Resource.GPU].sum()),
+            "port_rows_in_use": int((ports > 0).sum()),
+            "first_batch_ms": entries["assign_scan+ext"]["ms"],
+            "first_batch_plain_ms": entries["assign_scan+ext"]["plain_ms"],
+            **timed(torch, lambda: assign_scan(*call[3][:9]), 5,
+                    "first_batch_without_ext_ms")}
+    del sched, seen, state, batch, call
+
+    def first_batch_run(what, group, revert, taint):
+        """One batch of the cell's first pods through a fresh cluster:
+        (the kernels-line entry, the run's line)."""
+        batch_pods = gpu_ports_batch_pods(caps, group, revert)
+        fresh = gpu_ports_cluster(HEADLINE_NODES, caps, dev, node_kwargs={
+            "prefer_taint_every": HEADLINE_NODES} if taint else None)
+        rec = []
+        prev = record_solves(torch, driver, (0,), rec)
+        _count_launches(kernels, reset=True)
+        try:
+            res = measure(fresh, batch_pods)
+        finally:
+            driver.schedule_batch = prev
+        got_launches, got_norm = _count_launches(kernels)
+        build = "assign_scan_gang_ext" if group else "assign_scan_ext"
+        expect = {name: 0 for name in got_launches}
+        expect.update({"static_mask": 1, build: 1})
+        if got_launches != expect or got_norm[build] != int(taint):
+            raise AssertionError(f"gpu_ports {what}: launches {got_launches}, with the "
+                                 f"flag {got_norm}")
+        (state, batch, rr, flags), got = rec[0]
+        # (with the flag, held and timed on the batch's first pods)
+        scope = GPU_PORTS_SCOPE if taint else None
+        call = scan_call(torch, state, batch if scope is None else scope_batch(batch, scope),
+                         flags, caps)
+        if call[0] != build or (call[4] is None) == taint or rr != 0:
+            raise AssertionError(f"gpu_ports {what}: the batch runs {call[0]}")
+        entry = norm_entry(torch, call, got_norm[build] if taint else got_launches[build],
+                           also=held_solve(torch, got, f"gpu_ports {what}",
+                                           call[3][10] if group else None, scope))
+        if scope is not None:
+            entry = scoped(entry, scope)
+        run = {"placed": res.scheduled, "ms": entry["ms"], "plain_ms": entry["plain_ms"],
+               "gang_placed": res.gang_placed, "gang_reverted": res.gang_reverted,
+               **{k: entry[k] for k in ("norm_misses", "norm_exchanging_pods")
+                  if k in entry}}
+        if group:
+            groups = caps.batch_pods // GPU_PORTS_GANG
+            reverts = groups // GPU_PORTS_REVERT_EVERY if revert else 0
+            if (res.gang_reverted, res.gang_placed) != (reverts, groups - reverts):
+                raise AssertionError(f"gpu_ports {what}: {res.gang_placed} groups placed, "
+                                     f"{res.gang_reverted} reverted")
+        del fresh, rec, state, batch, call
+        return entry, run
+
+    for what, group, revert, taint in (("gang", True, False, False),
+                                       ("gang_reverting", True, True, False),
+                                       ("flag", False, False, True),
+                                       ("gang_flag", True, False, True)):
+        entry, line[what] = first_batch_run(what, group, revert, taint)
+        entries.setdefault(entry["name"], entry)
+    line["preempt"] = gpu_ports_preempt(torch, dev)
+    return line, list(entries.values())
 
 
 def preemption_bound(inputs, fits: int) -> tuple[float, str]:
@@ -3365,6 +3911,10 @@ def main() -> int:
     # builds at every RUN on reverting batches, with and without the flag
     emit(gang_carry_hazards_phase(torch, rng, dev))
 
+    # ---- 3h: the main and gang builds with the EXT variant (host ports,
+    # the gpu and storage fit) at every RUN, with and without the flag
+    emit(ext_hazards_phase(torch, rng, dev))
+
     # ---- 4: the first batch through the cache and the blobs ----
     emit(packed_batch_phase(torch, caps, nodes, pods, dev))
 
@@ -3501,6 +4051,14 @@ def main() -> int:
     line, k8 = norm_cells_phase(torch, dev, scans)
     emit(line)
 
+    # ---- 12b: the gpu_ports cell (the main and gang builds with the EXT
+    # variant, with and without the flag)
+    from kubernetes_tpu_torch.ops.assign_scan import assign_scan_ext, assign_scan_gang_ext
+
+    line, k12 = gpu_ports_phase(torch, dev, every_scan + (assign_scan_ext,
+                                                          assign_scan_gang_ext))
+    emit(line)
+
     # ---- 13: the preemption cell and kernel 3 ----
     from kubernetes_tpu_torch.ops.preemption import preemption_pass
 
@@ -3513,7 +4071,8 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [{**{k: entry[k] for k in keys},
                        **{k: entry[k] for k in ("scope",) if k in entry}}
-                      for entry in (k1, k2, k3, k4, k6, k5, k7, *k8, k10, *k11, k9)]})
+                      for entry in (k1, k2, k3, k4, k6, k5, k7, *k8, k10, *k11, *k12,
+                                    k9)]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -3,8 +3,9 @@
 tree carries (two, three with SelectorSpread, four with inter-pod
 affinity, five with gang groups, six with SelectorSpread and inter-pod
 affinity in one batch, seven with TaintToleration and NodeAffinity, eight
-with gang groups that also need SelectorSpread and inter-pod affinity),
-for comparing two trees of the repository on one card.
+with gang groups that also need SelectorSpread and inter-pod affinity,
+nine with GPU, storage and host-port requests), for comparing two trees of
+the repository on one card.
 
     python3 host_times.py [--root DIR] [--reps K]
 
@@ -40,7 +41,13 @@ from its own sources and its Scheduler places the same pods on the same
 - gang_spread_interpod, where the tree's harness has
   `GANG_SPREAD_INTERPOD_PODS`: spread_interpod's 15,000 nodes and 16
   Services, 24,576 pods of its mix in 3,072 all-or-nothing groups of 8 (6
-  batches of P=4096).
+  batches of P=4096);
+- gpu_ports, where the tree's harness has `gpu_ports_cluster`: the 15,000
+  nodes, every 4th with 8 GPUs and every one 100Gi of scratch, a bound pod
+  with host port 8080 accounted on every 10th; 30,000 pods of 100m / 250Mi,
+  every 4th asking a GPU, others 1Gi of scratch or 512Mi of overlay, some
+  host port 8080 or 9100 (perf/harness.py `GPU_PORTS_NODES`,
+  `GPU_PORTS_PODS`).
 
 Each traffic runs K times (default 2), each on a fresh Scheduler after the
 kernels are built and warmed. The script collects garbage before each
@@ -160,12 +167,20 @@ def main() -> int:
             fixtures.make_services(smoke.SPREAD_GROUPS))
         warm(gsi_caps, DEFAULT_POLICY, dev, n_services=smoke.SPREAD_GROUPS,
              pod_kwargs=harness.GANG_SPREAD_INTERPOD_PODS)
+    if hasattr(harness, "gpu_ports_cluster"):
+        # (no node list: each run builds the cell's cluster, bound pods and all)
+        traffic["gpu_ports"] = (caps, None,
+                                make_pods(smoke.HEADLINE_PODS, **harness.GPU_PORTS_PODS), ())
+        warm(caps, DEFAULT_POLICY, dev, pod_kwargs=harness.GPU_PORTS_PODS)
     out = {"nvidia_smi": smi.splitlines()[0], "root": str(opts.root.resolve())}
     for name, (caps_, nodes_, pods, services) in traffic.items():
         out[name] = []
         for _ in range(opts.reps):
-            sched = Scheduler(caps_, device=dev)
-            sched.add_nodes(nodes_)
+            if nodes_ is None:
+                sched = harness.gpu_ports_cluster(smoke.HEADLINE_NODES, caps_, dev)
+            else:
+                sched = Scheduler(caps_, device=dev)
+                sched.add_nodes(nodes_)
             for svc in services:
                 sched.add_service(svc)
             out[name].append(run(torch, sched, pods))

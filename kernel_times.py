@@ -107,7 +107,18 @@ and 65,536 (`preempt_layout`). With `preempt` alone only kernel 3 is
 built. `--sass-against DIR` also says whether kernel 1's SASS equals the
 other tree's (`mask_sass_same_as_against`). `--parts` picks what to time, a comma list of
 mask, scan, spread, interpod, spread_interpod, gang, run8, phase_a, norm,
-norm_main, norm_si, preempt, gang_combined and sass (all by default).
+norm_main, norm_si, preempt, gang_combined, ext and sass (all by default).
+Where the tree has the EXT variant of the main and gang builds (host ports,
+the gpu and storage fit), `ext` times them on the gpu_ports cell's first
+batch (chip_smoke.py `gpu_ports_first_batch`: P = 4,096, N = 16,384): the
+main build with and without EXT on the same operands (`ext_ms`,
+`ext_batch_main_ms`), the gang build with and without EXT on the batch in
+groups of 8 (`gang_ext_ms`, `ext_batch_gang_ms`) and on its reverting
+variant (`gang_ext_reverting_ms`, with `gang_ext_reverting_groups`), and
+both with the flag of one PreferNoSchedule taint on node 0
+(`ext_norm_ms`, `gang_ext_norm_ms`), each also as `*_kernel_us`; the
+builds with EXT are named `main+ext`, `gang+ext` (and `+norm`) in the
+SASS digests.
 Where the tree has the gang carry in the spread and interpod builds,
 `gang_combined` prices it on the gang_spread_interpod cell's first batch
 (P = 4,096, N = 16,384, 512 groups of 8): the spread, interpod and
@@ -141,7 +152,8 @@ import numpy as np
 HERE = Path(__file__).resolve().parent
 REPS = 5
 PARTS = ("mask", "scan", "spread", "interpod", "spread_interpod", "gang", "run8",
-         "phase_a", "norm", "norm_main", "norm_si", "preempt", "gang_combined", "sass")
+         "phase_a", "norm", "norm_main", "norm_si", "preempt", "gang_combined", "ext",
+         "sass")
 # the gang batch's columns timed at 2 nodes a thread, and the shape of the
 # spread and interpod builds' 8-node timing
 RUN2_COLUMNS = 16384
@@ -500,6 +512,45 @@ def main() -> int:
         res = sm.assign_scan_spread_interpod_gang(*rargs, rsp, rip, rgang)
         out["gsi_reverting_groups_reverted"] = int(solver.gang_member_mask(
             rgang.gang_id, rgang.gang_min, res.assignments, res.scores)[3])
+    if "ext" in parts and hasattr(scan_module, "assign_scan_ext"):
+        # the EXT variant's price: the gpu_ports cell's first batch through
+        # the main build with and without EXT, in groups of 8 through the
+        # gang build with and without it, its reverting variant, and both
+        # builds with EXT and the flag of one PreferNoSchedule taint
+        sm = scan_module
+        calls = {}
+        for key, group, revert, taint in (("main", False, False, False),
+                                          ("gang", True, False, False),
+                                          ("reverting", True, True, False),
+                                          ("main_flag", False, False, True),
+                                          ("gang_flag", True, False, True)):
+            caps_x, state, batch, flags = smoke.gpu_ports_first_batch(
+                torch, dev, group, revert, taint)
+            calls[key] = smoke.scan_call(torch, state, batch, flags, caps_x)
+        margs, gargs = calls["main"][3], calls["gang"][3]
+        rargs = calls["reverting"][3]
+        fnorm, gfnorm = calls["main_flag"][4], calls["gang_flag"][4]
+        fargs, gfargs = calls["main_flag"][3], calls["gang_flag"][3]
+        for key, call in (
+                ("ext_batch_main", lambda: sm.assign_scan(*margs[:9])),
+                ("ext", lambda: sm.assign_scan_ext(*margs)),
+                ("ext_batch_gang", lambda: sm.assign_scan_gang(*gargs[:9], gargs[10])),
+                ("gang_ext", lambda: sm.assign_scan_gang_ext(*gargs)),
+                ("gang_ext_reverting", lambda: sm.assign_scan_gang_ext(*rargs)),
+                ("ext_norm", lambda: sm.assign_scan_ext(*fargs, fnorm)),
+                ("gang_ext_norm", lambda: sm.assign_scan_gang_ext(*gfargs, gfnorm))):
+            out.update(smoke.timed(torch, call, REPS, f"{key}_ms"))
+            out[f"{key}_kernel_us"] = kernel_us(device_times(torch, ((call, REPS),)))
+        from kubernetes_tpu_torch.ops import solver
+
+        res = sm.assign_scan_gang_ext(*rargs)
+        out["gang_ext_reverting_groups"] = [int(x) for x in solver.gang_member_mask(
+            rargs[10].gang_id, rargs[10].gang_min, res.assignments, res.scores)[2:]]
+        for key, name, args, norm in (("ext", "assign_scan_ext", fargs, fnorm),
+                                      ("gang_ext", "assign_scan_gang_ext", gfargs, gfnorm)):
+            out[f"{key}_norm_misses"] = smoke.norm_misses(
+                name, args, norm, getattr(sm, name)(*args, norm))
+        del calls, margs, gargs, rargs, fargs, gfargs
     if "sass" in parts:
         cuobjdump = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
         out["scan_sass"] = sass_digests(cuobjdump, library_path("assign_scan"),
@@ -527,7 +578,8 @@ def main() -> int:
 
 # the scan's builds by their template flags after RUN: (SPREAD[, IPA[, GANG]]);
 # a fourth flag, NORM, names the build with the normalization flag
-# `<build>+norm`, and without it the build itself
+# `<build>+norm`, and without it the build itself; a fifth, EXT, the build
+# with the EXT variant `<build>+ext` (after `+norm`)
 BUILDS = {"": "main", "0": "main", "00": "main", "000": "main", "1": "spread",
           "10": "spread", "100": "spread", "01": "interpod", "010": "interpod",
           "001": "gang", "11": "spread_interpod", "110": "spread_interpod",
@@ -536,8 +588,9 @@ BUILDS = {"": "main", "0": "main", "00": "main", "000": "main", "1": "spread",
 
 def build_name(flags: str) -> str:
     """A scan build's name from its template flags after RUN."""
-    if len(flags) == 4:
-        return BUILDS[flags[:3]] + ("+norm" if flags[3] == "1" else "")
+    if len(flags) >= 4:
+        return (BUILDS[flags[:3]] + ("+norm" if flags[3] == "1" else "")
+                + ("+ext" if flags[4:] == "1" else ""))
     return BUILDS[flags]
 
 # builds the scan and mask libraries of the tree at argv[1] and prints

@@ -710,6 +710,63 @@
 // Bound of the flag: its build's bytes plus the words, N * 16 + P * 64
 // bytes (0.26 MB at N = 16,384 and 4,096 pods), negligible beside the
 // [P, N] row.
+//
+// The EXT variant (the template argument EXT, on the main and gang builds
+// only; entries ktpu_assign_scan_ext and ktpu_assign_scan_gang_ext, with
+// and without the flag: 16 instances beside the 64) adds host ports and the
+// gpu and storage fit against the running ledger, the JAX step's
+// `fits_host_ports` on its `port_count` carry and `fits_resources_dyn` with
+// `dyn_gpu` and `dyn_storage` (kubernetes_tpu/ops/solver.py:537-539,
+// 780-781; ops/predicates.py:57,93,135). Without it the solver hoists the
+// gpu and storage compares into Phase A, which holds only while no pod of
+// the batch requests those columns. A widening of the main and gang builds,
+// not a new design:
+//   - the fit folds into the term cache. The cache keeps LeastRequested -1
+//     for a node the pod does not fit; under EXT that fit also holds the
+//     node's host-port word against the pod's ((node & pod) == 0) and, unless
+//     the pod requests nothing (the all-zero shortcut over all five
+//     columns, which the port check does not take), the gpu column and the
+//     storage fit (alloc >= request + requested, the overlay request
+//     falling through to scratch, (r_scratch + r_overlay) + (q_overlay +
+//     q_scratch), on a node with no overlay allocatable), every add
+//     __fadd_rn in JAX's order. At 1, 2 and 4 nodes a thread the node's
+//     gpu, scratch and overlay allocatable and running requested and its
+//     port word are kept in registers (ExtMain, the operand's room: loaded
+//     once, updated by the owner beside the requested columns in device
+//     memory, restored by a revert), so a miss and the owner's recompute
+//     read no memory for them; at 8 nodes a thread (no room in registers or
+//     shared memory) a miss reads them from device memory, where the owner
+//     keeps them (the allocatable through L1). A first design that read
+//     device memory at every RUN took 15.5 ms of kernel on the gpu_ports
+//     cell's first batch (PERF.md, section 6). The owner's recompute after its
+//     update covers its node;
+//   - the cache key also holds the pod's gpu, scratch and overlay request
+//     bits and its port word (ExtArgs, in the by-value operand that rides
+//     the flag's pack: a thread's key from pod to pod, so no build gains a
+//     variable of the kernel's scope), so a pod whose cpu and memory equal
+//     the previous pod's but whose gpu, storage or ports differ recomputes.
+//     Replicas of one workload share all of them, so hits cost what they
+//     cost without EXT;
+//   - ports as one 64-bit word a node: bit u set where the node's count of
+//     port u is not 0 (the wrapper packs it, UP <= 64), and a pod's word bit
+//     u where it wants port u (in free words 10-11 of the gang build's
+//     12-word pod slot, which the main build takes under EXT). Counts and
+//     the pod's row are non-negative, so (word & pod) != 0 exactly where
+//     JAX's count @ onehot is not 0. The owner ORs the pod's word into its
+//     node's (owner-only; in registers, or device memory at 8 nodes a
+//     thread). The counts after the batch
+//     are summed by the wrapper from the assignments (members of reverted
+//     groups left out): integers below 2^24, so equal to JAX's carry;
+//   - the gang build's undo entry keeps a node's old word (its second
+//     float4's last word and its third's, bit 3 of `changed`), and a revert
+//     restores it with the requested columns, newest entry first, so a node
+//     two members share ends with its word before the group.
+// Every addition sits behind `if constexpr (EXT)`, and the 64 instances
+// without it keep their SASS (kernel_times.py --sass-against).
+//
+// Bound of the EXT instances: their build's bytes, which already count
+// every column of the requests, allocatable and requested once, plus the
+// port words, N * 8 read and N * 8 written, and P * 8 read.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -820,6 +877,13 @@ static_assert(SP_M + MAX_UQ <= SP_GW_ID && SP_GW_ID + 1 < SP_POD_ROW
               && POD_ROW_MAIN + IPW_ROWS + IP_MAX_U <= IP_GW_ID && IP_GW_ID + 1 < SI_Q,
               "gang words in the spread and interpod slots");
 
+// ---- the EXT variant's layout: the pod's host-port word (an int pair) in
+// the free words of the gang build's pod slot, which the main build takes
+// under EXT
+constexpr int EXT_PW = GW_MIN + 1;
+constexpr int EXT_PORTS = 1 << 3;   // `changed` bit of an undo entry: the port word
+static_assert(EXT_PW + 1 < GANG_POD_ROW, "EXT layout");
+
 // ---- the normalization flag's layout: a pod's row of ints, the untolerated
 // word, NM_SLOTS term words (u64, little-endian int pairs), their weights
 // (f32 bits), padding
@@ -847,14 +911,14 @@ static_assert(NM_TABLE == 32 && 64u < 256u
               && (64u | (NM_SLOTS * 65535u) << 8) < (1u << 26), "norm table");
 
 // Row-ring slots and pod-slot width of one build.
-template <int RUN, bool SPREAD, bool IPA, bool GANG>
+template <int RUN, bool SPREAD, bool IPA, bool GANG, bool EXT = false>
 struct Build {
   static constexpr int STAGES = STAGES_MAIN;
   // no term columns: the terms are packed in registers (8 nodes a thread)
   static constexpr bool PACKED = RUN == 8;
   static constexpr int POD_ROW = IPA ? IP_POD_ROW
                                  : SPREAD ? SP_POD_ROW
-                                 : GANG ? GANG_POD_ROW : POD_ROW_MAIN;
+                                 : (GANG || EXT) ? GANG_POD_ROW : POD_ROW_MAIN;
   // the pod-slot words of spread_q and of the match row (spread builds;
   // named at their uses: kernel-local copies moved the spread build's
   // register allocation at 1, 2 and 4 nodes a thread)
@@ -925,6 +989,37 @@ struct NormArgs {
 // variables of the kernel's scope; the flag keeps none).
 __device__ __forceinline__ const NormArgs& norm_of(const NormArgs& nm) { return nm; }
 
+// What the EXT variant reads beyond its build's operands, and what a thread
+// keeps from pod to pod: the term cache's key beyond the main build's (the
+// gpu, scratch and overlay requests and the port word of the pod the cached
+// terms are of). It rides the kernel's pack after the flag's NormArgs, so no
+// build gains a variable of the kernel's scope.
+struct ExtArgs {
+  unsigned long long* node_ports;   // [N] host-port words, updated in place
+  const int* pod_ports;             // [P] host-port words, as int pairs
+  float r_gpu, r_scr, r_ovl;        // the key: the pod's requests
+  unsigned long long port;          // and its port word
+};
+// At 1, 2 and 4 nodes a thread (EXT_REGS) the operand also keeps the run's
+// gpu, scratch and overlay allocatable and running requested and its port
+// words in registers, which the owner updates with device memory and a
+// revert restores; at 8 they stay in device memory.
+template <int RUN>
+constexpr bool EXT_REGS = RUN <= 4;
+template <int RUN>
+struct ExtMain : ExtArgs {
+  float a[EXT_REGS<RUN> ? RUN : 1][3];   // allocatable gpu, scratch, overlay
+  float q[EXT_REGS<RUN> ? RUN : 1][3];   // requested gpu, scratch, overlay
+  unsigned long long w[EXT_REGS<RUN> ? RUN : 1];
+};
+template <int RUN>
+__device__ __forceinline__ ExtMain<RUN>& ext_of(ExtMain<RUN>& x) { return x; }
+template <typename N, int RUN>
+__device__ __forceinline__ ExtMain<RUN>& ext_of(N&, ExtMain<RUN>& x) { return x; }
+__device__ __forceinline__ const NormArgs& norm_of(const NormArgs& nm, const ExtArgs&) {
+  return nm;
+}
+
 // The builds that guess the flag's maxima (main, gang, spread, interpod:
 // NM_GUESS, below) take the flag's operand with room for what a thread
 // keeps from pod to pod (the kernel's copy of its by-value operand, in
@@ -949,6 +1044,8 @@ struct NormMain : NormArgs {
 };
 template <int RUN>
 __device__ __forceinline__ NormMain<RUN>& keep_of(NormMain<RUN>& k) { return k; }
+template <int RUN>
+__device__ __forceinline__ NormMain<RUN>& keep_of(NormMain<RUN>& k, ExtArgs&) { return k; }
 
 // The builds whose flag guesses the maxima and checks them in the triple
 // (see the header), taking NormMain: every build with the flag but the
@@ -1269,6 +1366,174 @@ __device__ __forceinline__ void node_terms(const Smem& s, const Pod& pod, int c,
       __fmul_rn(__fsub_rn(1.0f, diff), MAX_PRIORITY), FLOOR_EPS));
   *ba_out = (cf >= 1.0f || mf >= 1.0f || a_cpu == 0.0f || a_mem == 0.0f)
                 ? 0.0f : ba;
+}
+
+// The EXT variant's fit of node g beyond node_terms' (see the header): no
+// host port of the pod's word in use there, and unless the pod requests
+// nothing, the gpu column and the storage fit against the node's running
+// requested columns (device memory, the owner's), in JAX's order
+// (predicates.py:57-67,93-114).
+// A node's gpu, scratch and overlay allocatable (a) and requested (q) and
+// its port word (w).
+struct ExtNode {
+  float a[3], q[3];
+  unsigned long long w;
+};
+
+__device__ __forceinline__ bool ext_fits(const ExtArgs& x, const ExtNode& n, bool all_zero) {
+  if ((n.w & x.port) != 0ull) return false;
+  if (all_zero) return true;
+  if (!(n.a[0] >= __fadd_rn(x.r_gpu, n.q[0]))) return false;
+  if (n.a[2] == 0.0f)   // no overlay allocatable: overlay falls through to scratch
+    return n.a[1] >= __fadd_rn(__fadd_rn(x.r_scr, x.r_ovl), __fadd_rn(n.q[2], n.q[1]));
+  return n.a[1] >= __fadd_rn(x.r_scr, n.q[1]) && n.a[2] >= __fadd_rn(x.r_ovl, n.q[2]);
+}
+
+// Run position j's (node g's) EXT columns: from the registers at
+// EXT_REGS (j may be a run-time index: each position is selected, so the
+// arrays stay in registers), else from device memory (the allocatable
+// through L1).
+template <int RUN>
+__device__ __forceinline__ ExtNode ext_node(const ExtMain<RUN>& x, int j, int g,
+                                            const float* allocatable, const float* requested) {
+  ExtNode n;
+  if constexpr (EXT_REGS<RUN>) {
+    n = ExtNode{{0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f}, 0ull};
+#pragma unroll
+    for (int i = 0; i < RUN; ++i) {
+      if (i != j) continue;
+#pragma unroll
+      for (int f = 0; f < 3; ++f) {
+        n.a[f] = x.a[i][f];
+        n.q[f] = x.q[i][f];
+      }
+      n.w = x.w[i];
+    }
+  } else {
+#pragma unroll
+    for (int f = 0; f < 3; ++f) {
+      n.a[f] = __ldg(allocatable + (size_t)g * R + GPU + f);
+      n.q[f] = requested[(size_t)g * R + GPU + f];
+    }
+    n.w = x.node_ports[g];
+  }
+  return n;
+}
+
+// node_terms with the EXT variant's fit: LeastRequested -1 and
+// BalancedAllocation 0 where the pod fits the pods, cpu and memory columns
+// but not the rest, as node_terms' own early return gives them.
+template <int RUN>
+__device__ __forceinline__ void ext_terms(const Smem& s, const Pod& pod, int c, int g, int j,
+                                          const ExtMain<RUN>& x, const float* allocatable,
+                                          const float* requested, float* lr_out,
+                                          float* ba_out) {
+  node_terms(s, pod, c, lr_out, ba_out);
+  if (*lr_out >= 0.0f
+      && !ext_fits(x, ext_node<RUN>(x, j, g, allocatable, requested), pod.all_zero)) {
+    *lr_out = -1.0f;
+    *ba_out = 0.0f;
+  }
+}
+
+// The owner's update of run position j (node g) for a placed pod with
+// requests rq: the requested gpu, scratch and overlay columns in device
+// memory (x + 0 == x: a zero request is skipped) and the port word; at
+// EXT_REGS the registers too (the device word is then never read again).
+template <int RUN>
+__device__ __forceinline__ void ext_place(ExtMain<RUN>& x, int j, int g, const float (&rq)[R],
+                                          float* requested) {
+  if constexpr (EXT_REGS<RUN>) {
+#pragma unroll
+    for (int i = 0; i < RUN; ++i) {
+      if (i != j) continue;
+#pragma unroll
+      for (int f = 0; f < 3; ++f)
+        if (rq[GPU + f] != 0.0f) {
+          x.q[i][f] = __fadd_rn(x.q[i][f], rq[GPU + f]);
+          requested[(size_t)g * R + GPU + f] = x.q[i][f];
+        }
+      x.w[i] |= x.port;
+    }
+  } else {
+#pragma unroll
+    for (int f = GPU; f < R; ++f)
+      if (rq[f] != 0.0f)
+        requested[(size_t)g * R + f] = __fadd_rn(requested[(size_t)g * R + f], rq[f]);
+    if (x.port != 0ull) x.node_ports[g] |= x.port;
+  }
+}
+
+// The gang build's undo entry (EXT) of run position j (shared column c,
+// node g) before the owner's update for a member with requests rq: the
+// node's old ledger row (as the gang build logs it), its old gpu, scratch
+// and overlay columns where the member changes them, and its old port word
+// where the member has ports (`changed` bit EXT_PORTS; its low half in the
+// second float4's last word, its high half in the third's).
+template <int RUN>
+__device__ __forceinline__ void ext_log(const ExtMain<RUN>& x, float4* e, const Smem& s, int c,
+                                        int j, int g, const float (&rq)[R],
+                                        const float* allocatable, const float* requested) {
+  const ExtNode n = ext_node<RUN>(x, j, g, allocatable, requested);
+  int changed = 0;
+  float4 e2 = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (rq[GPU] != 0.0f) { changed |= 1; e2.x = n.q[0]; }
+  if (rq[SCRATCH] != 0.0f) { changed |= 2; e2.y = n.q[1]; }
+  if (rq[OVERLAY] != 0.0f) { changed |= 4; e2.z = n.q[2]; }
+  float lo = 0.0f;
+  if (x.port != 0ull) {
+    changed |= EXT_PORTS;
+    lo = __uint_as_float((unsigned)n.w);
+    e2.w = __uint_as_float((unsigned)(n.w >> 32));
+  }
+  e[0] = make_float4(__int_as_float(c), s.r_pods[c], s.r_cpu[c], s.r_mem[c]);
+  e[1] = make_float4(s.z_cpu[c], s.z_mem[c], __int_as_float(changed), lo);
+  if (changed != 0) e[2] = e2;
+}
+
+// A revert's restore (EXT) of run position j (node g) from its undo entry
+// (e1, e2; the device columns are restored by the gang build's code): the
+// port word, and at EXT_REGS the registers.
+template <int RUN>
+__device__ __forceinline__ void ext_restore(ExtMain<RUN>& x, int j, int g, int changed,
+                                            float4 e1, float4 e2) {
+  const unsigned long long w = (unsigned long long)__float_as_uint(e1.w)
+                               | (unsigned long long)__float_as_uint(e2.w) << 32;
+  if constexpr (EXT_REGS<RUN>) {
+#pragma unroll
+    for (int i = 0; i < RUN; ++i) {
+      if (i != j) continue;
+      if (changed & 1) x.q[i][0] = e2.x;
+      if (changed & 2) x.q[i][1] = e2.y;
+      if (changed & 4) x.q[i][2] = e2.z;
+      if (changed & EXT_PORTS) x.w[i] = w;
+    }
+  } else {
+    if (changed & EXT_PORTS) x.node_ports[g] = w;
+  }
+}
+
+// The term cache's reuse with the EXT variant's key: `same`, the main
+// build's key compare, and (EXT) the pod's gpu, scratch and overlay request
+// bits and port word equal to those of the pod the terms are of; the key
+// then takes this pod's.
+template <bool EXT, typename... Norm>
+__device__ __forceinline__ bool ext_reuse(bool same, const float* pr, Norm&... nm) {
+  if constexpr (EXT) {
+    ExtArgs& x = ext_of(nm...);
+    const float r_gpu = pr[GPU], r_scr = pr[SCRATCH], r_ovl = pr[OVERLAY];
+    const unsigned long long port =
+        (unsigned long long)__float_as_uint(pr[EXT_PW])
+        | (unsigned long long)__float_as_uint(pr[EXT_PW + 1]) << 32;
+    same = same && __float_as_uint(r_gpu) == __float_as_uint(x.r_gpu)
+           && __float_as_uint(r_scr) == __float_as_uint(x.r_scr)
+           && __float_as_uint(r_ovl) == __float_as_uint(x.r_ovl) && port == x.port;
+    x.r_gpu = r_gpu;
+    x.r_scr = r_scr;
+    x.r_ovl = r_ovl;
+    x.port = port;
+  }
+  return same;
 }
 
 // An integer-valued term v, v + bias in [2^23, 2^23 + 255], as a byte: the
@@ -1995,7 +2260,7 @@ __device__ void gang_revert_counts(const Smem& s, const SpreadParam<SPREAD>& sp,
   __syncthreads();
 }
 
-template <int RUN, bool SPREAD, bool IPA, bool GANG, bool NORM, typename... Norm>
+template <int RUN, bool SPREAD, bool IPA, bool GANG, bool NORM, bool EXT, typename... Norm>
 __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
     const float* __restrict__ masked_static, const float* __restrict__ requests,
     const float* __restrict__ nonzero_requests,
@@ -2004,13 +2269,15 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
     float* __restrict__ scores, int* __restrict__ feasible_counts,
     long long* __restrict__ rr_io, int P, int N, float w_lr, float w_ba,
     SpreadParam<SPREAD> sp, IpaParam<IPA> ip, GangParam<GANG> gg, Norm... nm) {
-  static_assert(sizeof...(Norm) == (NORM ? 1 : 0), "the flag's NormArgs, or none");
+  static_assert(sizeof...(Norm) == (NORM ? 1 : 0) + (EXT ? 1 : 0),
+                "the flag's NormArgs, or none, then the EXT variant's ExtArgs, or none");
+  static_assert(!EXT || !(SPREAD || IPA), "EXT: the main and gang builds");
   constexpr int NB = THREADS * RUN;
-  constexpr int STAGES = Build<RUN, SPREAD, IPA, GANG>::STAGES;
-  constexpr int POD_ROW = Build<RUN, SPREAD, IPA, GANG>::POD_ROW;
+  constexpr int STAGES = Build<RUN, SPREAD, IPA, GANG, EXT>::STAGES;
+  constexpr int POD_ROW = Build<RUN, SPREAD, IPA, GANG, EXT>::POD_ROW;
   extern __shared__ __align__(16) float smem_base[];
   cg::cluster_group cluster = cg::this_cluster();
-  constexpr bool PACKED = Build<RUN, SPREAD, IPA, GANG>::PACKED;
+  constexpr bool PACKED = Build<RUN, SPREAD, IPA, GANG, EXT>::PACKED;
   const Smem s = PACKED ? carve_packed<SPREAD, STAGES, POD_ROW, IPA>(smem_base, NB)
                         : carve<SPREAD, STAGES, POD_ROW, IPA>(smem_base, NB);
   const int rank = (int)cluster.block_rank();
@@ -2116,6 +2383,20 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
         kp.w[j] = g0 + j < N ? kp.node_w[g0 + j] : make_ulonglong2(0ull, 0ull);
     }
   }
+  if constexpr (EXT && EXT_REGS<RUN>) {   // the run's EXT columns, into registers
+    ExtMain<RUN>& x = ext_of(nm...);
+#pragma unroll
+    for (int j = 0; j < RUN; ++j) {
+      const int g = g0 + j;
+      const bool in = g < N;
+#pragma unroll
+      for (int f = 0; f < 3; ++f) {
+        x.a[j][f] = in ? allocatable[(size_t)g * R + GPU + f] : 0.0f;
+        x.q[j][f] = in ? requested[(size_t)g * R + GPU + f] : 0.0f;
+      }
+      x.w[j] = in ? x.node_ports[g] : 0ull;
+    }
+  }
   auto issue_row = [&](int p) {
     if (p < P) {
       float* slot = s.ring + (p % STAGES) * NB;
@@ -2184,6 +2465,18 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
                     : t < POD_ROW_MAIN ? nonzero_requests + (size_t)p * 2 + (t - R)
                     : reinterpret_cast<const float*>(
                           (t == GW_ID ? gg.gang_id : gg.gang_min) + p));
+        if constexpr (EXT)   // + the port word
+          if (t == EXT_PW || t == EXT_PW + 1)
+            cp_async4(s.pods + (p % POD_SLOTS) * POD_ROW + t,
+                      reinterpret_cast<const float*>(ext_of(nm...).pod_ports + 2 * (size_t)p
+                                                     + (t - EXT_PW)));
+      } else if constexpr (EXT) {   // the main build's row, + the port word
+        if (t < POD_ROW_MAIN || t == EXT_PW || t == EXT_PW + 1)
+          cp_async4(s.pods + (p % POD_SLOTS) * POD_ROW + t,
+                    t < R ? requests + (size_t)p * R + t
+                    : t < POD_ROW_MAIN ? nonzero_requests + (size_t)p * 2 + (t - R)
+                    : reinterpret_cast<const float*>(ext_of(nm...).pod_ports + 2 * (size_t)p
+                                                     + (t - EXT_PW)));
       } else {
         if (t < POD_ROW)
           cp_async4(s.pods + (p % POD_SLOTS) * POD_ROW + t,
@@ -2318,6 +2611,8 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
         if (changed & 1) requested[row + GPU] = e2.x;
         if (changed & 2) requested[row + SCRATCH] = e2.y;
         if (changed & 4) requested[row + OVERLAY] = e2.z;
+        if constexpr (EXT)   // the node's old port word (and registers)
+          ext_restore<RUN>(ext_of(nm...), c - c0, rank * NB + c, changed, e1, e2);
       }
     }
     rr = rr_entry;
@@ -2377,11 +2672,12 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
     pod.all_zero = rq[CPU] == 0.0f && rq[MEM] == 0.0f && rq[GPU] == 0.0f
                    && rq[SCRATCH] == 0.0f && rq[OVERLAY] == 0.0f;
     // the same request bits as the pod the cached terms were computed for
-    const bool reuse = have_terms && __float_as_uint(pod.r_cpu) == key_cpu
-                       && __float_as_uint(pod.r_mem) == key_mem
-                       && __float_as_uint(pod.nz_cpu) == key_nzc
-                       && __float_as_uint(pod.nz_mem) == key_nzm
-                       && pod.all_zero == key_zero;
+    // (and with EXT, the same gpu, storage and port key; see ext_reuse)
+    const bool reuse = ext_reuse<EXT>(have_terms && __float_as_uint(pod.r_cpu) == key_cpu
+                                      && __float_as_uint(pod.r_mem) == key_mem
+                                      && __float_as_uint(pod.nz_cpu) == key_nzc
+                                      && __float_as_uint(pod.nz_mem) == key_nzm
+                                      && pod.all_zero == key_zero, pr, nm...);
     key_cpu = __float_as_uint(pod.r_cpu);
     key_mem = __float_as_uint(pod.r_mem);
     key_nzc = __float_as_uint(pod.nz_cpu);
@@ -2417,7 +2713,11 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
     } else {
 #pragma unroll
       for (int j = 0; j < RUN; ++j) {
-        node_terms(s, pod, c0 + j, &lr[j], &ba[j]);
+        if constexpr (EXT)
+          ext_terms<RUN>(s, pod, c0 + j, g0 + j, j, ext_of(nm...), allocatable, requested,
+                         &lr[j], &ba[j]);
+        else
+          node_terms(s, pod, c0 + j, &lr[j], &ba[j]);
         if constexpr (PACKED) {
           lr1[j / 4] = put_byte(lr1[j / 4], term_byte(lr[j], LR_BIAS), j % 4);
           bab[j / 4] = put_byte(bab[j / 4], term_byte(ba[j], BA_BIAS), j % 4);
@@ -3247,7 +3547,11 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
             const int j = __ffs((int)m) - 1;    // the tie's run position
             const int c = c0 + j;
             const int g = g0 + j;
-            if constexpr (GANG) {
+            if constexpr (GANG && EXT) {
+              if (gang_cur > 0)   // the node's old row, into the undo log
+                ext_log<RUN>(ext_of(nm...), undo_b + (size_t)undo_n * UNDO_WORDS, s, c, j, g,
+                             rq, allocatable, requested);
+            } else if constexpr (GANG) {
               if (gang_cur > 0) {   // the node's old row, into the undo log
                 int changed = 0;
                 float4 e2 = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
@@ -3267,16 +3571,23 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
             s.r_pods[c] = __fadd_rn(s.r_pods[c], rq[PODS]);
             s.r_cpu[c] = __fadd_rn(s.r_cpu[c], rq[CPU]);
             s.r_mem[c] = __fadd_rn(s.r_mem[c], rq[MEM]);
+            if constexpr (EXT) {   // (+ the pod's ports, into the node's word)
+              ext_place<RUN>(ext_of(nm...), j, g, rq, requested);
+            } else {
 #pragma unroll
-            for (int f = GPU; f < R; ++f)   // x + 0 == x: no load for a zero request
-              if (rq[f] != 0.0f)
-                requested[(size_t)g * R + f] =
-                    __fadd_rn(requested[(size_t)g * R + f], rq[f]);
+              for (int f = GPU; f < R; ++f)   // x + 0 == x: no load for a zero request
+                if (rq[f] != 0.0f)
+                  requested[(size_t)g * R + f] =
+                      __fadd_rn(requested[(size_t)g * R + f], rq[f]);
+            }
             s.z_cpu[c] = __fadd_rn(s.z_cpu[c], pod.nz_cpu);
             s.z_mem[c] = __fadd_rn(s.z_mem[c], pod.nz_mem);
             if constexpr (PACKED) {   // into byte j of the packed terms
               float l, b;
-              node_terms(s, pod, c, &l, &b);
+              if constexpr (EXT)
+                ext_terms<RUN>(s, pod, c, g, j, ext_of(nm...), allocatable, requested, &l, &b);
+              else
+                node_terms(s, pod, c, &l, &b);
               const unsigned kl = term_byte(l, LR_BIAS), kb = term_byte(b, BA_BIAS);
               if (j < 4) {
                 lr1[0] = put_byte(lr1[0], kl, j);
@@ -3285,6 +3596,9 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
                 lr1[1] = put_byte(lr1[1], kl, j - 4);
                 bab[1] = put_byte(bab[1], kb, j - 4);
               }
+            } else if constexpr (EXT) {
+              ext_terms<RUN>(s, pod, c, g, j, ext_of(nm...), allocatable, requested, &s.t_lr[c],
+                             &s.t_ba[c]);
             } else {
               node_terms(s, pod, c, &s.t_lr[c], &s.t_ba[c]);
             }
@@ -3400,13 +3714,14 @@ struct Operands {
   NormArgs nm;    // the normalization flag (pod_w null: off)
 };
 
-// One launch; `nm` is the flag's NormArgs, or nothing without the flag.
-template <int RUN, bool SPREAD, bool IPA, bool GANG, typename... Norm>
+// One launch; `nm` is the flag's NormArgs, or nothing without the flag,
+// then with EXT the variant's ExtArgs.
+template <int RUN, bool SPREAD, bool IPA, bool GANG, bool EXT = false, typename... Norm>
 int launch(const Operands& o, SpreadParam<SPREAD> sp, IpaParam<IPA> ip,
            GangParam<GANG> gg, cudaStream_t stream, Norm... nm) {
-  constexpr bool NORM = sizeof...(Norm) == 1;
-  auto kernel = assign_scan_kernel<RUN, SPREAD, IPA, GANG, NORM, Norm...>;
-  using B = Build<RUN, SPREAD, IPA, GANG>;
+  constexpr bool NORM = sizeof...(Norm) == (EXT ? 2 : 1);
+  auto kernel = assign_scan_kernel<RUN, SPREAD, IPA, GANG, NORM, EXT, Norm...>;
+  using B = Build<RUN, SPREAD, IPA, GANG, EXT>;
   size_t smem =
       smem_bytes<SPREAD, IPA, B::PACKED, NORM>(THREADS * RUN, B::STAGES, B::POD_ROW);
   if constexpr (SPREAD && IPA) {   // + the block's ids, and its replica where it fits
@@ -3476,6 +3791,33 @@ int launch_run(const Operands& o, int run, SpreadParam<SPREAD> sp,
     case 2: return launch_norm<2, SPREAD, IPA, GANG>(o, sp, ip, gg, stream);
     case 4: return launch_norm<4, SPREAD, IPA, GANG>(o, sp, ip, gg, stream);
     case 8: return launch_norm<8, SPREAD, IPA, GANG>(o, sp, ip, gg, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The EXT variant of the main (GANG false) or gang build, with the flag
+// when its pod words are given.
+template <int RUN, bool GANG>
+int launch_ext(const Operands& o, GangParam<GANG> gg, cudaStream_t stream, ExtArgs ex) {
+  ExtMain<RUN> xm = {};
+  static_cast<ExtArgs&>(xm) = ex;
+  if (o.nm.pod_w == nullptr)
+    return launch<RUN, false, false, GANG, true>(o, NoSpread{}, NoIpa{}, gg, stream, xm);
+  NormMain<RUN> nm = {};
+  static_cast<NormArgs&>(nm) = o.nm;
+  return launch<RUN, false, false, GANG, true>(o, NoSpread{}, NoIpa{}, gg, stream, nm, xm);
+}
+
+template <bool GANG>
+int launch_run_ext(const Operands& o, int run, cudaStream_t stream, GangParam<GANG> gg,
+                   ExtArgs ex) {
+  if (o.P <= 0) return (int)cudaSuccess;
+  if (o.N <= 0 || o.N > CLUSTER * THREADS * run) return (int)cudaErrorInvalidValue;
+  switch (run) {
+    case 1: return launch_ext<1, GANG>(o, gg, stream, ex);
+    case 2: return launch_ext<2, GANG>(o, gg, stream, ex);
+    case 4: return launch_ext<4, GANG>(o, gg, stream, ex);
+    case 8: return launch_ext<8, GANG>(o, gg, stream, ex);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -3716,5 +4058,48 @@ extern "C" int ktpu_assign_scan_spread_interpod_gang(
                    k, nd, use_ipa, w_ip, hard_w};
   const GangArgs gg{gang_id, gang_min, reinterpret_cast<float4*>(undo)};
   return launch_run<true, true, true>(o, run, sp, stream, ip, gg);
+}
+#endif
+
+#if KTPU_IN_PART(4)
+// The EXT variant of the main build: the operands of ktpu_assign_scan (the
+// gpu, scratch and overlay requests may be nonzero: they are fit against
+// the running ledger), then node_ports [N] u64 (bit u: the node's count of
+// host port u is not 0; updated in place) and pod_ports [P] u64 (bit u: the
+// pod wants host port u; 0 without PodFitsHostPorts), both 8-byte aligned.
+extern "C" int ktpu_assign_scan_ext(
+    const float* masked_static, const float* requests,
+    const float* nonzero_requests, const float* allocatable, float* requested,
+    float* nonzero, int* assignments, float* scores, int* feasible_counts,
+    long long* rr_io, int P, int N, int run, float w_lr, float w_ba,
+    void* node_ports, const void* pod_ports, const void* node_w, const int* pod_w,
+    float w_tt, float w_na, cudaStream_t stream) {
+  const Operands o{masked_static, requests, nonzero_requests, allocatable,
+                   requested, nonzero, assignments, scores, feasible_counts,
+                   rr_io, P, N, w_lr, w_ba,
+                   NormArgs{static_cast<const ulonglong2*>(node_w), pod_w, w_tt, w_na}};
+  const ExtArgs ex{static_cast<unsigned long long*>(node_ports),
+                   static_cast<const int*>(pod_ports), 0.0f, 0.0f, 0.0f, 0ull};
+  return launch_run_ext<false>(o, run, stream, NoGang{}, ex);
+}
+
+// The EXT variant of the gang build: the operands of ktpu_assign_scan_gang's
+// gang_id, gang_min and undo, then those of ktpu_assign_scan_ext.
+extern "C" int ktpu_assign_scan_gang_ext(
+    const float* masked_static, const float* requests,
+    const float* nonzero_requests, const float* allocatable, float* requested,
+    float* nonzero, int* assignments, float* scores, int* feasible_counts,
+    long long* rr_io, int P, int N, int run, float w_lr, float w_ba,
+    const int* gang_id, const int* gang_min, float* undo, void* node_ports,
+    const void* pod_ports, const void* node_w, const int* pod_w, float w_tt, float w_na,
+    cudaStream_t stream) {
+  const Operands o{masked_static, requests, nonzero_requests, allocatable,
+                   requested, nonzero, assignments, scores, feasible_counts,
+                   rr_io, P, N, w_lr, w_ba,
+                   NormArgs{static_cast<const ulonglong2*>(node_w), pod_w, w_tt, w_na}};
+  const GangArgs gg{gang_id, gang_min, reinterpret_cast<float4*>(undo)};
+  const ExtArgs ex{static_cast<unsigned long long*>(node_ports),
+                   static_cast<const int*>(pod_ports), 0.0f, 0.0f, 0.0f, 0ull};
+  return launch_run_ext<true>(o, run, stream, gg, ex);
 }
 #endif

@@ -10,8 +10,9 @@ PyTorch's headers, in seconds:
 The library lands in `kubernetes_tpu_torch/_build/` under a name that
 carries a digest of its source and flags, so an edited source is rebuilt
 and a finished build is reused. `build()` starts one `nvcc` per source, all
-at once; a source listed in `PARTS` (the scan, whose 64 kernel instances
-take minutes in one process) is compiled as that many objects, one `nvcc
+at once; a source listed in `PARTS` (the scan, whose 80 kernel instances
+take minutes in one process; the EXT variant's 16 are a part of their
+own) is compiled as that many objects, one `nvcc
 -c -DKTPU_PART=k` each, started with the rest, and linked into its one
 library: part k holds the C entries the source marks with it, and so the
 kernel instances they launch. Nothing is built at import time: the first
@@ -36,7 +37,7 @@ KERNELS = ("static_mask", "assign_scan", "preemption")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
 # sources compiled in parts (KTPU_PART = 0 .. parts - 1), linked into one library
-PARTS = {"assign_scan": 4}
+PARTS = {"assign_scan": 5}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 

@@ -30,6 +30,14 @@ Eight builds of the kernel, chosen at compile time:
   settled after the last pod, so the returned ledger and rr_end are final.
   Assignments and scores come back as the scan made them; the solver masks
   the members of reverted groups out afterwards (solver.py:837-853);
+- `assign_scan_ext` and `assign_scan_gang_ext`, the main and gang builds
+  with the EXT variant: host ports (PodFitsHostPorts against the running
+  host-port counts, the JAX step's `fits_host_ports` and its `port_count`
+  carry, solver.py:537-539,780-781) and the gpu and storage fit against
+  the running ledger (`fits_resources_dyn` with `dyn_gpu` and
+  `dyn_storage`, predicates.py:93, the overlay request falling through to
+  scratch on a node without overlay allocatable); a reverted group also
+  gives back its host ports (`new_port_count`);
 - `assign_scan_spread_gang`, `assign_scan_interpod_gang` and
   `assign_scan_spread_interpod_gang`, the spread, interpod and
   spread+interpod builds with the gang carry: a reverted group also gives
@@ -68,7 +76,8 @@ from kubernetes_tpu_torch.ops.interpod import (
     make_ledger,
     topology_onehot,
 )
-from kubernetes_tpu_torch.ops.predicates import fits_resources_dyn
+from kubernetes_tpu_torch.ops.predicates import fits_host_ports, fits_resources_dyn
+from kubernetes_tpu_torch.ops.preemption import group_runs
 from kubernetes_tpu_torch.ops.priorities import (
     balanced_allocation,
     least_requested,
@@ -92,6 +101,7 @@ class ScanResult:
     rr_end: torch.Tensor           # i64 scalar in [0, 2^32)
     new_podsel: torch.Tensor | None = None  # f32[N, UQ], spread and interpod builds
     new_term: torch.Tensor | None = None    # f32[N, UE], builds with the interpod half
+    new_port_count: torch.Tensor | None = None  # f32[N, UP], the EXT builds with ports
 
 
 def _rr_tensor(rr_start, device) -> torch.Tensor:
@@ -171,6 +181,21 @@ class GangInputs:
 
     gang_id: torch.Tensor
     gang_min: torch.Tensor
+
+
+@dataclass
+class ExtInputs:
+    """What the EXT variant of the main and gang builds reads beyond their
+    operands: whether PodFitsHostPorts runs (use_ports), each pod's
+    host-port row (port_onehot f32[P, UP], a port listed twice counts 2)
+    and the batch-start host-port counts (port_count f32[N, UP], not
+    modified), UP at most 64. A pod conflicts on a node where
+    port_count @ port_onehot is not 0. The gpu, scratch and overlay
+    requests are fit against the running ledger, whatever use_ports."""
+
+    use_ports: bool
+    port_onehot: torch.Tensor
+    port_count: torch.Tensor
 
 
 @dataclass
@@ -405,17 +430,48 @@ def assign_scan_gang_plain(masked_static, requests, nonzero_requests,
                        gang=gang, norm=norm)
 
 
+def assign_scan_ext_plain(masked_static, requests, nonzero_requests,
+                          allocatable, requested, nonzero, rr_start,
+                          w_lr: float, w_ba: float, ext: ExtInputs,
+                          norm: NormInputs | None = None) -> ScanResult:
+    """`assign_scan_plain` with the EXT variant: each pod's gpu, scratch
+    and overlay requests fit against the running ledger, and with
+    `use_ports` its host ports against the running host-port counts, to
+    which a placed pod's port row is added (`new_port_count`; None without
+    `use_ports`, the counts passed through)."""
+    return _scan_plain(masked_static, requests, nonzero_requests, allocatable,
+                       requested, nonzero, rr_start, w_lr, w_ba, None,
+                       norm=norm, ext=ext)
+
+
+def assign_scan_gang_ext_plain(masked_static, requests, nonzero_requests,
+                               allocatable, requested, nonzero, rr_start,
+                               w_lr: float, w_ba: float, ext: ExtInputs,
+                               gang: GangInputs,
+                               norm: NormInputs | None = None) -> ScanResult:
+    """`assign_scan_gang_plain` with the EXT variant: a group settled below
+    its quorum also gives back its host-port counts."""
+    return _scan_plain(masked_static, requests, nonzero_requests, allocatable,
+                       requested, nonzero, rr_start, w_lr, w_ba, None,
+                       gang=gang, norm=norm, ext=ext)
+
+
 def _scan_plain(masked_static, requests, nonzero_requests, allocatable,
                 requested, nonzero, rr_start, w_lr, w_ba,
                 spread: SpreadInputs | None,
                 interpod: InterpodInputs | None = None,
                 gang: GangInputs | None = None,
-                norm: NormInputs | None = None) -> ScanResult:
+                norm: NormInputs | None = None,
+                ext: ExtInputs | None = None) -> ScanResult:
     p_count, n = masked_static.shape
     dev = masked_static.device
     req = requested.clone()
     nz = nonzero.clone()
     rr = _rr_tensor(rr_start, dev)
+    # the EXT variant: the gpu and storage columns fit against the running
+    # ledger, and the host-port counts carried when PodFitsHostPorts runs
+    dyn = ext is not None
+    ports = ext.port_count.clone() if dyn and ext.use_ports else None
     assignments = torch.empty((p_count,), dtype=torch.int32, device=dev)
     scores = torch.empty((p_count,), dtype=torch.float32, device=dev)
     counts = torch.empty((p_count,), dtype=torch.int32, device=dev)
@@ -437,32 +493,36 @@ def _scan_plain(masked_static, requests, nonzero_requests, allocatable,
         placed = torch.zeros((), dtype=torch.int64, device=dev)
         carried = ledger if spread is not None or ip is not None else None
 
-        def settle(req, nz, rr):
+        def settle(req, nz, rr, ports):
             """The ledgers and rr after settling the open group (the
             affinity ledger in place)."""
             if gang_cur <= 0:
-                return req, nz, rr
+                return req, nz, rr, ports
             revert = placed < quorum
             if carried is not None:
                 restore_ledger(carried, snap[3], revert)
             return (torch.where(revert, snap[0], req),
                     torch.where(revert, snap[1], nz),
-                    torch.where(revert, snap[2], rr))
+                    torch.where(revert, snap[2], rr),
+                    None if ports is None else torch.where(revert, snap[4], ports))
     for p in range(p_count):
         if gang is not None and gang_ids[p] != gang_cur:
             # a boundary: settle the group being left, then snapshot the
             # settled ledgers when this pod opens a group
-            req, nz, rr = settle(req, nz, rr)
+            req, nz, rr, ports = settle(req, nz, rr, ports)
             if gang_ids[p] > 0:
                 snap = (req.clone(), nz.clone(), rr.clone(),
-                        None if carried is None else ledger_snapshot(carried))
+                        None if carried is None else ledger_snapshot(carried),
+                        None if ports is None else ports.clone())
                 placed = torch.zeros_like(placed)
                 quorum = gang_mins[p]
             gang_cur = gang_ids[p]
         ms = masked_static[p]
         feasible = (ms > float("-inf")) & fits_resources_dyn(
-            allocatable, requests[p:p + 1], req, dyn_gpu=False,
-            dyn_storage=False)[0]
+            allocatable, requests[p:p + 1], req, dyn_gpu=dyn,
+            dyn_storage=dyn)[0]
+        if ports is not None:   # PodFitsHostPorts on the running counts
+            feasible = feasible & fits_host_ports(ports, ext.port_onehot[p:p + 1])[0]
         score = (ms + w_lr * least_requested(allocatable, nonzero_requests[p:p + 1], nz)[0]
                  + w_ba * balanced_allocation(allocatable, nonzero_requests[p:p + 1], nz)[0])
         if ip is not None:
@@ -499,6 +559,8 @@ def _scan_plain(masked_static, requests, nonzero_requests, allocatable,
         add = assigned.to(torch.float32)
         req[node] += add * requests[p]
         nz[node] += add * nonzero_requests[p]
+        if ports is not None:
+            ports[node] += add * ext.port_onehot[p]
         if spread is not None and ip is None:
             ledger_add(ledger, spread.pod_matches_q[p], node, add)
         if ip is not None:   # the pod-selector half serves SelectorSpread too
@@ -511,9 +573,10 @@ def _scan_plain(masked_static, requests, nonzero_requests, allocatable,
         scores[p] = torch.where(assigned, best, 0.0)
         counts[p] = feasible.sum()
     if gang is not None:
-        req, nz, rr = settle(req, nz, rr)   # the group open at the end
+        req, nz, rr, ports = settle(req, nz, rr, ports)   # the group open at the end
     if spread is None and ip is None:
-        return ScanResult(assignments, scores, counts, req, nz, rr)
+        return ScanResult(assignments, scores, counts, req, nz, rr,
+                          new_port_count=ports)
     return ScanResult(assignments, scores, counts, req, nz, rr,
                       ledger.podsel_count,
                       None if ip is None else ledger.term_count)
@@ -687,11 +750,13 @@ def norm_exchanges(norm: NormInputs) -> list[bool]:
 
 def norm_true_maxima(masked_static, requests, allocatable, requested, norm: NormInputs,
                      assignments, gang: GangInputs | None = None,
-                     interpod: InterpodInputs | None = None) -> list:
+                     interpod: InterpodInputs | None = None,
+                     ext: ExtInputs | None = None) -> list:
     """Per pod, the packed true maxima of the flag's counts over its
-    feasible nodes (the static row and the ledger fit, and with `interpod`
-    the inter-pod predicate over the carried-term ledger, as the interpod
-    build takes them) as a scan that made `assignments` saw them, or None
+    feasible nodes (the static row and the ledger fit, with `ext` the EXT
+    variant's fit and host ports over the host-port ledger, and with
+    `interpod` the inter-pod predicate over the carried-term ledger, as the
+    builds take them) as a scan that made `assignments` saw them, or None
     where the pod exchanges none: a replay of the ledgers from the
     assignments (a gang build's, members of reverted groups included,
     settled at each group boundary as the scan settles them, the
@@ -706,6 +771,7 @@ def norm_true_maxima(masked_static, requests, allocatable, requested, norm: Norm
     gang_ids = gang.gang_id.tolist() if gang is not None else [0] * p_count
     gang_mins = gang.gang_min.tolist() if gang is not None else [0] * p_count
     req = requested.clone()
+    ports = ext.port_count.clone() if ext is not None and ext.use_ports else None
     ip = interpod
     if ip is not None:
         ledger = make_ledger(ip.podsel_count, ip.term_count, ip.topology,
@@ -718,11 +784,12 @@ def norm_true_maxima(masked_static, requests, allocatable, requested, norm: Norm
     for p in range(p_count):
         if gang_ids[p] != gang_cur:
             if gang_cur > 0 and placed < quorum:
-                req = snap[0]
+                req, ports = snap[0], snap[2]
                 if ip is not None:
                     restore_ledger(ledger, snap[1], True)
             if gang_ids[p] > 0:
-                snap = (req.clone(), None if ip is None else ledger_snapshot(ledger))
+                snap = (req.clone(), None if ip is None else ledger_snapshot(ledger),
+                        None if ports is None else ports.clone())
                 placed, quorum = 0, gang_mins[p]
             gang_cur = gang_ids[p]
         if exch[p]:
@@ -731,8 +798,10 @@ def norm_true_maxima(masked_static, requests, allocatable, requested, norm: Norm
                 cache[key] = norm_counts(norm, p)
             tt, na = cache[key]
             feasible = (masked_static[p] > float("-inf")) & fits_resources_dyn(
-                allocatable, requests[p:p + 1], req, dyn_gpu=False,
-                dyn_storage=False)[0]
+                allocatable, requests[p:p + 1], req, dyn_gpu=ext is not None,
+                dyn_storage=ext is not None)[0]
+            if ports is not None:
+                feasible = feasible & fits_host_ports(ports, ext.port_onehot[p:p + 1])[0]
             if ip is not None and ip.use_ipa:
                 pod = SimpleNamespace(**{f: getattr(ip, f)[p] for f in POD_ROW_FIELDS})
                 feasible = feasible & interpod_feasible(ip, pod, ledger, onehot)
@@ -742,6 +811,8 @@ def norm_true_maxima(masked_static, requests, allocatable, requested, norm: Norm
                 out[p, 1] = torch.where(feasible, na, 0.0).max()
         if placed_at[p] >= 0:
             req[placed_at[p]] += requests[p]
+            if ports is not None:
+                ports[placed_at[p]] += ext.port_onehot[p]
             placed += gang_cur > 0
             if ip is not None:
                 ledger_add(ledger, ip.pod_matches_q[p], placed_at[p], one,
@@ -1204,3 +1275,109 @@ def assign_scan_gang(masked_static, requests, nonzero_requests, allocatable,
 
 assign_scan_gang.launches = 0
 assign_scan_gang.norm_launches = 0   # of them, with the normalization flag
+
+# the EXT variant's host-port universe: one 64-bit word a node and a pod
+EXT_MAX_UP = NORM_MAX_U
+
+
+def _check_ext(name: str, ext: ExtInputs, p: int, n: int, dev) -> None:
+    """Check the ExtInputs tensors of a p-pod, n-node batch; ValueError
+    past EXT_MAX_UP ports (on every device: the kernel's words hold 64)."""
+    up = ext.port_count.shape[1]
+    for check in (("port_onehot", ext.port_onehot, torch.float32, (p, up)),
+                  ("port_count", ext.port_count, torch.float32, (n, up))):
+        check_tensor(*check, dev)
+    if up > EXT_MAX_UP:
+        raise ValueError(f"{name}: {up} host ports in the universe, at most "
+                         f"{EXT_MAX_UP}")
+
+
+def _ext_words(ext: ExtInputs):
+    """The EXT variant's device words, i64[N] (bit u: the node's count of
+    port u is not 0; the kernel may update this copy in place) and i64[P]
+    (bit u: the pod wants port u); zeros without use_ports."""
+    if not ext.use_ports:
+        return (torch.zeros(ext.port_count.shape[:1], dtype=torch.int64,
+                            device=ext.port_count.device),
+                torch.zeros(ext.port_onehot.shape[:1], dtype=torch.int64,
+                            device=ext.port_onehot.device))
+    return (pack_words(ext.port_count).contiguous(),
+            pack_words(ext.port_onehot).contiguous())
+
+
+def ext_port_count(ext: ExtInputs, assignments: torch.Tensor,
+                   gang: GangInputs | None = None) -> torch.Tensor | None:
+    """The host-port counts after the batch (None without use_ports): the
+    batch-start counts plus the port rows of the pods placed, members of a
+    group below its quorum left out. The counts are integers below 2^24,
+    so the sum is the plain scan's carried (and, for a reverted group,
+    restored) ledger exactly."""
+    if not ext.use_ports:
+        return None
+    ok = assignments >= 0
+    if gang is not None:
+        _first, seg = group_runs(gang.gang_id)
+        placed = torch.zeros(ok.shape, dtype=torch.int64, device=ok.device)
+        placed.index_add_(0, seg, ok.to(torch.int64))
+        ok = ok & ~((gang.gang_id > 0) & (placed[seg] < gang.gang_min))
+    rows = torch.where(ok, assignments, 0).to(torch.int64)
+    return ext.port_count.index_add(
+        0, rows, ext.port_onehot * ok[:, None].to(torch.float32))
+
+
+def assign_scan_ext(masked_static, requests, nonzero_requests, allocatable,
+                    requested, nonzero, rr_start, w_lr: float, w_ba: float,
+                    ext: ExtInputs, norm: NormInputs | None = None) -> ScanResult:
+    """Phase B with the EXT variant (`assign_scan_ext_plain`): the operands
+    of `assign_scan` (the gpu and storage columns of the requests may be
+    nonzero), and `ext` (ExtInputs). On a card the wrapper hands the kernel
+    a node's host ports as one 64-bit word (a set bit: the count is not 0),
+    which the kernel ORs each placed pod's word into, and each pod's word;
+    `new_port_count` is summed after the launch from the assignments."""
+    return _ext_scan(assign_scan_ext, (masked_static, requests, nonzero_requests,
+                     allocatable, requested, nonzero), rr_start, w_lr, w_ba,
+                     ext, None, norm)
+
+
+def assign_scan_gang_ext(masked_static, requests, nonzero_requests,
+                         allocatable, requested, nonzero, rr_start,
+                         w_lr: float, w_ba: float, ext: ExtInputs,
+                         gang: GangInputs,
+                         norm: NormInputs | None = None) -> ScanResult:
+    """Phase B with the gang carry and the EXT variant
+    (`assign_scan_gang_ext_plain`): the operands of `assign_scan_ext`, and
+    `gang` (GangInputs), with the gang build's undo log on a card, whose
+    entries also keep a node's old port word."""
+    return _ext_scan(assign_scan_gang_ext, (masked_static, requests,
+                     nonzero_requests, allocatable, requested, nonzero),
+                     rr_start, w_lr, w_ba, ext, gang, norm)
+
+
+def _ext_scan(wrapper, args, rr_start, w_lr, w_ba, ext: ExtInputs,
+              gang: GangInputs | None, norm: NormInputs | None) -> ScanResult:
+    """The main or (with `gang`) gang build with the EXT variant: checks,
+    the plain version on the CPU, else one launch counted on `wrapper`."""
+    name = wrapper.__name__
+    dev = _check_operands(name, *args)
+    p, n = args[0].shape
+    _check_ext(name, ext, p, n, dev)
+    _check_gang(gang, p, dev)
+    _check_norm(norm, p, n, dev)
+    if dev.type == "cpu":
+        return _scan_plain(*args, rr_start, w_lr, w_ba, None, gang=gang,
+                           norm=norm, ext=ext)
+    node_w, pod_w = _ext_words(ext)
+    _undo, gang_args = _gang_operands(gang, p, dev)
+    argtypes = _ARGTYPES if gang is None else _GANG_ARGTYPES
+    out = _launch(f"ktpu_{name}", argtypes[:-1] + [ctypes.c_void_p] * 3, *args,
+                  rr_start, w_lr, w_ba,
+                  (*gang_args, node_w.data_ptr(), pod_w.data_ptr()), norm)
+    wrapper.launches += 1
+    wrapper.norm_launches += norm is not None
+    return ScanResult(*out, new_port_count=ext_port_count(ext, out[0], gang))
+
+
+assign_scan_ext.launches = 0
+assign_scan_ext.norm_launches = 0   # of them, with the normalization flag
+assign_scan_gang_ext.launches = 0
+assign_scan_gang_ext.norm_launches = 0

@@ -91,6 +91,14 @@ def fits_resources_dyn(allocatable: torch.Tensor, requests: torch.Tensor,
     return pods_ok[None, :] & (_requests_all_zero(r)[:, None] | basic)
 
 
+def fits_host_ports(port_count: torch.Tensor,
+                    port_onehot: torch.Tensor) -> torch.Tensor:
+    """PodFitsHostPorts (predicates.go:859): bool[P, N], no host port the
+    pod wants is in use on the node, port_count f32[N, UP] @ port_onehot
+    f32[P, UP] == 0 (integer counts: the product is exact)."""
+    return torch.matmul(port_onehot, port_count.T) == 0
+
+
 def fits_host(state: ClusterState, batch: PodBatch) -> torch.Tensor:
     """PodFitsHost (predicates.go:698): spec.nodeName pins the node."""
     unset = batch.node_name_lo == 0

@@ -40,6 +40,12 @@ the next. This solver reproduces that decision for decision:
   NodeAffinity, whichever build runs takes the normalization flag: both
   scores over each pod's feasible nodes, from 64-bit taint and
   requirement words Phase A packs (`norm_inputs`).
+  When the batch raises the ports gate (a pod with a host port) and the
+  policy runs PodFitsHostPorts, or the gpu or storage gate (a gpu,
+  scratch or overlay request), the main or gang build takes the EXT
+  variant: PodFitsHostPorts against the running host-port counts and the
+  gpu and storage fit against the running ledger, each placed pod's ports
+  added to the counts (`new_port_count`), a reverted group's given back.
 - **Preemption (serial over the pods left out)**: when the batch raises
   the preempt gate (a pod with a priority) and the caller gives a
   VictimTable, kernel 3 (ops/preemption.py) finds, for every valid pod the
@@ -48,13 +54,15 @@ the next. This solver reproduces that decision for decision:
   the masked static scores, for every build: `preempt_node` and
   `victim_count` in the result, (-1, 0) when the pass is off.
 
-This package carries the main path and the spread, ipa, gang, tt, na and
-preempt gates, each with any of the others: a batch whose content raises
-any other BatchFlags gate, a policy that weighs ServiceSpreadingPriority
-on a spread batch, or a policy outside the fused
-static mask or with argument-carrying registrations, raises
-NotImplementedError naming what is missing. It never computes an answer
-for a program it does not implement.
+This package carries the main path and the spread, ipa, gang, tt, na,
+preempt, ports, gpu and storage gates, each with any of the others but
+ports, gpu and storage with SelectorSpread or inter-pod affinity: a batch
+whose content raises any other BatchFlags gate (vol, attach), or ports,
+gpu or storage where the spread or interpod build would run, a policy
+that weighs ServiceSpreadingPriority on a spread batch, or a policy
+outside the fused static mask or with argument-carrying registrations,
+raises NotImplementedError naming what is missing. It never computes an
+answer for a program it does not implement.
 """
 
 from __future__ import annotations
@@ -74,12 +82,17 @@ from kubernetes_tpu_torch.ops import predicates as preds
 from kubernetes_tpu_torch.ops import priorities as prios
 from kubernetes_tpu_torch.ops.assign_scan import (
     POD_ROW_FIELDS,
+    ExtInputs,
     GangInputs,
     InterpodInputs,
     NormInputs,
     SpreadInputs,
     assign_scan,
+    assign_scan_ext,
+    assign_scan_ext_plain,
     assign_scan_gang,
+    assign_scan_gang_ext,
+    assign_scan_gang_ext_plain,
     assign_scan_gang_plain,
     assign_scan_interpod,
     assign_scan_interpod_gang,
@@ -139,6 +152,7 @@ class PolicyGates:
     its constant to const_score."""
 
     use_resources: bool
+    use_ports: bool    # PodFitsHostPorts: in the policy and ports raised
     dyn_gpu: bool      # GPU fit must track the in-batch ledger
     dyn_storage: bool  # scratch/overlay fit must track the in-batch ledger
     w_lr: float
@@ -156,6 +170,12 @@ class PolicyGates:
         """The batch runs the carried-term ledger (the interpod build)."""
         return self.use_ipa or bool(self.w_ip)
 
+    @property
+    def use_ext(self) -> bool:
+        """The batch runs the EXT variant: host ports, or the gpu or
+        storage fit against the running ledger."""
+        return self.use_ports or self.dyn_gpu or self.dyn_storage
+
 
 def policy_gates(policy: Policy, flags: BatchFlags) -> PolicyGates:
     # gated neutral terms: with no spread entry SelectorSpread scores a
@@ -171,6 +191,10 @@ def policy_gates(policy: Policy, flags: BatchFlags) -> PolicyGates:
     return PolicyGates(
         use_resources=policy.has_predicate("GeneralPredicates",
                                            "PodFitsResources"),
+        # no host port wanted anywhere in the batch: no node conflicts, and
+        # the port ledger passes through
+        use_ports=policy.has_predicate("GeneralPredicates", "PodFitsHostPorts",
+                                       "PodFitsPorts") and flags.ports,
         dyn_gpu=flags.gpu,
         dyn_storage=flags.storage,
         w_lr=policy.weight("LeastRequestedPriority"),
@@ -197,16 +221,17 @@ _STATIC_PRIORITIES = ("EqualPriority", "ImageLocalityPriority",
 def check_supported(policy: Policy, flags: BatchFlags) -> PolicyGates:
     """The gates of a (policy, flags) pair this solver implements; raises
     NotImplementedError naming every gate or registration it does not."""
-    # spread, ipa, gang, tt, na and preempt are carried; svcanti is neutral
-    # without a ServiceAntiAffinity registration, which the PolicyRows
-    # check below refuses
+    # spread, ipa, gang, tt, na, preempt, ports, gpu and storage are
+    # carried; svcanti is neutral without a ServiceAntiAffinity
+    # registration, which the PolicyRows check below refuses
     raised = [f.name for f in fields(BatchFlags) if getattr(flags, f.name)
               and f.name not in ("spread", "svcanti", "ipa", "gang", "tt", "na",
-                                 "preempt")]
+                                 "preempt", "ports", "gpu", "storage")]
     if raised:
         raise NotImplementedError(
             f"batch raises solver gates {raised}: only the main path and "
-            f"the spread, ipa, gang, tt, na and preempt gates are implemented")
+            f"the spread, ipa, gang, tt, na, preempt, ports, gpu and storage "
+            f"gates are implemented")
     if flags.spread and policy.weight("ServiceSpreadingPriority"):
         raise NotImplementedError(
             "ServiceSpreadingPriority with a weight is not implemented")
@@ -226,6 +251,11 @@ def check_supported(policy: Policy, flags: BatchFlags) -> PolicyGates:
     g = policy_gates(policy, flags)
     if not g.use_resources:
         raise NotImplementedError("policy without PodFitsResources")
+    if g.use_ext and (g.use_terms or g.w_ss):
+        raise NotImplementedError(
+            "host ports / GPU or storage requests with SelectorSpread or "
+            "inter-pod affinity are not implemented: the EXT variant is in "
+            "the main and gang builds only")
     return g
 
 
@@ -253,6 +283,9 @@ class SolverResult:
     # VictimTable row the pod would evict (-1, 0: no set, or the pass off)
     preempt_node: torch.Tensor | None = None
     victim_count: torch.Tensor | None = None
+    # f32[N, UP] host-port counts after the batch when the scan carried
+    # them (PodFitsHostPorts ran), else None (passed through)
+    new_port_count: torch.Tensor | None = None
 
 
 def _static_rest(state: ClusterState, batch: PodBatch,
@@ -364,7 +397,8 @@ def scan_norm_inputs(state: ClusterState, batch: PodBatch,
 def _solve(state, batch, rr_start, policy, flags, caps, spread_zones, mask_fn,
            scan_fn, spread_fn, interpod_fn, gang_fn, spread_interpod_fn,
            victims=None, preempt_fn=preemption_pass_plain, spread_gang_fn=None,
-           interpod_gang_fn=None, spread_interpod_gang_fn=None):
+           interpod_gang_fn=None, spread_interpod_gang_fn=None, ext_fn=None,
+           gang_ext_fn=None):
     if flags is None:
         flags = batch_flags(state, batch)
     g = check_supported(policy, flags)
@@ -385,6 +419,11 @@ def _solve(state, batch, rr_start, policy, flags, caps, spread_zones, mask_fn,
     elif g.w_ss:
         build = (spread_fn, spread_gang_fn)
         operands = (spread_inputs(state, batch, g, universe, spread_zones),)
+    elif g.use_ext:
+        build = (ext_fn, gang_ext_fn)
+        operands = (ExtInputs(use_ports=g.use_ports,
+                              port_onehot=batch.port_onehot.contiguous(),
+                              port_count=state.port_count),)
     else:
         build = (scan_fn, gang_fn)
         operands = ()
@@ -414,7 +453,8 @@ def _solve(state, batch, rr_start, policy, flags, caps, spread_zones, mask_fn,
         new_requested=scan.new_requested, new_nonzero=scan.new_nonzero,
         rr_end=scan.rr_end, new_podsel=scan.new_podsel,
         new_term=scan.new_term, gang_placed=placed, gang_reverted=reverted,
-        preempt_node=preempt_node, victim_count=victim_count)
+        preempt_node=preempt_node, victim_count=victim_count,
+        new_port_count=scan.new_port_count)
 
 
 def schedule_batch(state: ClusterState, batch: PodBatch, rr_start,
@@ -446,7 +486,8 @@ def schedule_batch(state: ClusterState, batch: PodBatch, rr_start,
                   assign_scan_interpod, assign_scan_gang,
                   assign_scan_spread_interpod, victims, preemption_pass,
                   assign_scan_spread_gang, assign_scan_interpod_gang,
-                  assign_scan_spread_interpod_gang)
+                  assign_scan_spread_interpod_gang, assign_scan_ext,
+                  assign_scan_gang_ext)
 
 
 def schedule_batch_plain(state: ClusterState, batch: PodBatch, rr_start,
@@ -463,4 +504,5 @@ def schedule_batch_plain(state: ClusterState, batch: PodBatch, rr_start,
                   assign_scan_gang_plain, assign_scan_spread_interpod_plain,
                   victims, preemption_pass_plain, assign_scan_spread_gang_plain,
                   assign_scan_interpod_gang_plain,
-                  assign_scan_spread_interpod_gang_plain)
+                  assign_scan_spread_interpod_gang_plain, assign_scan_ext_plain,
+                  assign_scan_gang_ext_plain)

@@ -5,7 +5,9 @@ name, for the options this package's solver carries; `prefer_taint_every`,
 `class_tolerations` and `class_preferred` are this package's own (the tt_na
 traffic, perf/harness.py), and so are cycled cpu requests and priorities
 (the preemption traffic; the reference sets priorities through
-PriorityClasses and its admission plugin, which this package lacks)."""
+PriorityClasses and its admission plugin, which this package lacks), and
+periodic extra allocatable, extra requests and host ports (the gpu_ports
+traffic)."""
 
 from __future__ import annotations
 
@@ -15,12 +17,25 @@ from kubernetes_tpu_torch.api.objects import Node, Pod, Service
 from kubernetes_tpu_torch.gang import GROUP_MIN_ANNOTATION, GROUP_NAME_ANNOTATION
 
 
+def _periodic(i: int, entries) -> dict:
+    """The quantities of the (every, offset, {name: quantity}) entries with
+    i % every == offset, later entries last."""
+    out: dict = {}
+    for every, offset, extra in entries:
+        if i % every == offset:
+            out.update(extra)
+    return out
+
+
 def make_nodes(n: int, cpu: str = "4", memory: str = "8Gi", pods: str = "110",
                zones: int = 3, labels_per_node: int = 0,
-               taint_every: int = 0, prefer_taint_every: int = 0) -> list[Node]:
+               taint_every: int = 0, prefer_taint_every: int = 0,
+               extra_allocatable: tuple = ()) -> list[Node]:
     """Uniform ready nodes; optional zone spread, filler labels, periodic
-    NoSchedule taints, and periodic `dedicated=batch:PreferNoSchedule`
-    taints (every `prefer_taint_every`-th node from node 0)."""
+    NoSchedule taints, periodic `dedicated=batch:PreferNoSchedule` taints
+    (every `prefer_taint_every`-th node from node 0), and periodic extra
+    allocatable: `extra_allocatable` entries (every, offset, {resource:
+    quantity}) add to node i where i % every == offset."""
     out = []
     for i in range(n):
         labels = {
@@ -41,7 +56,8 @@ def make_nodes(n: int, cpu: str = "4", memory: str = "8Gi", pods: str = "110",
             "metadata": {"name": f"node-{i}", "labels": labels},
             "spec": {"taints": taints},
             "status": {
-                "allocatable": {"cpu": cpu, "memory": memory, "pods": pods},
+                "allocatable": {"cpu": cpu, "memory": memory, "pods": pods,
+                                **_periodic(i, extra_allocatable)},
                 "conditions": [{"type": "Ready", "status": "True"}],
             },
         }))
@@ -56,7 +72,8 @@ def make_pods(n: int, cpu: str | Sequence[str] = "100m", memory: str = "250Mi",
               gang_min: int | None = None,
               class_tolerations: tuple = (),
               class_preferred: tuple = (),
-              priority: int | Sequence[int] = 0) -> list[Pod]:
+              priority: int | Sequence[int] = 0,
+              extra_requests: tuple = (), host_ports: tuple = ()) -> list[Pod]:
     """Templated pending pods (the basic scheduler_perf pod spec: small cpu
     and memory requests); optional periodic nodeSelector, a toleration of
     the fixtures' NoSchedule taint, and labels app=app-{i % app_groups}
@@ -71,7 +88,10 @@ def make_pods(n: int, cpu: str | Sequence[str] = "100m", memory: str = "250Mi",
     tolerations and of preferred node-affinity terms, one a group) are
     added to the pods of group g. `cpu` and `priority` may be sequences,
     cycled over the pods (pod i takes entry i % len); a nonzero priority is
-    written to spec.priority."""
+    written to spec.priority. `extra_requests` entries (every, offset,
+    {resource: quantity}) add requests to pod i where i % every == offset,
+    and `host_ports` entries (every, offset, port) a containerPort with
+    that hostPort."""
     cpus = [cpu] if isinstance(cpu, str) else list(cpu)
     prios = [priority] if isinstance(priority, int) else list(priority)
     out = []
@@ -87,8 +107,13 @@ def make_pods(n: int, cpu: str | Sequence[str] = "100m", memory: str = "250Mi",
             "name": "app",
             "image": "k8s.gcr.io/pause:3.0",
             "resources": {"requests": {"cpu": cpus[i % len(cpus)],
-                                       "memory": memory}},
+                                       "memory": memory,
+                                       **_periodic(i, extra_requests)}},
         }]}
+        ports = [port for every, offset, port in host_ports if i % every == offset]
+        if ports:
+            spec["containers"][0]["ports"] = [
+                {"containerPort": port, "hostPort": port} for port in ports]
         if prios[i % len(prios)]:
             spec["priority"] = prios[i % len(prios)]
         if selector_every and i % selector_every == 0:

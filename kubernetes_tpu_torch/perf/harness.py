@@ -24,7 +24,11 @@
   PreferNoSchedule taints and preferred node affinity raise the tt and
   na gates, which every build takes as its normalization flag: the
   `tt_na` traffic is `run_throughput(15000, 30000,
-  node_kwargs=TT_NA_NODES, pod_kwargs=TT_NA_PODS)`.
+  node_kwargs=TT_NA_NODES, pod_kwargs=TT_NA_PODS)`. GPU, scratch and
+  overlay requests and host ports raise the gpu, storage and ports gates,
+  which the main and gang builds take as their EXT variant: the
+  `gpu_ports` traffic is `make_pods(30000, **GPU_PORTS_PODS)` on
+  `gpu_ports_cluster(15000, ...)` (bound host-port pods accounted first).
 - `run_preemption` drives the preemption drill (the reference's
   bench[preemption], kubernetes_tpu/perf/harness.py `_run_preemption`):
   every node's cpu filled by two priority-0 fillers, then a wave of n/4
@@ -110,6 +114,46 @@ TT_NA_PODS = {
         for g in range(16)),
     "class_preferred": tuple(_tt_na_preferred(g) for g in range(16)),
 }
+
+
+# the gpu_ports traffic: bench[headline]'s nodes (bench.py:260), every 4th
+# with 8 GPUs and every node 100Gi of node-local scratch and no overlay; its
+# 30,000 pods of 100m / 250Mi, every 4th also asking a GPU, pods 2 and 6 of
+# every 8 1Gi of scratch and 512Mi of overlay (which falls through to
+# scratch: no node has overlay allocatable), pod 1 of every 16 host port
+# 8080 and pod 5 of every 32 host port 9100; before the run one pod with
+# host port 8080 is bound on every 10th node, with a GPU where the node has
+# GPUs (`gpu_ports_cluster`)
+GPU = "alpha.kubernetes.io/nvidia-gpu"
+SCRATCH = "storage.kubernetes.io/scratch"
+OVERLAY = "storage.kubernetes.io/overlay"
+GPU_PORTS_NODES = {"zones": 3, "extra_allocatable": (
+    (4, 0, {GPU: "8"}), (1, 0, {SCRATCH: "100Gi"}))}
+GPU_PORTS_PODS = {
+    "extra_requests": ((4, 0, {GPU: "1"}), (8, 2, {SCRATCH: "1Gi"}),
+                       (8, 6, {OVERLAY: "512Mi"})),
+    "host_ports": ((16, 1, 8080), (32, 5, 9100))}
+GPU_PORTS_BOUND_EVERY = 10
+
+
+def gpu_ports_cluster(n_nodes: int, caps: Capacities, device=None,
+                      policy: Policy = DEFAULT_POLICY,
+                      node_kwargs: dict | None = None) -> Scheduler:
+    """A Scheduler on the gpu_ports traffic's nodes (with `node_kwargs`
+    added to GPU_PORTS_NODES) with its bound pods accounted
+    (`Scheduler.add_pod`): on node i, i % GPU_PORTS_BOUND_EVERY == 0, one
+    pod of 100m / 250Mi with host port 8080 and, where the node has GPUs,
+    one GPU."""
+    sched = Scheduler(caps, policy, device)
+    sched.add_nodes(make_nodes(n_nodes, **GPU_PORTS_NODES, **(node_kwargs or {})))
+    on = range(0, n_nodes, GPU_PORTS_BOUND_EVERY)
+    # bound pod k sits on node 10 k, which has GPUs where k is even
+    bound = make_pods(len(on), name_prefix="bound",
+                      extra_requests=((2, 0, {GPU: "1"}),),
+                      host_ports=((1, 0, 8080),))
+    for i, pod in zip(on, bound):
+        sched.add_pod(pod, f"node-{i}")
+    return sched
 
 
 def default_caps(n_nodes: int, n_pods: int) -> Capacities:

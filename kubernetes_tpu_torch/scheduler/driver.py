@@ -10,7 +10,11 @@ chunks, `prepare_chunk` one chunk's solver operands). The round-robin counter
 chains from batch to batch, so a sequence of `schedule` calls makes the
 decisions one long serial schedule would. `add_pod`, `remove_pod` and
 `remove_node` keep the StateDB in step for pods bound and deleted, and
-nodes dropped, outside `schedule`.
+nodes dropped, outside `schedule`. Host ports are accounted like requests:
+a bound pod's ports through `add_pod`, a placed pod's from its batch row
+at commit, and a batch with a host-port, GPU, scratch or overlay request
+runs the scan's EXT variant (the main or gang build), whose host-port
+counts the StateDB adopts.
 
 SelectorSpread reads the workload objects: `add_service`,
 `remove_service`, `add_controller` and `remove_controller` keep in-memory

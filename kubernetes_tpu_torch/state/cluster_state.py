@@ -265,10 +265,11 @@ def pod_controller_ref(pod: Pod) -> tuple[str, str] | None:
 
 class NodeTable:
     """Host-side index over the state: row assignment from a free list,
-    universe interning (selector terms, requirements, taints, topology
-    keys and domains, preferAvoidPods signatures, pod selectors, carried
-    pod-affinity terms) and per-row label source data for membership and
-    topology refills when a pod interns a new term or key."""
+    universe interning (selector terms, requirements, taints, host ports,
+    topology keys and domains, preferAvoidPods signatures, pod selectors,
+    carried pod-affinity terms) and per-row label source data for
+    membership and topology refills when a pod interns a new term or
+    key."""
 
     def __init__(self, caps: Capacities):
         self.caps = caps
@@ -278,6 +279,7 @@ class NodeTable:
         self.sel_terms: dict[tuple[str, str], int] = {}
         self.reqs: dict[tuple[str, str, tuple[str, ...]], int] = {}
         self.taints: dict[tuple[str, str, str], int] = {}
+        self.ports: dict[int, int] = {}
         self.avoids: dict[tuple[str, str], int] = {}
         self.labels_of: list[dict[str, str] | None] = [None] * caps.num_nodes
         self.domains: list[dict] = [dict() for _ in range(caps.topology_slots)]
@@ -367,6 +369,26 @@ class NodeTable:
         tid = len(self.taints)
         self.taints[key] = tid
         return tid
+
+    def intern_port(self, port: int) -> int:
+        pid = self.ports.get(port)
+        if pid is not None:
+            return pid
+        if len(self.ports) >= self.caps.port_universe:
+            raise CapacityError(
+                f"port universe {self.caps.port_universe} exhausted "
+                f"interning {port}")
+        pid = len(self.ports)
+        self.ports[port] = pid
+        return pid
+
+    def port_onehot(self, ports: Iterable[int]) -> np.ndarray:
+        """f32[UP]: the pod's host ports, a port listed twice counted
+        twice (the reference's layout)."""
+        out = np.zeros((self.caps.port_universe,), np.float32)
+        for port in ports:
+            out[self.intern_port(port)] += 1.0
+        return out
 
     @property
     def spread_zones(self) -> int:

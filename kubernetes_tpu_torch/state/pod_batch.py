@@ -8,13 +8,13 @@ membership columns must be refilled (StateDB.flush) before the batch is
 solved.
 
 This package's solver covers the scheduler's main path, SelectorSpread,
-inter-pod (anti-)affinity, gang groups and pod priority (the `priority`
-column, which gates the preemption pass). The encoder rejects, with
-NotImplementedError, pods whose features would change the result outside
-it (volumes, host ports). Features the solver gates per batch
-(gpu and storage requests, preferred node affinity) are encoded, and the
-solver raises on them. The spreading columns (spread_q, spread_svc_q,
-svcanti_q, svcanti_total) are read from the pod's namespace and labels and
+inter-pod (anti-)affinity, gang groups, pod priority (the `priority`
+column, which gates the preemption pass), host ports (`port_onehot`, the
+pod's ports interned into the NodeTable's port universe) and gpu and
+storage requests. The encoder rejects, with NotImplementedError, pods
+whose features would change the result outside it (volumes). The
+spreading columns (spread_q, spread_svc_q, svcanti_q, svcanti_total) are
+read from the pod's namespace and labels and
 the workload objects of an EncodeContext, and the inter-pod columns
 (paff_*, panti_*, ppref_*, ipaff_fail, pod_carries_e) from its
 podAffinity and podAntiAffinity, as the reference encodes them. A pod's
@@ -197,8 +197,6 @@ def unsupported_feature(pod: Pod) -> str | None:
     not carry and that would change the result, else None."""
     if pod.spec.volumes:
         return "volumes"
-    if pod.host_ports():
-        return "host ports"
     return None
 
 
@@ -278,6 +276,7 @@ def encode_pod_into(batch: PodBatch, i: int, pod: Pod, caps: Capacities,
     batch.valid[i] = True
     batch.requests[i] = pod_requests(pod)
     batch.nonzero_requests[i] = pod_nonzero_requests(pod)
+    batch.port_onehot[i] = table.port_onehot(pod.host_ports())
 
     batch.sel_onehot[i] = 0.0
     selector = pod.spec.node_selector

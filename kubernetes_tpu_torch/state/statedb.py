@@ -14,7 +14,9 @@ placed by a batch) aggregate into host numpy arrays (`host`), and
   host arrays from the batch's f32 blob, so host and device agree without
   a transfer, and accounts each placed pod so `remove_pod` can undo it.
 
-The affinity ledgers are accounted the same way: the pod-selector counts
+The host-port counts (`port_count`, read by PodFitsHostPorts) are
+accounted the same way, from each pod's port row (a port listed twice
+counts twice, as in the reference). The affinity ledgers too: the pod-selector counts
 (`podsel_count`, read by SelectorSpread and inter-pod affinity) from each
 pod's match row, and the carried-term counts (`term_count`, the existing
 pods' pod-affinity terms) from its carried-term row. A selector entry
@@ -57,26 +59,24 @@ from kubernetes_tpu_torch.state.pod_batch import blob_col
 from kubernetes_tpu_torch.utils.device import resolve_device
 
 _UNIVERSE_FIELDS = tuple(f for f in STATE_FIELDS if f not in NODE_AXIS_FIELDS)
-_LEDGER_FIELDS = ("requested", "nonzero_requested", "podsel_count",
-                  "term_count")
+_LEDGER_FIELDS = ("requested", "nonzero_requested", "port_count",
+                  "podsel_count", "term_count")
 
 
 # What removing an accounted pod takes back from its node's row, in the
 # columns of this package's ledgers: (node name, j, requests f32[K, R],
 # nonzero f32[K, 2], match row f32[K, UQ], carried-term row f32[K, UE],
-# the pod), the pod's columns being row j of arrays it shares with the
-# pods accounted beside it; the pod's namespace and labels refill entries
+# the pod, port row f32[K, UP]), the pod's columns being row j of arrays
+# it shares with the pods accounted beside it; the pod's namespace and labels refill entries
 # interned after it. A plain tuple, so a batch's thousands of records cost
 # one small object each.
 AccountedPod = tuple[str, int, np.ndarray, np.ndarray, np.ndarray,
-                     np.ndarray, Pod]
+                     np.ndarray, Pod, np.ndarray]
 
 
 def unaccountable_feature(pod: Pod) -> str | None:
     """The first part of a bound pod whose accounting needs a ledger this
-    package does not carry (host-port counts, volume atoms), else None."""
-    if pod.host_ports():
-        return "host ports"
+    package does not carry (volume atoms), else None."""
     if pod.spec.volumes:
         return "volumes"
     return None
@@ -123,9 +123,10 @@ class StateDB:
     # ---- pod accounting ----
 
     def _apply_pod(self, row: int, acc: AccountedPod, sign: int) -> None:
-        _name, j, requests, nonzero, match, carry, _pod = acc
+        _name, j, requests, nonzero, match, carry, _pod, ports = acc
         self.host.requested[row] += sign * requests[j]
         self.host.nonzero_requested[row] += sign * nonzero[j]
+        self.host.port_count[row] += sign * ports[j]
         self.host.podsel_count[row] += sign * match[j]
         self.host.term_count[row] += sign * carry[j]
         self._dirty_rows.add(row)
@@ -161,15 +162,16 @@ class StateDB:
         acc = (node_name, 0, pod_requests(pod)[None],
                pod_nonzero_requests(pod)[None],
                pod_match_row(self.table, pod)[None],
-               carried_term_row(self.table, eids)[None], pod)
+               carried_term_row(self.table, eids)[None], pod,
+               self.table.port_onehot(pod.host_ports())[None])
         self._apply_pod(row, acc, +1)
         self._accounted[pod.key] = acc
         self._bound.setdefault(pod.metadata.namespace, {})[pod.key] = pod
         return True
 
     def remove_pod(self, pod_key: str) -> None:
-        """Take an accounted pod's requests, selector matches and carried
-        terms back from its node."""
+        """Take an accounted pod's requests, host ports, selector matches
+        and carried terms back from its node."""
         acc = self._forget(pod_key)
         if acc is None:
             return
@@ -208,7 +210,7 @@ class StateDB:
         row_of = self.table.row_of
         for qid in self.table.pending_podsel_refresh:
             ns_key, canon = self.table.podsel_attrs[qid]
-            for name, j, _req, _nz, match, _carry, pod in self._accounted.values():
+            for name, j, _req, _nz, match, _carry, pod, _ports in self._accounted.values():
                 if match[j, qid]:
                     continue  # accounted after the intern: already counted
                 if pod_matches_entry(pod, ns_key, canon):
@@ -258,12 +260,15 @@ class StateDB:
 
     def adopt_result(self, result) -> None:
         """Chain the solver's post-batch ledgers as the device truth (no
-        copy, no synchronization); an affinity ledger the batch passed
-        through (`new_podsel` or `new_term` None) stays as it was."""
+        copy, no synchronization); a port or affinity ledger the batch
+        passed through (`new_port_count`, `new_podsel` or `new_term` None)
+        stays as it was."""
         if self._device is None:
             raise RuntimeError("adopt_result before flush")
         self._device.requested = result.new_requested
         self._device.nonzero_requested = result.new_nonzero
+        if result.new_port_count is not None:
+            self._device.port_count = result.new_port_count
         if result.new_podsel is not None:
             self._device.podsel_count = result.new_podsel
         if result.new_term is not None:
@@ -278,8 +283,9 @@ class StateDB:
         (pod, node name, batch row) of each placed pod, in batch order. The
         host row of each node gains the blob's `requests` and
         `nonzero_requests` columns of its pods, added in pod order as the
-        scan added them, its `pod_matches_q` columns to the pod-selector
-        counts and its `pod_carries_e` columns to the carried-term counts.
+        scan added them, its `port_onehot` columns to the host-port counts,
+        its `pod_matches_q` columns to the pod-selector counts and its
+        `pod_carries_e` columns to the carried-term counts.
         Pods already accounted, or on nodes removed since, are skipped."""
         self.adopt_result(result)
         committed = list(committed)
@@ -304,9 +310,11 @@ class StateDB:
         nz = blob_col(fblob, None, "nonzero_requests", self.caps)[idx]
         match = blob_col(fblob, None, "pod_matches_q", self.caps)[idx]
         carry = blob_col(fblob, None, "pod_carries_e", self.caps)[idx]
+        ports = blob_col(fblob, None, "port_onehot", self.caps)[idx]
         np.add.at(self.host.requested, rows, req)
         np.add.at(self.host.nonzero_requested, rows, nz)
         for rows_of, ledger, device in (
+                (ports, self.host.port_count, result.new_port_count),
                 (match, self.host.podsel_count, result.new_podsel),
                 (carry, self.host.term_count, result.new_term)):
             if rows_of.any():
@@ -317,4 +325,4 @@ class StateDB:
                     self._dirty_rows.update(rows[hit].tolist())
         accounted.update(zip(keys, zip(names, range(len(keys)), repeat(req),
                                        repeat(nz), repeat(match), repeat(carry),
-                                       compress(pods, live))))
+                                       compress(pods, live), repeat(ports))))

@@ -4,8 +4,9 @@ Pallas fused static mask) on assignments, scores, feasible counts, both
 ledgers and rr_end, exactly; `Scheduler.schedule` over three chained
 batches equals JAX `schedule_batch` chained by hand; and every gate,
 policy or pod outside the main path raises NotImplementedError, but the
-tt and na gates, which the normalization flag carries and which equal
-JAX `schedule_batch` on a batch that raises them."""
+gates the port carries (tt and na through the normalization flag, ports,
+gpu and storage through the EXT variant, gang with spread or ipa,
+preempt), which equal JAX `schedule_batch` on a batch that raises them."""
 
 import dataclasses
 
@@ -184,9 +185,36 @@ def test_gates_outside_the_main_path_raise(gate):
         assert_same(got, want, gate)
         assert (got.preempt_node == -1).all() and (got.victim_count == 0).all()
         return
-    if gate == "ports":
-        batch.port_onehot[0, 0] = 1.0
-    elif gate == "vol":
+    if gate in ("gpu", "storage", "ports"):
+        # carried since the EXT variant of the main build: the batch raising
+        # the gate (the gated cluster's other gated columns held off on
+        # both sides, its PreferNoSchedule taints and preferred terms by the
+        # flags) equals the reference's with that gate
+        from kubernetes_tpu_torch.state.layout import Resource
+
+        other = {"gpu": (Resource.SCRATCH, Resource.OVERLAY),
+                 "storage": (Resource.GPU,), "ports": ()}[gate]
+        for st, b in ((state, batch), (jstate, jbatch)):
+            b.requests[:, list(other)] = 0.0
+            if gate == "ports":
+                b.port_onehot[[0, 3, 5], 0] = 1.0
+                b.port_onehot[5, 1] = 2.0   # a port listed twice
+                st.port_count[:12:3, 0] = 1.0
+        jflags = dataclasses.replace(NO_GATES, **{gate: True})
+        want = jax.jit(lambda s, b, r: jsolver.schedule_batch(
+            s, b, r, J_POLICY, flags=jflags))(jstate, jbatch, np.uint32(0))
+        got = schedule_batch(state_from_numpy(state, "cpu"),
+                             batch_from_numpy(batch, "cpu"), 0,
+                             flags=dataclasses.replace(BatchFlags(*([False] * 12)),
+                                                       **{gate: True}))
+        assert_same(got, want, gate)
+        if gate == "ports":
+            np.testing.assert_array_equal(got.new_port_count.numpy(),
+                                          np.asarray(want.new_port_count))
+        else:
+            assert got.new_port_count is None   # no port wanted: passed through
+        return
+    if gate == "vol":
         batch.vol_want_rw[0, 0] = 1.0
     elif gate.startswith("gang"):
         # carried since the gang carry in the spread and interpod builds:

@@ -259,6 +259,13 @@ def test_encoder_rejects_pods_outside_the_main_path(feature, spec, meta):
         batch = encode_pods([pod], CAPS, encode_cluster([], [], CAPS)[2])
         assert batch.priority[0] == 100
         return
+    if feature == "host ports":
+        # encoded since the EXT variant, into the port row
+        table = encode_cluster([], [], CAPS)[2]
+        batch = encode_pods([pod], CAPS, table)
+        assert table.ports == {8080: 0}
+        assert batch.port_onehot[0].tolist() == [1.0] + [0.0] * (CAPS.port_universe - 1)
+        return
     with pytest.raises(NotImplementedError, match=feature):
         encode_pods([pod], CAPS, encode_cluster([], [], CAPS)[2])
 
