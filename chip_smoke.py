@@ -208,6 +208,31 @@ fails; nothing is caught and skipped:
    memory but not in GPU or ports, on nodes with counts up to 3 and with
    and without overlay allocatable, on groups that revert on a node three
    members share, and on traffics that force the flag's guess to miss;
+12c. volumes: the volumes cell (perf/harness.py volumes_cluster,
+   volumes_pods: the 15,000 nodes, 24 zonal GCE PVs bound by claims, 4
+   unbound claims, a bound pod holding a dataset disk read-write on every
+   10th node; 30,000 pods with a token secret and an emptyDir, every 4th
+   mounting a dataset disk read-only, every 8th a claim, 4 a claim not
+   found and 4 an unbound claim; the conflict and attach universes at 64)
+   through Scheduler(device="cuda"): the 8 unplaceable pods left out and
+   every other placed, no read-only disk beside its read-write holder, each
+   claim's pod in its PV's zone, no node past its GCE PDs, the device's
+   conflict and attach counts equal to the host's, the main build with EXT
+   launched once a batch (and no other build), the first and last batch
+   equal to the plain path; then the cell's first batch on fresh clusters
+   with KUBE_MAX_PD_VOLS=1, in groups of 8, with one member of every 8th
+   group on an unbound claim (those groups revert), with one
+   PreferNoSchedule taint (the tight limit, and the groups: the flag's EXT
+   instances), and with NoVolumeNodeConflict's gate on and 2 PVs with node
+   affinity, each launched once and held against the plain path (the
+   variants on their first 256 pods); and phase 3 ends with vol_hazards:
+   the main and gang builds with EXT against their plain versions at every
+   RUN, with and without the flag, on batches whose conflict and attach
+   universes are full (64 atoms, bits 31, 32 and 63), whose atoms run out
+   mid-batch under three attach limits, whose pods list a disk twice, carry
+   the attach fail bit or equal the previous pod but in their volumes, on
+   groups that revert on a node three members share and must give their
+   words back, and on traffics that force the flag's guess to miss;
 14. the kernels line, the nvidia-smi line, and last the result line.
 
 Every phase line carries `elapsed_s`, the script's seconds when it was
@@ -320,6 +345,11 @@ EXT_PORTS = 64
 # and and test 2, the gpu column's add and compare 2, the storage fit's
 # overlay test, three adds and a compare (or two adds and two compares) 5
 EXT_OPS_PER_PAIR = 9
+# the volume half (per feasible pair of a pod with such words): the disk
+# conflict (two ANDs, an OR, a compare) and, per attach limit, two ANDs, an
+# AND-NOT, two popcounts, an add and a compare
+VOL_DISK_OPS = 4
+VOL_ATTACH_OPS = 7
 # the gpu_ports cell (perf/harness.py GPU_PORTS_NODES, GPU_PORTS_PODS,
 # gpu_ports_cluster): its batches held against the plain path (of 8: the
 # first and the last), the group size of its gang variant, and every how
@@ -335,6 +365,22 @@ GPU_PORTS_SCOPE = 256
 # gpu_ports cluster at 2,000 nodes (N = 2,048, one batch of 1,024): 400
 # fit whole GPU nodes, and evicting a bound pod frees the 100 with 7
 GPU_PREEMPT_NODES, GPU_PREEMPT_PODS = 2000, 600
+# the volume hazards: the EXT shapes' batches with conflict and attach
+# atoms filling both universes (64, the words' limit: bits 31, 32 and 63
+# in use) and three attach limits that bite (EBS 3, GCE 2, Azure 2)
+VOL_UNIVERSE = 64
+VOL_LIMITS = ((0, 3), (1, 2), (2, 2))   # (VolType, limit)
+# the volumes cell (perf/harness.py volumes_cluster, volumes_pods): its
+# batches held against the plain path (of 8: the first and the last), the
+# group size of its gang variant, every how many groups one member of it
+# mounts an unbound claim (those groups revert), KUBE_MAX_PD_VOLS of its
+# first batch's tight variant, and the PVs with node affinity of its
+# VolumeNode variant
+VOLUMES_CHECKED = (0, 7)
+VOLUMES_GANG = 8
+VOLUMES_REVERT_EVERY = 8
+VOLUMES_TIGHT_LIMIT = 1
+VOLUMES_NODE_AFFINITY_PVS = 2
 
 # the preemption cell (perf/harness.py preemption_cluster): nodes, and the
 # variants whose post-scan operands kernel 3 is held on; operations of the
@@ -2437,16 +2483,17 @@ def norm_bound(base, masked, norm) -> tuple[float, str]:
     return bound(nbytes + 16 * n + 64 * p, ops)
 
 
-def scan_call(torch, state, batch, flags, caps, zones=None):
-    """The scan build the solver dispatches for one batch, with its
-    operands as the solver makes them (rr 0): (its wrapper's name, the
-    wrapper, its plain version, the arguments before the flag, the flag's
-    NormInputs or None, the comparison of two results, and its bound
-    without the flag as a function of the plain result)."""
+def scan_call(torch, state, batch, flags, caps, zones=None, policy=None):
+    """The scan build the solver dispatches for one batch under `policy`
+    (default DEFAULT_POLICY), with its operands as the solver makes them
+    (rr 0): (its wrapper's name, the wrapper, its plain version, the
+    arguments before the flag, the flag's NormInputs or None, the
+    comparison of two results, and its bound without the flag as a
+    function of the plain result)."""
     from kubernetes_tpu_torch.ops import assign_scan as scan
     from kubernetes_tpu_torch.ops import solver
 
-    policy = solver.DEFAULT_POLICY
+    policy = policy or solver.DEFAULT_POLICY
     g = solver.check_supported(policy, flags)
     masked = solver.masked_static_scores(state, batch, policy, g)
     args = (masked, batch.requests, batch.nonzero_requests, state.allocatable,
@@ -2491,9 +2538,11 @@ def scan_call(torch, state, batch, flags, caps, zones=None):
                 scan.assign_scan_spread_plain, (*args, sp), norm, compare_spread,
                 lambda _res: spread_bound(args, sp))
     if g.use_ext:
-        ext = scan.ExtInputs(use_ports=g.use_ports,
-                             port_onehot=batch.port_onehot.contiguous(),
-                             port_count=state.port_count)
+        # (a tree from before the EXT variant's volumes: its ports and fit)
+        ext = (solver.ext_inputs(state, batch, g) if hasattr(solver, "ext_inputs") else
+               scan.ExtInputs(use_ports=g.use_ports,
+                              port_onehot=batch.port_onehot.contiguous(),
+                              port_count=state.port_count))
         if flags.gang:
             gang = scan.GangInputs(gang_id=batch.gang_id.contiguous(),
                                    gang_min=batch.gang_min.contiguous())
@@ -2814,21 +2863,42 @@ def ext_bound(base, args, ext) -> tuple[float, str]:
     operations (`base()`; they already count every column of the requests,
     allocatable and requested once), plus the port words, read once a node
     and a pod and written once a node (N * 16 + P * 8 bytes), and
-    EXT_OPS_PER_PAIR per statically feasible pair."""
+    EXT_OPS_PER_PAIR per statically feasible pair; where the batch runs
+    NoDiskConflict or MaxPDVolumeCount, the volume words too (N * 48 + P *
+    32 bytes: three a node read and written, four a pod), VOL_DISK_OPS per
+    feasible pair of a pod with conflict atoms and VOL_ATTACH_OPS per
+    attach limit and feasible pair of a pod with attach atoms."""
     base()
     nbytes, ops = BOUND_PARTS[-1]
     p, n = args[0].shape
-    pairs = float((args[0] > float("-inf")).sum())
-    return bound(nbytes + 16 * n + 8 * p, ops + EXT_OPS_PER_PAIR * pairs)
+    feasible = args[0] > float("-inf")
+    nbytes, ops = nbytes + 16 * n + 8 * p, ops + EXT_OPS_PER_PAIR * float(feasible.sum())
+    if ext.use_nodisk or ext.attach_maxes:
+        nbytes += 48 * n + 32 * p
+        per_pod = feasible.sum(1).double()
+        if ext.use_nodisk:
+            disk = ((ext.vol_want_rw != 0) | (ext.vol_want_ro != 0)).any(1)
+            ops += VOL_DISK_OPS * float(per_pod[disk].sum())
+        if ext.attach_maxes:
+            att = (ext.att_onehot != 0).any(1)
+            ops += VOL_ATTACH_OPS * len(ext.attach_maxes) * float(per_pod[att].sum())
+    return bound(nbytes, ops)
+
+
+# the EXT variant's carried ledgers (ScanResult and SolverResult fields)
+EXT_LEDGERS = ("new_port_count", "new_vol_any", "new_vol_rw", "new_attach")
 
 
 def compare_ext(torch, got, want) -> float:
-    """compare_scan plus the host-port counts."""
+    """compare_scan plus the host-port, conflict and attach counts."""
     err = compare_scan(torch, got, want)
-    a, b = got.new_port_count, want.new_port_count
-    if (a is None) != (b is None) or (a is not None and not torch.equal(a, b)):
-        raise AssertionError("assign_scan EXT kernel != plain on new_port_count")
-    return err if a is None else max(err, max_abs_err(torch, [(a, b)]))
+    for f in EXT_LEDGERS:
+        a, b = getattr(got, f), getattr(want, f)
+        if (a is None) != (b is None) or (a is not None and not torch.equal(a, b)):
+            raise AssertionError(f"assign_scan EXT kernel != plain on {f}")
+        if a is not None:
+            err = max(err, max_abs_err(torch, [(a, b)]))
+    return err
 
 
 def ext_hazard_inputs(torch, rng, dev, n, p, hot=False):
@@ -3009,6 +3079,427 @@ def ext_hazards_phase(torch, rng, dev) -> dict:
             "forced_misses_of_exchanging_pods": misses, "kernels_equal_plain": True}
 
 
+def vol_hazard_inputs(torch, rng, dev, n, p, hot=False):
+    """ext_hazard_inputs' batch (GPUs, storage and host ports, with `hot`
+    its six nodes that take every pod) with volumes over universes of
+    VOL_UNIVERSE conflict and attach atoms, drawn mostly from atoms 0, 1,
+    31, 32 and 63 (both halves of the word and its sign bit): nodes holding
+    1 or 2 conflict atoms (a third of them one read-write) and 1 or 2
+    attach atoms, counts up to 2; pods mounting an atom read-write (a disk
+    listed twice on some) or read-only, or both, wanting 1 or 2 attach
+    atoms, a few with the attach fail bit, half of the pods repeating the
+    previous pod's volumes (the term cache's hits); attach types cycled
+    over EBS, GCE, Azure and ANY, the limits VOL_LIMITS (which bite on the
+    hot nodes). Returns (the scan arguments, ExtInputs)."""
+    args, ext = ext_hazard_inputs(torch, rng, dev, n, p, hot)
+    u = VOL_UNIVERSE
+    hot_atoms = np.array([0, 1, 31, 32, 63])
+
+    def atoms(k):
+        return np.where(rng.random(k) < 0.7, rng.choice(hot_atoms, k),
+                        rng.integers(0, u, k))
+
+    nodes = np.arange(n)
+    vol_any = np.zeros((n, u), np.float32)
+    vol_rw = np.zeros((n, u), np.float32)
+    attach = np.zeros((n, u), np.float32)
+    held = rng.random(n) < 0.3
+    first = atoms(n)
+    np.add.at(vol_any, (nodes[held], first[held]), rng.integers(1, 3, n)[held])
+    two = held & (rng.random(n) < 0.3)
+    np.add.at(vol_any, (nodes[two], atoms(n)[two]), 1.0)
+    rw = held & (rng.random(n) < 0.35)
+    vol_rw[nodes[rw], first[rw]] = vol_any[nodes[rw], first[rw]]
+    present = rng.random(n) < 0.4
+    np.add.at(attach, (nodes[present], atoms(n)[present]), rng.integers(1, 3, n)[present])
+    two = present & (rng.random(n) < 0.4)
+    np.add.at(attach, (nodes[two], atoms(n)[two]), 1.0)
+    pods = np.arange(p)
+    want_rw = np.zeros((p, u), np.float32)
+    want_ro = np.zeros((p, u), np.float32)
+    att = np.zeros((p, u), np.float32)
+    kind = rng.random(p)
+    rwp, rop = kind < 0.2, (kind >= 0.2) & (kind < 0.45)
+    both = rwp & (rng.random(p) < 0.2)
+    want_rw[pods[rwp], atoms(p)[rwp]] = np.where(rng.random(p) < 0.1, 2.0, 1.0)[rwp]
+    want_ro[pods[rop | both], atoms(p)[rop | both]] = 1.0
+    attp = rng.random(p) < 0.4
+    att[pods[attp], atoms(p)[attp]] = 1.0
+    two = attp & (rng.random(p) < 0.4)
+    att[pods[two], atoms(p)[two]] = 1.0
+    fail = rng.random(p) < 0.03
+    for i in np.flatnonzero(rng.random(p) < 0.5):
+        if i > 0:   # ascending: a run copies its first pod's
+            want_rw[i], want_ro[i], att[i], fail[i] = (want_rw[i - 1], want_ro[i - 1],
+                                                       att[i - 1], fail[i - 1])
+
+    def t(a, dtype=torch.float32):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
+
+    return args, dataclasses.replace(
+        ext, use_nodisk=True, vol_want_rw=t(want_rw), vol_want_ro=t(want_ro),
+        vol_any=t(vol_any), vol_rw=t(vol_rw), attach_maxes=VOL_LIMITS,
+        att_onehot=t(att), att_fail=t(fail, torch.bool), attach_count=t(attach),
+        attach_type=t(np.arange(u) % 4, torch.int32))
+
+
+def vol_shared_node_gang(torch, rng, dev, n, p):
+    """ext_shared_node_gang's groups (three members on one roomy node, the
+    fourth fitting nowhere, so the group reverts; then 6 pods fitting only
+    that node) with volumes on empty ledgers: member m of a group mounts
+    conflict atom 10 + m read-write and wants attach atom 20 + m (of types
+    EBS, GCE and Azure), and the 6 pods after it ask the same, pod k for
+    member k % 3's: the first three fit only if the revert gave the words
+    back, the last three then conflict on the disk. Returns (the scan
+    arguments, ExtInputs, GangInputs)."""
+    args, ext, gang = ext_shared_node_gang(torch, rng, dev, n, p)
+    u = VOL_UNIVERSE
+    want_rw = np.zeros((p, u), np.float32)
+    att = np.zeros((p, u), np.float32)
+    for start in range(0, p - 10 + 1, 10):
+        for j in (0, 1, 2, 4, 5, 6, 7, 8, 9):
+            m = j if j < 4 else (j - 4) % 3
+            want_rw[start + j, 10 + m] = 1.0
+            att[start + j, 20 + m] = 1.0
+
+    def t(a, dtype=torch.float32):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
+
+    zeros = np.zeros((n, u), np.float32)
+    return args, dataclasses.replace(
+        ext, use_nodisk=True, vol_want_rw=t(want_rw), vol_want_ro=t(np.zeros_like(want_rw)),
+        vol_any=t(zeros), vol_rw=t(zeros), attach_maxes=VOL_LIMITS, att_onehot=t(att),
+        att_fail=t(np.zeros(p, np.bool_), torch.bool), attach_count=t(zeros),
+        attach_type=t(np.arange(u) % 4, torch.int32)), gang
+
+
+def vol_hazards_phase(torch, rng, dev) -> dict:
+    """The main and gang builds with the EXT variant's volumes against their
+    plain versions at every RUN (EXT_SHAPES), without and with the
+    normalization flag (norm_test_inputs), max_abs_err 0, on
+    vol_hazard_inputs' batch and its hot variant (the universes filled to
+    64 atoms, atoms run out mid-batch, disks listed twice, fail bits,
+    consecutive pods equal but in their volumes), each also with the gang
+    carry on groups that revert (with_reverts); vol_shared_node_gang's
+    reverts on a node three members share, which must give the words back;
+    and, at the first shape, the traffics that force the flag's guess to
+    miss (norm_miss_inputs over the volume batch), each miss counted by the
+    host replay, which takes the volume fit. Every pod with the fail bit
+    must be left out, and some pod must be refused by the disk check.
+    Returns the phase line."""
+    from kubernetes_tpu_torch.ops import assign_scan as scan
+    from kubernetes_tpu_torch.ops import solver
+
+    errs: dict = {}
+    reverted = 0
+    misses: dict = {}
+    refused = 0
+
+    def held(args, ext, gang=None, norm=None):
+        nonlocal reverted
+        name = "assign_scan_ext" if gang is None else "assign_scan_gang_ext"
+        extra = (ext,) if gang is None else (ext, gang)
+        got = getattr(scan, name)(*args, 1.0, 1.0, *extra, norm)
+        want = getattr(scan, f"{name}_plain")(*args, 1.0, 1.0, *extra, norm)
+        key = name + ("+norm" if norm is not None else "")
+        errs[key] = max(errs.get(key, 0.0), compare_ext(torch, got, want))
+        if bool((want.assignments[ext.att_fail] >= 0).any()):
+            raise AssertionError("vol_hazards: a pod with the attach fail bit placed")
+        if gang is not None:
+            reverted += int(solver.gang_member_mask(gang.gang_id, gang.gang_min,
+                                                    want.assignments, want.scores)[3])
+        return name, (*args, 1.0, 1.0, *extra), got, want
+
+    for p_, n_ in EXT_SHAPES:
+        for hot in (False, True):
+            args, ext = vol_hazard_inputs(torch, rng, dev, n_, p_, hot)
+            gargs, gang = with_reverts(torch, rng, dev, args)
+            for a_, g_ in ((args, None), (gargs, gang)):
+                held(a_, ext, g_)
+                ms_, norm_ = norm_test_inputs(torch, rng, dev, a_[0])
+                held((ms_, *a_[1:]), ext, g_, norm_)
+        sargs, ext, gang = vol_shared_node_gang(torch, rng, dev, n_, p_)
+        _name, _args, _got, want = held(sargs, ext, gang)
+        # the last three of each block's six conflict on the disk
+        last = torch.tensor([s + j for s in range(0, p_ - 9, 10) for j in (7, 8, 9)],
+                            device=dev)
+        refused += int((want.assignments[last] < 0).sum())
+        ms_, norm_ = norm_test_inputs(torch, rng, dev, sargs[0])
+        held((ms_, *sargs[1:]), ext, gang, norm_)
+    p_, n_ = EXT_SHAPES[0]
+    for kind in NORM_MISS_KINDS:
+        base, ext = vol_hazard_inputs(torch, rng, dev, n_, p_)
+        margs, mnorm = norm_miss_inputs(torch, rng, dev, base, kind)
+        gargs, gang = with_reverts(torch, rng, dev, margs)
+        for a_, g_ in ((margs, None), (gargs, gang)):
+            name, args, got, _want = held(a_, ext, g_, mnorm)
+            misses[f"{name}_{kind}"] = list(norm_misses(name, args, mnorm, got))
+    runs = sorted({scan.node_run(n_) for _, n_ in EXT_SHAPES})
+    if runs != list(scan.RUNS):
+        raise AssertionError(f"vol_hazards checked {runs}, built {scan.RUNS}")
+    if reverted == 0 or refused == 0:
+        raise AssertionError(f"vol_hazards: {reverted} groups reverted, {refused} pods "
+                             f"refused by a disk")
+    if not all(m > 0 for m, _x in misses.values()):
+        raise AssertionError(f"vol_hazards: a forced-miss traffic missed nothing {misses}")
+    return {"phase": "vol_hazards", "shapes": [list(x) for x in EXT_SHAPES], "runs": runs,
+            "universes": [VOL_UNIVERSE, VOL_UNIVERSE], "limits": [list(x) for x in VOL_LIMITS],
+            "max_abs_err": errs, "groups_reverted": reverted,
+            "disk_refusals_after_a_revert": refused,
+            "forced_misses_of_exchanging_pods": misses, "kernels_equal_plain": True}
+
+
+def volumes_batch_pods(caps, group: bool = False, revert: bool = False):
+    """The volumes cell's first batch of pods; with `group` in all-or-nothing
+    groups of VOLUMES_GANG at full quorum, and with `revert` the last member
+    of every VOLUMES_REVERT_EVERY-th group also mounting an unbound claim
+    (its attach fails: the group reverts and gives its volumes back)."""
+    from kubernetes_tpu_torch.gang import GROUP_MIN_ANNOTATION, GROUP_NAME_ANNOTATION
+    from kubernetes_tpu_torch.perf.harness import volumes_pods
+
+    pods = volumes_pods(caps.batch_pods)
+    if group:
+        for i, pod in enumerate(pods):
+            pod.metadata.annotations = {
+                GROUP_NAME_ANNOTATION: f"volumes-{i // VOLUMES_GANG}",
+                GROUP_MIN_ANNOTATION: str(VOLUMES_GANG)}
+        if revert:
+            stride = VOLUMES_GANG * VOLUMES_REVERT_EVERY
+            for pod in pods[VOLUMES_GANG - 1::stride]:
+                pod.spec.volumes = pod.spec.volumes + [
+                    {"name": "late", "persistentVolumeClaim": {"claimName": "unbound-0"}}]
+    return pods
+
+
+def volumes_fresh_cluster(caps, dev, taint=False, tight=False, node_affinity=0):
+    """A fresh volumes cluster (perf/harness.py volumes_cluster): with
+    `taint` one PreferNoSchedule taint on node 0, with `tight` a Scheduler
+    made under KUBE_MAX_PD_VOLS=VOLUMES_TIGHT_LIMIT, with `node_affinity`
+    that many PVs with node affinity and the VolumeNode gate on."""
+    import os
+
+    from kubernetes_tpu_torch.perf.harness import volumes_cluster
+
+    if tight:
+        os.environ["KUBE_MAX_PD_VOLS"] = str(VOLUMES_TIGHT_LIMIT)
+    try:
+        return volumes_cluster(HEADLINE_NODES, caps, dev, node_kwargs={
+            "prefer_taint_every": HEADLINE_NODES} if taint else None,
+            node_affinity_pvs=node_affinity)
+    finally:
+        os.environ.pop("KUBE_MAX_PD_VOLS", None)
+
+
+def volumes_first_batch(torch, dev, group=False, revert=False, taint=False, tight=False):
+    """The volumes cell's first batch (volumes_batch_pods) as the driver
+    solves it on a fresh cluster (volumes_fresh_cluster): (caps, state,
+    batch, flags, the Scheduler's policy)."""
+    from kubernetes_tpu_torch.perf.harness import volumes_caps
+
+    caps = volumes_caps(HEADLINE_NODES, HEADLINE_PODS)
+    sched = volumes_fresh_cluster(caps, dev, taint, tight)
+    chunk, gang_id, gang_min = next(iter(sched.batches(
+        volumes_batch_pods(caps, group, revert))))
+    state, batch, flags, _victims, _slots = sched.prepare_chunk(chunk, gang_id, gang_min)
+    return caps, state, batch, flags, sched.policy
+
+
+def unplaceable(pod) -> bool:
+    """A volumes-cell pod no node can take: a claim not found, or not bound."""
+    return any(v.get("persistentVolumeClaim", {}).get("claimName", "").startswith(
+        ("missing-", "unbound-")) for v in pod.spec.volumes)
+
+
+def check_volume_placements(sched, pods, placements, node_affinity: int = 0) -> dict:
+    """The volumes cell's placements held on the host: the unplaceable pods
+    (`unplaceable`) and only they left out; no pod mounting a dataset disk
+    read-only on a node whose bound pod holds it read-write; every claim's
+    pod in its PV's zone (claim-k's PV is in zone-{k % 3}) and, for the
+    `node_affinity` PVs with node affinity, on a node it names (nodes k %
+    3, k % 3 + 9, ... below 30); no node past its distinct GCE PDs under
+    the Scheduler's limit (the host attach counts); and the device's
+    conflict and attach counts after a flush equal to the host's. Returns
+    the counts."""
+    from kubernetes_tpu_torch.perf.harness import (VOLUMES_BOUND_EVERY, VOLUMES_DATA_DISKS,
+                                                   ZONE_LABEL)
+    from kubernetes_tpu_torch.state.layout import VolType
+
+    db = sched.statedb
+    left = sorted(k for k, v in placements.items() if v is None)
+    want_left = sorted(p.key for p in pods if unplaceable(p))
+    if left != want_left:
+        raise AssertionError(f"volumes: unplaced {left[:8]}, want {want_left[:8]}")
+    row_of = db.table.row_of
+    zone_of = {name: db.table.labels_of[row][ZONE_LABEL] for name, row in row_of.items()}
+    read_only = claims = 0
+    for pod in pods:
+        node = placements[pod.key]
+        if node is None:
+            continue
+        i = int(node.split("-")[1])
+        for v in pod.spec.volumes:
+            gce = v.get("gcePersistentDisk")
+            if gce and gce.get("readOnly"):
+                read_only += 1
+                if i % VOLUMES_BOUND_EVERY == 0 and gce["pdName"] == (
+                        f"data-{(i // VOLUMES_BOUND_EVERY) % VOLUMES_DATA_DISKS}"):
+                    raise AssertionError(f"volumes: {pod.key} mounts {gce['pdName']} "
+                                         f"read-only on {node}, which holds it read-write")
+            claim = v.get("persistentVolumeClaim")
+            if claim:
+                claims += 1
+                k = int(claim["claimName"].split("-")[1])
+                if zone_of[node] != f"zone-{k % 3}":
+                    raise AssertionError(f"volumes: {pod.key} in {zone_of[node]}, its PV "
+                                         f"in zone-{k % 3}")
+                if k < node_affinity and i not in range(k % 3, 30, 9):
+                    raise AssertionError(f"volumes: {pod.key} on {node}, outside its PV's "
+                                         f"node affinity")
+    host = db.host
+    gce = np.array([db.table.attach_types.get(a) in (VolType.GCE, VolType.ANY)
+                    for a in range(host.attach_count.shape[1])])
+    per_node = (host.attach_count[:, gce] > 0).sum(1)
+    if per_node.max() > sched.policy.max_gce_pd_volumes:
+        raise AssertionError(f"volumes: a node holds {per_node.max()} GCE PDs, the limit "
+                             f"is {sched.policy.max_gce_pd_volumes}")
+    dev = db.flush()
+    for f in ("vol_any", "vol_rw", "attach_count"):
+        if not np.array_equal(getattr(dev, f).cpu().numpy(), getattr(host, f)):
+            raise AssertionError(f"volumes: the device's {f} != the host's")
+    return {"unplaced": len(left), "read_only_mounts": read_only, "claims": claims,
+            "max_gce_pds_on_a_node": int(per_node.max()),
+            "conflict_atoms": len(db.table.vol_atoms),
+            "attach_atoms": len(db.table.attach_atoms)}
+
+
+def volumes_phase(torch, dev, kernels) -> tuple[dict, list]:
+    """The volumes cell (perf/harness.py volumes_cluster, volumes_pods:
+    bench[headline]'s 15,000 nodes, 24 zonal GCE PVs bound by claims and 4
+    unbound claims, a bound pod holding a dataset disk read-write on every
+    10th node; 30,000 pods with a token secret and an emptyDir, every 4th
+    mounting a dataset disk read-only, every 8th a claim, 4 a claim not
+    found and 4 an unbound claim) through Scheduler(device="cuda"), the
+    universes at 64: the 8 unplaceable pods left out and every other placed
+    (check_volume_placements), the main build with EXT launched once a
+    batch (and no other build), the first and last batch equal to the plain
+    path on the state and batch the driver solved them on. Then the cell's
+    first batch through fresh clusters: with KUBE_MAX_PD_VOLS=1 (a node
+    holding a GCE PD takes no second; the main build with EXT, held whole);
+    in groups of 8 (the gang build with EXT); that with one member of every
+    8th group on an unbound claim (those groups revert and give their
+    volumes back); the tight limit with one PreferNoSchedule taint on node
+    0 (the main build with EXT and the flag); the groups with the taint
+    (the gang build with EXT and the flag); and with the VolumeNode gate on
+    and 2 PVs with node affinity (Phase A's VolumeNode) — each launched
+    once and held against the plain path (the variants on their first 256
+    pods). Returns (the phase line, the kernels-line entries, named with
+    `[volumes]`)."""
+    from kubernetes_tpu_torch.ops import solver
+    from kubernetes_tpu_torch.perf.harness import (measure, volumes_caps, volumes_cluster,
+                                                   volumes_pods)
+    from kubernetes_tpu_torch.scheduler import driver
+
+    caps = volumes_caps(HEADLINE_NODES, HEADLINE_PODS)
+    pods = volumes_pods(HEADLINE_PODS)
+    sched = volumes_cluster(HEADLINE_NODES, caps, dev)
+    seen = []
+    solve = record_solves(torch, driver, VOLUMES_CHECKED, seen)
+    _count_launches(kernels, reset=True)
+    try:
+        result = measure(sched, pods)
+    finally:
+        driver.schedule_batch = solve
+    launches, norm_launches = _count_launches(kernels)
+    odd = sum(map(unplaceable, pods))   # VOLUMES_UNPLACEABLE at the cell's 30,000
+    if result.scheduled != HEADLINE_PODS - odd:
+        raise AssertionError(f"volumes: placed {result.scheduled}/{HEADLINE_PODS}")
+    want = {name: 0 for name in launches}
+    want.update(static_mask=result.batches, assign_scan_ext=result.batches)
+    if launches != want or any(norm_launches.values()):
+        raise AssertionError(f"volumes: launches {launches}, with the flag "
+                             f"{norm_launches}, over {result.batches} batches")
+    checks = check_volume_placements(sched, pods, result.placements)
+    for k in VOLUMES_CHECKED[1:]:   # (the first: its kernels-line entry, below)
+        (state, batch, rr, flags), got = seen[k]
+        if not (flags.vol and flags.attach):
+            raise AssertionError(f"volumes: batch {k} raises {flags}")
+        head = scope_batch(batch, GPU_PORTS_SCOPE)
+        kern = solver.schedule_batch(state, head, rr, sched.policy, flags, caps)
+        compare_solves(torch, kern, solver.schedule_batch_plain(
+            state, head, rr, sched.policy, flags, caps), f"volumes batch {k}")
+        held_solve(torch, got, f"volumes batch {k}", scope=GPU_PORTS_SCOPE)(kern)
+    (state, batch, rr, flags), got = seen[0]
+    call = scan_call(torch, state, batch, flags, caps)
+    if call[0] != "assign_scan_ext" or call[4] is not None or rr != 0:
+        raise AssertionError(f"volumes: the first batch runs {call[0]}")
+    entry = norm_entry(torch, call, launches["assign_scan_ext"],
+                       also=held_solve(torch, got, "volumes batch 0"))
+    entries = [{**entry, "name": entry["name"] + "[volumes]"}]
+    line = {"phase": "volumes", "nodes": HEADLINE_NODES, "pods": HEADLINE_PODS,
+            "caps": [caps.num_nodes, caps.batch_pods, caps.volume_universe,
+                     caps.attach_universe], **run_fields(result), "launches": launches,
+            "checked_batches_equal_plain": list(VOLUMES_CHECKED), **checks,
+            "first_batch_ms": entry["ms"], "first_batch_plain_ms": entry["plain_ms"]}
+    del sched, seen, state, batch, call
+
+    def first_batch_run(what, group=False, revert=False, taint=False, tight=False,
+                        node_affinity=0):
+        """One batch of the cell's first pods through a fresh cluster:
+        (the kernels-line entry, the run's line)."""
+        batch_pods = volumes_batch_pods(caps, group, revert)
+        fresh = volumes_fresh_cluster(caps, dev, taint, tight, node_affinity)
+        rec = []
+        prev = record_solves(torch, driver, (0,), rec)
+        _count_launches(kernels, reset=True)
+        try:
+            res = measure(fresh, batch_pods)
+        finally:
+            driver.schedule_batch = prev
+        got_launches, got_norm = _count_launches(kernels)
+        build = "assign_scan_gang_ext" if group else "assign_scan_ext"
+        expect = {name: 0 for name in got_launches}
+        expect.update({"static_mask": 1, build: 1})
+        if got_launches != expect or got_norm[build] != int(taint):
+            raise AssertionError(f"volumes {what}: launches {got_launches}, with the "
+                                 f"flag {got_norm}")
+        run = {} if group else check_volume_placements(fresh, batch_pods, res.placements,
+                                                       node_affinity)
+        (state, batch, rr, flags), got = rec[0]
+        scope = None if what == "tight" else GPU_PORTS_SCOPE
+        call = scan_call(torch, state, batch if scope is None else scope_batch(batch, scope),
+                         flags, caps, policy=fresh.policy)
+        if call[0] != build or (call[4] is None) == taint or rr != 0:
+            raise AssertionError(f"volumes {what}: the batch runs {call[0]}")
+        entry = norm_entry(torch, call, got_norm[build] if taint else got_launches[build],
+                           also=held_solve(torch, got, f"volumes {what}",
+                                           call[3][10] if group else None, scope))
+        if scope is not None:
+            entry = scoped(entry, scope)
+        run.update({"placed": res.scheduled, "ms": entry["ms"], "plain_ms": entry["plain_ms"],
+                    "gang_placed": res.gang_placed, "gang_reverted": res.gang_reverted,
+                    **{k: entry[k] for k in ("norm_misses", "norm_exchanging_pods")
+                       if k in entry}})
+        if group:
+            groups = caps.batch_pods // VOLUMES_GANG
+            reverts = len({i // VOLUMES_GANG for i, pod in enumerate(batch_pods)
+                           if unplaceable(pod)})
+            if (res.gang_reverted, res.gang_placed) != (reverts, groups - reverts):
+                raise AssertionError(f"volumes {what}: {res.gang_placed} groups placed, "
+                                     f"{res.gang_reverted} reverted, want {reverts} reverted")
+        del fresh, rec, state, batch, call
+        return {**entry, "name": entry["name"] + "[volumes]"}, run
+
+    for what, kw in (("tight", {"tight": True}), ("gang", {"group": True}),
+                     ("gang_reverting", {"group": True, "revert": True}),
+                     ("flag", {"tight": True, "taint": True}),
+                     ("gang_flag", {"group": True, "taint": True}),
+                     ("volume_node", {"node_affinity": VOLUMES_NODE_AFFINITY_PVS})):
+        entry, line[what] = first_batch_run(what, **kw)
+        if what in ("gang", "flag", "gang_flag"):
+            entries.append(entry)
+    return line, entries
+
+
 def gpu_ports_batch_pods(caps, group: bool = False, revert: bool = False):
     """The gpu_ports cell's first batch of pods; with `group` in
     all-or-nothing groups of GPU_PORTS_GANG at full quorum, and with
@@ -3065,7 +3556,7 @@ def held_solve(torch, got, what: str, gang=None, scope: int | None = None):
                  "feasible_counts": (got.feasible_counts[:n], want.feasible_counts)}
         if scope is None:
             pairs.update({f: (getattr(got, f), getattr(want, f)) for f in (
-                "new_requested", "new_nonzero", "rr_end", "new_port_count")})
+                "new_requested", "new_nonzero", "rr_end", *EXT_LEDGERS)})
         for f, (x, y) in pairs.items():
             if (x is None) != (y is None) or (x is not None and not torch.equal(x, y)):
                 raise AssertionError(f"{what}: the driver's solve != plain on {f}")
@@ -3915,6 +4406,10 @@ def main() -> int:
     # the gpu and storage fit) at every RUN, with and without the flag
     emit(ext_hazards_phase(torch, rng, dev))
 
+    # ---- 3i: the EXT variant's volumes (NoDiskConflict, MaxPDVolumeCount)
+    # in the main and gang builds at every RUN, with and without the flag
+    emit(vol_hazards_phase(torch, rng, dev))
+
     # ---- 4: the first batch through the cache and the blobs ----
     emit(packed_batch_phase(torch, caps, nodes, pods, dev))
 
@@ -4059,6 +4554,13 @@ def main() -> int:
                                                           assign_scan_gang_ext))
     emit(line)
 
+    # ---- 12c: the volumes cell (the main and gang builds with the EXT
+    # variant's volumes, with and without the flag; VolumeZone and
+    # VolumeNode in Phase A)
+    line, k13 = volumes_phase(torch, dev, every_scan + (assign_scan_ext,
+                                                       assign_scan_gang_ext))
+    emit(line)
+
     # ---- 13: the preemption cell and kernel 3 ----
     from kubernetes_tpu_torch.ops.preemption import preemption_pass
 
@@ -4072,7 +4574,7 @@ def main() -> int:
     emit({"kernels": [{**{k: entry[k] for k in keys},
                        **{k: entry[k] for k in ("scope",) if k in entry}}
                       for entry in (k1, k2, k3, k4, k6, k5, k7, *k8, k10, *k11, *k12,
-                                    k9)]})
+                                    *k13, k9)]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

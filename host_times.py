@@ -4,8 +4,8 @@ tree carries (two, three with SelectorSpread, four with inter-pod
 affinity, five with gang groups, six with SelectorSpread and inter-pod
 affinity in one batch, seven with TaintToleration and NodeAffinity, eight
 with gang groups that also need SelectorSpread and inter-pod affinity,
-nine with GPU, storage and host-port requests), for comparing two trees of
-the repository on one card.
+nine with GPU, storage and host-port requests, ten with volumes), for
+comparing two trees of the repository on one card.
 
     python3 host_times.py [--root DIR] [--reps K]
 
@@ -47,7 +47,14 @@ from its own sources and its Scheduler places the same pods on the same
   with host port 8080 accounted on every 10th; 30,000 pods of 100m / 250Mi,
   every 4th asking a GPU, others 1Gi of scratch or 512Mi of overlay, some
   host port 8080 or 9100 (perf/harness.py `GPU_PORTS_NODES`,
-  `GPU_PORTS_PODS`).
+  `GPU_PORTS_PODS`);
+- volumes, where the tree's harness has `volumes_cluster`: the 15,000
+  nodes with 24 zonal GCE PVs bound by claims, 4 unbound claims and a
+  bound pod holding a dataset disk read-write on every 10th node; 30,000
+  pods with a token secret and an emptyDir, every 4th mounting a dataset
+  disk read-only, every 8th a claim, 4 a claim not found and 4 an unbound
+  claim (those 8 left out), the conflict and attach universes at 64
+  (perf/harness.py `volumes_cluster`, `volumes_pods`, `volumes_caps`).
 
 Each traffic runs K times (default 2), each on a fresh Scheduler after the
 kernels are built and warmed. The script collects garbage before each
@@ -57,7 +64,8 @@ the root, and for each run pods/s, the whole run in ms, the tree's
 `encode_seconds` and `solve_seconds` per batch in ms (a tree defines its
 encode window itself), the remainder (the run less both), and the cache's
 hits and misses where the tree has a cache. Exits non-zero without a CUDA
-device or when a run leaves a pod unplaced.
+device or when a run leaves a pod unplaced (but the volumes traffic's 8,
+which no node can take).
 """
 
 from __future__ import annotations
@@ -75,7 +83,7 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parent
 
 
-def run(torch, sched, pods) -> dict:
+def run(torch, sched, pods, unplaceable: int = 0) -> dict:
     cache = getattr(sched, "encode_cache", None)
     hits0, misses0 = (cache.hits, cache.misses) if cache else (None, None)
     gc.collect()
@@ -83,9 +91,9 @@ def run(torch, sched, pods) -> dict:
     placed = sched.schedule(pods)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    if sum(v is not None for v in placed.values()) != len(pods):
-        raise AssertionError(f"{len(pods) - sum(v is not None for v in placed.values())}"
-                             f" of {len(pods)} pods unplaced")
+    left = len(pods) - sum(v is not None for v in placed.values())
+    if left != unplaceable:
+        raise AssertionError(f"{left} of {len(pods)} pods unplaced, want {unplaceable}")
     enc, sol = sched.encode_seconds, sched.solve_seconds
     return {"pods_per_sec": len(pods) / seconds, "ms": 1e3 * seconds,
             "batches": len(enc),
@@ -168,22 +176,30 @@ def main() -> int:
         warm(gsi_caps, DEFAULT_POLICY, dev, n_services=smoke.SPREAD_GROUPS,
              pod_kwargs=harness.GANG_SPREAD_INTERPOD_PODS)
     if hasattr(harness, "gpu_ports_cluster"):
-        # (no node list: each run builds the cell's cluster, bound pods and all)
         traffic["gpu_ports"] = (caps, None,
                                 make_pods(smoke.HEADLINE_PODS, **harness.GPU_PORTS_PODS), ())
         warm(caps, DEFAULT_POLICY, dev, pod_kwargs=harness.GPU_PORTS_PODS)
+    if hasattr(harness, "volumes_cluster"):
+        traffic["volumes"] = (harness.volumes_caps(smoke.HEADLINE_NODES, smoke.HEADLINE_PODS),
+                              None, harness.volumes_pods(smoke.HEADLINE_PODS), ())
+    # (no node list: each run builds the cell's cluster, its bound pods and
+    # PVs too)
+    clusters = {"gpu_ports": lambda caps_: harness.gpu_ports_cluster(
+        smoke.HEADLINE_NODES, caps_, dev), "volumes": lambda caps_: harness.volumes_cluster(
+        smoke.HEADLINE_NODES, caps_, dev)}
     out = {"nvidia_smi": smi.splitlines()[0], "root": str(opts.root.resolve())}
     for name, (caps_, nodes_, pods, services) in traffic.items():
         out[name] = []
         for _ in range(opts.reps):
             if nodes_ is None:
-                sched = harness.gpu_ports_cluster(smoke.HEADLINE_NODES, caps_, dev)
+                sched = clusters[name](caps_)
             else:
                 sched = Scheduler(caps_, device=dev)
                 sched.add_nodes(nodes_)
             for svc in services:
                 sched.add_service(svc)
-            out[name].append(run(torch, sched, pods))
+            out[name].append(run(torch, sched, pods, harness.VOLUMES_UNPLACEABLE
+                                 if name == "volumes" else 0))
             del sched
     print(json.dumps(out), flush=True)
     return 0

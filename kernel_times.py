@@ -107,7 +107,7 @@ and 65,536 (`preempt_layout`). With `preempt` alone only kernel 3 is
 built. `--sass-against DIR` also says whether kernel 1's SASS equals the
 other tree's (`mask_sass_same_as_against`). `--parts` picks what to time, a comma list of
 mask, scan, spread, interpod, spread_interpod, gang, run8, phase_a, norm,
-norm_main, norm_si, preempt, gang_combined, ext and sass (all by default).
+norm_main, norm_si, preempt, gang_combined, ext, vol and sass (all by default).
 Where the tree has the EXT variant of the main and gang builds (host ports,
 the gpu and storage fit), `ext` times them on the gpu_ports cell's first
 batch (chip_smoke.py `gpu_ports_first_batch`: P = 4,096, N = 16,384): the
@@ -118,7 +118,15 @@ variant (`gang_ext_reverting_ms`, with `gang_ext_reverting_groups`), and
 both with the flag of one PreferNoSchedule taint on node 0
 (`ext_norm_ms`, `gang_ext_norm_ms`), each also as `*_kernel_us`; the
 builds with EXT are named `main+ext`, `gang+ext` (and `+norm`) in the
-SASS digests.
+SASS digests. Where the tree's EXT variant takes volumes, `vol` times it on
+the volumes cell's first batch (chip_smoke.py `volumes_first_batch`: P =
+4,096, N = 16,384, the conflict and attach universes at 64): the main
+build with EXT (`vol_ms`), under KUBE_MAX_PD_VOLS=1 (`vol_tight_ms`), the
+gang build with EXT on the batch in groups of 8 (`gang_vol_ms`) and on its
+reverting variant (`gang_vol_reverting_ms`), and both with the flag of
+one PreferNoSchedule taint, the main one under the tight limit
+(`vol_norm_ms`, `gang_vol_norm_ms`, with the guess's misses), each also as
+`*_kernel_us`.
 Where the tree has the gang carry in the spread and interpod builds,
 `gang_combined` prices it on the gang_spread_interpod cell's first batch
 (P = 4,096, N = 16,384, 512 groups of 8): the spread, interpod and
@@ -153,7 +161,7 @@ HERE = Path(__file__).resolve().parent
 REPS = 5
 PARTS = ("mask", "scan", "spread", "interpod", "spread_interpod", "gang", "run8",
          "phase_a", "norm", "norm_main", "norm_si", "preempt", "gang_combined", "ext",
-         "sass")
+         "vol", "sass")
 # the gang batch's columns timed at 2 nodes a thread, and the shape of the
 # spread and interpod builds' 8-node timing
 RUN2_COLUMNS = 16384
@@ -551,6 +559,33 @@ def main() -> int:
             out[f"{key}_norm_misses"] = smoke.norm_misses(
                 name, args, norm, getattr(sm, name)(*args, norm))
         del calls, margs, gargs, rargs, fargs, gfargs
+    if "vol" in parts and "use_nodisk" in getattr(scan_module.ExtInputs,
+                                                  "__dataclass_fields__", {}):
+        # the EXT variant with volumes: the volumes cell's first batch
+        # through the main build with EXT, under KUBE_MAX_PD_VOLS=1, in
+        # groups of 8 through the gang build with EXT, its reverting
+        # variant, and both builds with the flag of one PreferNoSchedule
+        # taint (the main one under the tight limit)
+        sm = scan_module
+        for key, name, kw in (
+                ("vol", "assign_scan_ext", {}),
+                ("vol_tight", "assign_scan_ext", {"tight": True}),
+                ("gang_vol", "assign_scan_gang_ext", {"group": True}),
+                ("gang_vol_reverting", "assign_scan_gang_ext", {"group": True, "revert": True}),
+                ("vol_norm", "assign_scan_ext", {"tight": True, "taint": True}),
+                ("gang_vol_norm", "assign_scan_gang_ext", {"group": True, "taint": True})):
+            caps_v, state, batch, flags, policy = smoke.volumes_first_batch(torch, dev, **kw)
+            call = smoke.scan_call(torch, state, batch, flags, caps_v, policy=policy)
+            if call[0] != name:
+                raise AssertionError(f"vol {key}: the batch runs {call[0]}")
+            args, norm = call[3], call[4]
+            fn = getattr(sm, name)
+            timed_call = lambda fn=fn, args=args, norm=norm: fn(*args, norm)  # noqa: E731
+            out.update(smoke.timed(torch, timed_call, REPS, f"{key}_ms"))
+            out[f"{key}_kernel_us"] = kernel_us(device_times(torch, ((timed_call, REPS),)))
+            if norm is not None:
+                out[f"{key}_misses"] = smoke.norm_misses(name, args, norm, fn(*args, norm))
+            del state, batch, call, args, timed_call
     if "sass" in parts:
         cuobjdump = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
         out["scan_sass"] = sass_digests(cuobjdump, library_path("assign_scan"),

@@ -1,7 +1,8 @@
 """Typed API objects: the v1 `Node` / `Pod` subset the encoders read, the
 workload objects SelectorSpread looks pods up in (Service,
-ReplicationController, ReplicaSet, StatefulSet), and the PodGroup whose
-minMember is a gang's quorum.
+ReplicationController, ReplicaSet, StatefulSet), the PodGroup whose
+minMember is a gang's quorum, and the storage objects a pod's claims
+resolve through (PersistentVolumeClaim, PersistentVolume).
 
 Parsed from the same Kubernetes-JSON dict shape the reference package
 accepts, so one fixture dict feeds both packages. Only the fields the
@@ -21,12 +22,14 @@ class ObjectMeta:
     labels: dict[str, str] = field(default_factory=dict)
     annotations: dict[str, str] = field(default_factory=dict)
     owner_references: list[dict[str, Any]] = field(default_factory=list)
+    uid: str = ""
 
     @classmethod
     def from_dict(cls, d: dict[str, Any]) -> "ObjectMeta":
         return cls(
             name=d.get("name", ""),
             namespace=d.get("namespace", "default"),
+            uid=d.get("uid", "") or "",
             labels=dict(d.get("labels") or {}),
             annotations=dict(d.get("annotations") or {}),
             owner_references=list(d.get("ownerReferences") or []),
@@ -267,3 +270,45 @@ class PodGroup(_Workload):
     def min_member(self) -> int:
         m = self.spec.get("minMember")
         return 1 if m is None else int(m)
+
+
+@dataclass
+class PersistentVolume:
+    """Cluster-scoped storage object: the scheduler reads its source spec
+    (MaxPDVolumeCount), its labels (NoVolumeZoneConflict,
+    predicates.go:461-470) and its node-affinity annotation
+    (NoVolumeNodeConflict, predicates.go:1345)."""
+
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    spec: dict[str, Any] = field(default_factory=dict)  # raw PV source spec
+
+    @property
+    def key(self) -> str:
+        return self.metadata.name
+
+    @classmethod
+    def from_dict(cls, d: dict[str, Any]) -> "PersistentVolume":
+        return cls(metadata=ObjectMeta.from_dict(d.get("metadata") or {}),
+                   spec=dict(d.get("spec") or {}))
+
+
+@dataclass
+class PersistentVolumeClaim:
+    """Namespaced claim bound to a PV by name (spec.volumeName; a pod's
+    volume resolves through it, predicates.go:230-270)."""
+
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    spec: dict[str, Any] = field(default_factory=dict)
+
+    @property
+    def key(self) -> str:
+        return f"{self.metadata.namespace}/{self.metadata.name}"
+
+    @property
+    def volume_name(self) -> str:
+        return self.spec.get("volumeName", "") or ""
+
+    @classmethod
+    def from_dict(cls, d: dict[str, Any]) -> "PersistentVolumeClaim":
+        return cls(metadata=ObjectMeta.from_dict(d.get("metadata") or {}),
+                   spec=dict(d.get("spec") or {}))

@@ -761,12 +761,53 @@
 //     float4's last word and its third's, bit 3 of `changed`), and a revert
 //     restores it with the requested columns, newest entry first, so a node
 //     two members share ends with its word before the group.
+// The variant also takes volumes, the JAX step's `no_disk_conflict` and
+// `max_attach_ok` on its `vol_any`, `vol_rw` and `attach_count` carry
+// (kubernetes_tpu/ops/solver.py:541-547,786-792; ops/predicates.py:230-263),
+// in the same shape as the port word:
+//   - NoDiskConflict as two 64-bit words a node, bit u of `any` set where
+//     the node's count of conflict atom u is not 0 and of `rw` where its
+//     read-write count is not 0, and two a pod, the atoms it mounts
+//     read-write and read-only (the wrapper packs them, UV <= 64). A node
+//     conflicts where (any & want_rw) | (rw & want_ro) != 0: exactly JAX's
+//     any @ want_rw + rw @ want_ro != 0, the counts being non-negative (a
+//     disk listed twice counts 2; an EBS atom is always read-write);
+//   - MaxPDVolumeCount as one word a node, bit u where the node's count of
+//     attach atom u is not 0, one a pod, its atoms, and its fail bit (a
+//     claim that does not resolve: no node). For each of the batch's at
+//     most three (type mask, limit) pairs (a table in the four words
+//     before node 0's; a mask holds the atoms of the type or ANY, from the
+//     atoms' types at the batch's flush), a
+//     pod may take a node where popcount(pod & mask) == 0 (JAX's quick
+//     return), or popcount(node & mask) + popcount(pod & ~node & mask) <=
+//     limit;
+//   - the node words live in device memory at every RUN ([N][4]: any, rw,
+//     attach and the port word, which the registers hold at 1, 2 and 4
+//     nodes a thread), read only on a miss, and only for a pod with such
+//     words (a branch uniform over the cluster): a pod without volumes, as
+//     on the gpu_ports cell, reads none. In registers beside the port word
+//     they would add six registers a node, 24 at 4 nodes a thread, to a
+//     build that already spills there with the flag. A node's words and a
+//     pod's are one array each, so the operand keeps PR 24's two pointers
+//     (a first layout with four and the limits by value cost the gpu_ports
+//     cell's pods, which have no volumes, 8-15%: PERF.md, section 6);
+//   - a pod's words ride words 12-17 of a 20-word EXT pod slot (two
+//     16-byte copies), with a flag word 18 the wrapper computes: the fail
+//     bit, whether the pod has conflict or attach words, and whether its
+//     words equal the previous pod's. A pod without volume words is one
+//     load and one test on a miss; the term cache's key takes the flag
+//     word's EXT_SAME bit (the cached terms are always of the previous pod,
+//     or there are none), so the key keeps no register for the words;
+//   - the owner ORs the pod's words into its node's, and the gang build's
+//     undo entry (5 float4s under EXT) keeps the node's old words (bits 4
+//     and 5 of `changed`), restored newest first by a revert.
 // Every addition sits behind `if constexpr (EXT)`, and the 64 instances
 // without it keep their SASS (kernel_times.py --sass-against).
 //
 // Bound of the EXT instances: their build's bytes, which already count
 // every column of the requests, allocatable and requested once, plus the
-// port words, N * 8 read and N * 8 written, and P * 8 read.
+// port words, N * 8 read and N * 8 written, and P * 8 read, and the volume
+// words, N * 24 read and N * 24 written, and P * 32 read.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -878,11 +919,27 @@ static_assert(SP_M + MAX_UQ <= SP_GW_ID && SP_GW_ID + 1 < SP_POD_ROW
               "gang words in the spread and interpod slots");
 
 // ---- the EXT variant's layout: the pod's host-port word (an int pair) in
-// the free words of the gang build's pod slot, which the main build takes
-// under EXT
+// the free words of the gang build's pod slot, then its volume words (the
+// conflict atoms it mounts read-write, read-only, its attach atoms, int
+// pairs) and its flag word, in an EXT pod slot of 20 words, which the main
+// and gang builds take under EXT
 constexpr int EXT_PW = GW_MIN + 1;
-constexpr int EXT_PORTS = 1 << 3;   // `changed` bit of an undo entry: the port word
-static_assert(EXT_PW + 1 < GANG_POD_ROW, "EXT layout");
+constexpr int EXT_VW = EXT_PW + 2;
+constexpr int EXT_FLAGS = EXT_VW + 6;  // the flag word: the fail bit, which words,
+constexpr unsigned EXT_FAIL = 1u, EXT_DISK = 2u, EXT_ATT = 4u;
+constexpr unsigned EXT_SAME = 8u;      // and whether they equal the previous pod's
+constexpr int EXT_POD_ROW = 20;
+constexpr int EXT_PORTS = 1 << 3;    // `changed` bits of an undo entry: the port word,
+constexpr int EXT_VOLS = 1 << 4;     // the conflict words
+constexpr int EXT_ATTACH = 1 << 5;   // and the attach word
+constexpr int EXT_UNDO_WORDS = 5;    // float4s of an EXT undo-log entry
+constexpr int EXT_MAX_ATTACH = 3;    // (type mask, limit) pairs of MaxPDVolumeCount
+// the words of a node (any, rw, attach, ports) and of a pod (ports, 0, rw,
+// ro, attach, flags), 64-bit
+constexpr int EXT_NODE_WORDS = 4, EXT_NODE_ATT = 2, EXT_NODE_PORT = 3;
+constexpr int EXT_POD_WORDS = 6, EXT_POD_VOL = 2;
+static_assert(EXT_PW + 1 < GANG_POD_ROW && EXT_VW % 4 == 0 && EXT_VW + 8 == EXT_POD_ROW
+              && EXT_POD_ROW % 4 == 0, "EXT layout");
 
 // ---- the normalization flag's layout: a pod's row of ints, the untolerated
 // word, NM_SLOTS term words (u64, little-endian int pairs), their weights
@@ -918,7 +975,10 @@ struct Build {
   static constexpr bool PACKED = RUN == 8;
   static constexpr int POD_ROW = IPA ? IP_POD_ROW
                                  : SPREAD ? SP_POD_ROW
-                                 : (GANG || EXT) ? GANG_POD_ROW : POD_ROW_MAIN;
+                                 : EXT ? EXT_POD_ROW
+                                 : GANG ? GANG_POD_ROW : POD_ROW_MAIN;
+  // float4s of an undo-log entry (gang builds)
+  static constexpr int UNDO = EXT ? EXT_UNDO_WORDS : UNDO_WORDS;
   // the pod-slot words of spread_q and of the match row (spread builds;
   // named at their uses: kernel-local copies moved the spread build's
   // register allocation at 1, 2 and 4 nodes a thread)
@@ -995,8 +1055,13 @@ __device__ __forceinline__ const NormArgs& norm_of(const NormArgs& nm) { return 
 // terms are of). It rides the kernel's pack after the flag's NormArgs, so no
 // build gains a variable of the kernel's scope.
 struct ExtArgs {
-  unsigned long long* node_ports;   // [N] host-port words, updated in place
-  const int* pod_ports;             // [P] host-port words, as int pairs
+  // [N][EXT_NODE_WORDS] a node's conflict atoms in use, in use read-write,
+  // attach atoms present and host ports, updated in place; the four words
+  // before node 0 hold MaxPDVolumeCount's type masks and packed limits
+  unsigned long long* node;
+  // [P][EXT_POD_WORDS] a pod's host ports, 0, the atoms it mounts
+  // read-write, read-only, its attach atoms and its flags (EXT_FAIL, ...)
+  const unsigned long long* pod;
   float r_gpu, r_scr, r_ovl;        // the key: the pod's requests
   unsigned long long port;          // and its port word
 };
@@ -1389,6 +1454,51 @@ __device__ __forceinline__ bool ext_fits(const ExtArgs& x, const ExtNode& n, boo
   return n.a[1] >= __fadd_rn(x.r_scr, n.q[1]) && n.a[2] >= __fadd_rn(x.r_ovl, n.q[2]);
 }
 
+// A pod's volume words: its EXT pod slot and the slot's flag word.
+struct ExtPod {
+  const float* pr;
+  unsigned flags;   // EXT_FAIL, EXT_DISK, EXT_ATT, EXT_SAME
+};
+
+__device__ __forceinline__ unsigned long long slot_word(const float* pr, int w) {
+  return (unsigned long long)__float_as_uint(pr[w])
+         | (unsigned long long)__float_as_uint(pr[w + 1]) << 32;
+}
+
+__device__ __forceinline__ ExtPod ext_pod(const float* pr) {
+  return ExtPod{pr, __float_as_uint(pr[EXT_FLAGS])};
+}
+
+// The volume half of the EXT fit of node g (see the header): the fail bit,
+// then NoDiskConflict and MaxPDVolumeCount on the node's words in device
+// memory, each read (with the pod's words, from its slot) only where the
+// pod's flags say it has words for it.
+__device__ __forceinline__ bool ext_vol_fits(const ExtArgs& x, const ExtPod& v, int g) {
+  if ((v.flags & (EXT_FAIL | EXT_DISK | EXT_ATT)) == 0u) return true;
+  if (v.flags & EXT_FAIL) return false;
+  if (v.flags & EXT_DISK) {
+    const ulonglong2 w = reinterpret_cast<const ulonglong2*>(x.node)[2 * (size_t)g];
+    if (((w.x & slot_word(v.pr, EXT_VW)) | (w.y & slot_word(v.pr, EXT_VW + 2))) != 0ull)
+      return false;
+  }
+  if (v.flags & EXT_ATT) {
+    const unsigned long long have = x.node[EXT_NODE_WORDS * (size_t)g + EXT_NODE_ATT];
+    const unsigned long long att = slot_word(v.pr, EXT_VW + 4);
+    // the table before node 0: three type masks, then the limits, 16 bits
+    // each, and their count in bits 48-49
+    const unsigned long long limits = __ldg(x.node - 1);
+#pragma unroll
+    for (int k = 0; k < EXT_MAX_ATTACH; ++k) {
+      const unsigned long long mask = __ldg(x.node - EXT_NODE_WORDS + k);
+      const unsigned long long want = att & mask;
+      if (k < (int)(limits >> 48) && want != 0ull
+          && __popcll(have & mask) + __popcll(want & ~have) > (int)((limits >> (16 * k)) & 0xffffu))
+        return false;
+    }
+  }
+  return true;
+}
+
 // Run position j's (node g's) EXT columns: from the registers at
 // EXT_REGS (j may be a run-time index: each position is selected, so the
 // arrays stay in registers), else from device memory (the allocatable
@@ -1415,7 +1525,7 @@ __device__ __forceinline__ ExtNode ext_node(const ExtMain<RUN>& x, int j, int g,
       n.a[f] = __ldg(allocatable + (size_t)g * R + GPU + f);
       n.q[f] = requested[(size_t)g * R + GPU + f];
     }
-    n.w = x.node_ports[g];
+    n.w = x.node[EXT_NODE_WORDS * (size_t)g + EXT_NODE_PORT];
   }
   return n;
 }
@@ -1424,25 +1534,34 @@ __device__ __forceinline__ ExtNode ext_node(const ExtMain<RUN>& x, int j, int g,
 // BalancedAllocation 0 where the pod fits the pods, cpu and memory columns
 // but not the rest, as node_terms' own early return gives them.
 template <int RUN>
-__device__ __forceinline__ void ext_terms(const Smem& s, const Pod& pod, int c, int g, int j,
-                                          const ExtMain<RUN>& x, const float* allocatable,
-                                          const float* requested, float* lr_out,
-                                          float* ba_out) {
+__device__ __forceinline__ void ext_terms(const Smem& s, const Pod& pod, const ExtPod& v,
+                                          int c, int g, int j, const ExtMain<RUN>& x,
+                                          const float* allocatable, const float* requested,
+                                          float* lr_out, float* ba_out) {
   node_terms(s, pod, c, lr_out, ba_out);
   if (*lr_out >= 0.0f
-      && !ext_fits(x, ext_node<RUN>(x, j, g, allocatable, requested), pod.all_zero)) {
+      && !(ext_fits(x, ext_node<RUN>(x, j, g, allocatable, requested), pod.all_zero)
+           && ext_vol_fits(x, v, g))) {
     *lr_out = -1.0f;
     *ba_out = 0.0f;
   }
 }
 
 // The owner's update of run position j (node g) for a placed pod with
-// requests rq: the requested gpu, scratch and overlay columns in device
-// memory (x + 0 == x: a zero request is skipped) and the port word; at
-// EXT_REGS the registers too (the device word is then never read again).
+// requests rq and volume words v: the requested gpu, scratch and overlay
+// columns in device memory (x + 0 == x: a zero request is skipped), the
+// port word, at EXT_REGS the registers too (the device word is then never
+// read again), and the node's volume words in device memory.
 template <int RUN>
 __device__ __forceinline__ void ext_place(ExtMain<RUN>& x, int j, int g, const float (&rq)[R],
-                                          float* requested) {
+                                          const ExtPod& v, float* requested) {
+  if (v.flags & EXT_DISK) {
+    const unsigned long long rw = slot_word(v.pr, EXT_VW);
+    x.node[EXT_NODE_WORDS * (size_t)g] |= rw | slot_word(v.pr, EXT_VW + 2);
+    x.node[EXT_NODE_WORDS * (size_t)g + 1] |= rw;
+  }
+  if (v.flags & EXT_ATT)
+    x.node[EXT_NODE_WORDS * (size_t)g + EXT_NODE_ATT] |= slot_word(v.pr, EXT_VW + 4);
   if constexpr (EXT_REGS<RUN>) {
 #pragma unroll
     for (int i = 0; i < RUN; ++i) {
@@ -1460,19 +1579,22 @@ __device__ __forceinline__ void ext_place(ExtMain<RUN>& x, int j, int g, const f
     for (int f = GPU; f < R; ++f)
       if (rq[f] != 0.0f)
         requested[(size_t)g * R + f] = __fadd_rn(requested[(size_t)g * R + f], rq[f]);
-    if (x.port != 0ull) x.node_ports[g] |= x.port;
+    if (x.port != 0ull) x.node[EXT_NODE_WORDS * (size_t)g + EXT_NODE_PORT] |= x.port;
   }
 }
 
 // The gang build's undo entry (EXT) of run position j (shared column c,
-// node g) before the owner's update for a member with requests rq: the
-// node's old ledger row (as the gang build logs it), its old gpu, scratch
-// and overlay columns where the member changes them, and its old port word
-// where the member has ports (`changed` bit EXT_PORTS; its low half in the
-// second float4's last word, its high half in the third's).
+// node g) before the owner's update for a member with requests rq and
+// volume words v: the node's old ledger row (as the gang build logs it),
+// its old gpu, scratch and overlay columns where the member changes them,
+// its old port word where the member has ports (`changed` bit EXT_PORTS;
+// its low half in the second float4's last word, its high half in the
+// third's), its old conflict words where the member has conflict atoms
+// (EXT_VOLS; the fourth float4) and its old attach word where it has
+// attach atoms (EXT_ATTACH; the fifth's first two words).
 template <int RUN>
 __device__ __forceinline__ void ext_log(const ExtMain<RUN>& x, float4* e, const Smem& s, int c,
-                                        int j, int g, const float (&rq)[R],
+                                        int j, int g, const float (&rq)[R], const ExtPod& v,
                                         const float* allocatable, const float* requested) {
   const ExtNode n = ext_node<RUN>(x, j, g, allocatable, requested);
   int changed = 0;
@@ -1486,17 +1608,42 @@ __device__ __forceinline__ void ext_log(const ExtMain<RUN>& x, float4* e, const 
     lo = __uint_as_float((unsigned)n.w);
     e2.w = __uint_as_float((unsigned)(n.w >> 32));
   }
+  if (v.flags & EXT_DISK) {
+    changed |= EXT_VOLS;
+    const ulonglong2 w = reinterpret_cast<const ulonglong2*>(x.node)[2 * (size_t)g];
+    e[3] = make_float4(__uint_as_float((unsigned)w.x), __uint_as_float((unsigned)(w.x >> 32)),
+                       __uint_as_float((unsigned)w.y), __uint_as_float((unsigned)(w.y >> 32)));
+  }
+  if (v.flags & EXT_ATT) {
+    changed |= EXT_ATTACH;
+    const unsigned long long w = x.node[EXT_NODE_WORDS * (size_t)g + EXT_NODE_ATT];
+    e[4] = make_float4(__uint_as_float((unsigned)w), __uint_as_float((unsigned)(w >> 32)),
+                       0.0f, 0.0f);
+  }
   e[0] = make_float4(__int_as_float(c), s.r_pods[c], s.r_cpu[c], s.r_mem[c]);
   e[1] = make_float4(s.z_cpu[c], s.z_mem[c], __int_as_float(changed), lo);
   if (changed != 0) e[2] = e2;
 }
 
 // A revert's restore (EXT) of run position j (node g) from its undo entry
-// (e1, e2; the device columns are restored by the gang build's code): the
-// port word, and at EXT_REGS the registers.
+// e (e1, e2 read; the device columns are restored by the gang build's
+// code): the node's conflict and attach words, the port word, and at
+// EXT_REGS the registers.
 template <int RUN>
 __device__ __forceinline__ void ext_restore(ExtMain<RUN>& x, int j, int g, int changed,
-                                            float4 e1, float4 e2) {
+                                            float4 e1, float4 e2, const float4* e) {
+  if (changed & EXT_VOLS) {
+    const float4 e3 = e[3];
+    x.node[EXT_NODE_WORDS * (size_t)g] = (unsigned long long)__float_as_uint(e3.x)
+                                         | (unsigned long long)__float_as_uint(e3.y) << 32;
+    x.node[EXT_NODE_WORDS * (size_t)g + 1] = (unsigned long long)__float_as_uint(e3.z)
+                                             | (unsigned long long)__float_as_uint(e3.w) << 32;
+  }
+  if (changed & EXT_ATTACH) {
+    const float4 e4 = e[4];
+    x.node[EXT_NODE_WORDS * (size_t)g + EXT_NODE_ATT] =
+        (unsigned long long)__float_as_uint(e4.x) | (unsigned long long)__float_as_uint(e4.y) << 32;
+  }
   const unsigned long long w = (unsigned long long)__float_as_uint(e1.w)
                                | (unsigned long long)__float_as_uint(e2.w) << 32;
   if constexpr (EXT_REGS<RUN>) {
@@ -1509,18 +1656,20 @@ __device__ __forceinline__ void ext_restore(ExtMain<RUN>& x, int j, int g, int c
       if (changed & EXT_PORTS) x.w[i] = w;
     }
   } else {
-    if (changed & EXT_PORTS) x.node_ports[g] = w;
+    if (changed & EXT_PORTS) x.node[EXT_NODE_WORDS * (size_t)g + EXT_NODE_PORT] = w;
   }
 }
 
 // The term cache's reuse with the EXT variant's key: `same`, the main
 // build's key compare, and (EXT) the pod's gpu, scratch and overlay request
-// bits and port word equal to those of the pod the terms are of; the key
-// then takes this pod's.
+// bits and port word equal to those of the pod the terms are of, which the
+// key then takes, and its volume words equal to the previous pod's (its
+// flag EXT_SAME; the cached terms, if any, are of the previous pod).
 template <bool EXT, typename... Norm>
 __device__ __forceinline__ bool ext_reuse(bool same, const float* pr, Norm&... nm) {
   if constexpr (EXT) {
     ExtArgs& x = ext_of(nm...);
+    same = same && (__float_as_uint(pr[EXT_FLAGS]) & EXT_SAME) != 0u;
     const float r_gpu = pr[GPU], r_scr = pr[SCRATCH], r_ovl = pr[OVERLAY];
     const unsigned long long port =
         (unsigned long long)__float_as_uint(pr[EXT_PW])
@@ -2394,7 +2543,7 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
         x.a[j][f] = in ? allocatable[(size_t)g * R + GPU + f] : 0.0f;
         x.q[j][f] = in ? requested[(size_t)g * R + GPU + f] : 0.0f;
       }
-      x.w[j] = in ? x.node_ports[g] : 0ull;
+      x.w[j] = in ? x.node[EXT_NODE_WORDS * (size_t)g + EXT_NODE_PORT] : 0ull;
     }
   }
   auto issue_row = [&](int p) {
@@ -2465,18 +2614,27 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
                     : t < POD_ROW_MAIN ? nonzero_requests + (size_t)p * 2 + (t - R)
                     : reinterpret_cast<const float*>(
                           (t == GW_ID ? gg.gang_id : gg.gang_min) + p));
-        if constexpr (EXT)   // + the port word
+        if constexpr (EXT) {   // + the port word and the volume words
           if (t == EXT_PW || t == EXT_PW + 1)
             cp_async4(s.pods + (p % POD_SLOTS) * POD_ROW + t,
-                      reinterpret_cast<const float*>(ext_of(nm...).pod_ports + 2 * (size_t)p
-                                                     + (t - EXT_PW)));
-      } else if constexpr (EXT) {   // the main build's row, + the port word
+                      reinterpret_cast<const float*>(ext_of(nm...).pod + EXT_POD_WORDS * (size_t)p)
+                          + (t - EXT_PW));
+          if (t == EXT_VW || t == EXT_VW + 4)
+            cp_async16(s.pods + (p % POD_SLOTS) * POD_ROW + t,
+                       reinterpret_cast<const float*>(ext_of(nm...).pod + EXT_POD_WORDS * (size_t)p
+                                                      + EXT_POD_VOL) + (t - EXT_VW));
+        }
+      } else if constexpr (EXT) {   // the main build's row, + the port and volume words
         if (t < POD_ROW_MAIN || t == EXT_PW || t == EXT_PW + 1)
           cp_async4(s.pods + (p % POD_SLOTS) * POD_ROW + t,
                     t < R ? requests + (size_t)p * R + t
                     : t < POD_ROW_MAIN ? nonzero_requests + (size_t)p * 2 + (t - R)
-                    : reinterpret_cast<const float*>(ext_of(nm...).pod_ports + 2 * (size_t)p
-                                                     + (t - EXT_PW)));
+                    : reinterpret_cast<const float*>(ext_of(nm...).pod + EXT_POD_WORDS * (size_t)p)
+                          + (t - EXT_PW));
+        if (t == EXT_VW || t == EXT_VW + 4)
+          cp_async16(s.pods + (p % POD_SLOTS) * POD_ROW + t,
+                     reinterpret_cast<const float*>(ext_of(nm...).pod + EXT_POD_WORDS * (size_t)p
+                                                    + EXT_POD_VOL) + (t - EXT_VW));
       } else {
         if (t < POD_ROW)
           cp_async4(s.pods + (p % POD_SLOTS) * POD_ROW + t,
@@ -2589,16 +2747,16 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
   [[maybe_unused]] int gang_cur = 0, gang_placed = 0, gang_min_cur = 0, undo_n = 0;
   [[maybe_unused]] unsigned int rr_entry = 0u;
   [[maybe_unused]] float4* undo_b = nullptr;   // this block's undo log
-  if constexpr (GANG) undo_b = gg.undo + (size_t)rank * P * UNDO_WORDS;
+  if constexpr (GANG) undo_b = gg.undo + (size_t)rank * P * Build<RUN, SPREAD, IPA, GANG, EXT>::UNDO;
   // Revert the open group: every thread restores its own nodes' entries,
   // newest first. Called by every thread of the cluster alike.
   [[maybe_unused]] auto revert = [&]() {
     __syncthreads();   // the owners' newest entries are visible
     for (int i = undo_n - 1; i >= 0; --i) {
-      const float4 e0 = undo_b[i * UNDO_WORDS];
+      const float4 e0 = undo_b[i * Build<RUN, SPREAD, IPA, GANG, EXT>::UNDO];
       const int c = __float_as_int(e0.x);
       if (c < c0 || c >= c0 + RUN) continue;   // another thread's node
-      const float4 e1 = undo_b[i * UNDO_WORDS + 1];
+      const float4 e1 = undo_b[i * Build<RUN, SPREAD, IPA, GANG, EXT>::UNDO + 1];
       s.r_pods[c] = e0.y;
       s.r_cpu[c] = e0.z;
       s.r_mem[c] = e0.w;
@@ -2606,13 +2764,14 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
       s.z_mem[c] = e1.y;
       const int changed = __float_as_int(e1.z);   // bit f - GPU: column f
       if (changed != 0) {
-        const float4 e2 = undo_b[i * UNDO_WORDS + 2];
+        const float4 e2 = undo_b[i * Build<RUN, SPREAD, IPA, GANG, EXT>::UNDO + 2];
         const size_t row = (size_t)(rank * NB + c) * R;
         if (changed & 1) requested[row + GPU] = e2.x;
         if (changed & 2) requested[row + SCRATCH] = e2.y;
         if (changed & 4) requested[row + OVERLAY] = e2.z;
-        if constexpr (EXT)   // the node's old port word (and registers)
-          ext_restore<RUN>(ext_of(nm...), c - c0, rank * NB + c, changed, e1, e2);
+        if constexpr (EXT)   // the node's old port and volume words (and registers)
+          ext_restore<RUN>(ext_of(nm...), c - c0, rank * NB + c, changed, e1, e2,
+                           undo_b + (size_t)i * EXT_UNDO_WORDS);
       }
     }
     rr = rr_entry;
@@ -2711,10 +2870,12 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
         load_run<RUN>(s.t_ba + c0, ba);
       }
     } else {
+      [[maybe_unused]] ExtPod xv;
+      if constexpr (EXT) xv = ext_pod(pr);
 #pragma unroll
       for (int j = 0; j < RUN; ++j) {
         if constexpr (EXT)
-          ext_terms<RUN>(s, pod, c0 + j, g0 + j, j, ext_of(nm...), allocatable, requested,
+          ext_terms<RUN>(s, pod, xv, c0 + j, g0 + j, j, ext_of(nm...), allocatable, requested,
                          &lr[j], &ba[j]);
         else
           node_terms(s, pod, c0 + j, &lr[j], &ba[j]);
@@ -3547,10 +3708,12 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
             const int j = __ffs((int)m) - 1;    // the tie's run position
             const int c = c0 + j;
             const int g = g0 + j;
+            [[maybe_unused]] ExtPod xv;   // the pod's volume words (EXT)
+            if constexpr (EXT) xv = ext_pod(pr);
             if constexpr (GANG && EXT) {
               if (gang_cur > 0)   // the node's old row, into the undo log
-                ext_log<RUN>(ext_of(nm...), undo_b + (size_t)undo_n * UNDO_WORDS, s, c, j, g,
-                             rq, allocatable, requested);
+                ext_log<RUN>(ext_of(nm...), undo_b + (size_t)undo_n * EXT_UNDO_WORDS, s, c, j,
+                             g, rq, xv, allocatable, requested);
             } else if constexpr (GANG) {
               if (gang_cur > 0) {   // the node's old row, into the undo log
                 int changed = 0;
@@ -3571,8 +3734,8 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
             s.r_pods[c] = __fadd_rn(s.r_pods[c], rq[PODS]);
             s.r_cpu[c] = __fadd_rn(s.r_cpu[c], rq[CPU]);
             s.r_mem[c] = __fadd_rn(s.r_mem[c], rq[MEM]);
-            if constexpr (EXT) {   // (+ the pod's ports, into the node's word)
-              ext_place<RUN>(ext_of(nm...), j, g, rq, requested);
+            if constexpr (EXT) {   // (+ the pod's ports and volumes, into the node's words)
+              ext_place<RUN>(ext_of(nm...), j, g, rq, xv, requested);
             } else {
 #pragma unroll
               for (int f = GPU; f < R; ++f)   // x + 0 == x: no load for a zero request
@@ -3585,7 +3748,8 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
             if constexpr (PACKED) {   // into byte j of the packed terms
               float l, b;
               if constexpr (EXT)
-                ext_terms<RUN>(s, pod, c, g, j, ext_of(nm...), allocatable, requested, &l, &b);
+                ext_terms<RUN>(s, pod, xv, c, g, j, ext_of(nm...), allocatable, requested, &l,
+                               &b);
               else
                 node_terms(s, pod, c, &l, &b);
               const unsigned kl = term_byte(l, LR_BIAS), kb = term_byte(b, BA_BIAS);
@@ -3597,8 +3761,8 @@ __global__ void __launch_bounds__(THREADS, 1) assign_scan_kernel(
                 bab[1] = put_byte(bab[1], kb, j - 4);
               }
             } else if constexpr (EXT) {
-              ext_terms<RUN>(s, pod, c, g, j, ext_of(nm...), allocatable, requested, &s.t_lr[c],
-                             &s.t_ba[c]);
+              ext_terms<RUN>(s, pod, xv, c, g, j, ext_of(nm...), allocatable, requested,
+                             &s.t_lr[c], &s.t_ba[c]);
             } else {
               node_terms(s, pod, c, &s.t_lr[c], &s.t_ba[c]);
             }
@@ -4064,42 +4228,50 @@ extern "C" int ktpu_assign_scan_spread_interpod_gang(
 #if KTPU_IN_PART(4)
 // The EXT variant of the main build: the operands of ktpu_assign_scan (the
 // gpu, scratch and overlay requests may be nonzero: they are fit against
-// the running ledger), then node_ports [N] u64 (bit u: the node's count of
-// host port u is not 0; updated in place) and pod_ports [P] u64 (bit u: the
-// pod wants host port u; 0 without PodFitsHostPorts), both 8-byte aligned.
+// the running ledger), then node_words [N + 1][4] u64, 16-byte aligned:
+// row 0 MaxPDVolumeCount's table (three type masks, bit u: atom u is of the
+// type or ANY, then the limits, 16 bits each, and their count, at most 3,
+// in bits 48-49), row g + 1 node g's conflict atoms in use, in use
+// read-write, attach atoms present and host ports in use (updated in
+// place); and pod_words [P][6] u64, 16-byte aligned: a pod's host ports, 0,
+// the atoms it mounts read-write and read-only, its attach atoms, and its
+// flags (1: attach fails, 2: conflict words, 4: attach words, 8: its words
+// and fail bit equal the previous pod's). A word whose predicate does not
+// run is 0.
 extern "C" int ktpu_assign_scan_ext(
     const float* masked_static, const float* requests,
     const float* nonzero_requests, const float* allocatable, float* requested,
     float* nonzero, int* assignments, float* scores, int* feasible_counts,
     long long* rr_io, int P, int N, int run, float w_lr, float w_ba,
-    void* node_ports, const void* pod_ports, const void* node_w, const int* pod_w,
+    void* node_words, const void* pod_words, const void* node_w, const int* pod_w,
     float w_tt, float w_na, cudaStream_t stream) {
   const Operands o{masked_static, requests, nonzero_requests, allocatable,
                    requested, nonzero, assignments, scores, feasible_counts,
                    rr_io, P, N, w_lr, w_ba,
                    NormArgs{static_cast<const ulonglong2*>(node_w), pod_w, w_tt, w_na}};
-  const ExtArgs ex{static_cast<unsigned long long*>(node_ports),
-                   static_cast<const int*>(pod_ports), 0.0f, 0.0f, 0.0f, 0ull};
+  const ExtArgs ex{static_cast<unsigned long long*>(node_words) + EXT_NODE_WORDS,
+                   static_cast<const unsigned long long*>(pod_words), 0.0f, 0.0f, 0.0f, 0ull};
   return launch_run_ext<false>(o, run, stream, NoGang{}, ex);
 }
 
 // The EXT variant of the gang build: the operands of ktpu_assign_scan_gang's
-// gang_id, gang_min and undo, then those of ktpu_assign_scan_ext.
+// gang_id, gang_min and undo (a [CLUSTER, P, 5] float4 log under EXT), then
+// those of ktpu_assign_scan_ext.
 extern "C" int ktpu_assign_scan_gang_ext(
     const float* masked_static, const float* requests,
     const float* nonzero_requests, const float* allocatable, float* requested,
     float* nonzero, int* assignments, float* scores, int* feasible_counts,
     long long* rr_io, int P, int N, int run, float w_lr, float w_ba,
-    const int* gang_id, const int* gang_min, float* undo, void* node_ports,
-    const void* pod_ports, const void* node_w, const int* pod_w, float w_tt, float w_na,
+    const int* gang_id, const int* gang_min, float* undo, void* node_words,
+    const void* pod_words, const void* node_w, const int* pod_w, float w_tt, float w_na,
     cudaStream_t stream) {
   const Operands o{masked_static, requests, nonzero_requests, allocatable,
                    requested, nonzero, assignments, scores, feasible_counts,
                    rr_io, P, N, w_lr, w_ba,
                    NormArgs{static_cast<const ulonglong2*>(node_w), pod_w, w_tt, w_na}};
   const GangArgs gg{gang_id, gang_min, reinterpret_cast<float4*>(undo)};
-  const ExtArgs ex{static_cast<unsigned long long*>(node_ports),
-                   static_cast<const int*>(pod_ports), 0.0f, 0.0f, 0.0f, 0ull};
+  const ExtArgs ex{static_cast<unsigned long long*>(node_words) + EXT_NODE_WORDS,
+                   static_cast<const unsigned long long*>(pod_words), 0.0f, 0.0f, 0.0f, 0ull};
   return launch_run_ext<true>(o, run, stream, gg, ex);
 }
 #endif

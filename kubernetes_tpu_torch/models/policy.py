@@ -9,8 +9,15 @@ this package raises on a policy that activates them.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import os
+from dataclasses import dataclass, replace
 
+from kubernetes_tpu_torch.state.layout import VolType
+
+# MaxPDVolumeCount's default limits (defaults.go:120-155)
+DEFAULT_MAX_EBS_VOLUMES = 39
+DEFAULT_MAX_GCE_PD_VOLUMES = 16
+DEFAULT_MAX_AZURE_DISK_VOLUMES = 16
 DEFAULT_PREDICATES: tuple[str, ...] = (
     "NoVolumeZoneConflict",
     "MaxEBSVolumeCount",
@@ -62,6 +69,11 @@ class Policy:
     # whose *required* affinity term matches the incoming pod, in
     # InterPodAffinityPriority's symmetric pass
     hard_pod_affinity_weight: int = 1
+    # MaxPDVolumeCount's limits (`with_env_overrides` applies the
+    # KUBE_MAX_PD_VOLS override)
+    max_ebs_volumes: int = DEFAULT_MAX_EBS_VOLUMES
+    max_gce_pd_volumes: int = DEFAULT_MAX_GCE_PD_VOLUMES
+    max_azure_disk_volumes: int = DEFAULT_MAX_AZURE_DISK_VOLUMES
     # (name, (labels...), presence) — CheckNodeLabelPresence instances
     label_presence_predicates: tuple = ()
     # (name, (labels...)) — ServiceAffinity instances
@@ -88,6 +100,31 @@ class Policy:
 
     def has_predicate(self, *names: str) -> bool:
         return any(n in self.predicates for n in names)
+
+    def attach_maxes(self) -> tuple[tuple[int, int], ...]:
+        """((VolType, limit), ...) of the MaxPDVolumeCount predicates in the
+        policy."""
+        out = []
+        if "MaxEBSVolumeCount" in self.predicates:
+            out.append((VolType.EBS, self.max_ebs_volumes))
+        if "MaxGCEPDVolumeCount" in self.predicates:
+            out.append((VolType.GCE, self.max_gce_pd_volumes))
+        if "MaxAzureDiskVolumeCount" in self.predicates:
+            out.append((VolType.AZURE, self.max_azure_disk_volumes))
+        return tuple(out)
+
+    def with_env_overrides(self) -> "Policy":
+        """KUBE_MAX_PD_VOLS (defaults.go getMaxVols), a positive integer,
+        as every attach limit, as the reference's predicate factories read
+        it; the policy as it is without one."""
+        try:
+            limit = int(os.environ.get("KUBE_MAX_PD_VOLS", ""))
+        except ValueError:
+            return self
+        if limit <= 0:
+            return self
+        return replace(self, max_ebs_volumes=limit, max_gce_pd_volumes=limit,
+                       max_azure_disk_volumes=limit)
 
     def weight(self, name: str) -> int:
         for n, w in self.priorities:

@@ -36,8 +36,13 @@ Eight builds of the kernel, chosen at compile time:
   carry, solver.py:537-539,780-781) and the gpu and storage fit against
   the running ledger (`fits_resources_dyn` with `dyn_gpu` and
   `dyn_storage`, predicates.py:93, the overlay request falling through to
-  scratch on a node without overlay allocatable); a reverted group also
-  gives back its host ports (`new_port_count`);
+  scratch on a node without overlay allocatable), and volumes:
+  NoDiskConflict against the running disk-conflict counts and
+  MaxPDVolumeCount against the running attach counts (the JAX step's
+  `no_disk_conflict` and `max_attach_ok` and their `vol_any`, `vol_rw` and
+  `attach_count` carry, solver.py:541-547,786-792); a reverted group also
+  gives back its host ports and volumes (`new_port_count`, `new_vol_any`,
+  `new_vol_rw`, `new_attach`);
 - `assign_scan_spread_gang`, `assign_scan_interpod_gang` and
   `assign_scan_spread_interpod_gang`, the spread, interpod and
   spread+interpod builds with the gang carry: a reverted group also gives
@@ -76,7 +81,12 @@ from kubernetes_tpu_torch.ops.interpod import (
     make_ledger,
     topology_onehot,
 )
-from kubernetes_tpu_torch.ops.predicates import fits_host_ports, fits_resources_dyn
+from kubernetes_tpu_torch.ops.predicates import (
+    fits_host_ports,
+    fits_resources_dyn,
+    max_attach_ok,
+    no_disk_conflict,
+)
 from kubernetes_tpu_torch.ops.preemption import group_runs
 from kubernetes_tpu_torch.ops.priorities import (
     balanced_allocation,
@@ -85,7 +95,7 @@ from kubernetes_tpu_torch.ops.priorities import (
     taint_toleration_from_counts,
 )
 from kubernetes_tpu_torch.ops.spread import selector_spread
-from kubernetes_tpu_torch.state.layout import TOPO_SPREAD_ZONE
+from kubernetes_tpu_torch.state.layout import TOPO_SPREAD_ZONE, VolType
 from kubernetes_tpu_torch.utils.device import check_tensor
 
 RR_MOD = 1 << 32
@@ -102,6 +112,9 @@ class ScanResult:
     new_podsel: torch.Tensor | None = None  # f32[N, UQ], spread and interpod builds
     new_term: torch.Tensor | None = None    # f32[N, UE], builds with the interpod half
     new_port_count: torch.Tensor | None = None  # f32[N, UP], the EXT builds with ports
+    new_vol_any: torch.Tensor | None = None     # f32[N, UV], EXT with NoDiskConflict
+    new_vol_rw: torch.Tensor | None = None      # f32[N, UV]
+    new_attach: torch.Tensor | None = None      # f32[N, UA], EXT with MaxPDVolumeCount
 
 
 def _rr_tensor(rr_start, device) -> torch.Tensor:
@@ -191,11 +204,66 @@ class ExtInputs:
     and the batch-start host-port counts (port_count f32[N, UP], not
     modified), UP at most 64. A pod conflicts on a node where
     port_count @ port_onehot is not 0. The gpu, scratch and overlay
-    requests are fit against the running ledger, whatever use_ports."""
+    requests are fit against the running ledger, whatever use_ports.
+
+    With use_nodisk (NoDiskConflict), each pod's conflict rows (vol_want_rw
+    and vol_want_ro f32[P, UV], counts: a disk listed twice counts 2) and
+    the batch-start conflict counts (vol_any, every mount, and vol_rw, the
+    read-write ones, f32[N, UV]); with attach_maxes ((VolType, limit), at
+    most three pairs: MaxPDVolumeCount), each pod's attach row and fail bit
+    (att_onehot f32[P, UA], 0/1, att_fail bool[P]), the batch-start attach
+    counts (attach_count f32[N, UA]) and the atoms' types (attach_type
+    i32[UA]). UV and UA at most 64; none of the counts is modified."""
 
     use_ports: bool
     port_onehot: torch.Tensor
     port_count: torch.Tensor
+    use_nodisk: bool = False
+    vol_want_rw: torch.Tensor | None = None
+    vol_want_ro: torch.Tensor | None = None
+    vol_any: torch.Tensor | None = None
+    vol_rw: torch.Tensor | None = None
+    attach_maxes: tuple = ()
+    att_onehot: torch.Tensor | None = None
+    att_fail: torch.Tensor | None = None
+    attach_count: torch.Tensor | None = None
+    attach_type: torch.Tensor | None = None
+
+
+def ext_carried(ext: ExtInputs) -> list:
+    """The ledgers the EXT variant carries, as (ScanResult field,
+    batch-start counts f32[N, U], each pod's addition f32[P, U]): the
+    host-port counts with use_ports, the conflict counts with use_nodisk
+    (a mount adds to vol_any, a read-write one to vol_rw too), the attach
+    counts with attach_maxes."""
+    out = []
+    if ext.use_ports:
+        out.append(("new_port_count", ext.port_count, ext.port_onehot))
+    if ext.use_nodisk:
+        out.append(("new_vol_any", ext.vol_any, ext.vol_want_rw + ext.vol_want_ro))
+        out.append(("new_vol_rw", ext.vol_rw, ext.vol_want_rw))
+    if ext.attach_maxes:
+        out.append(("new_attach", ext.attach_count, ext.att_onehot))
+    return out
+
+
+def ext_fits(ext: ExtInputs, ledgers: dict, p: int) -> torch.Tensor | None:
+    """bool[N]: pod p's host ports, disks and attach limits on the running
+    ledgers (`ledgers`, by ScanResult field, as `ext_carried` names them),
+    or None where the variant checks none of them."""
+    ok = None
+    if ext.use_ports:
+        ok = fits_host_ports(ledgers["new_port_count"], ext.port_onehot[p:p + 1])[0]
+    if ext.use_nodisk:
+        disk = no_disk_conflict(ledgers["new_vol_any"], ledgers["new_vol_rw"],
+                                ext.vol_want_rw[p:p + 1], ext.vol_want_ro[p:p + 1])[0]
+        ok = disk if ok is None else ok & disk
+    if ext.attach_maxes:
+        att = max_attach_ok(ledgers["new_attach"], ext.attach_type,
+                            ext.att_onehot[p:p + 1], ext.att_fail[p:p + 1],
+                            ext.attach_maxes)[0]
+        ok = att if ok is None else ok & att
+    return ok
 
 
 @dataclass
@@ -438,7 +506,10 @@ def assign_scan_ext_plain(masked_static, requests, nonzero_requests,
     and overlay requests fit against the running ledger, and with
     `use_ports` its host ports against the running host-port counts, to
     which a placed pod's port row is added (`new_port_count`; None without
-    `use_ports`, the counts passed through)."""
+    `use_ports`, the counts passed through); with `use_nodisk` its disks
+    against the running conflict counts and with `attach_maxes` its attach
+    atoms against the running attach counts, likewise carried
+    (`new_vol_any`, `new_vol_rw`, `new_attach`)."""
     return _scan_plain(masked_static, requests, nonzero_requests, allocatable,
                        requested, nonzero, rr_start, w_lr, w_ba, None,
                        norm=norm, ext=ext)
@@ -450,7 +521,8 @@ def assign_scan_gang_ext_plain(masked_static, requests, nonzero_requests,
                                gang: GangInputs,
                                norm: NormInputs | None = None) -> ScanResult:
     """`assign_scan_gang_plain` with the EXT variant: a group settled below
-    its quorum also gives back its host-port counts."""
+    its quorum also gives back its host-port, conflict and attach
+    counts."""
     return _scan_plain(masked_static, requests, nonzero_requests, allocatable,
                        requested, nonzero, rr_start, w_lr, w_ba, None,
                        gang=gang, norm=norm, ext=ext)
@@ -469,9 +541,11 @@ def _scan_plain(masked_static, requests, nonzero_requests, allocatable,
     nz = nonzero.clone()
     rr = _rr_tensor(rr_start, dev)
     # the EXT variant: the gpu and storage columns fit against the running
-    # ledger, and the host-port counts carried when PodFitsHostPorts runs
+    # ledger, and the host-port, conflict and attach counts carried where
+    # their predicates run
     dyn = ext is not None
-    ports = ext.port_count.clone() if dyn and ext.use_ports else None
+    carried_ext = ext_carried(ext) if dyn else []
+    xled = {f: start.clone() for f, start, _add in carried_ext}
     assignments = torch.empty((p_count,), dtype=torch.int32, device=dev)
     scores = torch.empty((p_count,), dtype=torch.float32, device=dev)
     counts = torch.empty((p_count,), dtype=torch.int32, device=dev)
@@ -493,27 +567,27 @@ def _scan_plain(masked_static, requests, nonzero_requests, allocatable,
         placed = torch.zeros((), dtype=torch.int64, device=dev)
         carried = ledger if spread is not None or ip is not None else None
 
-        def settle(req, nz, rr, ports):
+        def settle(req, nz, rr, xled):
             """The ledgers and rr after settling the open group (the
             affinity ledger in place)."""
             if gang_cur <= 0:
-                return req, nz, rr, ports
+                return req, nz, rr, xled
             revert = placed < quorum
             if carried is not None:
                 restore_ledger(carried, snap[3], revert)
             return (torch.where(revert, snap[0], req),
                     torch.where(revert, snap[1], nz),
                     torch.where(revert, snap[2], rr),
-                    None if ports is None else torch.where(revert, snap[4], ports))
+                    {f: torch.where(revert, snap[4][f], x) for f, x in xled.items()})
     for p in range(p_count):
         if gang is not None and gang_ids[p] != gang_cur:
             # a boundary: settle the group being left, then snapshot the
             # settled ledgers when this pod opens a group
-            req, nz, rr, ports = settle(req, nz, rr, ports)
+            req, nz, rr, xled = settle(req, nz, rr, xled)
             if gang_ids[p] > 0:
                 snap = (req.clone(), nz.clone(), rr.clone(),
                         None if carried is None else ledger_snapshot(carried),
-                        None if ports is None else ports.clone())
+                        {f: x.clone() for f, x in xled.items()})
                 placed = torch.zeros_like(placed)
                 quorum = gang_mins[p]
             gang_cur = gang_ids[p]
@@ -521,8 +595,8 @@ def _scan_plain(masked_static, requests, nonzero_requests, allocatable,
         feasible = (ms > float("-inf")) & fits_resources_dyn(
             allocatable, requests[p:p + 1], req, dyn_gpu=dyn,
             dyn_storage=dyn)[0]
-        if ports is not None:   # PodFitsHostPorts on the running counts
-            feasible = feasible & fits_host_ports(ports, ext.port_onehot[p:p + 1])[0]
+        if xled:   # host ports, disks and attach limits on the running counts
+            feasible = feasible & ext_fits(ext, xled, p)
         score = (ms + w_lr * least_requested(allocatable, nonzero_requests[p:p + 1], nz)[0]
                  + w_ba * balanced_allocation(allocatable, nonzero_requests[p:p + 1], nz)[0])
         if ip is not None:
@@ -559,8 +633,8 @@ def _scan_plain(masked_static, requests, nonzero_requests, allocatable,
         add = assigned.to(torch.float32)
         req[node] += add * requests[p]
         nz[node] += add * nonzero_requests[p]
-        if ports is not None:
-            ports[node] += add * ext.port_onehot[p]
+        for f, _start, adds in carried_ext:
+            xled[f][node] += add * adds[p]
         if spread is not None and ip is None:
             ledger_add(ledger, spread.pod_matches_q[p], node, add)
         if ip is not None:   # the pod-selector half serves SelectorSpread too
@@ -573,10 +647,9 @@ def _scan_plain(masked_static, requests, nonzero_requests, allocatable,
         scores[p] = torch.where(assigned, best, 0.0)
         counts[p] = feasible.sum()
     if gang is not None:
-        req, nz, rr, ports = settle(req, nz, rr, ports)   # the group open at the end
+        req, nz, rr, xled = settle(req, nz, rr, xled)   # the group open at the end
     if spread is None and ip is None:
-        return ScanResult(assignments, scores, counts, req, nz, rr,
-                          new_port_count=ports)
+        return ScanResult(assignments, scores, counts, req, nz, rr, **xled)
     return ScanResult(assignments, scores, counts, req, nz, rr,
                       ledger.podsel_count,
                       None if ip is None else ledger.term_count)
@@ -754,7 +827,8 @@ def norm_true_maxima(masked_static, requests, allocatable, requested, norm: Norm
                      ext: ExtInputs | None = None) -> list:
     """Per pod, the packed true maxima of the flag's counts over its
     feasible nodes (the static row and the ledger fit, with `ext` the EXT
-    variant's fit and host ports over the host-port ledger, and with
+    variant's fit, host ports, disks and attach limits over its carried
+    ledgers, and with
     `interpod` the inter-pod predicate over the carried-term ledger, as the
     builds take them) as a scan that made `assignments` saw them, or None
     where the pod exchanges none: a replay of the ledgers from the
@@ -771,7 +845,8 @@ def norm_true_maxima(masked_static, requests, allocatable, requested, norm: Norm
     gang_ids = gang.gang_id.tolist() if gang is not None else [0] * p_count
     gang_mins = gang.gang_min.tolist() if gang is not None else [0] * p_count
     req = requested.clone()
-    ports = ext.port_count.clone() if ext is not None and ext.use_ports else None
+    carried_ext = ext_carried(ext) if ext is not None else []
+    xled = {f: start.clone() for f, start, _add in carried_ext}
     ip = interpod
     if ip is not None:
         ledger = make_ledger(ip.podsel_count, ip.term_count, ip.topology,
@@ -784,12 +859,12 @@ def norm_true_maxima(masked_static, requests, allocatable, requested, norm: Norm
     for p in range(p_count):
         if gang_ids[p] != gang_cur:
             if gang_cur > 0 and placed < quorum:
-                req, ports = snap[0], snap[2]
+                req, xled = snap[0], snap[2]
                 if ip is not None:
                     restore_ledger(ledger, snap[1], True)
             if gang_ids[p] > 0:
                 snap = (req.clone(), None if ip is None else ledger_snapshot(ledger),
-                        None if ports is None else ports.clone())
+                        {f: x.clone() for f, x in xled.items()})
                 placed, quorum = 0, gang_mins[p]
             gang_cur = gang_ids[p]
         if exch[p]:
@@ -800,8 +875,8 @@ def norm_true_maxima(masked_static, requests, allocatable, requested, norm: Norm
             feasible = (masked_static[p] > float("-inf")) & fits_resources_dyn(
                 allocatable, requests[p:p + 1], req, dyn_gpu=ext is not None,
                 dyn_storage=ext is not None)[0]
-            if ports is not None:
-                feasible = feasible & fits_host_ports(ports, ext.port_onehot[p:p + 1])[0]
+            if xled:
+                feasible = feasible & ext_fits(ext, xled, p)
             if ip is not None and ip.use_ipa:
                 pod = SimpleNamespace(**{f: getattr(ip, f)[p] for f in POD_ROW_FIELDS})
                 feasible = feasible & interpod_feasible(ip, pod, ledger, onehot)
@@ -811,8 +886,8 @@ def norm_true_maxima(masked_static, requests, allocatable, requested, norm: Norm
                 out[p, 1] = torch.where(feasible, na, 0.0).max()
         if placed_at[p] >= 0:
             req[placed_at[p]] += requests[p]
-            if ports is not None:
-                ports[placed_at[p]] += ext.port_onehot[p]
+            for f, _start, adds in carried_ext:
+                xled[f][placed_at[p]] += adds[p]
             placed += gang_cur > 0
             if ip is not None:
                 ledger_add(ledger, ip.pod_matches_q[p], placed_at[p], one,
@@ -1231,13 +1306,13 @@ def _check_gang(gang: GangInputs | None, p: int, dev) -> None:
         check_tensor(*check, dev)
 
 
-def _gang_operands(gang: GangInputs | None, p: int, dev):
-    """The gang carry's device operands: (the undo log, [CLUSTER, P, 3]
+def _gang_operands(gang: GangInputs | None, p: int, dev, words: int = 3):
+    """The gang carry's device operands: (the undo log, [CLUSTER, P, words]
     float4s, which the caller holds until the launch is enqueued, and the
     launch's pointers: gang_id, gang_min, the log); none without `gang`."""
     if gang is None:
         return None, ()
-    undo = torch.empty((CLUSTER, p, 3, 4), dtype=torch.float32, device=dev)
+    undo = torch.empty((CLUSTER, p, words, 4), dtype=torch.float32, device=dev)
     return undo, (gang.gang_id.data_ptr(), gang.gang_min.data_ptr(), undo.data_ptr())
 
 
@@ -1276,44 +1351,96 @@ def assign_scan_gang(masked_static, requests, nonzero_requests, allocatable,
 assign_scan_gang.launches = 0
 assign_scan_gang.norm_launches = 0   # of them, with the normalization flag
 
-# the EXT variant's host-port universe: one 64-bit word a node and a pod
+# the EXT variant's universes (host ports, conflict and attach atoms): one
+# 64-bit word a node and a pod each; and its (VolType, limit) pairs
 EXT_MAX_UP = NORM_MAX_U
+EXT_MAX_ATTACH_LIMITS = 3
+# the gang build's undo entry with EXT, in float4s: the node's old port and
+# volume words beside the gang build's three
+EXT_UNDO_WORDS = 5
+# a pod's volume flags (the kernel's EXT_FAIL, EXT_DISK, EXT_ATT, EXT_SAME)
+EXT_FAIL, EXT_DISK, EXT_ATT, EXT_SAME = 1, 2, 4, 8
 
 
 def _check_ext(name: str, ext: ExtInputs, p: int, n: int, dev) -> None:
     """Check the ExtInputs tensors of a p-pod, n-node batch; ValueError
-    past EXT_MAX_UP ports (on every device: the kernel's words hold 64)."""
-    up = ext.port_count.shape[1]
-    for check in (("port_onehot", ext.port_onehot, torch.float32, (p, up)),
-                  ("port_count", ext.port_count, torch.float32, (n, up))):
-        check_tensor(*check, dev)
-    if up > EXT_MAX_UP:
-        raise ValueError(f"{name}: {up} host ports in the universe, at most "
-                         f"{EXT_MAX_UP}")
+    past EXT_MAX_UP host ports, conflict atoms or attach atoms (on every
+    device: the kernel's words hold 64) or EXT_MAX_ATTACH_LIMITS pairs."""
+    f32 = torch.float32
+    checks = [("host ports", "port_onehot", "port_count")]
+    if ext.use_nodisk:
+        checks += [("conflict atoms", "vol_want_rw", "vol_any"),
+                   ("conflict atoms", "vol_want_ro", "vol_rw")]
+    if ext.attach_maxes:
+        checks += [("attach atoms", "att_onehot", "attach_count")]
+        ua = ext.attach_count.shape[1]
+        check_tensor("att_fail", ext.att_fail, torch.bool, (p,), dev)
+        check_tensor("attach_type", ext.attach_type, torch.int32, (ua,), dev)
+        if len(ext.attach_maxes) > EXT_MAX_ATTACH_LIMITS:
+            raise ValueError(f"{name}: {len(ext.attach_maxes)} attach limits, at "
+                             f"most {EXT_MAX_ATTACH_LIMITS}")
+    for what, pod_rows, counts in checks:
+        u = getattr(ext, counts).shape[1]
+        check_tensor(pod_rows, getattr(ext, pod_rows), f32, (p, u), dev)
+        check_tensor(counts, getattr(ext, counts), f32, (n, u), dev)
+        if u > EXT_MAX_UP:
+            raise ValueError(f"{name}: {u} {what} in the universe, at most "
+                             f"{EXT_MAX_UP}")
 
 
 def _ext_words(ext: ExtInputs):
-    """The EXT variant's device words, i64[N] (bit u: the node's count of
-    port u is not 0; the kernel may update this copy in place) and i64[P]
-    (bit u: the pod wants port u); zeros without use_ports."""
-    if not ext.use_ports:
-        return (torch.zeros(ext.port_count.shape[:1], dtype=torch.int64,
-                            device=ext.port_count.device),
-                torch.zeros(ext.port_onehot.shape[:1], dtype=torch.int64,
-                            device=ext.port_onehot.device))
-    return (pack_words(ext.port_count).contiguous(),
-            pack_words(ext.port_onehot).contiguous())
+    """The EXT variant's device words: i64[N + 1, 4], row 0 MaxPDVolumeCount's
+    table (the limits' type masks, bit u: atom u is of the type or ANY, then
+    their limits, 16 bits each, and their count in bits 48-49), row g + 1
+    node g's conflict atoms in use, in use read-write, attach atoms present
+    and host ports in use (bit u: the count is not 0), a copy the kernel
+    updates in place; and i64[P, 6], a pod's host ports, 0, the atoms it
+    mounts read-write and read-only, its attach atoms and its flags: the
+    attach fail bit EXT_FAIL, EXT_DISK and EXT_ATT where it has those words,
+    EXT_SAME where its words and fail bit equal the previous pod's. Zeros
+    where the predicate does not run."""
+    dev = ext.port_count.device
+    n, p = ext.port_count.shape[0], ext.port_onehot.shape[0]
+    node = torch.zeros((n + 1, 4), dtype=torch.int64, device=dev)
+    pod = torch.zeros((p, 6), dtype=torch.int64, device=dev)
+    if ext.use_ports:
+        node[1:, 3] = pack_words(ext.port_count)
+        pod[:, 0] = pack_words(ext.port_onehot)
+    if ext.use_nodisk:
+        node[1:, 0] = pack_words(ext.vol_any)
+        node[1:, 1] = pack_words(ext.vol_rw)
+        pod[:, 2] = pack_words(ext.vol_want_rw)
+        pod[:, 3] = pack_words(ext.vol_want_ro)
+    if ext.attach_maxes:
+        node[1:, 2] = pack_words(ext.attach_count)
+        pod[:, 4] = pack_words(ext.att_onehot)
+        pod[:, 5] = ext.att_fail.to(torch.int64) * EXT_FAIL
+        types = ext.attach_type.to(torch.int64)
+        limits = len(ext.attach_maxes) << 48
+        for k, (vtype, limit) in enumerate(ext.attach_maxes):
+            mask = ((types == vtype) | (types == VolType.ANY)).to(torch.float32)
+            node[0, k] = pack_words(mask[None])[0]
+            limits |= min(int(limit), 0xFFFF) << (16 * k)
+        node[0, 3] = limits
+    vol = pod[:, 2:5]
+    pod[:, 5] |= ((vol[:, 0] | vol[:, 1]) != 0).to(torch.int64) * EXT_DISK
+    pod[:, 5] |= (vol[:, 2] != 0).to(torch.int64) * EXT_ATT
+    same = torch.zeros_like(pod[:, 5])
+    same[1:] = (pod[1:, 2:] == pod[:-1, 2:]).all(1).to(torch.int64) * EXT_SAME
+    pod[:, 5] |= same
+    return node.contiguous(), pod.contiguous()
 
 
-def ext_port_count(ext: ExtInputs, assignments: torch.Tensor,
-                   gang: GangInputs | None = None) -> torch.Tensor | None:
-    """The host-port counts after the batch (None without use_ports): the
-    batch-start counts plus the port rows of the pods placed, members of a
-    group below its quorum left out. The counts are integers below 2^24,
-    so the sum is the plain scan's carried (and, for a reverted group,
-    restored) ledger exactly."""
-    if not ext.use_ports:
-        return None
+def ext_ledgers(ext: ExtInputs, assignments: torch.Tensor,
+                gang: GangInputs | None = None) -> dict:
+    """The EXT variant's carried ledgers after the batch, by ScanResult
+    field (`ext_carried`): the batch-start counts plus the rows of the
+    pods placed, members of a group below its quorum left out. The counts
+    are integers below 2^24, so each sum is the plain scan's carried (and,
+    for a reverted group, restored) ledger exactly."""
+    carried = ext_carried(ext)
+    if not carried:
+        return {}
     ok = assignments >= 0
     if gang is not None:
         _first, seg = group_runs(gang.gang_id)
@@ -1321,8 +1448,15 @@ def ext_port_count(ext: ExtInputs, assignments: torch.Tensor,
         placed.index_add_(0, seg, ok.to(torch.int64))
         ok = ok & ~((gang.gang_id > 0) & (placed[seg] < gang.gang_min))
     rows = torch.where(ok, assignments, 0).to(torch.int64)
-    return ext.port_count.index_add(
-        0, rows, ext.port_onehot * ok[:, None].to(torch.float32))
+    keep = ok[:, None].to(torch.float32)
+    return {f: start.index_add(0, rows, add * keep) for f, start, add in carried}
+
+
+def ext_port_count(ext: ExtInputs, assignments: torch.Tensor,
+                   gang: GangInputs | None = None) -> torch.Tensor | None:
+    """The host-port counts after the batch (`ext_ledgers`), None without
+    use_ports."""
+    return ext_ledgers(ext, assignments, gang).get("new_port_count")
 
 
 def assign_scan_ext(masked_static, requests, nonzero_requests, allocatable,
@@ -1331,9 +1465,12 @@ def assign_scan_ext(masked_static, requests, nonzero_requests, allocatable,
     """Phase B with the EXT variant (`assign_scan_ext_plain`): the operands
     of `assign_scan` (the gpu and storage columns of the requests may be
     nonzero), and `ext` (ExtInputs). On a card the wrapper hands the kernel
-    a node's host ports as one 64-bit word (a set bit: the count is not 0),
-    which the kernel ORs each placed pod's word into, and each pod's word;
-    `new_port_count` is summed after the launch from the assignments."""
+    a node's host ports, conflict atoms (in use, in use read-write) and
+    attach atoms as 64-bit words (a set bit: the count is not 0), which the
+    kernel ORs each placed pod's words into, each pod's words and flags,
+    and the attach limits' type masks (`_ext_words`); `new_port_count`, `new_vol_any`,
+    `new_vol_rw` and `new_attach` are summed after the launch from the
+    assignments (`ext_ledgers`)."""
     return _ext_scan(assign_scan_ext, (masked_static, requests, nonzero_requests,
                      allocatable, requested, nonzero), rr_start, w_lr, w_ba,
                      ext, None, norm)
@@ -1347,7 +1484,7 @@ def assign_scan_gang_ext(masked_static, requests, nonzero_requests,
     """Phase B with the gang carry and the EXT variant
     (`assign_scan_gang_ext_plain`): the operands of `assign_scan_ext`, and
     `gang` (GangInputs), with the gang build's undo log on a card, whose
-    entries also keep a node's old port word."""
+    entries also keep a node's old port and volume words."""
     return _ext_scan(assign_scan_gang_ext, (masked_static, requests,
                      nonzero_requests, allocatable, requested, nonzero),
                      rr_start, w_lr, w_ba, ext, gang, norm)
@@ -1366,15 +1503,15 @@ def _ext_scan(wrapper, args, rr_start, w_lr, w_ba, ext: ExtInputs,
     if dev.type == "cpu":
         return _scan_plain(*args, rr_start, w_lr, w_ba, None, gang=gang,
                            norm=norm, ext=ext)
-    node_w, pod_w = _ext_words(ext)
-    _undo, gang_args = _gang_operands(gang, p, dev)
+    node_words, pod_words = _ext_words(ext)
+    _undo, gang_args = _gang_operands(gang, p, dev, EXT_UNDO_WORDS)
     argtypes = _ARGTYPES if gang is None else _GANG_ARGTYPES
     out = _launch(f"ktpu_{name}", argtypes[:-1] + [ctypes.c_void_p] * 3, *args,
                   rr_start, w_lr, w_ba,
-                  (*gang_args, node_w.data_ptr(), pod_w.data_ptr()), norm)
+                  (*gang_args, node_words.data_ptr(), pod_words.data_ptr()), norm)
     wrapper.launches += 1
     wrapper.norm_launches += norm is not None
-    return ScanResult(*out, new_port_count=ext_port_count(ext, out[0], gang))
+    return ScanResult(*out, **ext_ledgers(ext, out[0], gang))
 
 
 assign_scan_ext.launches = 0

@@ -24,6 +24,7 @@ from kubernetes_tpu_torch.state.layout import (
     Effect,
     Resource,
     TolOp,
+    VolType,
 )
 from kubernetes_tpu_torch.state.pod_batch import PodBatch
 
@@ -97,6 +98,38 @@ def fits_host_ports(port_count: torch.Tensor,
     pod wants is in use on the node, port_count f32[N, UP] @ port_onehot
     f32[P, UP] == 0 (integer counts: the product is exact)."""
     return torch.matmul(port_onehot, port_count.T) == 0
+
+
+def no_disk_conflict(vol_any: torch.Tensor, vol_rw: torch.Tensor,
+                     want_rw: torch.Tensor, want_ro: torch.Tensor) -> torch.Tensor:
+    """NoDiskConflict (predicates.go:183): bool[P, N], no atom the pod
+    mounts read-write is in use on the node, and none it mounts read-only
+    is in use read-write there: vol_any f32[N, UV] @ want_rw f32[P, UV] +
+    vol_rw @ want_ro == 0 (non-negative integer counts: exact)."""
+    return (torch.matmul(want_rw, vol_any.T) + torch.matmul(want_ro, vol_rw.T)) == 0
+
+
+def max_attach_ok(attach_count: torch.Tensor, attach_type: torch.Tensor,
+                  att_onehot: torch.Tensor, att_fail: torch.Tensor,
+                  maxes: tuple) -> torch.Tensor:
+    """MaxPDVolumeCount (predicates.go:281-320) for the (VolType, limit)
+    pairs `maxes`: bool[P, N]. For each pair, a pod that wants no atom of
+    the type passes (the len(newVolumes) == 0 return, :296); else the
+    node's distinct atoms of the type plus the pod's not yet there must
+    not pass the limit. ANY atoms (claims not found) count toward every
+    type; att_fail bool[P] fails the pod everywhere."""
+    present = (attach_count > 0).to(torch.float32)   # [N, UA]
+    absent = 1.0 - present
+    ok = torch.ones((att_onehot.shape[0], attach_count.shape[0]), dtype=torch.bool,
+                    device=attach_count.device)
+    for vtype, limit in maxes:
+        mask = ((attach_type == vtype) | (attach_type == VolType.ANY)).to(torch.float32)
+        wanted = att_onehot * mask
+        wants = wanted.sum(1) > 0
+        existing = torch.matmul(present, mask)        # distinct, [N]
+        new = torch.matmul(wanted, absent.T)          # not yet attached, [P, N]
+        ok &= ~wants[:, None] | (existing[None, :] + new <= float(limit))
+    return ok & ~att_fail[:, None]
 
 
 def fits_host(state: ClusterState, batch: PodBatch) -> torch.Tensor:

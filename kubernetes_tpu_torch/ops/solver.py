@@ -42,10 +42,17 @@ the next. This solver reproduces that decision for decision:
   requirement words Phase A packs (`norm_inputs`).
   When the batch raises the ports gate (a pod with a host port) and the
   policy runs PodFitsHostPorts, or the gpu or storage gate (a gpu,
-  scratch or overlay request), the main or gang build takes the EXT
-  variant: PodFitsHostPorts against the running host-port counts and the
-  gpu and storage fit against the running ledger, each placed pod's ports
-  added to the counts (`new_port_count`), a reverted group's given back.
+  scratch or overlay request), or the vol gate (a disk a conflict atom
+  names) and the policy runs NoDiskConflict, or the attach gate (an attach
+  atom, or a claim that does not resolve) and the policy runs a
+  MaxPDVolumeCount predicate, the main or gang build takes the EXT
+  variant: PodFitsHostPorts against the running host-port counts, the gpu
+  and storage fit against the running ledger, NoDiskConflict against the
+  running conflict counts and MaxPDVolumeCount against the running attach
+  counts, each placed pod's ports and volumes added to the counts
+  (`new_port_count`, `new_vol_any`, `new_vol_rw`, `new_attach`), a
+  reverted group's given back. VolumeZone and VolumeNode are static: Phase
+  A ANDs them in from the batch's zone and PV-selector rows.
 - **Preemption (serial over the pods left out)**: when the batch raises
   the preempt gate (a pod with a priority) and the caller gives a
   VictimTable, kernel 3 (ops/preemption.py) finds, for every valid pod the
@@ -55,10 +62,10 @@ the next. This solver reproduces that decision for decision:
   `victim_count` in the result, (-1, 0) when the pass is off.
 
 This package carries the main path and the spread, ipa, gang, tt, na,
-preempt, ports, gpu and storage gates, each with any of the others but
-ports, gpu and storage with SelectorSpread or inter-pod affinity: a batch
-whose content raises any other BatchFlags gate (vol, attach), or ports,
-gpu or storage where the spread or interpod build would run, a policy
+preempt, ports, gpu, storage, vol and attach gates, each with any of the
+others but ports, gpu, storage and volumes with SelectorSpread or
+inter-pod affinity: a batch that needs the EXT variant where the spread or
+interpod build would run, a policy
 that weighs ServiceSpreadingPriority on a spread batch, or a policy
 outside the fused static mask or with argument-carrying registrations,
 raises NotImplementedError naming what is missing. It never computes an
@@ -153,6 +160,8 @@ class PolicyGates:
 
     use_resources: bool
     use_ports: bool    # PodFitsHostPorts: in the policy and ports raised
+    use_nodisk: bool   # NoDiskConflict: in the policy and vol raised
+    attach_maxes: tuple  # ((VolType, limit), ...) of MaxPDVolumeCount, attach raised
     dyn_gpu: bool      # GPU fit must track the in-batch ledger
     dyn_storage: bool  # scratch/overlay fit must track the in-batch ledger
     w_lr: float
@@ -172,9 +181,10 @@ class PolicyGates:
 
     @property
     def use_ext(self) -> bool:
-        """The batch runs the EXT variant: host ports, or the gpu or
-        storage fit against the running ledger."""
-        return self.use_ports or self.dyn_gpu or self.dyn_storage
+        """The batch runs the EXT variant: host ports, the gpu or storage
+        fit against the running ledger, or volumes."""
+        return (self.use_ports or self.dyn_gpu or self.dyn_storage
+                or self.use_nodisk or bool(self.attach_maxes))
 
 
 def policy_gates(policy: Policy, flags: BatchFlags) -> PolicyGates:
@@ -195,6 +205,10 @@ def policy_gates(policy: Policy, flags: BatchFlags) -> PolicyGates:
         # the port ledger passes through
         use_ports=policy.has_predicate("GeneralPredicates", "PodFitsHostPorts",
                                        "PodFitsPorts") and flags.ports,
+        # no disk or attach atom in the batch: both predicates are true
+        # everywhere and their ledgers pass through
+        use_nodisk=policy.has_predicate("NoDiskConflict") and flags.vol,
+        attach_maxes=policy.attach_maxes() if flags.attach else (),
         dyn_gpu=flags.gpu,
         dyn_storage=flags.storage,
         w_lr=policy.weight("LeastRequestedPriority"),
@@ -221,17 +235,18 @@ _STATIC_PRIORITIES = ("EqualPriority", "ImageLocalityPriority",
 def check_supported(policy: Policy, flags: BatchFlags) -> PolicyGates:
     """The gates of a (policy, flags) pair this solver implements; raises
     NotImplementedError naming every gate or registration it does not."""
-    # spread, ipa, gang, tt, na, preempt, ports, gpu and storage are
-    # carried; svcanti is neutral without a ServiceAntiAffinity
+    # spread, ipa, gang, tt, na, preempt, ports, gpu, storage, vol and
+    # attach are carried; svcanti is neutral without a ServiceAntiAffinity
     # registration, which the PolicyRows check below refuses
     raised = [f.name for f in fields(BatchFlags) if getattr(flags, f.name)
               and f.name not in ("spread", "svcanti", "ipa", "gang", "tt", "na",
-                                 "preempt", "ports", "gpu", "storage")]
+                                 "preempt", "ports", "gpu", "storage", "vol",
+                                 "attach")]
     if raised:
         raise NotImplementedError(
             f"batch raises solver gates {raised}: only the main path and "
-            f"the spread, ipa, gang, tt, na, preempt, ports, gpu and storage "
-            f"gates are implemented")
+            f"the spread, ipa, gang, tt, na, preempt, ports, gpu, storage, vol "
+            f"and attach gates are implemented")
     if flags.spread and policy.weight("ServiceSpreadingPriority"):
         raise NotImplementedError(
             "ServiceSpreadingPriority with a weight is not implemented")
@@ -252,10 +267,15 @@ def check_supported(policy: Policy, flags: BatchFlags) -> PolicyGates:
     if not g.use_resources:
         raise NotImplementedError("policy without PodFitsResources")
     if g.use_ext and (g.use_terms or g.w_ss):
+        what = [name for name, on in (
+            ("host ports / GPU or storage requests",
+             g.use_ports or g.dyn_gpu or g.dyn_storage),
+            ("volumes (NoDiskConflict, MaxPDVolumeCount)",
+             g.use_nodisk or bool(g.attach_maxes))) if on]
         raise NotImplementedError(
-            "host ports / GPU or storage requests with SelectorSpread or "
-            "inter-pod affinity are not implemented: the EXT variant is in "
-            "the main and gang builds only")
+            f"{' and '.join(what)} with SelectorSpread or inter-pod affinity "
+            f"are not implemented: the EXT variant is in the main and gang "
+            f"builds only")
     return g
 
 
@@ -284,8 +304,13 @@ class SolverResult:
     preempt_node: torch.Tensor | None = None
     victim_count: torch.Tensor | None = None
     # f32[N, UP] host-port counts after the batch when the scan carried
-    # them (PodFitsHostPorts ran), else None (passed through)
+    # them (PodFitsHostPorts ran), else None (passed through); likewise the
+    # conflict counts f32[N, UV] (NoDiskConflict) and the attach counts
+    # f32[N, UA] (MaxPDVolumeCount)
     new_port_count: torch.Tensor | None = None
+    new_vol_any: torch.Tensor | None = None
+    new_vol_rw: torch.Tensor | None = None
+    new_attach: torch.Tensor | None = None
 
 
 def _static_rest(state: ClusterState, batch: PodBatch,
@@ -330,6 +355,18 @@ def masked_static_scores(state: ClusterState, batch: PodBatch, policy: Policy,
     ok &= batch.valid[:, None]
     score = _static_score(state, batch, policy, g.const_score)
     return torch.where(ok, score, float("-inf"))
+
+
+def ext_inputs(state: ClusterState, batch: PodBatch, g: PolicyGates) -> ExtInputs:
+    """The EXT variant's operands of one batch."""
+    return ExtInputs(
+        use_ports=g.use_ports, port_onehot=batch.port_onehot.contiguous(),
+        port_count=state.port_count, use_nodisk=g.use_nodisk,
+        vol_want_rw=batch.vol_want_rw.contiguous(),
+        vol_want_ro=batch.vol_want_ro.contiguous(), vol_any=state.vol_any,
+        vol_rw=state.vol_rw, attach_maxes=g.attach_maxes,
+        att_onehot=batch.att_onehot.contiguous(), att_fail=batch.att_fail.contiguous(),
+        attach_count=state.attach_count, attach_type=state.attach_type)
 
 
 def interpod_inputs(state: ClusterState, batch: PodBatch, g: PolicyGates,
@@ -421,9 +458,7 @@ def _solve(state, batch, rr_start, policy, flags, caps, spread_zones, mask_fn,
         operands = (spread_inputs(state, batch, g, universe, spread_zones),)
     elif g.use_ext:
         build = (ext_fn, gang_ext_fn)
-        operands = (ExtInputs(use_ports=g.use_ports,
-                              port_onehot=batch.port_onehot.contiguous(),
-                              port_count=state.port_count),)
+        operands = (ext_inputs(state, batch, g),)
     else:
         build = (scan_fn, gang_fn)
         operands = ()
@@ -454,7 +489,8 @@ def _solve(state, batch, rr_start, policy, flags, caps, spread_zones, mask_fn,
         rr_end=scan.rr_end, new_podsel=scan.new_podsel,
         new_term=scan.new_term, gang_placed=placed, gang_reverted=reverted,
         preempt_node=preempt_node, victim_count=victim_count,
-        new_port_count=scan.new_port_count)
+        new_port_count=scan.new_port_count, new_vol_any=scan.new_vol_any,
+        new_vol_rw=scan.new_vol_rw, new_attach=scan.new_attach)
 
 
 def schedule_batch(state: ClusterState, batch: PodBatch, rr_start,

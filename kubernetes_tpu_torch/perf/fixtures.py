@@ -7,7 +7,7 @@ traffic, perf/harness.py), and so are cycled cpu requests and priorities
 (the preemption traffic; the reference sets priorities through
 PriorityClasses and its admission plugin, which this package lacks), and
 periodic extra allocatable, extra requests and host ports (the gpu_ports
-traffic)."""
+traffic), and periodic volumes (the volumes traffic)."""
 
 from __future__ import annotations
 
@@ -73,7 +73,8 @@ def make_pods(n: int, cpu: str | Sequence[str] = "100m", memory: str = "250Mi",
               class_tolerations: tuple = (),
               class_preferred: tuple = (),
               priority: int | Sequence[int] = 0,
-              extra_requests: tuple = (), host_ports: tuple = ()) -> list[Pod]:
+              extra_requests: tuple = (), host_ports: tuple = (),
+              volumes: tuple = ()) -> list[Pod]:
     """Templated pending pods (the basic scheduler_perf pod spec: small cpu
     and memory requests); optional periodic nodeSelector, a toleration of
     the fixtures' NoSchedule taint, and labels app=app-{i % app_groups}
@@ -90,8 +91,9 @@ def make_pods(n: int, cpu: str | Sequence[str] = "100m", memory: str = "250Mi",
     cycled over the pods (pod i takes entry i % len); a nonzero priority is
     written to spec.priority. `extra_requests` entries (every, offset,
     {resource: quantity}) add requests to pod i where i % every == offset,
-    and `host_ports` entries (every, offset, port) a containerPort with
-    that hostPort."""
+    `host_ports` entries (every, offset, port) a containerPort with
+    that hostPort, and `volumes` entries (every, offset, fn) the v1 Volume
+    fn(i) (fn(i) None: none) to pod i, in the entries' order."""
     cpus = [cpu] if isinstance(cpu, str) else list(cpu)
     prios = [priority] if isinstance(priority, int) else list(priority)
     out = []
@@ -114,6 +116,9 @@ def make_pods(n: int, cpu: str | Sequence[str] = "100m", memory: str = "250Mi",
         if ports:
             spec["containers"][0]["ports"] = [
                 {"containerPort": port, "hostPort": port} for port in ports]
+        vols = [fn(i) for every, offset, fn in volumes if i % every == offset]
+        if any(v is not None for v in vols):
+            spec["volumes"] = [v for v in vols if v is not None]
         if prios[i % len(prios)]:
             spec["priority"] = prios[i % len(prios)]
         if selector_every and i % selector_every == 0:

@@ -29,6 +29,11 @@
   which the main and gang builds take as their EXT variant: the
   `gpu_ports` traffic is `make_pods(30000, **GPU_PORTS_PODS)` on
   `gpu_ports_cluster(15000, ...)` (bound host-port pods accounted first).
+  Pods mounting disks and claims raise the vol and attach gates, which the
+  main and gang builds take as their EXT variant too, and their claims'
+  PVs give VolumeZone terms in Phase A: the `volumes` traffic is
+  `volumes_pods(30000)` on `volumes_cluster(15000, volumes_caps(...))`
+  (its PVs, claims and bound disk pods first).
 - `run_preemption` drives the preemption drill (the reference's
   bench[preemption], kubernetes_tpu/perf/harness.py `_run_preemption`):
   every node's cpu filled by two priority-0 fillers, then a wave of n/4
@@ -50,10 +55,13 @@ and run on `cuda` unless given another device.
 from __future__ import annotations
 
 import gc
+import json
 import time
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 
 import torch
+
+from kubernetes_tpu_torch.api.objects import PersistentVolume, PersistentVolumeClaim
 
 from kubernetes_tpu_torch.gang import pod_group_key
 from kubernetes_tpu_torch.models.policy import DEFAULT_POLICY, Policy
@@ -73,6 +81,7 @@ from kubernetes_tpu_torch.state.pod_batch import (
     packed_batch_flags,
     unpack_batch,
 )
+from kubernetes_tpu_torch.state.volumes import NODE_AFFINITY_ANNOTATION
 from kubernetes_tpu_torch.utils.device import resolve_device
 
 
@@ -151,6 +160,105 @@ def gpu_ports_cluster(n_nodes: int, caps: Capacities, device=None,
     bound = make_pods(len(on), name_prefix="bound",
                       extra_requests=((2, 0, {GPU: "1"}),),
                       host_ports=((1, 0, 8080),))
+    for i, pod in zip(on, bound):
+        sched.add_pod(pod, f"node-{i}")
+    return sched
+
+
+# the volumes traffic: bench[headline]'s 15,000 nodes in 3 zones; 24 PVs
+# pv-k, each a GCE PD pd-k in zone-{k % 3}, bound by claims claim-k of the
+# pods' namespace, and VOLUMES_UNBOUND claims bound to nothing; a bound pod
+# mounting the dataset disk data-{j % 16} read-write on every
+# VOLUMES_BOUND_EVERY-th node (bound pod j). Its 30,000 pods of 100m /
+# 250Mi all carry a service-account token secret and an emptyDir; pod i
+# with i % 4 == 1 also mounts data-{(i // 4) % 16} read-only, with i % 8 ==
+# 3 the claim claim-{(i // 8) % 24}; VOLUMES_MISSING pods (i % 7,500 == 6)
+# name a claim that does not exist (an ANY attach atom; VolumeZone fails)
+# and as many (i % 7,500 == 10) an unbound claim (attach fails). 16
+# conflict atoms, 44 attach atoms; the universes are raised to 64, the
+# words' limit (`volumes_caps`)
+ZONE_LABEL = "failure-domain.beta.kubernetes.io/zone"
+VOLUMES_PVS = 24
+VOLUMES_DATA_DISKS = 16
+VOLUMES_UNBOUND = 4
+VOLUMES_MISSING = 4
+VOLUMES_BOUND_EVERY = 10
+VOLUMES_ODD_EVERY = 7500   # the missing and unbound claims' period
+VOLUMES_UNPLACEABLE = VOLUMES_MISSING + VOLUMES_UNBOUND
+
+
+def _token(i: int) -> dict:
+    return {"name": "default-token", "secret": {"secretName": "default-token-x7k2p"}}
+
+
+def _scratch(i: int) -> dict:
+    return {"name": "scratch", "emptyDir": {}}
+
+
+def _dataset(i: int) -> dict:
+    return {"name": "dataset", "gcePersistentDisk": {
+        "pdName": f"data-{(i // 4) % VOLUMES_DATA_DISKS}", "readOnly": True}}
+
+
+def _claim(i: int) -> dict:
+    return {"name": "state", "persistentVolumeClaim": {
+        "claimName": f"claim-{(i // 8) % VOLUMES_PVS}"}}
+
+
+def _odd_claim(i: int) -> dict | None:
+    k = i // VOLUMES_ODD_EVERY
+    if i % VOLUMES_ODD_EVERY == 6 and k < VOLUMES_MISSING:
+        return {"name": "state", "persistentVolumeClaim": {"claimName": f"missing-{k}"}}
+    if i % VOLUMES_ODD_EVERY == 10 and k < VOLUMES_UNBOUND:
+        return {"name": "state", "persistentVolumeClaim": {"claimName": f"unbound-{k}"}}
+    return None
+
+
+VOLUMES_PODS = {"volumes": ((1, 0, _token), (1, 0, _scratch), (4, 1, _dataset),
+                            (8, 3, _claim), (1, 0, _odd_claim))}
+
+
+def volumes_pods(n: int, name_prefix: str = "pod", **kwargs) -> list:
+    """The volumes traffic's first n pods (`make_pods` with VOLUMES_PODS)."""
+    return make_pods(n, name_prefix=name_prefix, **VOLUMES_PODS, **kwargs)
+
+
+def volumes_caps(n_nodes: int, n_pods: int) -> Capacities:
+    """`default_caps` with the conflict and attach universes at 64."""
+    return replace(default_caps(n_nodes, n_pods), volume_universe=64,
+                   attach_universe=64)
+
+
+def volumes_cluster(n_nodes: int, caps: Capacities, device=None,
+                    policy: Policy = DEFAULT_POLICY, node_kwargs: dict | None = None,
+                    node_affinity_pvs: int = 0) -> Scheduler:
+    """A Scheduler on the volumes traffic's nodes (3 zones, with
+    `node_kwargs` added), its PVs and claims, and its bound disk pods
+    accounted (`Scheduler.add_pod`). With `node_affinity_pvs` k, the
+    Scheduler has NoVolumeNodeConflict's feature gate on and PVs 0..k-1
+    carry a node-affinity annotation naming nodes k % 3, k % 3 + 9, ...
+    below 30, all in the PV's zone (VolumeNode in Phase A)."""
+    sched = Scheduler(caps, policy, device, local_volumes_enabled=node_affinity_pvs > 0)
+    sched.add_nodes(make_nodes(n_nodes, **{"zones": 3, **(node_kwargs or {})}))
+    for k in range(VOLUMES_PVS):
+        meta: dict = {"name": f"pv-{k}", "labels": {ZONE_LABEL: f"zone-{k % 3}"}}
+        if k < node_affinity_pvs:
+            hosts = [f"node-{i}" for i in range(k % 3, min(30, n_nodes), 9)]
+            meta["annotations"] = {NODE_AFFINITY_ANNOTATION: json.dumps({
+                "requiredDuringSchedulingIgnoredDuringExecution": {"nodeSelectorTerms": [
+                    {"matchExpressions": [{"key": "kubernetes.io/hostname",
+                                           "operator": "In", "values": hosts}]}]}})}
+        sched.add_pv(PersistentVolume.from_dict({
+            "metadata": meta, "spec": {"gcePersistentDisk": {"pdName": f"pd-{k}"}}}))
+        sched.add_pvc(PersistentVolumeClaim.from_dict({
+            "metadata": {"name": f"claim-{k}"}, "spec": {"volumeName": f"pv-{k}"}}))
+    for k in range(VOLUMES_UNBOUND):
+        sched.add_pvc(PersistentVolumeClaim.from_dict({
+            "metadata": {"name": f"unbound-{k}"}, "spec": {}}))
+    on = range(0, n_nodes, VOLUMES_BOUND_EVERY)
+    bound = make_pods(len(on), name_prefix="bound", volumes=((1, 0, lambda j: {
+        "name": "dataset", "gcePersistentDisk": {
+            "pdName": f"data-{j % VOLUMES_DATA_DISKS}"}}),))
     for i, pod in zip(on, bound):
         sched.add_pod(pod, f"node-{i}")
     return sched

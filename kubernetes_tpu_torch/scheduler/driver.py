@@ -14,7 +14,15 @@ nodes dropped, outside `schedule`. Host ports are accounted like requests:
 a bound pod's ports through `add_pod`, a placed pod's from its batch row
 at commit, and a batch with a host-port, GPU, scratch or overlay request
 runs the scan's EXT variant (the main or gang build), whose host-port
-counts the StateDB adopts.
+counts the StateDB adopts. Volumes too: `add_pv`, `add_pvc` and their
+removals keep the PVs and claims a pod's claim-backed volumes resolve
+through, for the encoder and for the StateDB's accounting of bound pods
+(`local_volumes_enabled` turns on NoVolumeNodeConflict's feature gate, as
+the reference's PersistentLocalVolumes); a batch whose pods mount disks or
+attachable volumes runs the EXT variant too, whose conflict and attach
+counts the StateDB adopts, and VolumeZone and VolumeNode hold in Phase A.
+The policy's attach limits take KUBE_MAX_PD_VOLS (`with_env_overrides`),
+read when the Scheduler is made.
 
 SelectorSpread reads the workload objects: `add_service`,
 `remove_service`, `add_controller` and `remove_controller` keep in-memory
@@ -77,6 +85,8 @@ import torch
 
 from kubernetes_tpu_torch.api.objects import (
     Node,
+    PersistentVolume,
+    PersistentVolumeClaim,
     Pod,
     PodGroup,
     ReplicaSet,
@@ -116,9 +126,10 @@ _NONE: dict = {}   # a namespace without objects of a kind (never written)
 class Scheduler:
     def __init__(self, caps: Capacities | None = None,
                  policy: Policy = DEFAULT_POLICY, device=None,
-                 enable_preemption: bool = True, evictable=None):
+                 enable_preemption: bool = True, evictable=None,
+                 local_volumes_enabled: bool = False):
         self.caps = caps or Capacities()
-        self.policy = policy
+        self.policy = policy.with_env_overrides()   # KUBE_MAX_PD_VOLS
         self.enable_preemption = enable_preemption
         self.evictable = evictable   # pod -> bool, the PDB check's stand-in
         # pod key -> (node name, victim pod keys) of the last schedule call
@@ -129,15 +140,21 @@ class Scheduler:
         # kind -> namespace -> name -> object
         self._workloads: dict[type, dict[str, dict[str, object]]] = {
             kind: {} for kind in _WORKLOAD_KINDS}
+        self._pvs: dict[str, PersistentVolume] = {}
+        self._pvcs: dict[tuple[str, str], PersistentVolumeClaim] = {}
 
         def lister(kind):
             return lambda ns: self._workloads[kind].get(ns, _NONE).values()
 
         ctx = EncodeContext(
+            get_pvc=lambda ns, name: self._pvcs.get((ns, name)),
+            get_pv=self._pvs.get,
+            local_volumes_enabled=local_volumes_enabled,
             get_services=lister(Service),
             get_rcs=lister(ReplicationController),
             get_rss=lister(ReplicaSet), get_sss=lister(StatefulSet),
             list_pods=self.statedb.bound_pods)
+        self.statedb.ctx = ctx   # a bound pod's claims resolve through it
         self.encode_cache = EncodeCache(self.caps, self.statedb.table, ctx)
         f_width, i_width = blob_widths(self.caps)
         # one host pair, reused by every batch: written only after the
@@ -172,6 +189,22 @@ class Scheduler:
     def remove_pod(self, pod_key: str) -> None:
         """Forget a deleted pod: its requests leave its node's row."""
         self.statedb.remove_pod(pod_key)
+
+    def add_pv(self, pv: PersistentVolume) -> None:
+        """Add (or replace) a PersistentVolume. A pod's claims resolve when
+        it is encoded or accounted: pods with claim-backed volumes are never
+        served from the encode cache."""
+        self._pvs[pv.metadata.name] = pv
+
+    def remove_pv(self, pv: PersistentVolume) -> None:
+        self._pvs.pop(pv.metadata.name, None)
+
+    def add_pvc(self, pvc: PersistentVolumeClaim) -> None:
+        """Add (or replace) a PersistentVolumeClaim."""
+        self._pvcs[(pvc.metadata.namespace, pvc.metadata.name)] = pvc
+
+    def remove_pvc(self, pvc: PersistentVolumeClaim) -> None:
+        self._pvcs.pop((pvc.metadata.namespace, pvc.metadata.name), None)
 
     def add_service(self, service: Service) -> None:
         self._put_workload(service, True)

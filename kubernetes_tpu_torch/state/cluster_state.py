@@ -266,10 +266,10 @@ def pod_controller_ref(pod: Pod) -> tuple[str, str] | None:
 class NodeTable:
     """Host-side index over the state: row assignment from a free list,
     universe interning (selector terms, requirements, taints, host ports,
-    topology keys and domains, preferAvoidPods signatures, pod selectors,
-    carried pod-affinity terms) and per-row label source data for
-    membership and topology refills when a pod interns a new term or
-    key."""
+    disk-conflict and attach atoms, PV node selectors, topology keys and
+    domains, preferAvoidPods signatures, pod selectors, carried
+    pod-affinity terms) and per-row label source data for membership and
+    topology refills when a pod interns a new term, key or PV selector."""
 
     def __init__(self, caps: Capacities):
         self.caps = caps
@@ -281,6 +281,17 @@ class NodeTable:
         self.taints: dict[tuple[str, str, str], int] = {}
         self.ports: dict[int, int] = {}
         self.avoids: dict[tuple[str, str], int] = {}
+        # volumes (state/volumes.py): conflict atoms, attach atoms and their
+        # types (written to the state at the next refresh while dirty), PV
+        # node selectors (canonical form -> id) and those awaiting a
+        # membership refill
+        self.vol_atoms: dict[tuple, int] = {}
+        self.attach_atoms: dict[tuple, int] = {}
+        self.attach_types: dict[int, int] = {}
+        self.dirty_attach_attrs = False
+        self.volsels: dict[str, int] = {}
+        self.volsel_attrs: list[list] = []
+        self.pending_volsel_refresh: list[int] = []
         self.labels_of: list[dict[str, str] | None] = [None] * caps.num_nodes
         self.domains: list[dict] = [dict() for _ in range(caps.topology_slots)]
         self.topo_key_of: dict[str, int] = {k: i for i, k in enumerate(TOPOLOGY_KEYS)}
@@ -389,6 +400,72 @@ class NodeTable:
         for port in ports:
             out[self.intern_port(port)] += 1.0
         return out
+
+    def intern_vol_atom(self, atom: tuple) -> int:
+        vid = self.vol_atoms.get(atom)
+        if vid is not None:
+            return vid
+        if len(self.vol_atoms) >= self.caps.volume_universe:
+            raise CapacityError(
+                f"volume universe {self.caps.volume_universe} exhausted "
+                f"interning {atom!r}")
+        vid = len(self.vol_atoms)
+        self.vol_atoms[atom] = vid
+        return vid
+
+    def intern_attach_atom(self, vtype: int, atom: tuple) -> int:
+        aid = self.attach_atoms.get(atom)
+        if aid is not None:
+            return aid
+        if len(self.attach_atoms) >= self.caps.attach_universe:
+            raise CapacityError(
+                f"attach universe {self.caps.attach_universe} exhausted "
+                f"interning {atom!r}")
+        aid = len(self.attach_atoms)
+        self.attach_atoms[atom] = aid
+        self.attach_types[aid] = vtype
+        self.dirty_attach_attrs = True
+        return aid
+
+    def intern_volsel(self, terms: list) -> int:
+        from kubernetes_tpu_torch.state.volumes import node_selector_canon
+
+        canon = node_selector_canon(terms)
+        vsid = self.volsels.get(canon)
+        if vsid is not None:
+            return vsid
+        if len(self.volsels) >= self.caps.volsel_universe:
+            raise CapacityError(
+                f"volume-selector universe {self.caps.volsel_universe} exhausted")
+        vsid = len(self.volsels)
+        self.volsels[canon] = vsid
+        self.volsel_attrs.append(terms)
+        self.pending_volsel_refresh.append(vsid)
+        return vsid
+
+    def vol_rows(self, pod: Pod) -> tuple[np.ndarray, np.ndarray]:
+        """(any, rw) f32[UV]: the pod's conflict atoms, a disk listed twice
+        counted twice, and those it mounts read-write."""
+        from kubernetes_tpu_torch.state.volumes import pod_conflict_atoms
+
+        any_row = np.zeros((self.caps.volume_universe,), np.float32)
+        rw_row = np.zeros((self.caps.volume_universe,), np.float32)
+        for atom, read_only in pod_conflict_atoms(pod):
+            vid = self.intern_vol_atom(atom)
+            any_row[vid] += 1.0
+            if not read_only:
+                rw_row[vid] += 1.0
+        return any_row, rw_row
+
+    def attach_row(self, pod: Pod, ctx, permissive: bool = False) -> np.ndarray:
+        """f32[UA]: the pod's attach atoms, 0/1 (a pod's set of volumes,
+        predicates.go:226); raises VolumeError as pod_attach_atoms does."""
+        from kubernetes_tpu_torch.state.volumes import pod_attach_atoms
+
+        row = np.zeros((self.caps.attach_universe,), np.float32)
+        for vtype, atom in pod_attach_atoms(pod, ctx, permissive=permissive):
+            row[self.intern_attach_atom(vtype, atom)] = 1.0
+        return row
 
     @property
     def spread_zones(self) -> int:
@@ -522,6 +599,15 @@ def fill_node_row(state: ClusterState, table: NodeTable, row: int,
     for sig in parse_avoid_signatures(node.metadata.annotations):
         state.avoid_member[row, table.intern_avoid(sig)] = 1.0
 
+    # PV node-affinity selector membership (NoVolumeNodeConflict)
+    state.volsel_member[row] = 0.0
+    if table.volsels:
+        from kubernetes_tpu_torch.state.volumes import node_selector_matches
+
+        for vsid, terms in enumerate(table.volsel_attrs):
+            if node_selector_matches(terms, labels):
+                state.volsel_member[row, vsid] = 1.0
+
     state.topology[row] = -1
     for key, slot in table.topo_key_of.items():
         val = labels.get(key)
@@ -542,9 +628,11 @@ def fill_node_row(state: ClusterState, table: NodeTable, row: int,
 def apply_pending_refreshes(state: ClusterState, table: NodeTable) -> list[int]:
     """Fill membership columns for selector terms / requirements, and
     topology columns for custom keys, interned after nodes were encoded,
-    and write the carried-term attributes (term_q, term_tkey, term_weight,
-    term_kind, term_poison) when terms were interned. Returns the node rows
-    that changed (the device mirror re-uploads just those rows)."""
+    and PV node-selector columns interned after nodes were encoded, and
+    write the carried-term attributes (term_q, term_tkey, term_weight,
+    term_kind, term_poison) when terms were interned and the attach atoms'
+    types (attach_type) when atoms were. Returns the node rows that changed
+    (the device mirror re-uploads just those rows)."""
     rows: set[int] = set()
     for term_id, key, value in table.pending_sel_refresh:
         for row, labels in enumerate(table.labels_of):
@@ -568,6 +656,20 @@ def apply_pending_refreshes(state: ClusterState, table: NodeTable) -> list[int]:
                         slot, labels[key])
                     rows.add(row)
         table.pending_topo_refresh.clear()
+    if table.pending_volsel_refresh:
+        from kubernetes_tpu_torch.state.volumes import node_selector_matches
+
+        for vsid in table.pending_volsel_refresh:
+            terms = table.volsel_attrs[vsid]
+            for row, labels in enumerate(table.labels_of):
+                if labels is not None and node_selector_matches(terms, labels):
+                    state.volsel_member[row, vsid] = 1.0
+                    rows.add(row)
+        table.pending_volsel_refresh.clear()
+    if table.dirty_attach_attrs:
+        for aid, vtype in table.attach_types.items():
+            state.attach_type[aid] = vtype
+        table.dirty_attach_attrs = False
     if table.dirty_term_attrs:
         for eid, (qid, tk, w, kind, poison) in enumerate(table.term_attrs):
             state.term_q[eid] = qid

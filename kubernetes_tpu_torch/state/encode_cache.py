@@ -7,13 +7,12 @@ the expensive host step, so each class is encoded once, straight into a
 packed row (state.pod_batch.PackedRow), and that row is copied into the
 batch blobs by array assignment.
 
-The fingerprint covers exactly what this package's encoder and its refusal
-check (`unsupported_feature`) read: container requests, limits presence
-(QoS) and host ports, nodeSelector, tolerations, nodeName, priority, the
-namespace and labels (the spreading entries and the pod-selector match
-row), the raw affinity and volumes, and the controller reference. A pod
-the encoder refuses therefore never shares a class with a supported one,
-and every miss goes through the encoder, which raises for it. Images and
+The fingerprint covers exactly what this package's encoder reads:
+container requests, limits presence (QoS) and host ports, nodeSelector,
+tolerations, nodeName, priority, the namespace and labels (the spreading
+entries and the pod-selector match row), the raw affinity and volumes (a
+direct volume's atoms are interned ids, which never change), and the
+controller reference. Every miss goes through the encoder. Images and
 the gang annotations are read by nothing here and stay out: a gang
 member's row carries no group (the driver writes the batch-local gang
 columns after encoding), so it shares its class with a plain pod of the
@@ -55,8 +54,7 @@ def cacheable(pod: Pod) -> bool:
 
 
 def pod_fingerprint(pod: Pod) -> tuple:
-    """Hashable equivalence class of everything the encoder and
-    `unsupported_feature` read."""
+    """Hashable equivalence class of everything the encoder reads."""
     spec = pod.spec
     return (
         tuple((tuple(sorted(c.requests.items())), tuple(c.host_ports),
@@ -94,9 +92,8 @@ class EncodeCache:
         return (pod_fingerprint(pod), self.table.pod_row_epoch, self.generation)
 
     def _encode(self, pod: Pod) -> tuple[np.ndarray, np.ndarray]:
-        """The pod's packed row, encoded now (the encoder raises for a pod
-        it refuses): the scratch row's buffers, valid until the next
-        encode."""
+        """The pod's packed row, encoded now: the scratch row's buffers,
+        valid until the next encode."""
         encode_pod_into(self._scratch.batch, 0, pod, self.caps, self.table,
                         self.ctx)
         return self._scratch.pack()
@@ -120,8 +117,7 @@ class EncodeCache:
     def encode_packed_into(self, fblob: np.ndarray, iblob: np.ndarray,
                            i: int, pod: Pod) -> None:
         """Encode `pod` into row i of the host blobs: a class hit is two
-        row copies; a miss encodes (and raises for a pod the encoder
-        refuses)."""
+        row copies; a miss, or a pod with a claim-backed volume, encodes."""
         if self._must_reencode(pod):
             frow, irow = self._encode(pod)
         else:

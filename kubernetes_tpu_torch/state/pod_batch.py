@@ -10,9 +10,12 @@ solved.
 This package's solver covers the scheduler's main path, SelectorSpread,
 inter-pod (anti-)affinity, gang groups, pod priority (the `priority`
 column, which gates the preemption pass), host ports (`port_onehot`, the
-pod's ports interned into the NodeTable's port universe) and gpu and
-storage requests. The encoder rejects, with NotImplementedError, pods
-whose features would change the result outside it (volumes). The
+pod's ports interned into the NodeTable's port universe), gpu and storage
+requests, and volumes: the disk-conflict rows (vol_want_rw, vol_want_ro),
+the attach row and its fail bit (att_onehot, att_fail), and the
+VolumeZone and VolumeNode rows (vz_*, vs_*), each resolved through the
+EncodeContext's claims and PVs as the reference encodes them (a volume no
+predicate reads, such as a secret, adds nothing). The
 spreading columns (spread_q, spread_svc_q, svcanti_q, svcanti_total) are
 read from the pod's namespace and labels and
 the workload objects of an EncodeContext, and the inter-pod columns
@@ -192,14 +195,6 @@ def empty_batch(caps: Capacities) -> PodBatch:
     )
 
 
-def unsupported_feature(pod: Pod) -> str | None:
-    """Name of the first feature of `pod` that this package's solver does
-    not carry and that would change the result, else None."""
-    if pod.spec.volumes:
-        return "volumes"
-    return None
-
-
 def _valid_requirement(expr: dict) -> bool:
     """labels.NewRequirement validation: known operator; In/NotIn need >=1
     value; Exists/DoesNotExist need none; Gt/Lt need exactly one."""
@@ -266,13 +261,9 @@ def _encode_node_affinity(batch: PodBatch, i: int, pod: Pod, caps: Capacities,
 
 def encode_pod_into(batch: PodBatch, i: int, pod: Pod, caps: Capacities,
                     table: NodeTable, ctx: EncodeContext | None = None) -> None:
-    """Encode `pod` into host row `i` of `batch`, with the workload objects
-    of `ctx` (none by default)."""
-    feature = unsupported_feature(pod)
-    if feature is not None:
-        raise NotImplementedError(
-            f"pod {pod.key}: {feature} is outside the solver this package "
-            f"carries")
+    """Encode `pod` into host row `i` of `batch`, with the claims, PVs and
+    workload objects of `ctx` (none by default)."""
+    ctx = ctx or EMPTY_CONTEXT
     batch.valid[i] = True
     batch.requests[i] = pod_requests(pod)
     batch.nonzero_requests[i] = pod_nonzero_requests(pod)
@@ -308,8 +299,55 @@ def encode_pod_into(batch: PodBatch, i: int, pod: Pod, caps: Capacities,
     batch.priority[i] = pod.spec.priority
     _encode_node_affinity(batch, i, pod, caps, table)
     _encode_interpod_affinity(batch, i, pod, caps, table)
-    _encode_workloads(batch, i, pod, table, ctx or EMPTY_CONTEXT)
+    _encode_volumes(batch, i, pod, table, ctx)
+    _encode_workloads(batch, i, pod, table, ctx)
     fill_avoid_row(batch, i, pod, table)
+
+
+def _encode_volumes(batch: PodBatch, i: int, pod: Pod, table: NodeTable,
+                    ctx: EncodeContext) -> None:
+    """The conflict, attach, zone and node-affinity rows of the pod's
+    volumes. Each fail bit is a resolution error of its predicate, which
+    fails the pod on every node where the policy runs that predicate."""
+    from kubernetes_tpu_torch.state.volumes import (
+        VolumeError,
+        pod_volume_node_selectors,
+        pod_zone_terms,
+    )
+
+    batch.vol_want_rw[i] = 0.0
+    batch.vol_want_ro[i] = 0.0
+    batch.att_onehot[i] = 0.0
+    batch.att_fail[i] = False
+    batch.vz_onehot[i] = 0.0
+    batch.vz_count[i] = 0.0
+    batch.vz_fail[i] = False
+    batch.vs_onehot[i] = 0.0
+    batch.vs_count[i] = 0.0
+    batch.vs_fail[i] = False
+    if not pod.spec.volumes:
+        return
+    any_row, rw_row = table.vol_rows(pod)
+    batch.vol_want_rw[i] = rw_row
+    batch.vol_want_ro[i] = any_row - rw_row
+    try:
+        batch.att_onehot[i] = table.attach_row(pod, ctx)
+    except VolumeError:
+        batch.att_fail[i] = True
+    try:
+        terms = dict.fromkeys(pod_zone_terms(pod, ctx))   # distinct, in order
+        for key, value in terms:
+            batch.vz_onehot[i, table.intern_sel_term(key, value)] = 1.0
+        batch.vz_count[i] = float(len(terms))
+    except VolumeError:
+        batch.vz_fail[i] = True
+    try:
+        vsids = {table.intern_volsel(sel) for sel in pod_volume_node_selectors(pod, ctx)}
+        for vsid in vsids:
+            batch.vs_onehot[i, vsid] = 1.0
+        batch.vs_count[i] = float(len(vsids))
+    except VolumeError:
+        batch.vs_fail[i] = True
 
 
 def _encode_interpod_affinity(batch: PodBatch, i: int, pod: Pod,

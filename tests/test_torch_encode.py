@@ -320,14 +320,21 @@ def test_the_epoch_rule_and_claim_backed_pods():
     db.upsert_node(Node.from_dict(_node("n2", avoid_uid="rs-x")))
     assert db.table.pod_row_epoch == epoch + 1
     # a claim-backed pod is never cached: the encoder sees it every time
+    # (encoded since the EXT variant carries volumes: the claim is not
+    # found, so one ANY attach atom of its own and a VolumeZone error)
     classes = len(cache._packed)
     claim = Pod.from_dict(_pod("a", owner="rs-x", volumes=[{
         "name": "v", "persistentVolumeClaim": {"claimName": "c"}}]))
     assert not encode_cache.cacheable(claim)
     for _ in range(2):
-        with pytest.raises(NotImplementedError, match="volumes"):
-            cache.encode_packed_into(fblob, iblob, 3, claim)
+        cache.encode_packed_into(fblob, iblob, 3, claim)
     assert (len(cache._packed), cache.misses, cache.hits) == (classes, 2, 1)
+    assert len(db.table.attach_atoms) == 1
+    want_f, want_i = pack_row(encode_pods([claim], CAPS, db.table), 0, CAPS)
+    np.testing.assert_array_equal(_bits(fblob[3]), _bits(want_f))
+    np.testing.assert_array_equal(iblob[3], want_i)
+    assert blob_col(fblob, iblob, "att_onehot", CAPS)[3].sum() == 1.0
+    assert blob_col(fblob, iblob, "vz_fail", CAPS)[3] == 1
 
 
 _BASE = _pod("base", owner="rs-x", nodeSelector={"disk": "ssd"},
@@ -459,10 +466,14 @@ def test_refused_pods_are_never_served_from_the_cache(feature, meta, spec):
         np.testing.assert_array_equal(_bits(fblob[:2]), _bits(fresh[0][:2]))
         np.testing.assert_array_equal(iblob[:2], fresh[1][:2])
         return
-    for _ in range(2):  # a refused class is never stored to hit later
-        with pytest.raises(NotImplementedError, match=feature):
-            cache.encode_packed_into(fblob, iblob, 1, refused)
+    # volumes: encoded since the EXT variant carries them; a claim-backed
+    # pod is never stored to hit later, and each encode equals a fresh one
+    for _ in range(2):
+        cache.encode_packed_into(fblob, iblob, 1, refused)
     assert cache.hits == 0 and len(cache._packed) == 1
+    fresh = pack_batch(encode_pods([base, refused], CAPS, db.table), CAPS)
+    np.testing.assert_array_equal(_bits(fblob[:2]), _bits(fresh[0][:2]))
+    np.testing.assert_array_equal(iblob[:2], fresh[1][:2])
 
 
 # ---- the driver ----
@@ -604,15 +615,19 @@ def test_lifecycle_matches_the_reference_statedb():
 
 
 def test_statedb_refuses_bound_pods_it_cannot_account():
-    # (a bound host-port pod is accounted since the EXT variant: the
-    # refusal is held on a volumes pod)
-    db = _port_db([_node("n0")])
-    pod = Pod.from_dict(_pod("hp", volumes=[{"name": "d", "gcePersistentDisk": {
-        "pdName": "disk-0"}}]))
-    with pytest.raises(NotImplementedError, match="volumes"):
-        db.add_pod(pod, "n0")
+    # (bound host-port and volume pods are accounted since the EXT variant
+    # carries them, as the reference accounts them; only a pod on an
+    # unknown node is refused)
+    db, jdb = _port_db([_node("n0")]), _jax_db([_node("n0")])
+    d = _pod("hp", volumes=[{"name": "d", "gcePersistentDisk": {"pdName": "disk-0"}},
+                            {"name": "e", "awsElasticBlockStore": {"volumeID": "v"}}])
+    assert db.add_pod(Pod.from_dict(d), "n0") and jdb.add_pod(JPod.from_dict(d), "n0")
+    for name in ("vol_any", "vol_rw", "attach_count", "requested"):
+        np.testing.assert_array_equal(getattr(db.host, name),
+                                      np.asarray(getattr(jdb.host, name)), err_msg=name)
+    assert db.host.vol_rw[0, :2].tolist() == [1.0, 1.0]
     assert db.add_pod(Pod.from_dict(_pod("x")), "missing") is False
-    assert not db.is_accounted(pod.key)
+    assert not db.is_accounted("default/x")
 
 
 def test_mark_ledger_dirty_reuploads_the_host_ledger():

@@ -215,8 +215,29 @@ def test_gates_outside_the_main_path_raise(gate):
             assert got.new_port_count is None   # no port wanted: passed through
         return
     if gate == "vol":
-        batch.vol_want_rw[0, 0] = 1.0
-    elif gate.startswith("gang"):
+        # carried since the EXT variant widened to volumes: pods mounting a
+        # disk read-write and read-only, nodes holding it, equal the
+        # reference's with the vol gate, the conflict ledgers too
+        for st, b in ((state, batch), (jstate, jbatch)):
+            b.vol_want_rw[0, 0] = 1.0
+            b.vol_want_ro[[2, 4], 0] = 1.0
+            b.vol_want_rw[5, 1] = 2.0   # a disk listed twice
+            st.vol_any[:12:3, 0] = 1.0
+            st.vol_rw[:12:6, 0] = 1.0
+        jflags = dataclasses.replace(NO_GATES, vol=True)
+        want = jax.jit(lambda s, b, r: jsolver.schedule_batch(
+            s, b, r, J_POLICY, flags=jflags))(jstate, jbatch, np.uint32(0))
+        got = schedule_batch(state_from_numpy(state, "cpu"),
+                             batch_from_numpy(batch, "cpu"), 0,
+                             flags=dataclasses.replace(BatchFlags(*([False] * 12)),
+                                                       vol=True))
+        assert_same(got, want, gate)
+        for name, jname in (("new_vol_any", "new_vol_any"), ("new_vol_rw", "new_vol_rw")):
+            np.testing.assert_array_equal(getattr(got, name).numpy(),
+                                          np.asarray(getattr(want, jname)), name)
+        assert got.new_attach is None   # no attach atom: passed through
+        return
+    if gate.startswith("gang"):
         # carried since the gang carry in the spread and interpod builds:
         # the batch both gates name equals the reference's with those gates
         for b in (batch, jbatch):

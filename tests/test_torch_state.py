@@ -23,6 +23,7 @@ from kubernetes_tpu.api.objects import Node as JNode  # noqa: E402
 from kubernetes_tpu.api.objects import Pod as JPod  # noqa: E402
 from kubernetes_tpu.state import Capacities as JCaps  # noqa: E402
 from kubernetes_tpu.state import encode_cluster as j_encode_cluster  # noqa: E402
+from kubernetes_tpu.state.pod_batch import encode_pods as j_encode_pods  # noqa: E402
 
 from kubernetes_tpu_torch.api.objects import Node, Pod  # noqa: E402
 from kubernetes_tpu_torch.state import Capacities, encode_cluster  # noqa: E402
@@ -266,8 +267,20 @@ def test_encoder_rejects_pods_outside_the_main_path(feature, spec, meta):
         assert table.ports == {8080: 0}
         assert batch.port_onehot[0].tolist() == [1.0] + [0.0] * (CAPS.port_universe - 1)
         return
-    with pytest.raises(NotImplementedError, match=feature):
-        encode_pods([pod], CAPS, encode_cluster([], [], CAPS)[2])
+    # volumes: encoded since the EXT variant carries them, into the
+    # conflict and attach rows, as the reference encodes the pod
+    table = encode_cluster([], [], CAPS)[2]
+    batch = encode_pods([pod], CAPS, table)
+    jtable = j_encode_cluster([], [], JCAPS)[2]
+    jbatch = j_encode_pods([JPod.from_dict({"metadata": {"name": "x", **meta},
+                                            "spec": {"containers": [{"name": "c"}],
+                                                     **spec}})], JCAPS, jtable)
+    assert table.vol_atoms == jtable.vol_atoms == {("gce", "disk-0"): 0}
+    assert table.attach_atoms == jtable.attach_atoms
+    for name in ("vol_want_rw", "vol_want_ro", "att_onehot", "att_fail"):
+        np.testing.assert_array_equal(getattr(batch, name), getattr(jbatch, name),
+                                      err_msg=name)
+    assert batch.vol_want_rw[0, 0] == 1.0 and batch.att_onehot[0, 0] == 1.0
 
 
 def test_encoder_accepts_fields_the_main_path_never_reads():
